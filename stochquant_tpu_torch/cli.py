@@ -1,0 +1,135 @@
+"""Command-line runner for chain presets (port of ``stochquant_tpu.cli run``).
+
+Examples:
+    python -m stochquant_tpu_torch.cli run --preset double_well --frames 100
+    python -m stochquant_tpu_torch.cli run --preset harmosc --chains 256 --out ck.npz
+    python -m stochquant_tpu_torch.cli run --preset harmosc --device cpu --frames 5 --loops 20
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import os
+import sys
+
+import torch
+
+from stochquant_tpu_torch import metrics as metrics_mod
+from stochquant_tpu_torch import runtime
+from stochquant_tpu_torch.config import PRESETS, ChainConfig, Scheme
+
+
+def _apply_overrides(cfg: ChainConfig, args) -> ChainConfig:
+    updates = {}
+    for arg, field in (
+        ("frames", "frames"), ("loops", "loops"), ("chains", "n_chains"),
+        ("dtau", "dtau"), ("seed", "seed"), ("fps", "fps"),
+        ("frames_per_launch", "frames_per_launch"), ("rng", "rng_impl"),
+    ):
+        value = getattr(args, arg)
+        if value is not None:
+            updates[field] = value
+    if args.scheme is not None:
+        updates["scheme"] = Scheme[args.scheme.upper()]
+    return dataclasses.replace(cfg, **updates) if updates else cfg
+
+
+def cmd_run(args):
+    preset = PRESETS.get(args.preset)
+    if preset is None:
+        sys.exit(f"unknown preset {args.preset!r}; known: {sorted(PRESETS)}")
+    if not isinstance(preset, ChainConfig):
+        raise ValueError(
+            f"preset {args.preset!r} is a {type(preset).__name__} run; only the "
+            f"chain presets are ported: "
+            f"{sorted(k for k, v in PRESETS.items() if isinstance(v, ChainConfig))}"
+        )
+    cfg = _apply_overrides(preset, args)
+    resume, resume_progress = args.resume, False
+    if args.auto_resume:
+        if not args.out:
+            sys.exit("--auto-resume requires --out (the checkpoint to resume from)")
+        if os.path.exists(args.out):
+            resume, resume_progress = args.out, True
+    with contextlib.ExitStack() as stack:
+        stream = stack.enter_context(open(args.metrics, "w")) if args.metrics else sys.stdout
+        if args.profile:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if args.device.startswith("cuda"):
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=activities)
+            stack.callback(_export_trace, prof, args.profile)  # runs after the profiler stops
+            stack.enter_context(prof)
+        guard = stack.enter_context(runtime.PreemptionGuard())
+        runtime.run_chain(
+            cfg, device=args.device, backend=args.backend, burn_frames=args.burn,
+            sink=metrics_mod.MetricsSink(stream=stream), checkpoint_out=args.out,
+            checkpoint_in=resume, checkpoint_every=args.checkpoint_every,
+            resume_progress=resume_progress, stop=guard,
+        )
+
+
+def _export_trace(prof, directory) -> None:
+    os.makedirs(directory, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(directory, "trace.json"))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="stochquant_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    r = sub.add_parser("run", help="run a chain preset simulation")
+    r.add_argument("--preset", required=True)
+    r.add_argument("--frames", type=int)
+    r.add_argument("--loops", type=int)
+    r.add_argument("--chains", type=int)
+    r.add_argument("--dtau", type=float)
+    r.add_argument("--seed", type=int)
+    r.add_argument("--fps", type=int, help="frames per metrics record")
+    r.add_argument("--burn", type=int, default=0, help="burn-in frames (means reset after)")
+    r.add_argument(
+        "--device", default="cuda",
+        help="torch device: cuda (default; fails if no GPU is available) or cpu",
+    )
+    r.add_argument(
+        "--backend", default="auto", choices=list(runtime.BACKENDS),
+        help="execution path: the hand-written CUDA kernels vs the plain "
+        "PyTorch integrator; auto = cuda on a CUDA device, torch on the CPU",
+    )
+    r.add_argument(
+        "--frames-per-launch", type=int,
+        help="CUDA backend: batch this many frames per kernel launch with the "
+        "accept/reject + Δτ epilogue in-kernel",
+    )
+    r.add_argument(
+        "--scheme", choices=["em", "heun", "lm", "exact"],
+        help="integration scheme (em and heun are ported)",
+    )
+    r.add_argument(
+        "--rng", choices=["threefry", "threefry13", "hardware"],
+        help="noise generator: threefry (20 rounds, default) or threefry13 "
+        "(13 rounds, a different stream); hardware is not ported",
+    )
+    r.add_argument("--out", help="checkpoint output path (.npz)")
+    r.add_argument("--resume", help="checkpoint to resume from (.npz)")
+    r.add_argument(
+        "--checkpoint-every", type=int, default=0, metavar="N",
+        help="also write the checkpoint every N frames (preemption safety)",
+    )
+    r.add_argument(
+        "--auto-resume", action="store_true",
+        help="if --out already exists, resume from it and count its frames "
+        "toward --frames (restartable-after-preemption loop)",
+    )
+    r.add_argument("--metrics", help="write JSON-lines metrics here instead of stdout")
+    r.add_argument("--profile", help="write a torch.profiler chrome trace into this directory")
+    r.set_defaults(fn=cmd_run)
+
+    args = p.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,109 @@
+"""Chain checkpoints interchange between the JAX package and the port, and
+resume bitwise inside the port."""
+
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from stochquant_tpu import actions as jact
+from stochquant_tpu.config import ChainConfig as JChainConfig
+from stochquant_tpu.config import FieldConfig as JFieldConfig
+from stochquant_tpu.integrators import field as jfield
+from stochquant_tpu.integrators import langevin as jl
+from stochquant_tpu.io import checkpoint as jck
+from stochquant_tpu_torch import actions
+from stochquant_tpu_torch.config import ChainConfig
+from stochquant_tpu_torch.integrators import langevin
+from stochquant_tpu_torch.io import checkpoint
+
+torch.set_num_threads(1)
+
+CFG = ChainConfig(action="double_well", n_sites=24, dt=0.1, dtau=0.0005, n_chains=3,
+                  loops=20, seed=8)
+
+
+def _jax(cfg):
+    jcfg = JChainConfig.from_json(cfg.to_json())
+    return jcfg, jact.get(cfg.action)
+
+
+def test_jax_checkpoint_resumes_in_the_port(tmp_path):
+    jcfg, ja = _jax(CFG)
+    s2, _ = jl.run_frames(jl.init_chain_state(jcfg, ja), ja, jcfg, 2)
+    path = tmp_path / "jax.npz"
+    jck.save(path, s2, jcfg, frames_done=2)
+    want, _ = jl.run_frames(s2, ja, jcfg, 1)
+
+    state, cfg = checkpoint.load(path, "cpu")
+    assert cfg == CFG and checkpoint.read_meta(path)["frames_done"] == 2
+    for name, leaf in zip(s2._fields, s2):
+        np.testing.assert_array_equal(checkpoint.state_to_numpy(state)[name],
+                                      np.asarray(leaf), err_msg=name)
+    assert state.runs.dtype == torch.int64 and state.step.dtype == torch.int64
+    got, _ = langevin.run_frames(state, actions.get(cfg.action), cfg, 1)
+    for name, g, w in zip(got._fields, got, want):
+        w = np.asarray(w)
+        if name in ("runs", "stab_cnt", "step"):
+            np.testing.assert_array_equal(g.numpy().astype(w.dtype), w, err_msg=name)
+        else:
+            np.testing.assert_allclose(g.numpy(), w, rtol=2e-6, atol=2e-6, err_msg=name)
+
+
+def test_port_checkpoint_loads_in_jax(tmp_path):
+    act = actions.get(CFG.action)
+    state, _ = langevin.run_frames(langevin.init_chain_state(CFG, act, device="cpu"), act,
+                                   CFG, 2)
+    path = tmp_path / "port.npz"
+    checkpoint.save(path, state, CFG, frames_done=2)
+    jstate, jcfg = jck.load(path)
+    assert jcfg == _jax(CFG)[0]
+    assert jck.read_meta(path) == {"kind": "chain", "config": CFG.to_json(), "version": 1,
+                                   "frames_done": 2}
+    host = checkpoint.state_to_numpy(state)
+    for name, leaf in zip(jstate._fields, jstate):
+        leaf = np.asarray(leaf)
+        assert leaf.dtype == host[name].dtype, name
+        np.testing.assert_array_equal(leaf, host[name], err_msg=name)
+    assert np.asarray(jstate.runs).dtype == np.uint32 and np.asarray(jstate.step).shape == ()
+
+
+def test_resume_then_run_is_bitwise_in_the_port(tmp_path):
+    act = actions.get(CFG.action)
+    s0 = langevin.init_chain_state(CFG, act, device="cpu")
+    full, _ = langevin.run_frames(s0, act, CFG, 6)
+    half, _ = langevin.run_frames(s0, act, CFG, 3)
+    path = tmp_path / "ck.npz"
+    checkpoint.save(path, half, CFG)
+    loaded, cfg2 = checkpoint.load(path, "cpu")
+    assert cfg2 == CFG
+    resumed, _ = langevin.run_frames(loaded, act, cfg2, 3)
+    for name, a, b in zip(full._fields, full, resumed):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+def test_old_layouts_upgrade_and_other_kinds_raise(tmp_path):
+    act = actions.get(CFG.action)
+    state = langevin.init_chain_state(CFG, act, device="cpu")
+    host = checkpoint.state_to_numpy(state)
+    payload = {f"state_{k}": v for k, v in host.items() if k != "x4_mean"}
+    payload["state_runs"] = host["runs"][:, 0]  # pre-(lo, hi) layout: (C,) uint32
+    import json
+
+    meta = {"kind": "chain", "config": CFG.to_json(), "version": 1}
+    payload["meta"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
+    path = tmp_path / "old.npz"
+    np.savez(path, **payload)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        loaded, _ = checkpoint.load(path, "cpu")
+    assert any("x4_mean" in str(w.message) for w in caught)
+    assert loaded.runs.shape == (CFG.n_chains, 2) and int(loaded.runs[:, 1].abs().sum()) == 0
+    assert torch.count_nonzero(loaded.x4_mean) == 0
+
+    fcfg = JFieldConfig(action="phi4", shape=(4, 4), n_chains=1, loops=2)
+    fpath = tmp_path / "field.npz"
+    jck.save(fpath, jfield.init_field_state(fcfg), fcfg)
+    with pytest.raises(ValueError, match="field"):
+        checkpoint.load(fpath, "cpu")

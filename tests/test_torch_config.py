@@ -1,0 +1,75 @@
+"""The port's config is a field-for-field copy of the JAX package's, and the
+port imports neither JAX nor Triton."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from stochquant_tpu import config as jcfg
+from stochquant_tpu_torch import config as tcfg
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+CHAIN_PRESETS = sorted(k for k, v in jcfg.PRESETS.items() if isinstance(v, jcfg.ChainConfig))
+
+
+@pytest.mark.parametrize("name", CHAIN_PRESETS)
+def test_chain_preset_json_byte_equal_and_round_trips(name):
+    a, b = jcfg.PRESETS[name].to_json(), tcfg.PRESETS[name].to_json()
+    assert a == b
+    assert tcfg.ChainConfig.from_json(a) == tcfg.PRESETS[name]
+    assert jcfg.ChainConfig.from_json(b) == jcfg.PRESETS[name]
+
+
+def test_non_default_chain_config_json_byte_equal():
+    kw = dict(action="anharmonic", n_sites=33, dtau=1e-3, ghost_override=(-0.8, 0.8),
+              dtau_max=0.5, grow_after=7, rng_impl="threefry13", frames_per_launch=4,
+              block_chains=2, seed=99)
+    a = jcfg.ChainConfig(**kw, bc=jcfg.BoundaryCondition.DIRICHLET, scheme=jcfg.Scheme.HEUN,
+                         formulation=jcfg.Formulation.DIRECT)
+    b = tcfg.ChainConfig(**kw, bc=tcfg.BoundaryCondition.DIRICHLET, scheme=tcfg.Scheme.HEUN,
+                         formulation=tcfg.Formulation.DIRECT)
+    assert a.to_json() == b.to_json()
+    assert tcfg.ChainConfig.from_json(a.to_json()) == b
+    assert [f.name for f in jcfg.dataclasses.fields(jcfg.ChainConfig)] == [
+        f.name for f in tcfg.dataclasses.fields(tcfg.ChainConfig)
+    ]
+
+
+def test_whole_presets_table_is_copied():
+    assert sorted(jcfg.PRESETS) == sorted(tcfg.PRESETS)
+    for name in jcfg.PRESETS:
+        assert jcfg.PRESETS[name].to_json() == tcfg.PRESETS[name].to_json(), name
+
+
+def test_torch_dtype():
+    assert tcfg.ChainConfig().torch_dtype is torch.float32
+    assert tcfg.ChainConfig(dtype="float64").torch_dtype is torch.float64
+
+
+def test_port_imports_without_jax_or_triton():
+    code = (
+        "import sys\n"
+        "import stochquant_tpu_torch, stochquant_tpu_torch.runtime, stochquant_tpu_torch.cli\n"
+        "import stochquant_tpu_torch.kernels.chain_kernel, stochquant_tpu_torch.kernels._build\n"
+        "import stochquant_tpu_torch.io.checkpoint\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'stochquant_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
+
+
+def test_no_port_module_imports_jax_or_triton():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|triton|stochquant_tpu)\b", re.M)
+    sources = sorted((ROOT / "stochquant_tpu_torch").rglob("*.py"))
+    assert sources
+    for path in sources:
+        assert not pattern.search(path.read_text()), path

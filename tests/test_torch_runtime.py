@@ -1,0 +1,133 @@
+"""The port's runtime and CLI on the CPU: frame records, checkpoints, the
+same final state as the JAX runtime, and loud refusals of what is not
+ported."""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from stochquant_tpu import metrics as jmetrics
+from stochquant_tpu import runtime as jruntime
+from stochquant_tpu.config import ChainConfig as JChainConfig
+from stochquant_tpu_torch import cli, metrics, runtime
+from stochquant_tpu_torch.config import PRESETS, Scheme
+from stochquant_tpu_torch.io import checkpoint
+
+torch.set_num_threads(1)
+
+TINY = {
+    "double_well": dataclasses.replace(PRESETS["double_well"], n_chains=4, n_sites=32,
+                                       loops=10, frames=4, fps=2, dtau=1e-4),
+    "harmosc": dataclasses.replace(PRESETS["harmosc"], n_chains=4, n_sites=16, loops=10,
+                                   frames=3, dtau=1e-3),
+}
+
+
+def _records(path):
+    return [json.loads(line) for line in open(path)]
+
+
+def _check_records(recs, n_sites, n_frame_records):
+    frames = [r for r in recs if r["type"] == "frame"]
+    assert len(frames) == n_frame_records
+    for r in frames:
+        assert 0.0 <= r["stable_frac"] <= 1.0 and r["dtau"] > 0
+        corr = np.asarray(r["log_abs_corr"])
+        assert corr.shape == (n_sites,) and np.all(np.isfinite(corr))
+    assert frames[-1]["percent"] == 100.0
+    assert recs[-1]["type"] == "summary" and recs[-1]["total_site_updates"] > 0
+
+
+@pytest.mark.parametrize("name", sorted(TINY))
+def test_run_chain_on_cpu_matches_jax_runtime(name, tmp_path):
+    cfg = TINY[name]
+    mpath, ck = tmp_path / "m.jsonl", tmp_path / "ck.npz"
+    with open(mpath, "w") as fh:
+        res = runtime.run_chain(cfg, device="cpu", sink=metrics.MetricsSink(stream=fh),
+                                checkpoint_out=str(ck), burn_frames=1)
+    _check_records(_records(mpath), cfg.n_sites, -(-cfg.frames // cfg.fps))
+    assert checkpoint.read_meta(ck)["frames_done"] == cfg.frames
+
+    jres = jruntime.run_chain(JChainConfig.from_json(cfg.to_json()), backend="xla",
+                              sink=jmetrics.MetricsSink(), burn_frames=1)
+    for leaf, got, want in zip(res.state._fields, res.state, jres.state):
+        want = np.asarray(want)
+        if leaf in ("runs", "stab_cnt", "step"):
+            np.testing.assert_array_equal(got.numpy().astype(want.dtype), want, err_msg=leaf)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-6, err_msg=leaf)
+
+
+def test_cli_run_cpu_and_resume(tmp_path):
+    m1, m2, ck = tmp_path / "a.jsonl", tmp_path / "b.jsonl", tmp_path / "ck.npz"
+    base = ["run", "--preset", "harmosc", "--device", "cpu", "--loops", "5", "--chains", "2",
+            "--dtau", "1e-3"]
+    cli.main(base + ["--frames", "2", "--metrics", str(m1), "--out", str(ck)])
+    _check_records(_records(m1), 100, 2)
+    cli.main(base + ["--frames", "1", "--resume", str(ck), "--metrics", str(m2),
+                     "--out", str(ck), "--backend", "torch", "--scheme", "heun",
+                     "--rng", "threefry13"])
+    _check_records(_records(m2), 100, 1)
+    state, cfg = checkpoint.load(ck, "cpu")
+    assert int(state.step) == 2 + 3 * 5 and cfg.scheme == Scheme.HEUN
+
+    prof = tmp_path / "prof"
+    cli.main(base + ["--frames", "1", "--metrics", str(m2), "--profile", str(prof)])
+    assert json.loads((prof / "trace.json").read_text())["traceEvents"]
+
+
+def test_auto_resume_and_preemption_are_bitwise(tmp_path):
+    cfg = dataclasses.replace(TINY["harmosc"], frames=4, fps=1)
+    full = runtime.run_chain(cfg, device="cpu", sink=metrics.MetricsSink()).state
+    ck = tmp_path / "pre.npz"
+    calls = {"n": 0}
+
+    def stop():
+        calls["n"] += 1
+        return calls["n"] >= 2  # trip at the end of frame 2
+
+    mpath = tmp_path / "m.jsonl"
+    with open(mpath, "w") as fh:
+        runtime.run_chain(cfg, device="cpu", sink=metrics.MetricsSink(stream=fh),
+                          checkpoint_out=str(ck), stop=stop)
+    assert any(r["type"] == "preempted" and r["frames_done"] == 2 for r in _records(mpath))
+    res = runtime.run_chain(cfg, device="cpu", sink=metrics.MetricsSink(),
+                            checkpoint_in=str(ck), resume_progress=True)
+    for name, a, b in zip(full._fields, res.state, full):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+    with pytest.raises(SystemExit):
+        cli.main(["run", "--preset", "harmosc", "--device", "cpu", "--auto-resume"])
+
+
+def test_unported_paths_raise():
+    cfg = TINY["harmosc"]
+    with pytest.raises(ValueError, match="CUDA device"):
+        runtime.run_chain(cfg, device="cpu", backend="cuda")
+    with pytest.raises(ValueError, match="backend"):
+        runtime.run_chain(cfg, device="cpu", backend="pallas")
+    for change, feature in ((dict(scheme=Scheme.LM), "LM"), (dict(scheme=Scheme.EXACT), "EXACT"),
+                            (dict(accumulate_spectrum=True), "accumulate_spectrum"),
+                            (dict(rng_impl="hardware"), "hardware"),
+                            (dict(block_chains=0), "autotune"),
+                            (dict(mesh_chain_axis="chains"), "mesh_chain_axis")):
+        with pytest.raises(ValueError, match=feature):
+            runtime.run_chain(dataclasses.replace(cfg, **change), device="cpu")
+    with pytest.raises(ValueError, match="spectrum"):
+        cli.main(["run", "--preset", "quartic_large", "--device", "cpu", "--frames", "1"])
+    with pytest.raises(ValueError, match="FieldConfig"):
+        cli.main(["run", "--preset", "phi4_2d", "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        cli.main(["run", "--preset", "no_such_preset", "--device", "cpu"])
+
+
+def test_cuda_device_without_a_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the refusal is for hosts without one")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["run", "--preset", "harmosc", "--frames", "1", "--loops", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.run_chain(TINY["harmosc"], device="cuda")
