@@ -1,9 +1,12 @@
-"""Command-line runner for chain presets (port of ``stochquant_tpu.cli run``).
+"""Command-line runner for chain and field presets (port of
+``stochquant_tpu.cli run``).
 
 Examples:
     python -m stochquant_tpu_torch.cli run --preset double_well --frames 100
     python -m stochquant_tpu_torch.cli run --preset harmosc --chains 256 --out ck.npz
     python -m stochquant_tpu_torch.cli run --preset harmosc --device cpu --frames 5 --loops 20
+    python -m stochquant_tpu_torch.cli run --preset phi4_2d --chains 16 --frames 20
+    python -m stochquant_tpu_torch.cli run --preset phi4_2d --chains 16 --tile-rows 64
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from stochquant_tpu_torch import runtime
 from stochquant_tpu_torch.config import PRESETS, ChainConfig, Scheme
 
 
-def _apply_overrides(cfg: ChainConfig, args) -> ChainConfig:
+def _apply_overrides(cfg, args):
     updates = {}
     for arg, field in (
         ("frames", "frames"), ("loops", "loops"), ("chains", "n_chains"),
@@ -33,6 +36,8 @@ def _apply_overrides(cfg: ChainConfig, args) -> ChainConfig:
             updates[field] = value
     if args.scheme is not None:
         updates["scheme"] = Scheme[args.scheme.upper()]
+    if args.tile_rows is not None and hasattr(cfg, "tile_rows"):
+        updates["tile_rows"] = args.tile_rows
     return dataclasses.replace(cfg, **updates) if updates else cfg
 
 
@@ -40,12 +45,6 @@ def cmd_run(args):
     preset = PRESETS.get(args.preset)
     if preset is None:
         sys.exit(f"unknown preset {args.preset!r}; known: {sorted(PRESETS)}")
-    if not isinstance(preset, ChainConfig):
-        raise ValueError(
-            f"preset {args.preset!r} is a {type(preset).__name__} run; only the "
-            f"chain presets are ported: "
-            f"{sorted(k for k, v in PRESETS.items() if isinstance(v, ChainConfig))}"
-        )
     cfg = _apply_overrides(preset, args)
     resume, resume_progress = args.resume, False
     if args.auto_resume:
@@ -63,7 +62,8 @@ def cmd_run(args):
             stack.callback(_export_trace, prof, args.profile)  # runs after the profiler stops
             stack.enter_context(prof)
         guard = stack.enter_context(runtime.PreemptionGuard())
-        runtime.run_chain(
+        run = runtime.run_chain if isinstance(cfg, ChainConfig) else runtime.run_field
+        run(
             cfg, device=args.device, backend=args.backend, burn_frames=args.burn,
             sink=metrics_mod.MetricsSink(stream=stream), checkpoint_out=args.out,
             checkpoint_in=resume, checkpoint_every=args.checkpoint_every,
@@ -80,7 +80,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="stochquant_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    r = sub.add_parser("run", help="run a chain preset simulation")
+    r = sub.add_parser("run", help="run a chain or field preset simulation")
     r.add_argument("--preset", required=True)
     r.add_argument("--frames", type=int)
     r.add_argument("--loops", type=int)
@@ -96,12 +96,18 @@ def main(argv=None):
     r.add_argument(
         "--backend", default="auto", choices=list(runtime.BACKENDS),
         help="execution path: the hand-written CUDA kernels vs the plain "
-        "PyTorch integrator; auto = cuda on a CUDA device, torch on the CPU",
+        "PyTorch integrator; auto = cuda on a CUDA device, torch on the CPU "
+        "(phi4_4d runs only with torch: its kernel is not ported yet)",
+    )
+    r.add_argument(
+        "--tile-rows", type=int,
+        help="field presets: strip height of the tiled CUDA kernel (any value "
+        "routes a 2-D run to it; default: whole-lattice kernels up to 1 MiB)",
     )
     r.add_argument(
         "--frames-per-launch", type=int,
-        help="CUDA backend: batch this many frames per kernel launch with the "
-        "accept/reject + Δτ epilogue in-kernel",
+        help="CUDA backend, chain and whole-lattice field kernels: batch this "
+        "many frames per kernel launch with the accept/reject + Δτ epilogue in-kernel",
     )
     r.add_argument(
         "--scheme", choices=["em", "heun", "lm", "exact"],

@@ -5,13 +5,16 @@ and checkpoints interchange.  Only the dtype accessor differs:
 ``torch_dtype`` in place of the JAX package's ``jdtype``.
 
 Field comments that name the Pallas backend describe the JAX package; in this
-package the CUDA backend reads ``frames_per_launch`` (kernel 2, K frames per
-launch) and ignores ``block_chains``, which stays for checkpoint
-compatibility: one launch covers every chain (see
+package the CUDA backend reads ``frames_per_launch`` (chain kernel 2 and
+field kernel 4, K frames per launch) and ``FieldConfig.tile_rows`` (field
+kernel 5's strip height), and ignores ``block_chains``, which stays for
+checkpoint compatibility: one launch covers every chain (see
 ``kernels.chain_kernel.run_frames_kernel``).  Fields that belong to features
-not ported yet (``block_chains=0`` autotune, ``mesh_chain_axis``,
+not ported yet (``block_chains=0`` and ``tile_rows=0`` autotune,
+``mesh_chain_axis``, ``mesh_axes``, ``exchange_steps``, ``prefer_rdma``,
 ``rng_impl="hardware"``, ``Scheme.LM``/``EXACT``, ``accumulate_spectrum``)
-raise a ``ValueError`` naming the feature where the run starts.
+raise a ``ValueError`` naming the feature where the run starts, or, for the
+halo-runner knobs, are unused.
 """
 
 from __future__ import annotations

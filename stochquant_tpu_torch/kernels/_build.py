@@ -1,16 +1,18 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
-The sources under ``kernels/csrc/`` are compiled at first use into a shared
-library with a plain C interface:
+The sources under ``kernels/csrc/`` are compiled at first use into one
+shared library with a plain C interface: one ``nvcc -c`` per source, all
+started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC --fmad=false --resource-usage
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC --fmad=false --resource-usage -c <source>.cu
+    nvcc -shared <objects> -o libsq_kernels.so
 
 The output goes to ``build/stochquant_tpu_torch/<hash of sources + flags>/``
-beside the package, so an edited source or flag builds anew and an unchanged
-one is reused.  The compiler's report (registers, shared memory, spills per
-kernel) is kept next to the library in ``nvcc.log``.  Nothing is built when
-the package is imported.
+beside the package, so an edited source, header or flag builds anew and an
+unchanged one is reused.  The compiler's report (registers, shared memory,
+spills per kernel) is kept next to the library in ``nvcc.log``.  Nothing is
+built when the package is imported.
 """
 
 from __future__ import annotations
@@ -24,10 +26,13 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("chain_kernel.cu",)
+_SOURCES = ("chain_kernel.cu", "field_kernel.cu", "field_kernel_tiled.cu")
+_HEADERS = ("sq_rng.cuh", "field_common.cuh")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--fmad=false", "--resource-usage",
 )
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "stochquant_tpu_torch"
@@ -47,7 +52,7 @@ def _nvcc() -> str:
 def build_dir() -> Path:
     """Directory of the library for the current sources and flags."""
     h = hashlib.sha256()
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -56,22 +61,35 @@ def build_dir() -> Path:
 
 def _compile(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(str(_CSRC / s) for s in _SOURCES)]
-    # compile to a temporary name and rename: a concurrent or interrupted
-    # build never leaves a half-written library at the final path
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(cmd + ["-o", tmp], capture_output=True, text=True)
-        (out.parent / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = _nvcc()
+    # compile into a private directory and rename the library into place: a
+    # concurrent or interrupted build never leaves a half-written library
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        jobs = []
+        for src in _SOURCES:
+            obj = os.path.join(tmp, src.replace(".cu", ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(_CSRC / src), "-o", obj]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            jobs.append((cmd, obj, proc))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            text, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-3]} ({proc.returncode})")
+        lib = os.path.join(tmp, out.name)
+        if not failed:
+            cmd = [nvcc, "-shared", *(obj for _, obj, _ in jobs), "-o", lib]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode})")
+        (out.parent / "nvcc.log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n" + "\n".join(log))
+        os.replace(lib, out)
 
 
 class ChainParams(ctypes.Structure):
@@ -97,20 +115,73 @@ class ChainParams(ctypes.Structure):
     ]
 
 
+class FieldParams(ctypes.Structure):
+    """Launch parameters of the field kernels 3, 4 and 5, field for field the
+    ``FieldParams`` struct of ``csrc/field_common.cuh`` (all 4-byte fields)."""
+
+    _fields_ = [
+        (name, ctypes.c_int32) for name in (
+            "n_chains", "L0", "L1", "rounds", "loops", "n_frames", "checkerboard",
+            "action", "grow_after", "has_dtau_max", "tile_rows", "halo", "n_tiles",
+        )
+    ] + [(name, ctypes.c_uint32) for name in ("seed", "step0", "chain0")] + [
+        (name, ctypes.c_float) for name in (
+            "m2", "hm2", "l6", "l24", "inv_a2", "measure", "c_amp", "clamp",
+            "shrink", "dtau_max", "inv_loops", "loops_f", "inv_l1",
+        )
+    ]
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The compiled kernel library (built on first call in this process),
     with every entry point's argument and result types declared."""
-    path = build_dir() / "libsq_chain_kernel.so"
+    path = build_dir() / "libsq_kernels.so"
     if not path.exists():
         _compile(path)
     lib = ctypes.CDLL(str(path))
     ptr = ctypes.c_void_p
-    params = ctypes.POINTER(ChainParams)
-    lib.sq_chain_frame.argtypes = [params] + [ptr] * 12 + [ptr]
-    lib.sq_chain_frame.restype = ctypes.c_int
-    lib.sq_chain_frames.argtypes = [params] + [ptr] * 23 + [ptr]
-    lib.sq_chain_frames.restype = ctypes.c_int
+    chain = ctypes.POINTER(ChainParams)
+    field = ctypes.POINTER(FieldParams)
+    for fn, params, n_ptr in (
+        (lib.sq_chain_frame, chain, 12), (lib.sq_chain_frames, chain, 23),
+        (lib.sq_field_frame, field, 11), (lib.sq_field_frames, field, 21),
+        (lib.sq_field_pair, field, 7),
+    ):
+        fn.argtypes = [params] + [ptr] * n_ptr + [ptr]  # tensors, then the stream
+        fn.restype = ctypes.c_int
     lib.sq_error_string.argtypes = [ctypes.c_int]
     lib.sq_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_leaves(state, want: dict, device) -> None:
+    """Raise unless every leaf ``name`` of ``state`` in ``want`` (name ->
+    (shape, dtype)) lies on ``device`` with that shape and dtype, contiguous:
+    what a kernel reads through a bare pointer."""
+    for name, (shape, dtype) in want.items():
+        t = getattr(state, name)
+        if t.device != device:
+            raise ValueError(f"state.{name} is on {t.device}, the kernel's input on {device}")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(
+                f"state.{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"state.{name} must be contiguous")
+
+
+def launch(entry: str, params, tensors, device) -> None:
+    """Launch the library's ``entry`` on PyTorch's current stream of
+    ``device`` with ``params`` and the tensors' device pointers, in order;
+    raises if the launch is refused."""
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(
+            ctypes.byref(params), *(ctypes.c_void_p(t.data_ptr()) for t in tensors),
+            ctypes.c_void_p(stream),
+        )
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {entry} failed to launch: "
+                           f"{lib.sq_error_string(rc).decode()} ({rc})")

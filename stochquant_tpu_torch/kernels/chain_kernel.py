@@ -21,7 +21,6 @@ plain integer attribute, ``chain_frame.launches`` and
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import numpy as np
@@ -117,37 +116,13 @@ def _params(state: ChainState, action: QMAction, cfg: ChainConfig,
 
 def _check_cuda_inputs(state: ChainState) -> None:
     C, N = state.f.shape
-    want = {
+    _build.check_leaves(state, {
         "f": ((C, N), torch.float32), "omega": ((C,), torch.float32),
         "x_mean": ((C, N), torch.float32), "xx0_mean": ((C, N), torch.float32),
         "x2_mean": ((C, N), torch.float32), "x4_mean": ((C, N), torch.float32),
         "runs": ((C, 2), torch.int64), "dtau": ((C,), torch.float32),
         "stab_cnt": ((C,), torch.int32), "lrg_vl": ((C,), torch.float32),
-    }
-    for name, (shape, dtype) in want.items():
-        t = getattr(state, name)
-        if t.device != state.f.device:
-            raise ValueError(f"state.{name} is on {t.device}, state.f on {state.f.device}")
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(
-                f"state.{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"state.{name} must be contiguous")
-
-
-def _launch(fn, params, tensors, device) -> None:
-    lib = _build.library()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = fn(lib)(
-            ctypes.byref(params), *(ctypes.c_void_p(t.data_ptr()) for t in tensors),
-            ctypes.c_void_p(stream),
-        )
-    if rc != 0:
-        raise RuntimeError(
-            f"CUDA chain kernel launch failed: {lib.sq_error_string(rc).decode()} ({rc})"
-        )
+    }, state.f.device)
 
 
 def _route(state: ChainState) -> bool:
@@ -192,10 +167,8 @@ def chain_frame(state: ChainState, action: QMAction, cfg: ChainConfig,
         lrg_vl=torch.empty((C,), dtype=torch.float32, device=dev),
         unstable=torch.empty((C,), dtype=torch.int32, device=dev),
     )
-    _launch(
-        lambda lib: lib.sq_chain_frame, params,
-        (state.f, state.omega, state.lrg_vl, state.dtau, *out), dev,
-    )
+    _build.launch("sq_chain_frame", params,
+                  (state.f, state.omega, state.lrg_vl, state.dtau, *out), dev)
     chain_frame.launches += 1
     return out._replace(unstable=out.unstable != 0)
 
@@ -247,8 +220,8 @@ def chain_frames_multi(state: ChainState, action: QMAction, cfg: ChainConfig,
     hist_stable = empty((K, C), torch.int32)
     hist_dtau = empty((K, C))
     hist_lrg = empty((K, C))
-    _launch(
-        lambda lib: lib.sq_chain_frames, params,
+    _build.launch(
+        "sq_chain_frames", params,
         (
             state.f, state.omega, state.lrg_vl, state.dtau, state.x_mean,
             state.xx0_mean, state.x2_mean, state.x4_mean, state.runs, state.stab_cnt,

@@ -1,0 +1,240 @@
+"""Hand-written CUDA kernels for whole-lattice 2-D scalar-field frames, their
+plain PyTorch versions, and the frame loop around them.
+
+Port of ``stochquant_tpu/kernels/field_kernel.py``:
+
+* kernel 3, :func:`field_frame` — one frame of ``cfg.loops`` micro-steps per
+  chain returning the frame sums (``_build_kernel``); the accept/reject
+  epilogue runs outside in PyTorch (``field.field_frame_epilogue``).
+  Plain version: :func:`field_frame_ref`.
+* kernel 4, :func:`field_frames_multi` — K frames per launch with the
+  epilogue in-kernel (``_build_multiframe_kernel``).
+  Plain version: :func:`field_frames_multi_ref`.
+
+Both are CUDA C++ for ``sm_90a`` (``csrc/field_kernel.cu``), built by
+``_build`` at first use, for float32 2-D lattices and the ``phi4`` and
+``free_field`` actions.  A wrapper given CPU tensors runs its plain version;
+given CUDA tensors it launches its kernel on PyTorch's current stream, or
+raises — it never falls back.  Each wrapper counts its kernel launches in a
+plain integer attribute, ``field_frame.launches`` and
+``field_frames_multi.launches``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from stochquant_tpu_torch import rng
+from stochquant_tpu_torch.actions.phi4 import FieldAction, FreeField, ScalarPhi4
+from stochquant_tpu_torch.config import FieldConfig, Sweep
+from stochquant_tpu_torch.integrators import field as field_mod
+from stochquant_tpu_torch.integrators.field import FieldFrameSums, FieldState
+from stochquant_tpu_torch.integrators.langevin import host_step, stack_metrics
+from stochquant_tpu_torch.kernels import _build
+
+__all__ = [
+    "field_frame",
+    "field_frame_ref",
+    "field_frames_multi",
+    "field_frames_multi_ref",
+    "run_field_frames_kernel",
+]
+
+_MEANS = ("mag_mean", "mag2_mean", "mag4_mean", "absmag_mean", "phi2_mean", "act_mean")
+
+
+def _action_constants(action: FieldAction):
+    """(action code, m², float32(½m²), float32(λ/6), float32(λ/24)), folded
+    as the JAX actions fold their Python floats."""
+    f32 = np.float32
+    if type(action) is ScalarPhi4:
+        return (0, f32(action.m2), f32(0.5 * action.m2), f32(action.lam / 6.0),
+                f32(action.lam / 24.0))
+    if type(action) is FreeField:
+        return 1, f32(action.m2), f32(0.5 * action.m2), 0, 0
+    raise ValueError(
+        f"the CUDA field kernels implement phi4 and free_field, not {type(action).__name__}"
+    )
+
+
+def check_kernel_config(cfg: FieldConfig) -> None:
+    """Raise for what the 2-D field kernels (and their plain versions, which
+    keep the kernels' contract) do not take."""
+    field_mod.check_field_supported(cfg)
+    if cfg.ndim != 2:
+        raise ValueError(
+            f"the field kernels take 2-D lattices, not shape {cfg.shape} (the D >= 3 "
+            "kernel is not ported yet; backend='torch' runs the plain integrator)"
+        )
+    if cfg.dtype != "float32":
+        raise ValueError(f"the field kernels are float32-only, not {cfg.dtype}")
+
+
+def kernel_params(shape, action: FieldAction, cfg: FieldConfig, *, step0: int,
+                  chain_offset: int = 0, n_frames: int = 1, tile_rows: int = 0,
+                  halo: int = 0) -> "_build.FieldParams":
+    """The ``FieldParams`` struct of one launch on a (C, L0, L1) field."""
+    C, L0, L1 = shape
+    code, m2, hm2, l6, l24 = _action_constants(action)
+    f32 = np.float32
+    a = cfg.spacing
+    return _build.FieldParams(
+        n_chains=C, L0=L0, L1=L1, rounds=rng.rounds_of(cfg.rng_impl), loops=cfg.loops,
+        n_frames=n_frames, checkerboard=int(cfg.sweep == Sweep.CHECKERBOARD), action=code,
+        grow_after=min(cfg.grow_after, 2**31 - 1), has_dtau_max=int(cfg.dtau_max is not None),
+        tile_rows=tile_rows, halo=halo, n_tiles=L0 // tile_rows if tile_rows else 0,
+        seed=rng.u32(cfg.seed), step0=rng.u32(int(step0)), chain0=rng.u32(chain_offset),
+        m2=m2, hm2=hm2, l6=l6, l24=l24, inv_a2=f32(1.0 / (a * a)), measure=f32(a * a),
+        c_amp=f32(cfg.noise_amp), clamp=f32(cfg.clamp), shrink=f32(cfg.shrink),
+        dtau_max=f32(cfg.dtau_max if cfg.dtau_max is not None else 0.0),
+        inv_loops=f32(1.0 / cfg.loops), loops_f=f32(cfg.loops), inv_l1=f32(1.0 / L1),
+    )
+
+
+def check_cuda_state(state: FieldState) -> None:
+    """Device, dtype, shape and contiguity of every leaf a kernel reads."""
+    C, L0, L1 = state.phi.shape
+    want = {name: ((C,), torch.float32) for name in _MEANS + ("dtau", "lrg_vl")}
+    want.update(phi=((C, L0, L1), torch.float32), corr_mean=((C, L0), torch.float32),
+                runs=((C, 2), torch.int64), stab_cnt=((C,), torch.int32))
+    _build.check_leaves(state, want, state.phi.device)
+
+
+def route(state: FieldState, cfg: FieldConfig) -> bool:
+    """True to launch a CUDA kernel, False to run the plain version."""
+    check_kernel_config(cfg)
+    if tuple(state.phi.shape[1:]) != tuple(cfg.shape):
+        raise ValueError(f"state.phi has lattice {tuple(state.phi.shape[1:])}, cfg {cfg.shape}")
+    dev = state.phi.device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"field kernels run on 'cuda' or 'cpu' tensors, not {dev}")
+    check_cuda_state(state)
+    return True
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: one frame → frame sums
+# ---------------------------------------------------------------------------
+
+
+def field_frame_ref(state: FieldState, action: FieldAction, cfg: FieldConfig,
+                    chain_offset: int = 0) -> FieldFrameSums:
+    """Plain PyTorch version of kernel 3."""
+    return field_mod.field_frame_sums(state, action, cfg, chain_offset)
+
+
+def field_frame(state: FieldState, action: FieldAction, cfg: FieldConfig,
+                chain_offset: int = 0) -> FieldFrameSums:
+    """Kernel 3: one frame of ``cfg.loops`` micro-steps for the chains of
+    ``state`` (global ids ``chain_offset …``); returns the frame sums."""
+    if not route(state, cfg):
+        return field_frame_ref(state, action, cfg, chain_offset)
+    C, L0, L1 = state.phi.shape
+    params = kernel_params((C, L0, L1), action, cfg, step0=int(state.step),
+                           chain_offset=chain_offset)
+    dev = state.phi.device
+    empty = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
+    phi, sums, cs = empty((C, L0, L1)), empty((6, C)), empty((C, L0))
+    lrg, unst = empty((C,)), empty((C,), torch.int32)
+    work, zk, slices = empty((C, L0, L1)), empty((C, L0, L1)), empty((C, L0))
+    _build.launch("sq_field_frame", params,
+                  (state.phi, state.lrg_vl, state.dtau, phi, sums, cs, lrg, unst, work, zk,
+                   slices), dev)
+    field_frame.launches += 1
+    return FieldFrameSums(phi, *sums.unbind(0), cs, lrg, unst != 0)
+
+
+field_frame.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: K frames per launch, epilogue in-kernel
+# ---------------------------------------------------------------------------
+
+
+def field_frames_multi_ref(state: FieldState, action: FieldAction, cfg: FieldConfig, K: int,
+                           chain_offset: int = 0):
+    """Plain PyTorch version of kernel 4: K × (frame sums + epilogue).
+    Returns (state, metrics) with metrics of shape (K, C)."""
+    check_kernel_config(cfg)
+    per_frame = []
+    for _ in range(K):
+        state, m = field_mod.field_frame_epilogue(
+            state, field_mod.field_frame_sums(state, action, cfg, chain_offset), cfg
+        )
+        per_frame.append(m)
+    return state, stack_metrics(per_frame)
+
+
+def field_frames_multi(state: FieldState, action: FieldAction, cfg: FieldConfig, K: int,
+                       chain_offset: int = 0):
+    """Kernel 4: K frames in one launch, with accept/reject, running-mean
+    merge, the (lo, hi) count carry and adaptive Δτ in-kernel.  Per-frame
+    results equal K launches of kernel 3 plus the PyTorch epilogue.
+    Returns (state, metrics) with metrics of shape (K, C)."""
+    if K < 1:
+        raise ValueError(f"frames per launch must be >= 1, got {K}")
+    if not route(state, cfg):
+        return field_frames_multi_ref(state, action, cfg, K, chain_offset)
+    C, L0, L1 = state.phi.shape
+    params = kernel_params((C, L0, L1), action, cfg, step0=int(state.step),
+                           chain_offset=chain_offset, n_frames=K)
+    dev = state.phi.device
+    empty = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
+    means_in = torch.stack([getattr(state, name) for name in _MEANS])
+    phi, lrg, dtau, means = empty((C, L0, L1)), empty((C,)), empty((C,)), empty((6, C))
+    cm, runs, stab = empty((C, L0)), empty((C, 2), torch.int64), empty((C,), torch.int32)
+    hist_stable, hist_dtau, hist_lrg = empty((K, C), torch.int32), empty((K, C)), empty((K, C))
+    work, zk = empty((2, C, L0, L1)), empty((C, L0, L1))
+    slices, cs = empty((C, L0)), empty((C, L0))
+    _build.launch(
+        "sq_field_frames", params,
+        (state.phi, state.lrg_vl, state.dtau, means_in, state.corr_mean, state.runs,
+         state.stab_cnt, phi, lrg, dtau, means, cm, runs, stab, hist_stable, hist_dtau,
+         hist_lrg, work, zk, slices, cs),
+        dev,
+    )
+    field_frames_multi.launches += 1
+    new = FieldState(phi, *means.unbind(0), cm, runs, dtau, stab, lrg,
+                     host_step(int(state.step) + cfg.loops * K))
+    return new, {"stable": hist_stable != 0, "dtau": hist_dtau, "max_phi": hist_lrg}
+
+
+field_frames_multi.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# frame loop
+# ---------------------------------------------------------------------------
+
+
+def run_field_frames_kernel(state: FieldState, action: FieldAction, cfg: FieldConfig,
+                            n_frames: int, *, frames_per_launch: int = 1,
+                            chain_offset: int = 0):
+    """``n_frames`` frames through kernels 3 and 4 — the counterpart of
+    ``stochquant_tpu.kernels.field_kernel.run_field_frames_pallas``.
+
+    ``frames_per_launch`` K > 1 runs groups of K frames through kernel 4
+    (epilogue in-kernel) and the remainder through kernel 3 plus the PyTorch
+    epilogue; per-frame results are the same either way.  Returns (state,
+    metrics) with metrics of shape (n_frames, C)."""
+    K = max(frames_per_launch, 1)
+    parts = []
+    done = 0
+    while done < n_frames:
+        if K > 1 and n_frames - done >= K:
+            state, m = field_frames_multi(state, action, cfg, K, chain_offset)
+            done += K
+        else:
+            state, m = field_mod.field_frame_epilogue(
+                state, field_frame(state, action, cfg, chain_offset), cfg
+            )
+            m = {k: v[None] for k, v in m.items()}
+            done += 1
+        parts.append(m)
+    if not parts:
+        return state, {}
+    return state, {k: torch.cat([m[k] for m in parts]) for k in parts[0]}

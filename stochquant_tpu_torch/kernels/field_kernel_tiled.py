@@ -1,0 +1,260 @@
+"""Strip-tiled CUDA kernel for 2-D lattices too large for the whole-lattice
+kernels, its plain PyTorch version, and the frame around it.
+
+Port of ``stochquant_tpu/kernels/field_kernel_tiled.py``: kernel 5,
+:func:`field_pair` (``_build_pair_kernel``), advances every chain by one pair
+of micro-steps — both Box–Muller outputs of one Threefry draw — one block per
+strip of ``tile_rows`` owned rows plus a recomputed H-row halo (H = 2 for
+SYNC, 4 for CHECKERBOARD), and returns per-strip statistics and the slice
+means of the two pre-update fields.  Plain version: :func:`field_pair_ref`,
+which updates the whole lattice at once and cuts the same statistics per
+strip.  :func:`field_frame_tiled` scans the pairs of a frame, runs the
+per-pair statistics step in PyTorch and then the frame epilogue.
+
+Like the JAX tiled path, a chain that trips keeps evolving until the frame
+ends: the rollback discards those values, so accepted trajectories and the
+accept/reject decisions equal the whole-lattice path's.  Noise is keyed by
+global (site, step), so the result does not depend on ``tile_rows``.
+
+Kernel 5 is CUDA C++ for ``sm_90a`` (``csrc/field_kernel_tiled.cu``).  A
+wrapper given CPU tensors runs its plain version; given CUDA tensors it
+launches its kernel, or raises.  ``field_pair.launches`` counts launches.
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from stochquant_tpu_torch import rng
+from stochquant_tpu_torch.actions.base import true_divide
+from stochquant_tpu_torch.actions.phi4 import FieldAction, periodic_laplacian
+from stochquant_tpu_torch.config import FieldConfig, Sweep
+from stochquant_tpu_torch.integrators import field as field_mod
+from stochquant_tpu_torch.integrators.field import FieldFrameSums, FieldState
+from stochquant_tpu_torch.integrators.langevin import stack_metrics
+from stochquant_tpu_torch.kernels import _build
+from stochquant_tpu_torch.kernels.field_kernel import check_kernel_config, kernel_params
+
+__all__ = [
+    "field_pair",
+    "field_pair_ref",
+    "field_frame_tiled",
+    "run_field_frames_tiled",
+    "resolve_tile_rows",
+    "halo_depth",
+]
+
+#: dynamic shared memory one block of kernel 5 may take for its two strip
+#: buffers (an H100 block may use 227 KB in all; the rest is the reduction's)
+SMEM_BUDGET = 224 * 1024
+#: the default strip height is the largest divisor of L0 up to this that fits
+MAX_DEFAULT_TILE_ROWS = 256
+
+
+def halo_depth(cfg: FieldConfig) -> int:
+    """Stencil applications per pair: 2 synchronous sweeps or 4 half-sweeps."""
+    return 4 if cfg.sweep == Sweep.CHECKERBOARD else 2
+
+
+def strip_bytes(tile_rows: int, cfg: FieldConfig) -> int:
+    """Shared memory of kernel 5's two extended-strip buffers."""
+    return 2 * (tile_rows + 2 * halo_depth(cfg)) * cfg.shape[1] * 4
+
+
+def resolve_tile_rows(cfg: FieldConfig, tile_rows=None) -> int:
+    """The strip height: ``tile_rows``, else ``cfg.tile_rows``, else the
+    largest divisor of L0 (up to 256) whose two extended-strip buffers fit
+    ``SMEM_BUDGET``.  Raises if the height does not divide L0, or if no
+    height fits."""
+    L0, L1 = cfg.shape
+    t0 = tile_rows or cfg.tile_rows
+    if t0:
+        if t0 < 0 or L0 % t0:
+            raise ValueError(f"tile_rows={t0} must divide L0={L0}")
+        if strip_bytes(t0, cfg) > SMEM_BUDGET:
+            raise ValueError(
+                f"tile_rows={t0}: the strip of {t0} + 2x{halo_depth(cfg)} rows of {L1} "
+                f"floats, twice, needs {strip_bytes(t0, cfg)} bytes of shared memory; "
+                f"a block has {SMEM_BUDGET}"
+            )
+        return t0
+    for t0 in range(min(L0, MAX_DEFAULT_TILE_ROWS), 0, -1):
+        if L0 % t0 == 0 and strip_bytes(t0, cfg) <= SMEM_BUDGET:
+            return t0
+    raise ValueError(
+        f"no tile_rows fits: even one row plus its 2x{halo_depth(cfg)}-row halo of {L1} "
+        f"floats, twice, exceeds the {SMEM_BUDGET} bytes of shared memory a block has"
+    )
+
+
+def check_tiled_config(cfg: FieldConfig) -> None:
+    """The tiled path's own rules, then the field kernels' (2-D, float32)."""
+    if not rng.counter_based(cfg.rng_impl):
+        raise ValueError(
+            "the tiled kernel requires counter-based noise: halo rows are "
+            "recomputed redundantly in neighboring strips, which only agrees "
+            "when noise is a pure function of (site, step) — use "
+            "rng_impl='threefry' or 'threefry13'"
+        )
+    check_kernel_config(cfg)
+    if cfg.loops % 2:
+        raise ValueError("the tiled kernel needs an even loops count (pair launches)")
+
+
+# ---------------------------------------------------------------------------
+# kernel 5: one micro-step pair → per-strip statistics
+# ---------------------------------------------------------------------------
+
+
+def field_pair_ref(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction,
+                   cfg: FieldConfig, step: int, tile_rows: int):
+    """Plain PyTorch version of kernel 5: two micro-steps from ``phi`` at
+    counter ``step`` with per-chain step sizes ``dtau``.  Returns (phi after
+    the pair, slice means of the two pre-update fields (C, L0) each, stats
+    (C, L0 / tile_rows, 10)): per strip [Σφ, Σφ², Σs, max|det|, max|φ_new|]
+    of the first micro-step, then of the second."""
+    C, L0, L1 = phi.shape
+    nt = L0 // tile_rows
+    dev, dtype = phi.device, phi.dtype
+    a = cfg.spacing
+    clamp = float(np.float32(cfg.clamp))
+    dtau_b = dtau.reshape(C, 1, 1)
+    namp = field_mod.noise_scale(dtau, cfg).reshape(C, 1, 1)
+    even = field_mod.checkerboard_mask((L0, L1), 2, dev) if cfg.sweep == Sweep.CHECKERBOARD else None
+    e0, e1 = rng.normal_pair_for_shape(
+        cfg.seed, rng.Stream.FIELD, step, (C, L0, L1), rounds=rng.rounds_of(cfg.rng_impl),
+        device=dev,
+    )
+
+    def em_apply(p, mask, noise, lap):
+        # non-finite sites put +inf into |det|, so the one max finds the
+        # detector statistic and flags them
+        det = (lap - action.dV(p).to(dtype)) * dtau_b
+        new_raw = p + det + noise
+        finite = torch.isfinite(new_raw)
+        newp = torch.where(finite, torch.clamp(new_raw, -clamp, clamp), clamp)
+        absdet = torch.where(finite, torch.abs(det), float("inf"))
+        if mask is not None:
+            newp = torch.where(mask, newp, p)
+            absdet = torch.where(mask, absdet, 0.0)
+        return newp, absdet
+
+    def micro(p, noise):
+        lap = periodic_laplacian(p, a, 2)
+        act = action.action_density(p, a, 2).to(dtype)
+        if even is None:
+            newp, absdet = em_apply(p, None, noise, lap)
+            return newp, absdet, act
+        p_e, absdet_e = em_apply(p, even, noise, lap)
+        newp, absdet_o = em_apply(p_e, ~even, noise, periodic_laplacian(p_e, a, 2))
+        return newp, torch.maximum(absdet_e, absdet_o), act
+
+    def strip_stats(pre, post, absdet, act):
+        strips = lambda x: x.reshape(C, nt, tile_rows * L1)  # noqa: E731
+        return torch.stack([
+            strips(pre).sum(-1), strips(pre * pre).sum(-1), strips(act).sum(-1),
+            strips(absdet).amax(-1), strips(torch.abs(post)).amax(-1),
+        ], dim=-1)
+
+    phi1, absdet0, act0 = micro(phi, namp * e0.to(dtype))
+    phi2, absdet1, act1 = micro(phi1, namp * e1.to(dtype))
+    inv_l1 = float(np.float32(1.0 / L1))
+    stats = torch.cat([strip_stats(phi, phi1, absdet0, act0),
+                       strip_stats(phi1, phi2, absdet1, act1)], dim=-1)
+    return phi2, phi.sum(-1) * inv_l1, phi1.sum(-1) * inv_l1, stats
+
+
+def field_pair(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction, cfg: FieldConfig,
+               step: int, tile_rows: int):
+    """Kernel 5: one micro-step pair of every chain, strip by strip.
+    Returns what :func:`field_pair_ref` returns."""
+    check_tiled_config(cfg)
+    tile_rows = resolve_tile_rows(cfg, tile_rows)
+    C, L0, L1 = phi.shape
+    if (L0, L1) != tuple(cfg.shape):
+        raise ValueError(f"phi has lattice {(L0, L1)}, cfg {cfg.shape}")
+    dev = phi.device
+    if dev.type == "cpu":
+        return field_pair_ref(phi, dtau, action, cfg, step, tile_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"the tiled field kernel runs on 'cuda' or 'cpu' tensors, not {dev}")
+    _build.check_leaves(SimpleNamespace(phi=phi, dtau=dtau),
+                        {"phi": ((C, L0, L1), torch.float32), "dtau": ((C,), torch.float32)},
+                        dev)
+    H = halo_depth(cfg)
+    nt = L0 // tile_rows
+    params = kernel_params((C, L0, L1), action, cfg, step0=step, tile_rows=tile_rows, halo=H)
+    empty = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    out, sl0, sl1 = empty((C, L0, L1)), empty((C, L0)), empty((C, L0))
+    stats, zk = empty((C, nt, 10)), empty((C, nt, tile_rows + 2 * H, L1))
+    _build.launch("sq_field_pair", params, (phi, dtau, out, sl0, sl1, stats, zk), dev)
+    field_pair.launches += 1
+    return out, sl0, sl1, stats
+
+
+field_pair.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# frame loop
+# ---------------------------------------------------------------------------
+
+
+def field_frame_tiled(state: FieldState, action: FieldAction, cfg: FieldConfig, *,
+                      tile_rows=None, pair=None):
+    """One frame (``cfg.loops`` micro-steps, loops even) through the pair
+    kernel: a scan over micro-step pairs with the observable and detector
+    step in PyTorch, then the accept/reject and adaptive-Δτ epilogue of
+    ``integrators.field``.  ``pair`` is the pair function (default
+    :func:`field_pair`; :func:`field_pair_ref` forces the plain version).
+    Returns (state, metrics)."""
+    check_tiled_config(cfg)
+    tile_rows = resolve_tile_rows(cfg, tile_rows)
+    pair = pair or field_pair
+    C = state.phi.shape[0]
+    volume = float(cfg.shape[0] * cfg.shape[1])
+
+    def obs_step(vals, s_slice, st):
+        # frame-local sample sums (two-level accumulation, accum.py)
+        ms, m2s, m4s, ams, p2s, acs, cs, unstable, lrg = vals
+        mag = true_divide(st[:, :, 0].sum(dim=1), volume)
+        phi2 = true_divide(st[:, :, 1].sum(dim=1), volume)
+        act = true_divide(st[:, :, 2].sum(dim=1), volume)
+        tripped = st[:, :, 3].amax(dim=1) > lrg
+        corr = s_slice * s_slice[:, :1]
+        keep = lambda new, old: torch.where(unstable, old, new)  # noqa: E731
+        mag2 = mag * mag
+        return (
+            keep(ms + mag, ms), keep(m2s + mag2, m2s), keep(m4s + mag2 * mag2, m4s),
+            keep(ams + torch.abs(mag), ams), keep(p2s + phi2, p2s), keep(acs + act, acs),
+            torch.where(unstable[:, None], cs, cs + corr), unstable | tripped,
+            keep(torch.maximum(lrg, st[:, :, 4].amax(dim=1)), lrg),
+        )
+
+    zc = torch.zeros((C,), dtype=state.phi.dtype, device=state.phi.device)
+    vals = (zc, zc, zc, zc, zc, zc, torch.zeros_like(state.corr_mean),
+            torch.zeros((C,), dtype=torch.bool, device=zc.device), state.lrg_vl)
+    phi = state.phi
+    step0 = int(state.step)
+    for k in range(cfg.loops // 2):
+        phi, sl0, sl1, stats = pair(phi, state.dtau, action, cfg, step0 + 2 * k, tile_rows)
+        vals = obs_step(vals, sl0, stats[:, :, :5])
+        vals = obs_step(vals, sl1, stats[:, :, 5:])
+    ms, m2s, m4s, ams, p2s, acs, cs, unstable, lrg = vals
+    sums = FieldFrameSums(phi, ms, m2s, m4s, ams, p2s, acs, cs, lrg, unstable)
+    return field_mod.field_frame_epilogue(state, sums, cfg)
+
+
+def run_field_frames_tiled(state: FieldState, action: FieldAction, cfg: FieldConfig,
+                           n_frames: int, *, tile_rows=None, pair=None):
+    """``n_frames`` tiled frames — the counterpart of
+    ``stochquant_tpu.kernels.field_kernel_tiled.run_field_frames_tiled``.
+    Returns (state, metrics) with metrics of shape (n_frames, C)."""
+    per_frame = []
+    for _ in range(n_frames):
+        state, m = field_frame_tiled(state, action, cfg, tile_rows=tile_rows, pair=pair)
+        per_frame.append(m)
+    return state, stack_metrics(per_frame)

@@ -29,6 +29,7 @@ __all__ = [
     "Stream",
     "u32",
     "rounds_of",
+    "counter_based",
     "threefry2x32",
     "uniform_from_bits",
     "normal_pair",
@@ -65,6 +66,12 @@ def rounds_of(rng_impl: str) -> int:
             "'threefry13'"
         )
     return 13 if rng_impl == "threefry13" else _DEFAULT_ROUNDS
+
+
+def counter_based(rng_impl: str) -> bool:
+    """True for the layout-invariant counter RNG variants (any round count);
+    False for the sequential hardware PRNG."""
+    return rng_impl in ("threefry", "threefry13")
 
 
 def u32(x):

@@ -1,13 +1,16 @@
-"""Host loop for chain runs (port of ``stochquant_tpu.runtime.run_chain``).
+"""Host loops for chain and field runs (port of ``stochquant_tpu.runtime``'s
+``run_chain``, ``select_field_backend`` and ``run_field``).
 
-State stays on the device; the loop launches ``fps`` frames at a time,
-streams the small per-frame metrics and the connected correlator, and writes
+State stays on the device; a loop launches ``fps`` frames at a time,
+streams the small per-frame metrics (chains: the connected correlator;
+fields: magnetization, ⟨φ²⟩, susceptibility, Binder cumulant) and writes
 full-state checkpoints that resume bitwise (in this package or the JAX one).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import signal
 from typing import Optional
 
@@ -16,10 +19,11 @@ import torch
 
 from stochquant_tpu_torch import actions as actions_mod
 from stochquant_tpu_torch import metrics as metrics_mod
-from stochquant_tpu_torch.config import ChainConfig
+from stochquant_tpu_torch.config import ChainConfig, FieldConfig
+from stochquant_tpu_torch.integrators import field as field_mod
 from stochquant_tpu_torch.integrators import langevin
 from stochquant_tpu_torch.io import checkpoint as ckpt_mod
-from stochquant_tpu_torch.kernels import chain_kernel
+from stochquant_tpu_torch.kernels import chain_kernel, field_kernel, field_kernel_tiled
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -181,6 +185,144 @@ def run_chain(
             cfg.frames,
             updates_per_frame * n,
             m["dtau"][-1].cpu().numpy(),
+            float(m["stable"][-n:].float().mean()),
+            observables=obs,
+        )
+        if checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0:
+            ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
+        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done):
+            break
+
+    if checkpoint_out:
+        ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
+    summary = sink.summary()
+    sink.emit(summary)
+    return RunResult(state=state, cfg=cfg, summary=summary)
+
+
+#: The JAX package's routing rule (``stochquant_tpu.runtime._FIELD_VMEM_FIELD_BYTES``):
+#: a 2-D float32 lattice of up to 1 MiB per chain runs whole-lattice frames
+#: (kernels 3 and 4); larger ones, or any run with ``tile_rows`` set, run
+#: the strip-tiled pair kernel (kernel 5).
+WHOLE_LATTICE_MAX_BYTES = 1 << 20
+
+
+def select_field_backend(cfg: FieldConfig, backend: str, device) -> str:
+    """Resolve a field run's path: 'cuda' (kernels 3 and 4), 'cuda_tiled'
+    (kernel 5) or 'torch' (the plain PyTorch integrator, any dimension).
+
+    'auto' takes the CUDA kernels on a CUDA device and 'torch' on the CPU.
+    On the CUDA route every case the kernels do not cover raises, naming it
+    (D >= 3 lattices, ``tile_rows=0`` autotune, an odd ``loops`` on the
+    tiled path, a dtype other than float32); ``backend='torch'`` is the
+    explicit way to run the plain integrator there.  ``Scheme.EXACT``,
+    ``rng_impl='hardware'``, ``mesh_axes`` and ``mesh_chain_axis`` raise on
+    every route: they are not ported yet."""
+    device = torch.device(device)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown field backend {backend!r}; known: {BACKENDS}")
+    field_mod.check_field_supported(cfg)
+    if cfg.mesh_axes is not None or cfg.mesh_chain_axis is not None:
+        raise ValueError(
+            "mesh_axes / mesh_chain_axis (a field sharded over a device mesh, the "
+            "halo runner) are not ported yet"
+        )
+    if backend == "auto":
+        backend = "cuda" if device.type == "cuda" else "torch"
+    if backend == "torch":
+        return "torch"
+    if device.type != "cuda":
+        raise ValueError(f"backend='cuda' runs the CUDA kernels and needs a CUDA device, not {device}")
+    if cfg.ndim != 2:
+        raise ValueError(
+            f"a {cfg.ndim}-D lattice needs the D >= 3 field kernel, which is not ported "
+            "yet: run it with backend='torch' (the plain integrator)"
+        )
+    if cfg.tile_rows == 0:
+        raise ValueError("tile_rows=0 (autotune) is not ported yet: give a strip height or None")
+    if cfg.dtype != "float32":
+        raise ValueError(f"the field kernels are float32-only, not {cfg.dtype}; use backend='torch'")
+    lattice_bytes = math.prod(cfg.shape) * 4
+    if cfg.tile_rows is None and lattice_bytes <= WHOLE_LATTICE_MAX_BYTES:
+        return "cuda"
+    if cfg.loops % 2:
+        raise ValueError(
+            f"the tiled field kernel (lattice of {lattice_bytes} bytes, tile_rows="
+            f"{cfg.tile_rows}) needs an even loops count, not {cfg.loops}"
+        )
+    return "cuda_tiled"
+
+
+def run_field(
+    cfg: FieldConfig,
+    *,
+    device,
+    backend: str = "auto",
+    burn_frames: int = 0,
+    sink: Optional[metrics_mod.MetricsSink] = None,
+    checkpoint_out: Optional[str] = None,
+    checkpoint_in: Optional[str] = None,
+    checkpoint_every: int = 0,
+    stop=None,
+    resume_progress: bool = False,
+) -> RunResult:
+    """Run a D-dimensional field ensemble per the config on ``device``;
+    returns the final state.
+
+    backend: 'auto', 'cuda' or 'torch', resolved by
+    :func:`select_field_backend`.  stop and resume_progress as in
+    :func:`run_chain`."""
+    device = resolve_device(device)
+    route = select_field_backend(cfg, backend, device)
+    act = actions_mod.get_field(cfg.action)
+    sink = sink or metrics_mod.MetricsSink()
+
+    if checkpoint_in:
+        state, loaded_cfg = ckpt_mod.load(checkpoint_in, device)
+        _check_resume_compat(loaded_cfg, cfg, checkpoint_in, ("action", "shape", "n_chains"))
+    else:
+        state = field_mod.init_field_state(cfg, device=device)
+
+    def run_n(state, n):
+        if route == "cuda":
+            return field_kernel.run_field_frames_kernel(
+                state, act, cfg, n, frames_per_launch=min(cfg.frames_per_launch, n)
+            )
+        if route == "cuda_tiled":
+            return field_kernel_tiled.run_field_frames_tiled(
+                state, act, cfg, n, tile_rows=cfg.tile_rows
+            )
+        return field_mod.run_field_frames(state, act, cfg, n)
+
+    frames_done = (
+        _frames_already_done(state, cfg, checkpoint_in)
+        if (resume_progress and checkpoint_in)
+        else 0
+    )
+    if burn_frames and frames_done == 0:
+        state, _ = run_n(state, burn_frames)
+        state = field_mod.reset_field_means(state)
+
+    volume = math.prod(cfg.shape)
+    updates_per_frame = cfg.n_chains * volume * cfg.loops
+    fps = max(cfg.fps, 1)
+    while frames_done < cfg.frames:
+        n = min(fps, cfg.frames - frames_done)
+        state, m = run_n(state, n)
+        frames_done += n
+        host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+        obs = {
+            "mag": float(host(state.mag_mean).mean()),
+            "abs_mag": float(host(state.absmag_mean).mean()),
+            "phi2": float(host(state.phi2_mean).mean()),
+            "susceptibility": float(host(field_mod.susceptibility(state, volume)).mean()),
+            "binder": float(host(field_mod.binder_cumulant(state)).mean()),
+        }
+        sink.frame(
+            frames_done - 1,
+            cfg.frames,
+            updates_per_frame * n,
+            host(m["dtau"][-1]),
             float(m["stable"][-n:].float().mean()),
             observables=obs,
         )

@@ -17,6 +17,7 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 CHAIN_PRESETS = sorted(k for k, v in jcfg.PRESETS.items() if isinstance(v, jcfg.ChainConfig))
+FIELD_PRESETS = sorted(k for k, v in jcfg.PRESETS.items() if isinstance(v, jcfg.FieldConfig))
 
 
 @pytest.mark.parametrize("name", CHAIN_PRESETS)
@@ -42,6 +43,27 @@ def test_non_default_chain_config_json_byte_equal():
     ]
 
 
+@pytest.mark.parametrize("name", FIELD_PRESETS)
+def test_field_preset_json_byte_equal_and_round_trips(name):
+    a, b = jcfg.PRESETS[name].to_json(), tcfg.PRESETS[name].to_json()
+    assert a == b
+    assert tcfg.FieldConfig.from_json(a) == tcfg.PRESETS[name]
+    assert jcfg.FieldConfig.from_json(b) == jcfg.PRESETS[name]
+
+
+def test_non_default_field_config_json_byte_equal():
+    kw = dict(action="free_field", shape=(64, 32), spacing=0.5, dtau=2e-3, n_chains=5,
+              loops=12, frames_per_launch=3, dtau_max=0.01, grow_after=4,
+              rng_impl="threefry13", tile_rows=16, mesh_axes=("x", None), seed=7)
+    a = jcfg.FieldConfig(**kw, sweep=jcfg.Sweep.CHECKERBOARD, scheme=jcfg.Scheme.EXACT)
+    b = tcfg.FieldConfig(**kw, sweep=tcfg.Sweep.CHECKERBOARD, scheme=tcfg.Scheme.EXACT)
+    assert a.to_json() == b.to_json()
+    assert tcfg.FieldConfig.from_json(a.to_json()) == b
+    assert [f.name for f in jcfg.dataclasses.fields(jcfg.FieldConfig)] == [
+        f.name for f in tcfg.dataclasses.fields(tcfg.FieldConfig)
+    ]
+
+
 def test_whole_presets_table_is_copied():
     assert sorted(jcfg.PRESETS) == sorted(tcfg.PRESETS)
     for name in jcfg.PRESETS:
@@ -58,6 +80,9 @@ def test_port_imports_without_jax_or_triton():
         "import sys\n"
         "import stochquant_tpu_torch, stochquant_tpu_torch.runtime, stochquant_tpu_torch.cli\n"
         "import stochquant_tpu_torch.kernels.chain_kernel, stochquant_tpu_torch.kernels._build\n"
+        "import stochquant_tpu_torch.kernels.field_kernel\n"
+        "import stochquant_tpu_torch.kernels.field_kernel_tiled\n"
+        "import stochquant_tpu_torch.integrators.field, stochquant_tpu_torch.actions.phi4\n"
         "import stochquant_tpu_torch.io.checkpoint\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'stochquant_tpu'))\n"

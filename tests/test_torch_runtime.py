@@ -1,6 +1,6 @@
 """The port's runtime and CLI on the CPU: frame records, checkpoints, the
-same final state as the JAX runtime, and loud refusals of what is not
-ported."""
+same final state as the JAX runtime, the field path's routing, and loud
+refusals of what is not ported."""
 
 import dataclasses
 import json
@@ -12,8 +12,9 @@ import torch
 from stochquant_tpu import metrics as jmetrics
 from stochquant_tpu import runtime as jruntime
 from stochquant_tpu.config import ChainConfig as JChainConfig
+from stochquant_tpu.config import FieldConfig as JFieldConfig
 from stochquant_tpu_torch import cli, metrics, runtime
-from stochquant_tpu_torch.config import PRESETS, Scheme
+from stochquant_tpu_torch.config import PRESETS, FieldConfig, Scheme, Sweep
 from stochquant_tpu_torch.io import checkpoint
 
 torch.set_num_threads(1)
@@ -118,8 +119,8 @@ def test_unported_paths_raise():
             runtime.run_chain(dataclasses.replace(cfg, **change), device="cpu")
     with pytest.raises(ValueError, match="spectrum"):
         cli.main(["run", "--preset", "quartic_large", "--device", "cpu", "--frames", "1"])
-    with pytest.raises(ValueError, match="FieldConfig"):
-        cli.main(["run", "--preset", "phi4_2d", "--device", "cpu"])
+    with pytest.raises(ValueError, match="EXACT"):
+        cli.main(["run", "--preset", "phi4_2d", "--device", "cpu", "--scheme", "exact"])
     with pytest.raises(SystemExit):
         cli.main(["run", "--preset", "no_such_preset", "--device", "cpu"])
 
@@ -131,3 +132,107 @@ def test_cuda_device_without_a_gpu_raises():
         cli.main(["run", "--preset", "harmosc", "--frames", "1", "--loops", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runtime.run_chain(TINY["harmosc"], device="cuda")
+
+
+FIELD_OBS = ("mag", "abs_mag", "phi2", "susceptibility", "binder")
+MEANS = ("mag_mean", "mag2_mean", "mag4_mean", "absmag_mean", "phi2_mean", "act_mean",
+         "corr_mean")
+
+
+def test_cli_run_phi4_2d_cpu_matches_jax_runtime(tmp_path):
+    mpath, ck = tmp_path / "m.jsonl", tmp_path / "ck.npz"
+    cli.main(["run", "--preset", "phi4_2d", "--device", "cpu", "--chains", "2", "--loops", "4",
+              "--frames", "2", "--burn", "1", "--metrics", str(mpath), "--out", str(ck)])
+    state, cfg = checkpoint.load(ck, "cpu")
+    assert cfg.shape == (256, 256) and int(state.step) == 1 + 3 * 4
+    recs = _records(mpath)
+    frames = [r for r in recs if r["type"] == "frame"]
+    assert len(frames) == 2 and recs[-1]["type"] == "summary"
+
+    jrecs = []
+    jres = jruntime.run_field(JFieldConfig.from_json(cfg.to_json()), backend="xla",
+                              sink=jmetrics.MetricsSink(callback=jrecs.append), burn_frames=1)
+    jframes = [r for r in jrecs if r["type"] == "frame"]
+    for got, want in zip(frames, jframes):
+        assert got["stable_frac"] == want["stable_frac"] == 1.0
+        assert got["dtau"] == want["dtau"]
+        for key in FIELD_OBS:
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-3, atol=1e-6, err_msg=key)
+    for leaf, got, want in zip(state._fields, state, jres.state):
+        want = np.asarray(want)
+        if leaf in ("runs", "stab_cnt", "step"):
+            np.testing.assert_array_equal(got.numpy().astype(want.dtype), want, err_msg=leaf)
+        elif leaf in MEANS:
+            np.testing.assert_allclose(got.numpy(), want, rtol=3e-5, atol=3e-6, err_msg=leaf)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-6, err_msg=leaf)
+
+
+def test_field_resume_and_preemption_are_bitwise(tmp_path):
+    cfg = FieldConfig(shape=(8, 16), dtau=0.01, n_chains=2, loops=4, frames=4, fps=1, seed=3,
+                      sweep=Sweep.CHECKERBOARD)
+    full = runtime.run_field(cfg, device="cpu", sink=metrics.MetricsSink(), burn_frames=1).state
+    ck = tmp_path / "pre.npz"
+    calls = {"n": 0}
+
+    def stop():
+        calls["n"] += 1
+        return calls["n"] >= 3  # trip at the end of frame 3
+
+    mpath = tmp_path / "m.jsonl"
+    with open(mpath, "w") as fh:
+        runtime.run_field(cfg, device="cpu", sink=metrics.MetricsSink(stream=fh), burn_frames=1,
+                          checkpoint_out=str(ck), stop=stop)
+    recs = _records(mpath)
+    assert any(r["type"] == "preempted" and r["frames_done"] == 3 for r in recs)
+    assert all(np.isfinite(r[k]) for r in recs if r["type"] == "frame" for k in FIELD_OBS)
+    res = runtime.run_field(cfg, device="cpu", sink=metrics.MetricsSink(), burn_frames=1,
+                            checkpoint_in=str(ck), resume_progress=True)
+    for name, a, b in zip(full._fields, res.state, full):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+CUDA = torch.device("cuda")
+BASE = FieldConfig(shape=(256, 256), loops=100)
+
+
+@pytest.mark.parametrize("change,backend,device,want", [
+    # the JAX rule: whole-lattice kernels up to 1 MiB per chain, else tiled
+    ({}, "auto", CUDA, "cuda"),
+    ({}, "cuda", CUDA, "cuda"),
+    (dict(shape=(512, 512)), "auto", CUDA, "cuda"),
+    (dict(shape=(1024, 512)), "auto", CUDA, "cuda_tiled"),
+    (dict(shape=(1024, 1024), sweep=Sweep.CHECKERBOARD), "cuda", CUDA, "cuda_tiled"),
+    (dict(tile_rows=64), "auto", CUDA, "cuda_tiled"),
+    (dict(loops=7), "auto", CUDA, "cuda"),
+    ({}, "torch", CUDA, "torch"),
+    (dict(shape=(32, 32, 32, 32)), "torch", CUDA, "torch"),
+    ({}, "auto", torch.device("cpu"), "torch"),
+    (dict(shape=(32, 32, 32, 32)), "auto", torch.device("cpu"), "torch"),
+])
+def test_field_routing(change, backend, device, want):
+    cfg = dataclasses.replace(BASE, **change)
+    assert runtime.select_field_backend(cfg, backend, device) == want
+
+
+@pytest.mark.parametrize("change,backend,device,match", [
+    (dict(shape=(32, 32, 32, 32)), "auto", CUDA, "D >= 3"),
+    (dict(shape=(16, 16, 16)), "cuda", CUDA, "D >= 3"),
+    (dict(mesh_axes=("x", None)), "auto", CUDA, "mesh_axes"),
+    (dict(mesh_axes=("x", None)), "torch", torch.device("cpu"), "mesh_axes"),
+    (dict(mesh_chain_axis="chains"), "auto", CUDA, "mesh_chain_axis"),
+    (dict(tile_rows=0), "auto", CUDA, "autotune"),
+    (dict(rng_impl="hardware"), "auto", CUDA, "hardware"),
+    (dict(rng_impl="hardware"), "torch", torch.device("cpu"), "hardware"),
+    (dict(scheme=Scheme.EXACT, action="free_field"), "auto", CUDA, "EXACT"),
+    (dict(scheme=Scheme.EXACT), "torch", torch.device("cpu"), "EXACT"),
+    (dict(dtype="float64"), "cuda", CUDA, "float32"),
+    (dict(tile_rows=64, loops=7), "auto", CUDA, "even loops"),
+    (dict(shape=(2048, 2048), loops=5), "cuda", CUDA, "even loops"),
+    ({}, "cuda", torch.device("cpu"), "CUDA device"),
+    ({}, "pallas", CUDA, "backend"),
+])
+def test_field_routing_raises_for_what_is_not_ported(change, backend, device, match):
+    cfg = dataclasses.replace(BASE, **change)
+    with pytest.raises(ValueError, match=match):
+        runtime.select_field_backend(cfg, backend, device)
