@@ -53,15 +53,43 @@ non-zero:
    ``bench.py``'s field shape (256² × 16, loops 100, seed 13,
    frames_per_launch 1 and 10) and at the tiled 1024² × 16 shape; CUDA-event
    ms per launch of each field kernel and wall ms of its plain version at
-   those shapes, held against each other as in 6.
+   those shapes, held against each other as in 6;
+10. gauge kernels vs plain: kernels 10 (``gauge_frame``) and 11
+    (``gauge_frames_multi``) against their plain versions for U(1), SU(2)
+    and SU(3) on 8×16 and 16×128 (``bench.py``'s gate shapes): a hot start
+    with odd ``loops`` and one chain holding a NaN link (its frames
+    rejected, Δτ shrinking), and an active drift cap with Δτ growing into
+    ``dtau_max``; K = 1 (kernel 10 + the PyTorch epilogue) and K = 3.
+    Limits: ``stable``, ``runs``, ``stab_cnt``, ``step`` exact; links, Δτ
+    and ``drift_max`` within 2e-6 (NaN where the plain version has NaN);
+    ``plaq_mean`` within rtol 3e-5, atol 3e-6;
+11. gauge main path: ``cli run --preset u1_2d --chains 256
+    --frames-per-launch 2`` (two burn-in frames, one launch of kernel 11;
+    then 3 recorded frames, each kernel 10 + the PyTorch epilogue as the JAX
+    runner records every frame; ``--resume`` for one more, and an
+    uninterrupted 2 + 4-frame run: bitwise equal; kernels 10 and 11
+    launched; finite observables, stable_frac ≥ 0.99), then the same for
+    ``su3_2d`` with ``--measure-loops`` (Polyakov loop per record, one
+    ``wilson_loops`` record); kernel 10 and kernel 11 (K=2) from each run's
+    checkpoint held against their plain versions as in 10;
+12. gauge timings at ``bench.py``'s full-width cells (u1 256² × 32, su2
+    128² × 16, su3 64² × 8, frames_per_launch 1): link-update MLUPS of the
+    kernel path and the plain path (``loops`` cut, and the cut printed, if a
+    plain frame would take over 60 s), kernel 10's CUDA-event ms beside the
+    plain frame's wall ms, held against each other; then K = 8 against
+    K = 1 at 256 chains (u1 and su2 on 16×128, su3 on 8×128, loops 10) with
+    kernel 11 held against its plain version.
 
-Prints a JSON line with the kernels' numbers, then the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.
+Prints a JSON line with the seven kernels' numbers (name, route, source,
+the TPU kernel it replaces, main-path launches, max|Δ|, ms and plain ms),
+then the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -82,10 +110,26 @@ KERNELS = {
     "field_frame": ("field_kernel.cu", "stochquant_tpu/kernels/field_kernel.py:205"),
     "field_frames_multi": ("field_kernel.cu", "stochquant_tpu/kernels/field_kernel.py:498"),
     "field_pair": ("field_kernel_tiled.cu", "stochquant_tpu/kernels/field_kernel_tiled.py:189"),
+    "gauge_frame": ("gauge_kernel.cu", "stochquant_tpu/kernels/gauge_kernel.py:434"),
+    "gauge_frames_multi": ("gauge_kernel.cu", "stochquant_tpu/kernels/gauge_kernel.py:1144"),
 }
 FIELD_RTOL, FIELD_ATOL = 3e-5, 3e-6  # site-reduced sums: tests/test_field_kernel.py:35
 BENCH_FIELD = dict(shape=(256, 256), n_chains=16, loops=100, seed=13, grow_after=10**9)
 TILED_FIELD = dict(shape=(1024, 1024), n_chains=16, loops=100, seed=13, grow_after=10**9)
+# bench.py's gauge cells (bench.py:297-385 at frames_per_launch 1; 444-477 multiframe)
+BENCH_GAUGE = {
+    "u1": dict(group="u1", beta=1.0, shape=(256, 256), n_chains=32, dtau=5e-3, loops=100,
+               seed=15, grow_after=10**9),
+    "su2": dict(group="su2", beta=2.0, shape=(128, 128), n_chains=16, dtau=2e-3, loops=100,
+                seed=19, grow_after=10**9),
+    "su3": dict(group="su3", beta=5.0, shape=(64, 64), n_chains=8, dtau=1e-3, loops=50,
+                seed=19, grow_after=10**9),
+}
+MULTI_GAUGE = {
+    "u1": dict(group="u1", beta=1.0, shape=(16, 128), dtau=5e-3),
+    "su2": dict(group="su2", beta=2.0, shape=(16, 128), dtau=2e-3),
+    "su3": dict(group="su3", beta=5.0, shape=(8, 128), dtau=1e-3),
+}
 
 
 def log(msg: str) -> None:
@@ -138,7 +182,7 @@ EXACT = ("runs", "stab_cnt", "step", "unstable", "stable")
 # the kernels than by torch.mean / torch.sum in the plain versions
 SITE_REDUCED = {"mag_mean", "mag2_mean", "mag4_mean", "absmag_mean", "phi2_mean", "act_mean",
                 "corr_mean", "ms", "m2s", "m4s", "ams", "p2s", "acs", "cs", "sl0", "sl1",
-                "strip_means"}
+                "strip_means", "plaq_mean"}
 
 
 def leaves(result) -> list:
@@ -160,9 +204,10 @@ def leaves(result) -> list:
 
 def gate(label: str, got, want) -> float:
     """Hold a kernel's result against its plain version's: exact leaves
-    equal, the field kernels' site-reduced leaves within FIELD_RTOL /
-    FIELD_ATOL, every other float leaf within GATE.  Returns max|Δ| over
-    every float leaf."""
+    equal, the site-reduced leaves of the field and gauge kernels within
+    FIELD_RTOL / FIELD_ATOL, every other float leaf within GATE (complex
+    leaves by their parts; NaN must stand where the plain version has NaN).
+    Returns max|Δ| over every float leaf."""
     import torch
 
     torch.cuda.synchronize()
@@ -172,6 +217,13 @@ def gate(label: str, got, want) -> float:
             if not torch.equal(x.cpu(), y.cpu()):
                 bad.append(name)
             continue
+        if x.is_complex():
+            x, y = torch.view_as_real(x), torch.view_as_real(y)
+        nan = torch.isnan(x)
+        if not torch.equal(nan, torch.isnan(y)):  # NaN must meet NaN (a rejected chain)
+            bad.append(name + " (NaN)")
+            continue
+        x, y = x[~nan], y[~nan]
         diff = (x.double() - y.double()).abs()
         err = float(diff.max()) if diff.numel() else 0.0
         worst = max(worst, err)
@@ -623,6 +675,226 @@ def phase_field_timings(torch, device, fk, ft, field, actions, cfgmod, large, ca
     return out
 
 
+# ---------------------------------------------------------------------------
+# gauge path: kernels 10 and 11
+# ---------------------------------------------------------------------------
+
+def gauge_gate_cases(GaugeConfig):
+    """(name, config, chain given a NaN link or None): per group, on 8×16 and
+    on 16×128, a hot start with odd loops and a chain whose frames are
+    rejected (Δτ shrinks), and a hot start under an active drift cap with
+    Δτ growing into dtau_max."""
+    cases = []
+    for group, beta, dtau in (("u1", 1.0, 5e-3), ("su2", 2.0, 2e-3), ("su3", 5.0, 1e-3)):
+        for shape in ((8, 16), (16, 128)):
+            base = dict(group=group, beta=beta, shape=shape, n_chains=3, dtau=dtau)
+            cases.append((f"{group}_{shape[0]}x{shape[1]}_hot_odd_rejected",
+                          GaugeConfig(**base, loops=5, seed=31, hot_start=True), 1))
+            cases.append((f"{group}_{shape[0]}x{shape[1]}_cap_grow_dtau_max",
+                          GaugeConfig(**base, loops=6, seed=37, hot_start=True, drift_cap=0.5,
+                                      grow_after=1, dtau_max=dtau * 1.03), None))
+    return cases
+
+
+def with_nan_link(state, chain):
+    links = state.links.clone()
+    links.view(links.shape[0], -1)[chain, 3] = float("nan")
+    return state._replace(links=links)
+
+
+def phase_gauge_gate(torch, gk, gauge, device) -> None:
+    """Kernels 10 and 11 against their plain versions on the card, K = 1
+    (three launches of kernel 10 + the PyTorch epilogue) and K = 3."""
+    for name, cfg, nan_chain in gauge_gate_cases(gauge.GaugeConfig):
+        act = gauge.resolve_gauge_action(cfg)
+        s0 = gauge.init_gauge_state(cfg, act, device=device)
+        if nan_chain is not None:
+            s0 = with_nan_link(s0, nan_chain)
+        plain = gk.gauge_frames_multi_ref(s0, act, cfg, 3)
+        gate(f"{name} gauge_frame x3 + epilogue", gk.run_gauge_frames_kernel(s0, act, cfg, 3),
+             plain)
+        gate(f"{name} gauge_frames_multi K=3", gk.gauge_frames_multi(s0, act, cfg, 3), plain)
+        stable, dtau = plain[1]["stable"], plain[1]["dtau"]
+        if nan_chain is not None and not (bool(stable.all(dim=0).sum() == 2)
+                                          and bool((dtau[:, nan_chain] < cfg.dtau).all())):
+            raise SystemExit(f"gate case {name} did not reject exactly its NaN chain")
+        if nan_chain is None and not (bool(stable.all())
+                                      and bool((dtau == float(cfg.dtau_max)).any())
+                                      and bool((plain[1]["drift_max"] > cfg.drift_cap).all())):
+            raise SystemExit(f"gate case {name} did not cap the drift and grow into dtau_max")
+
+
+def check_gauge_records(tmp: Path, part: str, loops: bool) -> None:
+    recs = [json.loads(line) for line in open(tmp / f"{part}.jsonl")]
+    frames = [r for r in recs if r["type"] == "frame"]
+    if not frames or recs[-1]["type"] != "summary":
+        raise SystemExit(f"run {part}: missing frame or summary records")
+    keys = ("plaquette", "plaquette_exact_2d", "drift_max") + (
+        ("polyakov_re", "polyakov_im") if loops else ())
+    for r in frames:
+        for key in keys:
+            if not (isinstance(r[key], float) and abs(r[key]) < 1e6):
+                raise SystemExit(f"run {part}: non-finite {key} {r[key]!r}")
+        if r["stable_frac"] < 0.99:
+            raise SystemExit(f"run {part}: stable_frac {r['stable_frac']} < 0.99")
+    if loops:
+        w = [r for r in recs if r["type"] == "wilson_loops"]
+        if len(w) != 1 or not all(abs(v) <= 1.0 for row in w[0]["w"] for v in row):
+            raise SystemExit(f"run {part}: missing or bad wilson_loops record")
+    log(f"  run {part}: {len(frames)} frame record(s), last stable_frac "
+        f"{frames[-1]['stable_frac']}, plaquette {frames[-1]['plaquette']:.5f} (exact 2-D "
+        f"{frames[-1]['plaquette_exact_2d']:.5f}), drift_max {frames[-1]['drift_max']:.4f}, "
+        f"avg_mlups {recs[-1]['avg_mlups']}")
+
+
+def gauge_cli_runs(torch, cli, checkpoint, counters, tmp: Path, preset: str, extra: list) -> dict:
+    """2 burn-in frames + 3 frames, --resume for 1, and an uninterrupted 2 +
+    4 frames of ``preset`` at 256 chains, K = 2 (the burn-in is one launch of
+    kernel 11; each recorded frame is kernel 10 + the PyTorch epilogue, as
+    the JAX runner records every frame); every launch count set to 0 just
+    before and read just after.  Returns the counts."""
+    common = ["run", "--preset", preset, "--chains", "256", "--device", "cuda",
+              "--frames-per-launch", "2", *extra]
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    cli.main(common + ["--burn", "2", "--frames", "3", "--out", str(tmp / f"{preset}a.npz"),
+                       "--metrics", str(tmp / f"{preset}a.jsonl")])
+    cli.main(common + ["--frames", "1", "--resume", str(tmp / f"{preset}a.npz"),
+                       "--out", str(tmp / f"{preset}b.npz"),
+                       "--metrics", str(tmp / f"{preset}b.jsonl")])
+    cli.main(common + ["--burn", "2", "--frames", "4", "--out", str(tmp / f"{preset}c.npz"),
+                       "--metrics", str(tmp / f"{preset}c.jsonl")])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"  {preset} {' '.join(extra)}: 2 + 3 + resume 1 + uninterrupted 2 + 4 frames in "
+        f"{time.time() - t0:.1f}s; launch counts {launches}")
+    if min(launches.values()) < 1:
+        raise SystemExit(f"a kernel of the gauge main path was never launched: {launches}")
+    for part in "abc":
+        check_gauge_records(tmp, preset + part, "--measure-loops" in extra)
+    resumed, cfg = checkpoint.load(tmp / f"{preset}b.npz", "cpu")
+    straight, _ = checkpoint.load(tmp / f"{preset}c.npz", "cpu")
+    for name, x, y in zip(resumed._fields, resumed, straight):
+        if not torch.equal(x, y):
+            raise SystemExit(f"{preset}: resumed run differs from the uninterrupted one in {name}")
+    if resumed.links.shape[0] != 256 or int(resumed.step) != 1 + 6 * cfg.loops:
+        raise SystemExit(f"unexpected final state: links {tuple(resumed.links.shape)}, "
+                         f"step {int(resumed.step)}")
+    for name in ("links", "plaq_mean", "drift_max", "dtau"):
+        if not torch.isfinite(getattr(resumed, name)).all():
+            raise SystemExit(f"non-finite {name} in the final state")
+    log("  resumed 4th frame is bitwise equal to the uninterrupted run; final state finite")
+    return launches
+
+
+def phase_gauge_main_path(torch, gk, gauge, cli, checkpoint, tmp: Path):
+    """The port's CLI on presets u1_2d and su3_2d (with --measure-loops)
+    through kernels 10 and 11; then kernel 10 and kernel 11 (K=2) from each
+    run's checkpoint against their plain versions.  Returns (launch counts,
+    max|Δ| per kernel)."""
+    counters = {"gauge_frame": gk.gauge_frame, "gauge_frames_multi": gk.gauge_frames_multi}
+    launches, err = {k: 0 for k in counters}, {k: 0.0 for k in counters}
+    for preset, extra in (("u1_2d", []), ("su3_2d", ["--measure-loops"])):
+        for k, v in gauge_cli_runs(torch, cli, checkpoint, counters, tmp, preset, extra).items():
+            launches[k] += v
+        state, cfg = checkpoint.load(tmp / f"{preset}a.npz", "cuda")
+        act = gauge.resolve_gauge_action(cfg)
+        where = f"main path {preset} C={cfg.n_chains} {cfg.shape} loops={cfg.loops}"
+        err["gauge_frame"] = max(err["gauge_frame"], gate(
+            f"{where} gauge_frame + epilogue",
+            gk.gauge_frame(state, act, cfg), gk.gauge_frame_ref(state, act, cfg)))
+        err["gauge_frames_multi"] = max(err["gauge_frames_multi"], gate(
+            f"{where} gauge_frames_multi K=2",
+            gk.gauge_frames_multi(state, act, cfg, 2), gk.gauge_frames_multi_ref(state, act, cfg, 2)))
+    return launches, err
+
+
+def link_updates(cfg, frames: int) -> int:
+    return cfg.n_chains * cfg.ndim * math.prod(cfg.shape) * cfg.loops * frames
+
+
+def phase_gauge_timings(torch, device, gk, gauge, card: str) -> dict:
+    """Link-update MLUPS (chains·D·volume·loops·frames / s) of the kernel
+    path (median of 3 reps after a warm-up frame) and of the plain path (one
+    frame, ``loops`` cut if it would take over 60 s) at bench.py's full-width
+    gauge cells, kernel 10's CUDA-event ms beside the plain frame's wall ms,
+    each held against the other; then K = 8 against K = 1 at 256 chains."""
+    import dataclasses
+
+    out, err10, err11 = {}, 0.0, 0.0
+    for group, kw in BENCH_GAUGE.items():
+        cfg = gauge.GaugeConfig(**kw)
+        act = gauge.resolve_gauge_action(cfg)
+        state, _ = gk.run_gauge_frames_kernel(gauge.init_gauge_state(cfg, act, device=device),
+                                              act, cfg, 1)  # warm-up
+        reps = []
+        for _ in range(3):
+            holder = {}
+            reps.append(timed(torch, lambda: holder.update(
+                r=gk.run_gauge_frames_kernel(state, act, cfg, 3))))
+        t = sorted(reps)[1]
+        stable = float(holder["r"][1]["stable"].float().mean())
+        name = f"gauge_{group}"
+        out[name] = dict(mlups=link_updates(cfg, 3) / t / 1e6, seconds=t, reps=reps)
+        log(f"  {group} {cfg.shape[0]}x{cfg.shape[1]} x {cfg.n_chains} loops {cfg.loops} fpl 1 "
+            f"kernel path: "
+            f"{out[name]['mlups']:.1f} MLUPS (median of 3 reps of 3 frames, {t:.4f}s; reps "
+            f"{[round(r, 4) for r in reps]}; stable {stable:.4f}) [{card}]")
+        ms = cuda_ms(torch, lambda: gk.gauge_frame(state, act, cfg))
+        got = gk.gauge_frame(state, act, cfg)
+        loops = cfg.loops
+        probe = timed(torch, lambda: gk.gauge_frame_ref(state, act, dataclasses.replace(cfg,
+                                                                                       loops=2)))
+        if probe / 2 * cfg.loops > 60.0:
+            loops = max(2, int(60.0 / (probe / 2)))
+            log(f"  cut: a plain micro-step takes {probe / 2:.2f}s, so the plain frame runs "
+                f"loops={loops} instead of {cfg.loops}")
+        short = dataclasses.replace(cfg, loops=loops)
+        holder = {}
+        plain_s = timed(torch, lambda: holder.update(r=gk.gauge_frame_ref(state, act, short)))
+        out[name + "_plain_mlups"] = link_updates(short, 1) / plain_s / 1e6
+        if loops != cfg.loops:
+            got = gk.gauge_frame(state, act, short)
+        e = gate(f"{group} {cfg.shape} x {cfg.n_chains} loops={loops} gauge_frame", got,
+                 holder["r"])
+        err10 = max(err10, e)
+        out[name + "_ms"], out[name + "_plain_ms"] = ms, plain_s * 1e3 * cfg.loops / loops
+        log(f"  {group} gauge_frame kernel {ms:.3f} ms/launch (CUDA events, mean of 3), plain "
+            f"version {plain_s * 1e3:.1f} ms (once, loops {loops}): plain path "
+            f"{out[name + '_plain_mlups']:.2f} MLUPS [{card}]")
+    out["gauge_frame_ms"], out["gauge_frame_plain_ms"] = out["gauge_u1_ms"], out["gauge_u1_plain_ms"]
+
+    for group, kw in MULTI_GAUGE.items():
+        cfg = gauge.GaugeConfig(**kw, n_chains=256, loops=10, seed=29, grow_after=10**9)
+        act = gauge.resolve_gauge_action(cfg)
+        state, _ = gk.run_gauge_frames_kernel(gauge.init_gauge_state(cfg, act, device=device),
+                                              act, cfg, 1)
+        mlups = {}
+        for K in (1, 8):
+            reps = [timed(torch, lambda: gk.run_gauge_frames_kernel(
+                state, act, cfg, 8, frames_per_launch=K)) for _ in range(3)]
+            t = sorted(reps)[1]
+            mlups[K] = link_updates(cfg, 8) / t / 1e6
+            out[f"gauge_{group}_multi_K{K}"] = dict(mlups=mlups[K], seconds=t, reps=reps)
+        ms = cuda_ms(torch, lambda: gk.gauge_frames_multi(state, act, cfg, 8))
+        got = gk.gauge_frames_multi(state, act, cfg, 8)
+        holder = {}
+        plain_s = timed(torch, lambda: holder.update(r=gk.gauge_frames_multi_ref(state, act,
+                                                                                 cfg, 8)))
+        err11 = max(err11, gate(f"{group} {cfg.shape} x 256 loops=10 gauge_frames_multi K=8",
+                                got, holder["r"]))
+        out[f"gauge_{group}_multi_ms"], out[f"gauge_{group}_multi_plain_ms"] = ms, plain_s * 1e3
+        log(f"  {group} {cfg.shape} x 256 loops 10: K=1 {mlups[1]:.1f}, K=8 {mlups[8]:.1f} "
+            f"MLUPS (x{mlups[8] / mlups[1]:.2f}, medians of 3 reps of 8 frames); "
+            f"gauge_frames_multi K=8 {ms:.3f} ms/launch, plain version {plain_s * 1e3:.1f} ms "
+            f"(once) [{card}]")
+    out["gauge_frames_multi_ms"] = out["gauge_u1_multi_ms"]
+    out["gauge_frames_multi_plain_ms"] = out["gauge_u1_multi_plain_ms"]
+    out["gauge_frame_err"], out["gauge_frames_multi_err"] = err10, err11
+    return out
+
+
 def main() -> int:
     if not (ROOT / "stochquant_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -646,12 +918,13 @@ def main() -> int:
 
     from stochquant_tpu_torch import actions, cli, metrics, runtime
     from stochquant_tpu_torch import config as cfgmod
-    from stochquant_tpu_torch.integrators import field, langevin
+    from stochquant_tpu_torch.integrators import field, gauge, langevin
     from stochquant_tpu_torch.io import checkpoint
     from stochquant_tpu_torch.kernels import _build
     from stochquant_tpu_torch.kernels import chain_kernel as ck
     from stochquant_tpu_torch.kernels import field_kernel as fk
     from stochquant_tpu_torch.kernels import field_kernel_tiled as ft
+    from stochquant_tpu_torch.kernels import gauge_kernel as gk
 
     # 2. build
     t0 = time.time()
@@ -695,15 +968,38 @@ def main() -> int:
     log(f"[9] field timings [{card}]:")
     t.update(phase_field_timings(torch, device, fk, ft, field, actions, cfgmod, large, card))
 
+    # 10. gauge kernels vs plain on the card
+    log(f"[10] gauge kernels vs plain PyTorch versions on the card (exact leaves equal; links, "
+        f"Δτ, drift_max within {GATE:g}; plaq_mean within rtol {FIELD_RTOL:g}, atol "
+        f"{FIELD_ATOL:g}):")
+    phase_gauge_gate(torch, gk, gauge, device)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 11. gauge main path
+        log("[11] gauge main path: cli run --preset u1_2d / su3_2d --chains 256 "
+            "--frames-per-launch 2 --burn 2:")
+        gauge_launches, gauge_main_err = phase_gauge_main_path(torch, gk, gauge, cli, checkpoint,
+                                                               Path(tmp))
+        launches.update(gauge_launches)
+
+    # 12. gauge timings at bench.py's shapes, with kernel vs plain there
+    log(f"[12] gauge timings [{card}]:")
+    t.update(phase_gauge_timings(torch, device, gk, gauge, card))
+
     # max_abs_err: the comparisons at the main paths' shapes (chain: headline
     # K=1, main-path state K=2, config 2 K=16; field: 256^2 x 16 K=1 and K=10,
-    # main-path states K=2 and one tiled pair, 1024^2 x 16 tiled)
+    # main-path states K=2 and one tiled pair, 1024^2 x 16 tiled; gauge: the
+    # three full-width cells K=1, the main-path states K=1 and K=2 and the
+    # multiframe cells K=8)
     err = {"chain_frame": t["chain_frame_err"],
            "chain_frames_multi": max(main_k2_err, t["chain_frames_multi_err"]),
            "field_frame": t["field_frame_err"],
            "field_frames_multi": max(field_err["field_frames_multi"],
                                      t["field_frames_multi_err"]),
-           "field_pair": max(field_err["field_pair"], t["field_pair_err"])}
+           "field_pair": max(field_err["field_pair"], t["field_pair_err"]),
+           "gauge_frame": max(gauge_main_err["gauge_frame"], t["gauge_frame_err"]),
+           "gauge_frames_multi": max(gauge_main_err["gauge_frames_multi"],
+                                     t["gauge_frames_multi_err"])}
     kernels = [
         {"name": kname, "route": "cuda", "source": CSRC + src, "replaces": replaces,
          "launches": launches[kname], "max_abs_err": err[kname],

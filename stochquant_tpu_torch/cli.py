@@ -1,4 +1,4 @@
-"""Command-line runner for chain and field presets (port of
+"""Command-line runner for chain, field and compact gauge presets (port of
 ``stochquant_tpu.cli run``).
 
 Examples:
@@ -7,6 +7,8 @@ Examples:
     python -m stochquant_tpu_torch.cli run --preset harmosc --device cpu --frames 5 --loops 20
     python -m stochquant_tpu_torch.cli run --preset phi4_2d --chains 16 --frames 20
     python -m stochquant_tpu_torch.cli run --preset phi4_2d --chains 16 --tile-rows 64
+    python -m stochquant_tpu_torch.cli run --preset su3_2d --frames 20 --measure-loops
+    python -m stochquant_tpu_torch.cli run --preset u1_2d --device cpu --frames 3 --loops 10
 """
 
 from __future__ import annotations
@@ -21,30 +23,43 @@ import torch
 
 from stochquant_tpu_torch import metrics as metrics_mod
 from stochquant_tpu_torch import runtime
-from stochquant_tpu_torch.config import PRESETS, ChainConfig, Scheme
+from stochquant_tpu_torch.config import PRESETS, ChainConfig, FieldConfig, Scheme
+from stochquant_tpu_torch.integrators.gauge import GaugeConfig
+
+#: The JAX package's compact-group gauge presets (``stochquant_tpu.cli``).
+GAUGE_PRESETS = {
+    "u1_2d": GaugeConfig(group="u1", beta=1.0, shape=(16, 16), n_chains=64),
+    "su2_2d": GaugeConfig(group="su2", beta=2.0, shape=(16, 16), n_chains=64),
+    "su3_2d": GaugeConfig(group="su3", beta=2.0, shape=(8, 8), n_chains=64),
+    "su3_4d": GaugeConfig(group="su3", beta=5.7, shape=(4, 4, 4, 4), n_chains=4, dtau=1e-3),
+    "su2_4d": GaugeConfig(group="su2", beta=2.2, shape=(8, 8, 8, 8), n_chains=8, dtau=1e-3),
+}
 
 
 def _apply_overrides(cfg, args):
+    """The options given, each applied only where the config has the field."""
     updates = {}
     for arg, field in (
         ("frames", "frames"), ("loops", "loops"), ("chains", "n_chains"),
         ("dtau", "dtau"), ("seed", "seed"), ("fps", "fps"),
         ("frames_per_launch", "frames_per_launch"), ("rng", "rng_impl"),
+        ("tile_rows", "tile_rows"),
     ):
         value = getattr(args, arg)
-        if value is not None:
+        if value is not None and hasattr(cfg, field):
             updates[field] = value
-    if args.scheme is not None:
+    if args.scheme is not None and hasattr(cfg, "scheme"):
         updates["scheme"] = Scheme[args.scheme.upper()]
-    if args.tile_rows is not None and hasattr(cfg, "tile_rows"):
-        updates["tile_rows"] = args.tile_rows
+    if args.measure_loops and hasattr(cfg, "measure_loops"):
+        updates["measure_loops"] = True
     return dataclasses.replace(cfg, **updates) if updates else cfg
 
 
 def cmd_run(args):
-    preset = PRESETS.get(args.preset)
+    presets = {**PRESETS, **GAUGE_PRESETS}
+    preset = presets.get(args.preset)
     if preset is None:
-        sys.exit(f"unknown preset {args.preset!r}; known: {sorted(PRESETS)}")
+        sys.exit(f"unknown preset {args.preset!r}; known: {sorted(presets)}")
     cfg = _apply_overrides(preset, args)
     resume, resume_progress = args.resume, False
     if args.auto_resume:
@@ -62,7 +77,8 @@ def cmd_run(args):
             stack.callback(_export_trace, prof, args.profile)  # runs after the profiler stops
             stack.enter_context(prof)
         guard = stack.enter_context(runtime.PreemptionGuard())
-        run = runtime.run_chain if isinstance(cfg, ChainConfig) else runtime.run_field
+        run = (runtime.run_chain if isinstance(cfg, ChainConfig)
+               else runtime.run_field if isinstance(cfg, FieldConfig) else runtime.run_gauge)
         run(
             cfg, device=args.device, backend=args.backend, burn_frames=args.burn,
             sink=metrics_mod.MetricsSink(stream=stream), checkpoint_out=args.out,
@@ -80,7 +96,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="stochquant_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    r = sub.add_parser("run", help="run a chain or field preset simulation")
+    r = sub.add_parser("run", help="run a chain, field or gauge preset simulation")
     r.add_argument("--preset", required=True)
     r.add_argument("--frames", type=int)
     r.add_argument("--loops", type=int)
@@ -97,7 +113,8 @@ def main(argv=None):
         "--backend", default="auto", choices=list(runtime.BACKENDS),
         help="execution path: the hand-written CUDA kernels vs the plain "
         "PyTorch integrator; auto = cuda on a CUDA device, torch on the CPU "
-        "(phi4_4d runs only with torch: its kernel is not ported yet)",
+        "(phi4_4d runs only with torch: its kernel is not ported yet; auto runs "
+        "su2_4d and su3_4d on the plain path, as the JAX package has no 4-D gauge kernel)",
     )
     r.add_argument(
         "--tile-rows", type=int,
@@ -106,8 +123,13 @@ def main(argv=None):
     )
     r.add_argument(
         "--frames-per-launch", type=int,
-        help="CUDA backend, chain and whole-lattice field kernels: batch this "
-        "many frames per kernel launch with the accept/reject + Δτ epilogue in-kernel",
+        help="CUDA backend, chain, whole-lattice field and gauge kernels: batch this "
+        "many frames per kernel launch with the accept/reject + Δτ epilogue in-kernel "
+        "(gauge runs also write one metrics record per batch)",
+    )
+    r.add_argument(
+        "--measure-loops", action="store_true",
+        help="gauge presets: per-record Polyakov loop + final Wilson-loop table",
     )
     r.add_argument(
         "--scheme", choices=["em", "heun", "lm", "exact"],

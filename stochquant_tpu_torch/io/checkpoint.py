@@ -6,8 +6,9 @@ given, ``frames_done``) — the layout of
 ``stochquant_tpu.io.checkpoint.save``, so a checkpoint written by either
 package resumes in the other.  On disk ``runs`` is a ``(C, 2)`` uint32
 (lo, hi) pair and ``step`` a uint32 scalar; in memory they are int64
-tensors holding the same words.  The ``"chain"`` (``ChainState``) and
-``"field"`` (``FieldState``) kinds are ported.
+tensors holding the same words.  The ``"chain"`` (``ChainState``),
+``"field"`` (``FieldState``) and ``"gauge"`` (``GaugeState``; SU(3) links
+complex64 in memory and on disk) kinds are ported.
 """
 
 from __future__ import annotations
@@ -20,10 +21,12 @@ import torch
 
 from stochquant_tpu_torch.config import ChainConfig, FieldConfig
 from stochquant_tpu_torch.integrators.field import FieldState
+from stochquant_tpu_torch.integrators.gauge import GaugeConfig, GaugeState
 from stochquant_tpu_torch.integrators.langevin import ChainState
 
 # kind tag -> (state class, config class); the JAX package's on-disk tags
-_KIND = {"chain": (ChainState, ChainConfig), "field": (FieldState, FieldConfig)}
+_KIND = {"chain": (ChainState, ChainConfig), "field": (FieldState, FieldConfig),
+         "gauge": (GaugeState, GaugeConfig)}
 _STATE_KIND = {cls: kind for kind, (cls, _) in _KIND.items()}
 _U32_LEAVES = ("runs", "step")
 # moment channels older checkpoints lack, with the second moment they are
@@ -41,10 +44,13 @@ def state_to_numpy(state) -> dict:
 
 
 def state_from_numpy(arrays: dict, device):
-    """A ``ChainState`` or ``FieldState`` (told apart by its leaves) on
-    ``device`` from numpy arrays, e.g. the leaves of the JAX package's state;
-    ``step`` stays on the host."""
-    cls = FieldState if "phi" in arrays else ChainState
+    """A ``ChainState``, ``FieldState`` or ``GaugeState`` (the one whose
+    leaves ``arrays`` holds) on ``device`` from numpy arrays, e.g. the leaves
+    of the JAX package's state; ``step`` stays on the host."""
+    found = [cls for cls in _STATE_KIND if set(cls._fields) <= set(arrays)]
+    if len(found) != 1:
+        raise ValueError(f"leaves {sorted(arrays)} match no single state class: {found}")
+    cls = found[0]
     leaves = []
     for name in cls._fields:
         a = np.asarray(arrays[name])
@@ -84,8 +90,8 @@ def load(path, device):
         meta = json.loads(bytes(z["meta"].tobytes()).decode())
         if meta["kind"] not in _KIND:
             raise ValueError(
-                f"checkpoint {path} holds a {meta['kind']!r} run; only chain and field "
-                "checkpoints are ported"
+                f"checkpoint {path} holds a {meta['kind']!r} run; only chain, field "
+                "and gauge checkpoints are ported"
             )
         cls, cfg_cls = _KIND[meta["kind"]]
         arrays = {}

@@ -29,7 +29,7 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("chain_kernel.cu", "field_kernel.cu", "field_kernel_tiled.cu")
+_SOURCES = ("chain_kernel.cu", "field_kernel.cu", "field_kernel_tiled.cu", "gauge_kernel.cu")
 _HEADERS = ("sq_rng.cuh", "field_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -132,6 +132,21 @@ class FieldParams(ctypes.Structure):
     ]
 
 
+class GaugeParams(ctypes.Structure):
+    """Launch parameters of the gauge kernels 10 and 11, field for field the
+    ``GaugeParams`` struct of ``csrc/gauge_kernel.cu`` (all 4-byte fields)."""
+
+    _fields_ = [
+        (name, ctypes.c_int32) for name in (
+            "n_chains", "L0", "L1", "group", "loops", "n_frames", "grow_after", "has_dtau_max",
+        )
+    ] + [(name, ctypes.c_uint32) for name in ("seed", "step0")] + [
+        (name, ctypes.c_float) for name in (
+            "coef", "cap", "clip_hi", "inv_vol", "shrink", "dtau_max", "inv_loops", "loops_f",
+        )
+    ]
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The compiled kernel library (built on first call in this process),
@@ -143,10 +158,12 @@ def library() -> ctypes.CDLL:
     ptr = ctypes.c_void_p
     chain = ctypes.POINTER(ChainParams)
     field = ctypes.POINTER(FieldParams)
+    gauge = ctypes.POINTER(GaugeParams)
     for fn, params, n_ptr in (
         (lib.sq_chain_frame, chain, 12), (lib.sq_chain_frames, chain, 23),
         (lib.sq_field_frame, field, 11), (lib.sq_field_frames, field, 21),
         (lib.sq_field_pair, field, 7),
+        (lib.sq_gauge_frame, gauge, 9), (lib.sq_gauge_frames, gauge, 18),
     ):
         fn.argtypes = [params] + [ptr] * n_ptr + [ptr]  # tensors, then the stream
         fn.restype = ctypes.c_int

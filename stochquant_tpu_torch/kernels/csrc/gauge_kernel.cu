@@ -1,0 +1,675 @@
+// 2-D compact Wilson gauge Langevin frames for NVIDIA Hopper (sm_90a).
+//
+// Replaces the two Pallas TPU kernels of stochquant_tpu/kernels/gauge_kernel.py:
+//   kernel 10  sq_gauge_frame  <- _frame_call_g / _build_frame_kernel with
+//              _u1_ops, _su2_ops (_su2_step_math_fn) and _su3_ops
+//              (one frame of `loops` micro-steps per chain; returns the links,
+//              the frame plaquette sum, the drift max and the unstable flag;
+//              the accept/reject epilogue runs outside in PyTorch)
+//   kernel 11  sq_gauge_frames <- _multiframe_call / _build_multiframe_kernel
+//              (K frames per launch with the accept/reject, plaquette merge,
+//              (lo, hi) sample-count carry and adaptive-dtau epilogue in-kernel)
+//
+// Per micro-step and chain: the drift F of every link; the drift norm, max
+// over the chain's lattice; dtau_eff = dtau * min(1, cap / max(dnorm, 1e-30));
+// the exact group update (u1: wrap(theta + omega); su2: quaternion
+// exponential and normalisation; su3: Cayley-Hamilton exp(i Omega), product
+// and one Newton projection with the det phase divided out) with
+// omega = dtau_eff F + sqrt(2 dtau_eff) eta; the mean plaquette of the
+// pre-update links; a chain whose new links are not finite keeps them and is
+// frozen for the rest of the frame.  Noise: one Threefry pair per counter
+// (seed, FIELD ^ chain << 8, C-order index over (noise plane, L0, L1), step),
+// both Box-Muller outputs, the second for the next micro-step.
+//
+// Every expression is the one of the plain PyTorch version
+// (stochquant_tpu_torch/actions/gauge.py, integrators/gauge.py), operand for
+// operand, built with --fmad=false and IEEE division and square root, so the
+// two agree bit for bit; only the plaquette's site sum is taken in another
+// order than torch.mean.
+//
+// What bounds it on the card, and the design: the drift cap rescales every
+// link of a chain by the chain's global max |F|, so no link may move before
+// the whole lattice's drift is known.  One block per chain runs each
+// micro-step in two passes: pass 1 computes F (stored in a scratch buffer),
+// the drift norm and the plaquette; a fixed-order block reduction (warp
+// xor-shuffle, then warps in order; NaN-propagating max) makes them
+// block-uniform; pass 2 reads F, draws the noise and updates the thread's own
+// links in place.  Pass 1 reads neighbours' links, pass 2 only its own, so
+// two barriers per micro-step suffice.  A lattice does not fit one block's
+// shared memory (u1 256^2: 512 KiB; su3 64^2: 576 KiB), so links, F and the
+// kept noise live in global buffers that stay in L2.  su3 is arithmetic
+// bound (~5,000 flops per site and micro-step, 256 threads a block for the
+// registers); with one block per chain only n_chains SMs work.
+
+#include "sq_rng.cuh"
+
+// Mirrors GaugeParams in stochquant_tpu_torch/kernels/_build.py: every field
+// is 4 bytes, so the two layouts agree without padding rules.
+struct GaugeParams {
+    int32_t n_chains;     // chains in this launch
+    int32_t L0;           // lattice rows (direction 0)
+    int32_t L1;           // lattice columns (direction 1)
+    int32_t group;        // 0 u1, 1 su2, 2 su3
+    int32_t loops;        // micro-steps per frame
+    int32_t n_frames;     // K (kernel 11)
+    int32_t grow_after;
+    int32_t has_dtau_max;
+    uint32_t seed;
+    uint32_t step0;       // micro-step counter at the first frame
+    float coef;           // u1: float32(-beta); su2: float32(-0.5 beta); su3: float32(beta / 12)
+    float cap;            // float32(drift_cap)
+    float clip_hi;        // float32(1 - 1e-6), the arccos argument's upper bound
+    float inv_vol;        // float32(1 / (L0 L1))
+    float shrink, dtau_max, inv_loops, loops_f;
+};
+
+enum { GROUP_U1 = 0, GROUP_SU2 = 1, GROUP_SU3 = 2 };
+enum { NOISE_DRAW = 0, NOISE_DRAW_KEEP = 1, NOISE_KEPT = 2 };
+
+// Per group: link planes, noise planes, force planes, threads per block.
+template <int G> struct Layout;
+template <> struct Layout<GROUP_U1> { enum { P = 2, NP = 2, FP = 2, T = 1024 }; };
+template <> struct Layout<GROUP_SU2> { enum { P = 8, NP = 6, FP = 6, T = 512 }; };
+template <> struct Layout<GROUP_SU3> { enum { P = 36, NP = 16, FP = 36, T = 256 }; };
+
+// max / min that return NaN when either operand is NaN (torch.maximum,
+// torch.minimum); fmaxf / fminf would drop it.
+__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || isnan(a)) ? a : b; }
+__device__ __forceinline__ float nan_min(float a, float b) { return (a < b || isnan(a)) ? a : b; }
+
+// Lattice neighbours with periodic wrap: the site index of (r + dr, c + dc).
+struct Nbr {
+    int L0, L1;
+    __device__ __forceinline__ int at(int r, int c, int dr, int dc) const {
+        r += dr;
+        c += dc;
+        r = r < 0 ? r + L0 : (r >= L0 ? r - L0 : r);
+        c = c < 0 ? c + L1 : (c >= L1 ? c - L1 : c);
+        return r * L1 + c;
+    }
+};
+
+// ---- U(1) -------------------------------------------------------------------
+
+// P01(x) = t0(x) + t1(x+0) - t0(x+1) - t1(x);  P10(x) = t1(x) + t0(x+1) - t1(x+0) - t0(x)
+__device__ __forceinline__ float u1_p01(const float* t0, const float* t1, const Nbr& n, int r,
+                                        int c) {
+    const int x = n.at(r, c, 0, 0);
+    return t0[x] + t1[n.at(r, c, 1, 0)] - t0[n.at(r, c, 0, 1)] - t1[x];
+}
+__device__ __forceinline__ float u1_p10(const float* t0, const float* t1, const Nbr& n, int r,
+                                        int c) {
+    const int x = n.at(r, c, 0, 0);
+    return t1[x] + t0[n.at(r, c, 0, 1)] - t1[n.at(r, c, 1, 0)] - t0[x];
+}
+
+// ---- SU(2) quaternions --------------------------------------------------------
+
+struct Quat { float w, x, y, z; };
+
+__device__ __forceinline__ Quat qmul(const Quat& a, const Quat& b) {
+    Quat o;
+    o.w = a.w * b.w - a.x * b.x - a.y * b.y - a.z * b.z;
+    o.x = a.w * b.x + b.w * a.x - (a.y * b.z - a.z * b.y);
+    o.y = a.w * b.y + b.w * a.y - (a.z * b.x - a.x * b.z);
+    o.z = a.w * b.z + b.w * a.z - (a.x * b.y - a.y * b.x);
+    return o;
+}
+__device__ __forceinline__ Quat qconj(const Quat& a) { return {a.w, -a.x, -a.y, -a.z}; }
+__device__ __forceinline__ Quat qadd(const Quat& a, const Quat& b) {
+    return {a.w + b.w, a.x + b.x, a.y + b.y, a.z + b.z};
+}
+// Plane 2c + mu holds component c of direction mu.
+__device__ __forceinline__ Quat qload(const float* L, size_t V, int mu, int i) {
+    return {L[(0 + mu) * V + i], L[(2 + mu) * V + i], L[(4 + mu) * V + i], L[(6 + mu) * V + i]};
+}
+__device__ __forceinline__ Quat qexp_su2(float vx, float vy, float vz) {
+    const float n2 = vx * vx + vy * vy + vz * vz;
+    const float ns = sqrtf(nan_max(n2, 1e-24f));
+    const float half = 0.5f * ns;
+    const bool small = n2 < 1e-12f;
+    const float s = small ? 0.5f - n2 / 48.0f : sinf(half) / ns;
+    const float w = small ? 1.0f - n2 / 8.0f : cosf(half);
+    return {w, s * vx, s * vy, s * vz};
+}
+__device__ __forceinline__ Quat qnormalize(const Quat& a) {
+    const float inv = 1.0f / sqrtf(a.w * a.w + a.x * a.x + a.y * a.y + a.z * a.z + 1e-30f);
+    return {a.w * inv, a.x * inv, a.y * inv, a.z * inv};
+}
+
+// ---- SU(3) split-complex 3x3 matrices ---------------------------------------
+
+struct Cx { float re, im; };
+struct M3 { Cx a[3][3]; };
+
+__device__ __forceinline__ Cx cmul(Cx a, Cx b) {
+    return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
+}
+__device__ __forceinline__ Cx cadd(Cx a, Cx b) { return {a.re + b.re, a.im + b.im}; }
+__device__ __forceinline__ Cx csub(Cx a, Cx b) { return {a.re - b.re, a.im - b.im}; }
+
+__device__ __forceinline__ M3 mmul(const M3& A, const M3& B) {
+    M3 C;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+            Cx s = cmul(A.a[i][0], B.a[0][j]);
+            s = cadd(s, cmul(A.a[i][1], B.a[1][j]));
+            s = cadd(s, cmul(A.a[i][2], B.a[2][j]));
+            C.a[i][j] = s;
+        }
+    return C;
+}
+__device__ __forceinline__ M3 mdag(const M3& A) {
+    M3 C;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) C.a[i][j] = {A.a[j][i].re, -A.a[j][i].im};
+    return C;
+}
+// Plane mu * 18 + (3 r + c) * 2 + {0: re, 1: im}.
+__device__ __forceinline__ M3 mload(const float* L, size_t V, int mu, int i) {
+    M3 m;
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            const int p = mu * 18 + (3 * r + c) * 2;
+            m.a[r][c] = {L[p * V + i], L[(p + 1) * V + i]};
+        }
+    return m;
+}
+__device__ __forceinline__ void mstore(float* L, size_t V, int mu, int i, const M3& m) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            const int p = mu * 18 + (3 * r + c) * 2;
+            L[p * V + i] = m.a[r][c].re;
+            L[(p + 1) * V + i] = m.a[r][c].im;
+        }
+}
+__device__ __forceinline__ float mretr(const M3& m) {
+    return m.a[0][0].re + m.a[1][1].re + m.a[2][2].re;
+}
+
+// exp(iQ), Cayley-Hamilton (actions/gauge.py:_sexpi).
+__device__ M3 expi_su3(const M3& Q, float clip_hi) {
+    const M3 q2 = mmul(Q, Q);
+    const M3 q3 = mmul(q2, Q);
+    const float c1 = 0.5f * mretr(q2);
+    const float c0 = mretr(q3) / 3.0f;
+    const bool small = c1 < 1e-8f;
+    const float c1s = small ? 1.0f : c1;
+    const float c0a = fabsf(c0);
+    const float c1_3 = c1s / 3.0f;
+    const float c0max = 2.0f * (c1_3 * sqrtf(c1_3));
+    float x = c0a / c0max;
+    x = x < 0.0f ? 0.0f : (x > clip_hi ? clip_hi : x);  // torch.clamp: NaN stays NaN
+    const float theta = acosf(x);
+    const float theta_3 = theta / 3.0f;
+    const float u = sqrtf(c1_3) * cosf(theta_3);
+    const float w = sqrtf(c1s) * sinf(theta_3);
+    const float w2 = w * w;
+    const bool tiny = w2 < 1e-4f;
+    const float series = 1.0f - w2 / 6.0f * (1.0f - w2 / 20.0f * (1.0f - w2 / 42.0f));
+    const float xi0 = tiny ? series : sinf(w) / w;
+    const float cosw = cosf(w);
+    const Cx e2iu = {cosf(2.0f * u), sinf(2.0f * u)};
+    const Cx emiu = {cosf(u), -sinf(u)};
+    const float u2 = u * u;
+    const float uw = u2 - w2;
+    const Cx h0 = cadd({uw * e2iu.re, uw * e2iu.im},
+                       cmul(emiu, {8.0f * u2 * cosw, 2.0f * u * (3.0f * u2 + w2) * xi0}));
+    const float tu = 2.0f * u;
+    const Cx h1 = csub({tu * e2iu.re, tu * e2iu.im},
+                       cmul(emiu, {tu * cosw, -((3.0f * u2 - w2) * xi0)}));
+    const Cx h2 = csub(e2iu, cmul(emiu, {cosw, 3.0f * u * xi0}));
+    const float denom = 9.0f * u2 - w2;
+    Cx f0 = {h0.re / denom, h0.im / denom};
+    Cx f1 = {h1.re / denom, h1.im / denom};
+    Cx f2 = {h2.re / denom, h2.im / denom};
+    if (c0 < 0.0f) {  // f_j(c0) = (-1)^j conj(f_j(|c0|))
+        f0.im = -f0.im;
+        f1.re = -f1.re;
+        f2.im = -f2.im;
+    }
+    M3 out;
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            Cx closed = cmul(f1, Q.a[r][c]);
+            if (r == c) closed = cadd(f0, closed);
+            closed = cadd(closed, cmul(f2, q2.a[r][c]));
+            const float one = r == c ? 1.0f : 0.0f;
+            const Cx tay = {(one - Q.a[r][c].im) - 0.5f * q2.a[r][c].re +
+                                q3.a[r][c].im * (1.0f / 6.0f),
+                            (Q.a[r][c].re - 0.5f * q2.a[r][c].im) -
+                                q3.a[r][c].re * (1.0f / 6.0f)};
+            out.a[r][c] = small ? tay : closed;
+        }
+    return out;
+}
+
+// One Newton step toward the nearest unitary, then the det phase divided out
+// (actions/gauge.py:_sproject).
+__device__ M3 project_su3(const M3& U) {
+    const M3 W = mmul(mdag(U), U);
+    M3 X;
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+            X.a[r][c] = {(r == c ? 1.5f : 0.0f) - 0.5f * W.a[r][c].re, -0.5f * W.a[r][c].im};
+    const M3 v = mmul(U, X);
+    const Cx m0 = csub(cmul(v.a[1][1], v.a[2][2]), cmul(v.a[1][2], v.a[2][1]));
+    const Cx m1 = csub(cmul(v.a[1][0], v.a[2][2]), cmul(v.a[1][2], v.a[2][0]));
+    const Cx m2 = csub(cmul(v.a[1][0], v.a[2][1]), cmul(v.a[1][1], v.a[2][0]));
+    const Cx d = cadd(csub(cmul(v.a[0][0], m0), cmul(v.a[0][1], m1)), cmul(v.a[0][2], m2));
+    const float ang = atan2f(d.im, d.re) * (-1.0f / 3.0f);
+    const Cx ph = {cosf(ang), sinf(ang)};
+    M3 out;
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int c = 0; c < 3; ++c) out.a[r][c] = cmul(v.a[r][c], ph);
+    return out;
+}
+
+// Sigma_a eta_a T_a from the eight noise values (actions/gauge.py:_noise_h).
+__device__ __forceinline__ M3 noise_h(const float* e) {
+    const float t8 = 0.28867513459481287f;    // float32(1 / (2 sqrt 3)) = _GELLMANN[7,0,0]
+    const float t8_33 = -0.5773502691896257f;  // float32(-1 / sqrt 3) = _GELLMANN[7,2,2]
+    M3 m;
+    m.a[0][0] = {0.5f * e[2] + t8 * e[7], 0.0f};
+    m.a[0][1] = {0.5f * e[0], -0.5f * e[1]};
+    m.a[0][2] = {0.5f * e[3], -0.5f * e[4]};
+    m.a[1][0] = {0.5f * e[0], 0.5f * e[1]};
+    m.a[1][1] = {-0.5f * e[2] + t8 * e[7], 0.0f};
+    m.a[1][2] = {0.5f * e[5], -0.5f * e[6]};
+    m.a[2][0] = {0.5f * e[3], 0.5f * e[4]};
+    m.a[2][1] = {0.5f * e[5], 0.5f * e[6]};
+    m.a[2][2] = {t8_33 * e[7], 0.0f};
+    return m;
+}
+
+// ---- the two passes of a micro-step, per site --------------------------------
+
+// Pass 1 at site i: the drift of both directions into F, the largest drift
+// norm into dn and the pre-update plaquette onto pl.
+template <int G>
+__device__ __forceinline__ void pass1(const GaugeParams& p, const float* __restrict__ L,
+                                      float* __restrict__ F, int i, float& pl, float& dn) {
+    const size_t V = (size_t)p.L0 * p.L1;
+    const Nbr n{p.L0, p.L1};
+    const int r = i / p.L1, c = i - r * p.L1;
+    if constexpr (G == GROUP_U1) {
+        const float* t0 = L;
+        const float* t1 = L + V;
+        const float p01 = u1_p01(t0, t1, n, r, c);
+        const float a0 = (0.0f + sinf(p01)) - sinf(u1_p01(t0, t1, n, r, c - 1));
+        const float a1 = (0.0f + sinf(u1_p10(t0, t1, n, r, c))) - sinf(u1_p10(t0, t1, n, r - 1, c));
+        const float f0 = p.coef * a0, f1 = p.coef * a1;
+        F[i] = f0;
+        F[V + i] = f1;
+        dn = nan_max(dn, nan_max(fabsf(f0), fabsf(f1)));
+        pl += cosf(p01);
+    } else if constexpr (G == GROUP_SU2) {
+#pragma unroll
+        for (int mu = 0; mu < 2; ++mu) {
+            const int nu = 1 - mu;
+            const int mr = mu == 0, mc = mu == 1, nr = nu == 0, nc = nu == 1;
+            const Quat fwd = qmul(qmul(qload(L, V, nu, n.at(r, c, mr, mc)),
+                                       qconj(qload(L, V, mu, n.at(r, c, nr, nc)))),
+                                  qconj(qload(L, V, nu, i)));
+            const Quat bwd = qmul(qmul(qconj(qload(L, V, nu, n.at(r, c, mr - nr, mc - nc))),
+                                       qconj(qload(L, V, mu, n.at(r, c, -nr, -nc)))),
+                                  qload(L, V, nu, n.at(r, c, -nr, -nc)));
+            const Quat w = qmul(qload(L, V, mu, i), qadd(fwd, bwd));
+            const float f0 = p.coef * w.x, f1 = p.coef * w.y, f2 = p.coef * w.z;
+            F[(0 + mu) * V + i] = f0;
+            F[(2 + mu) * V + i] = f1;
+            F[(4 + mu) * V + i] = f2;
+            dn = nan_max(dn, sqrtf(f0 * f0 + f1 * f1 + f2 * f2));
+        }
+        const Quat pq = qmul(qmul(qload(L, V, 0, i), qload(L, V, 1, n.at(r, c, 1, 0))),
+                             qmul(qconj(qload(L, V, 0, n.at(r, c, 0, 1))), qconj(qload(L, V, 1, i))));
+        pl += pq.w;
+    } else {
+#pragma unroll 1
+        for (int mu = 0; mu < 2; ++mu) {
+            const int nu = 1 - mu;
+            const int mr = mu == 0, mc = mu == 1, nr = nu == 0, nc = nu == 1;
+            const M3 fwd = mmul(mmul(mload(L, V, nu, n.at(r, c, mr, mc)),
+                                     mdag(mload(L, V, mu, n.at(r, c, nr, nc)))),
+                                mdag(mload(L, V, nu, i)));
+            const M3 bwd = mmul(mmul(mdag(mload(L, V, nu, n.at(r, c, mr - nr, mc - nc))),
+                                     mdag(mload(L, V, mu, n.at(r, c, -nr, -nc)))),
+                                mload(L, V, nu, n.at(r, c, -nr, -nc)));
+            M3 staple;
+#pragma unroll
+            for (int a = 0; a < 3; ++a)
+#pragma unroll
+                for (int b = 0; b < 3; ++b) staple.a[a][b] = cadd(fwd.a[a][b], bwd.a[a][b]);
+            const M3 m = mmul(mload(L, V, mu, i), staple);
+            M3 g;
+#pragma unroll
+            for (int a = 0; a < 3; ++a)
+#pragma unroll
+                for (int b = 0; b < 3; ++b)
+                    g.a[a][b] = {-(m.a[a][b].im + m.a[b][a].im), m.a[a][b].re - m.a[b][a].re};
+            const Cx tr = cadd(cadd(g.a[0][0], g.a[1][1]), g.a[2][2]);
+            const Cx trn = {tr.re / 3.0f, tr.im / 3.0f};
+            M3 h;
+            float frob = 0.0f;
+#pragma unroll
+            for (int a = 0; a < 3; ++a)
+#pragma unroll
+                for (int b = 0; b < 3; ++b) {
+                    const Cx x = a == b ? csub(g.a[a][b], trn) : g.a[a][b];
+                    h.a[a][b] = {p.coef * x.re, p.coef * x.im};
+                    const float v = h.a[a][b].re * h.a[a][b].re + h.a[a][b].im * h.a[a][b].im;
+                    frob = (a == 0 && b == 0) ? v : frob + v;
+                }
+            mstore(F, V, mu, i, h);
+            dn = nan_max(dn, sqrtf(2.0f * frob));
+        }
+        const M3 pm = mmul(mmul(mload(L, V, 0, i), mload(L, V, 1, n.at(r, c, 1, 0))),
+                           mmul(mdag(mload(L, V, 0, n.at(r, c, 0, 1))), mdag(mload(L, V, 1, i))));
+        pl += mretr(pm) / 3.0f;
+    }
+}
+
+// Noise of plane q at site i for this micro-step.
+template <int NP>
+__device__ __forceinline__ float noise(const GaugeParams& p, float* __restrict__ zk, int q,
+                                       int i, int mode, uint32_t k1, uint32_t step) {
+    const size_t V = (size_t)p.L0 * p.L1;
+    const size_t at = q * V + i;
+    if (mode == NOISE_KEPT) return zk[at];
+    float z0, z1;
+    normal_pair<20>(p.seed, k1, (uint32_t)at, step, z0, z1);
+    if (mode == NOISE_DRAW_KEEP) zk[at] = z1;
+    return z0;
+}
+
+// Pass 2 at site i: the update of both directions' links, in place; bad is
+// set where a new link is not finite.
+template <int G>
+__device__ __forceinline__ void pass2(const GaugeParams& p, float* __restrict__ L,
+                                      const float* __restrict__ F, float* __restrict__ zk, int i,
+                                      int mode, uint32_t k1, uint32_t step, float de, float na,
+                                      int& bad) {
+    const size_t V = (size_t)p.L0 * p.L1;
+    if constexpr (G == GROUP_U1) {
+#pragma unroll
+        for (int mu = 0; mu < 2; ++mu) {
+            const float eta = noise<2>(p, zk, mu, i, mode, k1, step);
+            const float t = L[mu * V + i] + (de * F[mu * V + i] + na * eta);
+            const float two_pi = 6.2831854820251465f;  // float32(2 pi)
+            const float nt = t - two_pi * rintf(t / two_pi);
+            L[mu * V + i] = nt;
+            bad |= !isfinite(nt);
+        }
+    } else if constexpr (G == GROUP_SU2) {
+#pragma unroll
+        for (int mu = 0; mu < 2; ++mu) {
+            float om[3];
+#pragma unroll
+            for (int a = 0; a < 3; ++a)
+                om[a] = de * F[(2 * a + mu) * V + i] +
+                        na * noise<6>(p, zk, 2 * a + mu, i, mode, k1, step);
+            const Quat q = qnormalize(qmul(qexp_su2(om[0], om[1], om[2]), qload(L, V, mu, i)));
+            L[(0 + mu) * V + i] = q.w;
+            L[(2 + mu) * V + i] = q.x;
+            L[(4 + mu) * V + i] = q.y;
+            L[(6 + mu) * V + i] = q.z;
+            bad |= !(isfinite(q.w) && isfinite(q.x) && isfinite(q.y) && isfinite(q.z));
+        }
+    } else {
+#pragma unroll 1
+        for (int mu = 0; mu < 2; ++mu) {
+            float e[8];
+#pragma unroll
+            for (int a = 0; a < 8; ++a) e[a] = noise<16>(p, zk, 2 * a + mu, i, mode, k1, step);
+            const M3 nt = noise_h(e);
+            const M3 h = mload(F, V, mu, i);
+            M3 om;
+#pragma unroll
+            for (int a = 0; a < 3; ++a)
+#pragma unroll
+                for (int b = 0; b < 3; ++b)
+                    om.a[a][b] = {de * h.a[a][b].re + na * nt.a[a][b].re,
+                                  de * h.a[a][b].im + na * nt.a[a][b].im};
+            const M3 u = project_su3(mmul(expi_su3(om, p.clip_hi), mload(L, V, mu, i)));
+            mstore(L, V, mu, i, u);
+            bool fin = true;
+#pragma unroll
+            for (int a = 0; a < 3; ++a)
+#pragma unroll
+                for (int b = 0; b < 3; ++b)
+                    fin = fin && isfinite(u.a[a][b].re) && isfinite(u.a[a][b].im);
+            bad |= !fin;
+        }
+    }
+}
+
+// ---- block reduction and the frame -------------------------------------------
+
+struct Tot {
+    float plaq, dnorm;
+    int bad;
+};
+
+// Warp xor-shuffle, lane 0 publishes, barrier, then every thread sums the
+// warps' partials in warp order: block-uniform and the same on every run.
+template <int T>
+__device__ __forceinline__ Tot block_reduce(float pl, float dn, int bad, float* red) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        pl += __shfl_xor_sync(0xffffffffu, pl, off);
+        dn = nan_max(dn, __shfl_xor_sync(0xffffffffu, dn, off));
+        bad |= __shfl_xor_sync(0xffffffffu, bad, off);
+    }
+    if ((threadIdx.x & 31) == 0) {
+        float* w = red + 3 * (threadIdx.x >> 5);
+        w[0] = pl;
+        w[1] = dn;
+        w[2] = (float)bad;
+    }
+    __syncthreads();
+    Tot t{red[0], red[1], red[2] != 0.0f};
+#pragma unroll 1
+    for (int w = 1; w < T / 32; ++w) {
+        t.plaq = t.plaq + red[3 * w];
+        t.dnorm = nan_max(t.dnorm, red[3 * w + 1]);
+        t.bad |= red[3 * w + 2] != 0.0f;
+    }
+    return t;
+}
+
+struct FrameOut {
+    float ps, dmax;
+    int unstable;
+};
+
+// `loops` micro-steps on the links L (in place) from counter step0; dmax
+// enters as the state's drift max.  A chain whose update is not finite keeps
+// the links of that micro-step and stops.
+template <int G>
+__device__ FrameOut run_frame(const GaugeParams& p, float* L, float* F, float* zk,
+                              uint32_t step0, uint32_t k1, float dtau, float dmax, float* red) {
+    constexpr int T = Layout<G>::T;
+    const int V = p.L0 * p.L1;
+    FrameOut out{0.0f, dmax, 0};
+    int bad = 0;
+    for (int k = 0; k < p.loops; ++k) {  // block-uniform control flow
+        float pl = 0.0f, dn = 0.0f;
+        for (int i = threadIdx.x; i < V; i += T) pass1<G>(p, L, F, i, pl, dn);
+        const Tot t = block_reduce<T>(pl, dn, bad, red);
+        if (t.bad) {  // the previous micro-step tripped the chain
+            out.unstable = 1;
+            return out;
+        }
+        out.ps = out.ps + t.plaq * p.inv_vol;
+        out.dmax = nan_max(out.dmax, t.dnorm);
+        const float scale = nan_min(1.0f, p.cap / nan_max(t.dnorm, 1e-30f));
+        const float de = dtau * scale;
+        const float na = sqrtf(2.0f * de);
+        const int mode = (k & 1) ? NOISE_KEPT : (k + 1 < p.loops ? NOISE_DRAW_KEEP : NOISE_DRAW);
+        const uint32_t step = step0 + (uint32_t)(k & ~1);
+        for (int i = threadIdx.x; i < V; i += T) pass2<G>(p, L, F, zk, i, mode, k1, step, de, na, bad);
+        __syncthreads();  // new links are read as neighbours next; red is free again
+    }
+    out.unstable = block_reduce<T>(0.0f, 0.0f, bad, red).bad;
+    __syncthreads();
+    return out;
+}
+
+template <int G>
+__device__ __forceinline__ void copy_own(const GaugeParams& p, const float* __restrict__ src,
+                                         float* __restrict__ dst) {
+    const size_t V = (size_t)p.L0 * p.L1;
+    for (int q = 0; q < Layout<G>::P; ++q)
+        for (size_t i = threadIdx.x; i < V; i += Layout<G>::T) dst[q * V + i] = src[q * V + i];
+}
+
+// ---- kernel 10: one frame --------------------------------------------------
+
+template <int G>
+__global__ void __launch_bounds__(Layout<G>::T)
+gauge_frame_kernel(GaugeParams p, const float* __restrict__ links_in,
+                   const float* __restrict__ dmax_in, const float* __restrict__ dtau_in,
+                   float* __restrict__ links_out, float* __restrict__ ps_out,
+                   float* __restrict__ dmax_out, int32_t* __restrict__ unst_out,
+                   float* __restrict__ force, float* __restrict__ zk) {
+    __shared__ float red[3 * (Layout<G>::T / 32)];
+    const int ch = blockIdx.x;
+    const size_t V = (size_t)p.L0 * p.L1;
+    float* L = links_out + ch * Layout<G>::P * V;
+    copy_own<G>(p, links_in + ch * Layout<G>::P * V, L);
+    __syncthreads();
+    const uint32_t k1 = (uint32_t)STREAM_FIELD ^ ((uint32_t)ch << 8);
+    const FrameOut fr = run_frame<G>(p, L, force + ch * Layout<G>::FP * V,
+                                     zk + ch * Layout<G>::NP * V, p.step0, k1, dtau_in[ch],
+                                     dmax_in[ch], red);
+    if (threadIdx.x == 0) {
+        ps_out[ch] = fr.ps;
+        dmax_out[ch] = fr.dmax;
+        unst_out[ch] = fr.unstable;
+    }
+}
+
+// ---- kernel 11: K frames, epilogue in-kernel -------------------------------
+
+template <int G>
+__global__ void __launch_bounds__(Layout<G>::T)
+gauge_frames_kernel(GaugeParams p, const float* __restrict__ links_in,
+                    const float* __restrict__ dmax_in, const float* __restrict__ dtau_in,
+                    const float* __restrict__ pm_in, const int64_t* __restrict__ runs_in,
+                    const int32_t* __restrict__ stab_in, float* __restrict__ links_out,
+                    float* __restrict__ dmax_out, float* __restrict__ dtau_out,
+                    float* __restrict__ pm_out, int64_t* __restrict__ runs_out,
+                    int32_t* __restrict__ stab_out, int32_t* __restrict__ hist_stable,
+                    float* __restrict__ hist_dtau, float* __restrict__ hist_dmax,
+                    float* __restrict__ work, float* __restrict__ force,
+                    float* __restrict__ zk) {
+    __shared__ float red[3 * (Layout<G>::T / 32)];
+    const int ch = blockIdx.x, C = p.n_chains;
+    const size_t V = (size_t)p.L0 * p.L1;
+    float* A = links_out + ch * Layout<G>::P * V;  // the accepted links
+    float* W = work + ch * Layout<G>::P * V;       // the frame in flight
+    float* Fc = force + ch * Layout<G>::FP * V;
+    float* Zc = zk + ch * Layout<G>::NP * V;
+    copy_own<G>(p, links_in + ch * Layout<G>::P * V, A);
+    float dmax = dmax_in[ch], dtau = dtau_in[ch], pm = pm_in[ch];
+    uint32_t lo = (uint32_t)runs_in[2 * ch], hi = (uint32_t)runs_in[2 * ch + 1];
+    int32_t stab = stab_in[ch];
+    const uint32_t loops_u = (uint32_t)p.loops;
+    const uint32_t k1 = (uint32_t)STREAM_FIELD ^ ((uint32_t)ch << 8);
+
+    for (int j = 0; j < p.n_frames; ++j) {
+        copy_own<G>(p, A, W);
+        __syncthreads();
+        const FrameOut fr = run_frame<G>(p, W, Fc, Zc, p.step0 + (uint32_t)j * loops_u, k1,
+                                         dtau, dmax, red);
+        // epilogue: integrators/gauge.py:gauge_frame_epilogue and
+        // accum.merge_frame_sum, expression for expression
+        const bool accept = !fr.unstable;
+        const uint32_t lo_n = lo + loops_u;
+        const uint32_t hi_n = hi + (lo_n < lo ? 1u : 0u);
+        const float n_new = __uint2float_rn(hi_n) * 4294967296.0f + __uint2float_rn(lo_n);
+        const float w = p.loops_f / n_new;
+        if (accept) {
+            pm = pm + (fr.ps * p.inv_loops - pm) * w;
+            dmax = fr.dmax;
+            copy_own<G>(p, W, A);
+            lo = lo_n;
+            hi = hi_n;
+        }
+        const bool grow = accept && stab >= p.grow_after;
+        float dt = grow ? dtau / p.shrink : (accept ? dtau : dtau * p.shrink);
+        if (p.has_dtau_max) dt = fminf(dt, p.dtau_max);
+        dtau = dt;
+        stab = accept ? (stab >= p.grow_after ? 0 : stab + 1) : 0;
+        if (threadIdx.x == 0) {
+            hist_stable[(size_t)j * C + ch] = accept ? 1 : 0;
+            hist_dtau[(size_t)j * C + ch] = dtau;
+            hist_dmax[(size_t)j * C + ch] = fr.dmax;
+        }
+    }
+    if (threadIdx.x == 0) {
+        dmax_out[ch] = dmax;
+        dtau_out[ch] = dtau;
+        pm_out[ch] = pm;
+        runs_out[2 * ch] = (int64_t)lo;
+        runs_out[2 * ch + 1] = (int64_t)hi;
+        stab_out[ch] = stab;
+    }
+}
+
+// ---- C entry points (loaded with ctypes) ----------------------------------
+
+static bool valid_gauge_launch(const GaugeParams& p) {
+    return p.n_chains > 0 && p.n_chains <= 65535 && p.L0 >= 1 && p.L1 >= 1 &&
+           (long long)p.L0 * p.L1 <= (1LL << 24) && p.loops >= 1 && p.group >= GROUP_U1 &&
+           p.group <= GROUP_SU3;
+}
+
+#define SQ_GAUGE_DISPATCH(KERNEL, ...)                                                     \
+    do {                                                                                   \
+        cudaStream_t st = (cudaStream_t)stream;                                            \
+        if (p->group == GROUP_U1)                                                          \
+            KERNEL<GROUP_U1><<<p->n_chains, Layout<GROUP_U1>::T, 0, st>>>(*p, __VA_ARGS__);  \
+        else if (p->group == GROUP_SU2)                                                    \
+            KERNEL<GROUP_SU2><<<p->n_chains, Layout<GROUP_SU2>::T, 0, st>>>(*p, __VA_ARGS__); \
+        else                                                                               \
+            KERNEL<GROUP_SU3><<<p->n_chains, Layout<GROUP_SU3>::T, 0, st>>>(*p, __VA_ARGS__); \
+    } while (0)
+
+extern "C" int sq_gauge_frame(const GaugeParams* p, const float* links_in, const float* dmax_in,
+                              const float* dtau_in, float* links_out, float* ps_out,
+                              float* dmax_out, int32_t* unst_out, float* force, float* zk,
+                              void* stream) {
+    if (!valid_gauge_launch(*p)) return (int)cudaErrorInvalidValue;
+    SQ_GAUGE_DISPATCH(gauge_frame_kernel, links_in, dmax_in, dtau_in, links_out, ps_out,
+                      dmax_out, unst_out, force, zk);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int sq_gauge_frames(const GaugeParams* p, const float* links_in,
+                               const float* dmax_in, const float* dtau_in, const float* pm_in,
+                               const int64_t* runs_in, const int32_t* stab_in,
+                               float* links_out, float* dmax_out, float* dtau_out,
+                               float* pm_out, int64_t* runs_out, int32_t* stab_out,
+                               int32_t* hist_stable, float* hist_dtau, float* hist_dmax,
+                               float* work, float* force, float* zk, void* stream) {
+    if (!valid_gauge_launch(*p) || p->n_frames < 1) return (int)cudaErrorInvalidValue;
+    SQ_GAUGE_DISPATCH(gauge_frames_kernel, links_in, dmax_in, dtau_in, pm_in, runs_in, stab_in,
+                      links_out, dmax_out, dtau_out, pm_out, runs_out, stab_out, hist_stable,
+                      hist_dtau, hist_dmax, work, force, zk);
+    return (int)cudaGetLastError();
+}

@@ -1,9 +1,12 @@
-"""Host loops for chain and field runs (port of ``stochquant_tpu.runtime``'s
-``run_chain``, ``select_field_backend`` and ``run_field``).
+"""Host loops for chain, field and gauge runs (port of
+``stochquant_tpu.runtime``'s ``run_chain``, ``select_field_backend``,
+``run_field`` and ``run_gauge``).
 
-State stays on the device; a loop launches ``fps`` frames at a time,
-streams the small per-frame metrics (chains: the connected correlator;
-fields: magnetization, ⟨φ²⟩, susceptibility, Binder cumulant) and writes
+State stays on the device; a loop launches ``fps`` frames at a time (gauge
+runs: ``frames_per_launch``), streams the small per-frame metrics (chains:
+the connected correlator; fields: magnetization, ⟨φ²⟩, susceptibility,
+Binder cumulant; gauge: the mean plaquette beside its exact 2-D value, the
+drift max and, with ``measure_loops``, the Polyakov loop) and writes
 full-state checkpoints that resume bitwise (in this package or the JAX one).
 """
 
@@ -21,9 +24,11 @@ from stochquant_tpu_torch import actions as actions_mod
 from stochquant_tpu_torch import metrics as metrics_mod
 from stochquant_tpu_torch.config import ChainConfig, FieldConfig
 from stochquant_tpu_torch.integrators import field as field_mod
+from stochquant_tpu_torch.integrators import gauge as gauge_mod
 from stochquant_tpu_torch.integrators import langevin
 from stochquant_tpu_torch.io import checkpoint as ckpt_mod
-from stochquant_tpu_torch.kernels import chain_kernel, field_kernel, field_kernel_tiled
+from stochquant_tpu_torch.kernels import chain_kernel, field_kernel, field_kernel_tiled, gauge_kernel
+from stochquant_tpu_torch.observables import gauge_loops
 
 BACKENDS = ("auto", "cuda", "torch")
 
@@ -333,6 +338,130 @@ def run_field(
 
     if checkpoint_out:
         ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
+    summary = sink.summary()
+    sink.emit(summary)
+    return RunResult(state=state, cfg=cfg, summary=summary)
+
+
+def select_gauge_backend(cfg: gauge_mod.GaugeConfig, backend: str, device):
+    """Resolve a gauge run's path: ('cuda', None) for kernels 10 and 11, or
+    ('torch', reason) for the plain PyTorch integrator, with ``reason`` set
+    when 'auto' on a CUDA device falls back (the caller records it).
+
+    'auto' takes the kernels on a CUDA device wherever they apply (2-D u1,
+    su2, su3 without cooling: the JAX package's ``supports``); other compact
+    configurations (``su2_4d``, ``su3_4d``) have no kernel in the JAX package
+    either and run the plain path on the device.  'cuda' raises for a case
+    the kernels do not cover, naming it; 'torch' is the plain path on any
+    device.  The complexified groups, ``mesh_axes`` and ``mesh_chain_axis``
+    raise on every route: they are not ported yet."""
+    device = torch.device(device)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown gauge backend {backend!r}; known: {BACKENDS}")
+    act = gauge_mod.resolve_gauge_action(cfg)
+    if cfg.mesh_axes is not None or cfg.mesh_chain_axis is not None:
+        raise ValueError(
+            "mesh_axes / mesh_chain_axis (gauge links sharded over a device mesh: kernel 12 "
+            "and the halo runner) are not ported yet"
+        )
+    if backend == "torch" or (backend == "auto" and device.type != "cuda"):
+        return "torch", None
+    if device.type != "cuda":
+        raise ValueError(f"backend='cuda' runs the CUDA kernels and needs a CUDA device, not {device}")
+    if backend == "cuda":
+        gauge_kernel.check_kernel_config(act, cfg)
+        return "cuda", None
+    reason = gauge_kernel.unsupported_reason(act, cfg)
+    if reason is None:
+        return "cuda", None
+    return "torch", (
+        f"no gauge kernel for group {cfg.group} on shape {cfg.shape}: {reason}; the kernels "
+        "cover 2-D u1/su2/su3 without cooling, so the plain PyTorch integrator runs on the device"
+    )
+
+
+def run_gauge(
+    cfg: gauge_mod.GaugeConfig,
+    *,
+    device,
+    backend: str = "auto",
+    burn_frames: int = 0,
+    sink: Optional[metrics_mod.MetricsSink] = None,
+    checkpoint_out: Optional[str] = None,
+    checkpoint_in: Optional[str] = None,
+    checkpoint_every: int = 0,
+    stop=None,
+    resume_progress: bool = False,
+) -> RunResult:
+    """Run a compact lattice-gauge Langevin ensemble (``GaugeConfig``) on
+    ``device``; returns the final state.
+
+    backend: 'auto', 'cuda' or 'torch', resolved by
+    :func:`select_gauge_backend`.  One metrics record per frame, as in the
+    JAX package's runner, so ``frames_per_launch`` batches only the burn-in
+    (kernel 11 there, kernel 10 + the PyTorch epilogue per recorded frame).
+    stop and resume_progress as in :func:`run_chain`."""
+    device = resolve_device(device)
+    sink = sink or metrics_mod.MetricsSink()
+    route, reason = select_gauge_backend(cfg, backend, device)
+    if reason:
+        sink.emit({"type": "backend_fallback", "backend": "torch", "reason": reason})
+    act = gauge_mod.resolve_gauge_action(cfg)
+
+    if checkpoint_in:
+        state, loaded_cfg = ckpt_mod.load(checkpoint_in, device)
+        _check_resume_compat(loaded_cfg, cfg, checkpoint_in, ("group", "shape", "n_chains"))
+    else:
+        state = gauge_mod.init_gauge_state(cfg, act, device=device)
+
+    def run_n(state, n):
+        if route == "cuda":
+            return gauge_kernel.run_gauge_frames_kernel(
+                state, act, cfg, n, frames_per_launch=min(cfg.frames_per_launch, n))
+        return gauge_mod.run_gauge_frames(state, act, cfg, n)
+
+    frames_done = (
+        _frames_already_done(state, cfg, checkpoint_in)
+        if (resume_progress and checkpoint_in)
+        else 0
+    )
+    if burn_frames and frames_done == 0:
+        state, _ = run_n(state, burn_frames)
+        state = gauge_mod.reset_gauge_means(state)
+
+    exact2d = gauge_mod.exact_plaquette_2d(cfg.group, cfg.beta) if cfg.ndim == 2 else None
+    updates_per_frame = cfg.n_chains * cfg.ndim * math.prod(cfg.shape) * cfg.loops
+    while frames_done < cfg.frames:
+        state, m = run_n(state, 1)
+        frames_done += 1
+        obs = {
+            "plaquette": float(state.plaq_mean.mean()),
+            "plaquette_exact_2d": exact2d,
+            "drift_max": float(m["drift_max"].max()),
+        }
+        if cfg.measure_loops:
+            p = gauge_loops.polyakov_loop(act, state.links, 0).mean(dim=0)
+            obs["polyakov_re"], obs["polyakov_im"] = float(p[0]), float(p[1])
+        sink.frame(
+            frames_done - 1,
+            cfg.frames,
+            updates_per_frame,
+            m["dtau"][-1].cpu().numpy(),
+            float(m["stable"].float().mean()),
+            observables=obs,
+        )
+        if checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0:
+            ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
+        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done):
+            break
+
+    if checkpoint_out:
+        ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
+    if cfg.measure_loops:
+        rmax = max(1, min(4, min(cfg.shape) // 2))
+        table = gauge_loops.wilson_loop_table(act, state.links, 0, 1, rmax, rmax)
+        sink.emit({"type": "wilson_loops", "mu": 0, "nu": 1,
+                   "w": table.mean(dim=0).double().cpu().numpy().tolist()})
     summary = sink.summary()
     sink.emit(summary)
     return RunResult(state=state, cfg=cfg, summary=summary)

@@ -1,5 +1,5 @@
-"""Chain and field checkpoints interchange between the JAX package and the
-port, and resume bitwise inside the port."""
+"""Chain, field and gauge checkpoints interchange between the JAX package and
+the port, and resume bitwise inside the port."""
 
 import json
 import warnings
@@ -13,11 +13,12 @@ from stochquant_tpu.actions import phi4 as jphi4
 from stochquant_tpu.config import ChainConfig as JChainConfig
 from stochquant_tpu.config import FieldConfig as JFieldConfig
 from stochquant_tpu.integrators import field as jfield
+from stochquant_tpu.integrators import gauge as jgauge
 from stochquant_tpu.integrators import langevin as jl
 from stochquant_tpu.io import checkpoint as jck
 from stochquant_tpu_torch import actions
 from stochquant_tpu_torch.config import ChainConfig, FieldConfig, Sweep
-from stochquant_tpu_torch.integrators import field, langevin
+from stochquant_tpu_torch.integrators import field, gauge, langevin
 from stochquant_tpu_torch.io import checkpoint
 
 torch.set_num_threads(1)
@@ -104,11 +105,13 @@ def test_old_layouts_upgrade_and_other_kinds_raise(tmp_path):
     assert loaded.runs.shape == (CFG.n_chains, 2) and int(loaded.runs[:, 1].abs().sum()) == 0
     assert torch.count_nonzero(loaded.x4_mean) == 0
 
-    meta = {"kind": "gauge", "config": "{}", "version": 1}
-    gpath = tmp_path / "gauge.npz"
+    meta = {"kind": "complex_field", "config": "{}", "version": 1}
+    gpath = tmp_path / "complex_field.npz"
     np.savez(gpath, meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8))
-    with pytest.raises(ValueError, match="gauge"):
+    with pytest.raises(ValueError, match="complex_field"):
         checkpoint.load(gpath, "cpu")
+    with pytest.raises(ValueError, match="no single state class"):
+        checkpoint.state_from_numpy({"phi": np.zeros(2)}, "cpu")
 
 
 def test_jax_field_checkpoint_resumes_in_the_port(tmp_path):
@@ -172,3 +175,52 @@ def test_field_checkpoint_without_mag4_is_backfilled(tmp_path):
     assert any("mag4_mean" in str(w.message) for w in caught)
     assert loaded.runs.shape == (FCFG.n_chains, 2)
     assert torch.count_nonzero(loaded.mag4_mean) == 0 and loaded.mag4_mean.shape == (3,)
+
+
+@pytest.mark.parametrize("group", ["u1", "su2", "su3"])
+def test_gauge_checkpoints_resume_in_either_package(group, tmp_path):
+    cfg = gauge.GaugeConfig(group=group, beta=2.0, shape=(4, 8), n_chains=2, dtau=2e-3, loops=3,
+                            seed=6, hot_start=True)
+    jcfg = jgauge.GaugeConfig.from_json(cfg.to_json())
+    ja = jgauge.resolve_gauge_action(jcfg)
+    s1, _ = jgauge.run_gauge_frames(jgauge.init_gauge_state(jcfg, ja), ja, jcfg, 1)
+    jpath = tmp_path / "jax_gauge.npz"
+    jck.save(jpath, s1, jcfg, frames_done=1)
+    want, _ = jgauge.run_gauge_frames(s1, ja, jcfg, 1)
+
+    # JAX -> port: the same leaves, then one more frame agrees with JAX's
+    state, cfg2 = checkpoint.load(jpath, "cpu")
+    assert cfg2 == cfg and type(state) is gauge.GaugeState
+    host = checkpoint.state_to_numpy(state)
+    for name, leaf in zip(s1._fields, s1):
+        leaf = np.asarray(leaf)
+        assert host[name].dtype == leaf.dtype, name
+        np.testing.assert_array_equal(host[name], leaf, err_msg=name)
+    act = gauge.resolve_gauge_action(cfg)
+    got, _ = gauge.run_gauge_frames(state, act, cfg, 1)
+    tol = dict(rtol=2e-5 if group == "su3" else 2e-6, atol=2e-6)
+    for name, g, w in zip(got._fields, got, want):
+        w = np.asarray(w)
+        if name in ("runs", "stab_cnt", "step"):
+            np.testing.assert_array_equal(g.numpy().astype(w.dtype), w, err_msg=name)
+        else:
+            np.testing.assert_allclose(g.numpy(), w, err_msg=name, **tol)
+
+    # port -> JAX: byte-equal leaves (SU(3) links complex64), and the port
+    # resumes its own checkpoint bitwise
+    ppath = tmp_path / "port_gauge.npz"
+    checkpoint.save(ppath, got, cfg, frames_done=2)
+    jstate, jcfg2 = jck.load(ppath)
+    assert jcfg2 == jcfg and jck.read_meta(ppath)["kind"] == "gauge"
+    host = checkpoint.state_to_numpy(got)
+    for name, leaf in zip(jstate._fields, jstate):
+        leaf = np.asarray(leaf)
+        assert leaf.dtype == host[name].dtype, name
+        np.testing.assert_array_equal(leaf, host[name], err_msg=name)
+    if group == "su3":
+        assert host["links"].dtype == np.complex64
+    loaded, _ = checkpoint.load(ppath, "cpu")
+    a, _ = gauge.run_gauge_frames(loaded, act, cfg, 1)
+    b, _ = gauge.run_gauge_frames(got, act, cfg, 1)
+    for name, x, y in zip(a._fields, a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, msg=name)

@@ -10,8 +10,12 @@ from pathlib import Path
 import pytest
 import torch
 
+from stochquant_tpu import cli as jcli
 from stochquant_tpu import config as jcfg
+from stochquant_tpu.integrators import gauge as jgauge
+from stochquant_tpu_torch import cli as tcli
 from stochquant_tpu_torch import config as tcfg
+from stochquant_tpu_torch.integrators import gauge as tgauge
 
 torch.set_num_threads(1)
 
@@ -64,6 +68,29 @@ def test_non_default_field_config_json_byte_equal():
     ]
 
 
+@pytest.mark.parametrize("name", sorted(tcli.GAUGE_PRESETS))
+def test_gauge_preset_json_byte_equal_and_round_trips(name):
+    a, b = jcli._gauge_presets()[name].to_json(), tcli.GAUGE_PRESETS[name].to_json()
+    assert a == b
+    assert tgauge.GaugeConfig.from_json(a) == tcli.GAUGE_PRESETS[name]
+
+
+def test_non_default_gauge_config_json_byte_equal():
+    kw = dict(group="su3", beta=5.7, shape=(8, 4, 4, 4), n_chains=3, dtau=1e-3, loops=7,
+              frames=9, seed=11, drift_cap=5.0, shrink=0.9, grow_after=4, dtau_max=2e-3,
+              hot_start=True, measure_loops=True, frames_per_launch=3, mesh_axes=("x", None),
+              exchange_steps=4, cooling_rate=0.1, cooling_steps=2)
+    a, b = jgauge.GaugeConfig(**kw), tgauge.GaugeConfig(**kw)
+    assert a.to_json() == b.to_json()
+    assert tgauge.GaugeConfig.from_json(a.to_json()) == b
+    assert [f.name for f in jcfg.dataclasses.fields(jgauge.GaugeConfig)] == [
+        f.name for f in tcfg.dataclasses.fields(tgauge.GaugeConfig)
+    ]
+    # every compact-group gauge preset of the JAX CLI is in the port's
+    compact = {k for k, v in jcli._gauge_presets().items() if v.group in ("u1", "su2", "su3")}
+    assert compact == set(tcli.GAUGE_PRESETS)
+
+
 def test_whole_presets_table_is_copied():
     assert sorted(jcfg.PRESETS) == sorted(tcfg.PRESETS)
     for name in jcfg.PRESETS:
@@ -84,6 +111,9 @@ def test_port_imports_without_jax_or_triton():
         "import stochquant_tpu_torch.kernels.field_kernel_tiled\n"
         "import stochquant_tpu_torch.integrators.field, stochquant_tpu_torch.actions.phi4\n"
         "import stochquant_tpu_torch.io.checkpoint\n"
+        "import stochquant_tpu_torch.kernels.gauge_kernel, stochquant_tpu_torch.actions.gauge\n"
+        "import stochquant_tpu_torch.integrators.gauge\n"
+        "import stochquant_tpu_torch.observables.gauge_loops\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'stochquant_tpu'))\n"
         "assert not bad, bad\n"

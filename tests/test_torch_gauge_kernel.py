@@ -1,0 +1,219 @@
+"""The port's gauge kernels 10 and 11: on the CPU the wrappers run their
+plain versions, which must match the JAX package's Pallas kernels (interpret
+mode, as tests/test_gauge_kernel.py runs them) for U(1) and SU(2), and its
+XLA path for SU(3) (whose Pallas interpret run takes about a minute) —
+links within rtol 2e-6 / atol 2e-6 (su3: rtol 2e-5), ``plaq_mean`` within
+rtol 1e-5 / atol 1e-6, decisions and counters exactly.  The CUDA kernels
+themselves are compared with the plain versions on the card (tests marked
+``cuda``, and ``chip_smoke.py``)."""
+
+import ctypes
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stochquant_tpu.integrators import gauge as jg
+from stochquant_tpu.kernels import gauge_kernel as jgk
+from stochquant_tpu_torch.integrators import gauge as tg
+from stochquant_tpu_torch.io import checkpoint
+from stochquant_tpu_torch.kernels import _build
+from stochquant_tpu_torch.kernels import gauge_kernel as gk
+
+torch.set_num_threads(1)
+
+EXACT = ("runs", "stab_cnt", "step")
+LINKS_TOL = {"u1": dict(rtol=2e-6, atol=2e-6), "su2": dict(rtol=2e-6, atol=2e-6),
+             "su3": dict(rtol=2e-5, atol=2e-6)}
+CFG = {
+    "u1": tg.GaugeConfig(group="u1", beta=1.0, shape=(8, 16), n_chains=3, dtau=5e-3, loops=4,
+                         seed=17, grow_after=1, dtau_max=5.1e-3, hot_start=True),
+    "su2": tg.GaugeConfig(group="su2", beta=2.0, shape=(8, 16), n_chains=3, dtau=2e-3, loops=3,
+                          seed=19, drift_cap=1.0, hot_start=True),
+    "su3": tg.GaugeConfig(group="su3", beta=5.0, shape=(8, 16), n_chains=2, dtau=1e-3, loops=3,
+                          seed=23, hot_start=True),
+}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU interpret mode")
+    return torch.device("cuda")
+
+
+def _start(cfg, nan_chain=None):
+    """The JAX package's initial state (optionally one chain's link NaN)
+    and the same leaves as the port's state."""
+    jcfg = jg.GaugeConfig.from_json(cfg.to_json())
+    js = jg.init_gauge_state(jcfg)
+    if nan_chain is not None:
+        links = np.asarray(js.links).copy()
+        links.reshape(cfg.n_chains, -1)[nan_chain, 3] = np.nan
+        js = js._replace(links=jnp.asarray(links))
+    port = checkpoint.state_from_numpy({n: np.asarray(v) for n, v in zip(js._fields, js)}, "cpu")
+    return jcfg, jg.resolve_gauge_action(jcfg), js, port
+
+
+def _assert_matches(group, got, gm, want, wm, rejected=()):
+    stable = gm["stable"].numpy()
+    np.testing.assert_array_equal(stable, np.asarray(wm["stable"]))
+    np.testing.assert_allclose(gm["dtau"].numpy(), np.asarray(wm["dtau"]), rtol=2e-6)
+    keep = np.ones(stable.shape[1], bool)
+    keep[list(rejected)] = False
+    np.testing.assert_allclose(gm["drift_max"].numpy()[:, keep],
+                               np.asarray(wm["drift_max"])[:, keep], rtol=2e-6)
+    for name, g, w in zip(got._fields, got, want):
+        w = np.asarray(w)
+        if name in EXACT:
+            np.testing.assert_array_equal(g.numpy().astype(w.dtype), w, err_msg=name)
+        elif name == "links":
+            np.testing.assert_allclose(g.numpy(), w, err_msg=name, **LINKS_TOL[group])
+        elif name == "plaq_mean":
+            np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-6, err_msg=name)
+        else:
+            np.testing.assert_allclose(g.numpy(), w, rtol=2e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("group,fpl,nan_chain", [
+    ("u1", 1, 1),     # kernel 10 + epilogue, a rejected chain, Δτ growth into dtau_max
+    ("u1", 2, None),  # kernel 11, K=2
+    ("su2", 1, 2),    # odd loops, capped drift, a rejected chain
+    ("su2", 2, None),
+])
+def test_plain_kernels_match_pallas_interpret(group, fpl, nan_chain):
+    cfg = CFG[group]
+    jcfg, jact, js, port = _start(cfg, nan_chain)
+    want, wm = jgk.run_gauge_frames_pallas(js, jact, jcfg, 2, interpret=True,
+                                           frames_per_launch=fpl)
+    got, gm = gk.run_gauge_frames_kernel(port, tg.resolve_gauge_action(cfg), cfg, 2,
+                                         frames_per_launch=fpl)
+    assert gm["stable"].shape == (2, cfg.n_chains)
+    if nan_chain is not None:
+        assert not gm["stable"][:, nan_chain].any()
+        assert torch.isnan(gm["drift_max"][:, nan_chain]).all()
+    _assert_matches(group, got, gm, want, wm)
+
+
+def test_su3_plain_kernels_match_xla():
+    cfg = CFG["su3"]
+    jcfg, jact, js, port = _start(cfg, nan_chain=1)
+    want, wm = jg.run_gauge_frames(js, jact, jcfg, 2)
+    act = tg.resolve_gauge_action(cfg)
+    got, gm = gk.gauge_frames_multi(port, act, cfg, 2)
+    _assert_matches("su3", got, gm, want, wm)
+    single, sm = gk.run_gauge_frames_kernel(port, act, cfg, 2)
+    for name, x, y in zip(got._fields, got, single):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True, msg=name)
+
+
+@pytest.mark.parametrize("group", ["u1", "su2", "su3"])
+def test_cpu_tensors_run_the_plain_versions_without_launching(group):
+    cfg = dataclasses.replace(CFG[group], n_chains=2, shape=(4, 8))
+    act = tg.resolve_gauge_action(cfg)
+    s0 = tg.init_gauge_state(cfg, act, device="cpu")
+    before = (gk.gauge_frame.launches, gk.gauge_frames_multi.launches)
+    one, m1 = gk.gauge_frame(s0, act, cfg)
+    ref, _ = gk.gauge_frame_ref(s0, act, cfg)
+    for name, x, y in zip(one._fields, one, ref):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, msg=name)
+    multi, mm = gk.gauge_frames_multi(s0, act, cfg, 3)
+    seq, sm = gk.run_gauge_frames_kernel(s0, act, cfg, 3, frames_per_launch=2)
+    for name, x, y in zip(multi._fields, multi, seq):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, msg=name)
+    for key in mm:
+        torch.testing.assert_close(mm[key], sm[key], rtol=0, atol=0, msg=key)
+    assert mm["stable"].shape == (3, 2) and int(multi.step) == 1 + 3 * cfg.loops
+    assert m1["unitarity_norm"].abs().sum() == 0
+    assert (gk.gauge_frame.launches, gk.gauge_frames_multi.launches) == before
+    # the kernels' plane layout round-trips the state layout exactly
+    planes = gk.links_to_planes(seq.links, act)
+    assert planes.shape == (2, {"u1": 2, "su2": 8, "su3": 36}[group], 4, 8)
+    assert planes.dtype == torch.float32 and planes.is_contiguous()
+    assert torch.equal(gk.planes_to_links(planes, act), seq.links)
+
+
+def test_su3_plane_layout():
+    cfg = dataclasses.replace(CFG["su3"], shape=(2, 3), n_chains=1)
+    act = tg.resolve_gauge_action(cfg)
+    links = tg.init_gauge_state(cfg, act, device="cpu").links
+    planes = gk.links_to_planes(links, act)
+    # plane 18 mu + 2 (3 r + c) + {re, im}
+    for mu, r, c, x, y in ((0, 0, 1, 1, 2), (1, 2, 0, 0, 1), (1, 1, 2, 1, 0)):
+        p = 18 * mu + 2 * (3 * r + c)
+        assert planes[0, p, x, y] == links[0, mu, x, y, r, c].real
+        assert planes[0, p + 1, x, y] == links[0, mu, x, y, r, c].imag
+
+
+def test_kernel_parameters_mirror_the_cuda_struct():
+    # 8 integer fields, 2 unsigned and 8 floats, in the order of csrc/gauge_kernel.cu
+    assert ctypes.sizeof(_build.GaugeParams) == 18 * 4
+    src = (_build._CSRC / "gauge_kernel.cu").read_text()
+    start = src.index("struct GaugeParams {")
+    body = src[start:src.index("};", start)]
+    names = []
+    for line in body.splitlines()[1:]:
+        decl = line.split("//")[0].strip().rstrip(";")
+        if decl:
+            names += [n.strip() for n in decl.split(None, 1)[1].split(",")]
+    assert names == [f for f, _ in _build.GaugeParams._fields_]
+    assert "gauge_kernel.cu" in _build._SOURCES
+
+    for group, coef in (("u1", -1.5), ("su2", -0.75), ("su3", np.float32(1.5 / 12))):
+        cfg = tg.GaugeConfig(group=group, beta=1.5, shape=(8, 16), n_chains=3, loops=5,
+                             dtau_max=0.5, grow_after=3, seed=2**32 + 9)
+        p = gk.kernel_params(tg.resolve_gauge_action(cfg), cfg, step0=2**32 + 7, n_frames=2)
+        assert (p.n_chains, p.L0, p.L1, p.loops, p.n_frames) == (3, 8, 16, 5, 2)
+        assert (p.group, p.grow_after, p.has_dtau_max, p.step0, p.seed) == (
+            ("u1", "su2", "su3").index(group), 3, 1, 7, 9)
+        assert p.coef == coef and p.cap == 20.0 and p.inv_vol == np.float32(1 / 128)
+        assert p.clip_hi == np.float32(1.0 - 1e-6) and p.dtau_max == 0.5
+        assert p.inv_loops == np.float32(0.2) and p.loops_f == 5.0 and p.shrink == np.float32(0.95)
+
+
+def test_unsupported_inputs_raise():
+    cfg = dataclasses.replace(CFG["u1"], shape=(4, 8))
+    act = tg.resolve_gauge_action(cfg)
+    s0 = tg.init_gauge_state(cfg, act, device="cpu")
+    for change, match in ((dict(shape=(4, 4, 4, 4)), "2-D"),
+                          (dict(cooling_rate=0.05), "cooling")):
+        bad = dataclasses.replace(cfg, **change)
+        assert not gk.supports(act, bad)
+        with pytest.raises(ValueError, match=match):
+            gk.gauge_frame(s0, act, bad)
+        with pytest.raises(ValueError, match=match):
+            gk.gauge_frames_multi(s0, act, bad, 2)
+    assert gk.supports(act, cfg)
+    with pytest.raises(ValueError, match="frames per launch"):
+        gk.gauge_frames_multi(s0, act, cfg, 0)
+    meta = tg.GaugeState(*(t if n == "step" else t.to("meta") for n, t in zip(s0._fields, s0)))
+    with pytest.raises(ValueError, match="cuda"):
+        gk.gauge_frame(meta, act, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["u1", "su2", "su3"])
+def test_cuda_kernels_match_plain_versions(cuda_device, group):
+    cfg = dataclasses.replace(CFG[group], shape=(16, 128))
+    act = tg.resolve_gauge_action(cfg)
+    s0 = tg.init_gauge_state(cfg, act, device=cuda_device)
+    links = s0.links.clone()
+    links.view(cfg.n_chains, -1)[1, 9] = float("nan")
+    s0 = s0._replace(links=links)
+    plain, pm = gk.gauge_frames_multi_ref(s0, act, cfg, 3)
+    before = (gk.gauge_frame.launches, gk.gauge_frames_multi.launches)
+    k10, m10 = gk.run_gauge_frames_kernel(s0, act, cfg, 3)
+    k11, m11 = gk.gauge_frames_multi(s0, act, cfg, 3)
+    torch.cuda.synchronize()
+    assert gk.gauge_frame.launches == before[0] + 3
+    assert gk.gauge_frames_multi.launches == before[1] + 1
+    for got, gm in ((k10, m10), (k11, m11)):
+        for leaf, x, y in [*zip(got._fields, got, plain), *((k, gm[k], pm[k]) for k in pm)]:
+            if leaf in ("runs", "stab_cnt", "step", "stable"):
+                assert torch.equal(x.cpu(), y.cpu()), leaf
+            elif leaf == "plaq_mean":
+                torch.testing.assert_close(x, y, rtol=3e-5, atol=3e-6, msg=leaf)
+            else:
+                torch.testing.assert_close(x, y, rtol=0, atol=2e-6, equal_nan=True, msg=leaf)

@@ -1,6 +1,6 @@
 """The port's runtime and CLI on the CPU: frame records, checkpoints, the
-same final state as the JAX runtime, the field path's routing, and loud
-refusals of what is not ported."""
+same final state as the JAX runtime, the field and gauge paths' routing,
+and loud refusals of what is not ported."""
 
 import dataclasses
 import json
@@ -13,8 +13,10 @@ from stochquant_tpu import metrics as jmetrics
 from stochquant_tpu import runtime as jruntime
 from stochquant_tpu.config import ChainConfig as JChainConfig
 from stochquant_tpu.config import FieldConfig as JFieldConfig
+from stochquant_tpu.integrators.gauge import GaugeConfig as JGaugeConfig
 from stochquant_tpu_torch import cli, metrics, runtime
 from stochquant_tpu_torch.config import PRESETS, FieldConfig, Scheme, Sweep
+from stochquant_tpu_torch.integrators.gauge import GaugeConfig
 from stochquant_tpu_torch.io import checkpoint
 
 torch.set_num_threads(1)
@@ -236,3 +238,148 @@ def test_field_routing_raises_for_what_is_not_ported(change, backend, device, ma
     cfg = dataclasses.replace(BASE, **change)
     with pytest.raises(ValueError, match=match):
         runtime.select_field_backend(cfg, backend, device)
+
+
+GAUGE_BASE = GaugeConfig(group="u1", shape=(16, 16), n_chains=4, loops=10)
+
+
+@pytest.mark.parametrize("change,backend,device,want", [
+    ({}, "auto", CUDA, "cuda"),
+    (dict(group="su2"), "cuda", CUDA, "cuda"),
+    (dict(group="su3", shape=(64, 64)), "auto", CUDA, "cuda"),
+    ({}, "torch", CUDA, "torch"),
+    ({}, "auto", torch.device("cpu"), "torch"),
+    (dict(group="su3", shape=(4, 4, 4, 4)), "auto", torch.device("cpu"), "torch"),
+    (dict(exchange_steps=8), "auto", CUDA, "cuda"),  # unused without a mesh
+])
+def test_gauge_routing(change, backend, device, want):
+    cfg = dataclasses.replace(GAUGE_BASE, **change)
+    assert runtime.select_gauge_backend(cfg, backend, device) == (want, None)
+
+
+@pytest.mark.parametrize("change", [dict(group="su3", shape=(4, 4, 4, 4)),
+                                    dict(group="su2", shape=(8, 8, 8, 8)),
+                                    dict(cooling_rate=0.05)])
+def test_gauge_auto_on_cuda_falls_back_for_what_has_no_kernel(change):
+    cfg = dataclasses.replace(GAUGE_BASE, **change)
+    route, reason = runtime.select_gauge_backend(cfg, "auto", CUDA)
+    assert route == "torch" and "2-D u1/su2/su3" in reason
+
+
+@pytest.mark.parametrize("change,backend,device,match", [
+    (dict(group="su3", shape=(4, 4, 4, 4)), "cuda", CUDA, "2-D"),
+    (dict(cooling_rate=0.05), "cuda", CUDA, "cooling"),
+    ({}, "cuda", torch.device("cpu"), "CUDA device"),
+    (dict(mesh_axes=("x", None)), "auto", CUDA, "mesh_axes"),
+    (dict(mesh_chain_axis="chains"), "torch", torch.device("cpu"), "mesh_chain_axis"),
+    (dict(group="cu1", beta_im=0.5), "auto", CUDA, "not ported"),
+    (dict(group="csu3"), "torch", torch.device("cpu"), "not ported"),
+    ({}, "pallas", CUDA, "backend"),
+])
+def test_gauge_routing_raises_for_what_is_not_ported(change, backend, device, match):
+    cfg = dataclasses.replace(GAUGE_BASE, **change)
+    with pytest.raises(ValueError, match=match):
+        runtime.select_gauge_backend(cfg, backend, device)
+
+
+def test_run_gauge_records_the_backend_fallback(monkeypatch):
+    # what 'auto' does on a CUDA device for su3_4d, run here on the CPU
+    real = runtime.select_gauge_backend
+    monkeypatch.setattr(runtime, "select_gauge_backend",
+                        lambda cfg, backend, device: real(cfg, backend, CUDA))
+    cfg = dataclasses.replace(cli.GAUGE_PRESETS["su3_4d"], n_chains=1, loops=2, frames=1)
+    recs = []
+    runtime.run_gauge(cfg, device="cpu", sink=metrics.MetricsSink(callback=recs.append))
+    assert recs[0]["type"] == "backend_fallback" and recs[0]["backend"] == "torch"
+    assert "su3" in recs[0]["reason"]
+    frames = [r for r in recs if r["type"] == "frame"]
+    assert len(frames) == 1 and frames[0]["plaquette_exact_2d"] is None
+
+
+def test_cli_run_u1_2d_cpu_resumes_bitwise_and_matches_jax(tmp_path):
+    base = ["run", "--preset", "u1_2d", "--device", "cpu", "--chains", "2", "--loops", "4",
+            "--frames-per-launch", "2", "--measure-loops"]
+    paths = {k: (tmp_path / f"{k}.npz", tmp_path / f"{k}.jsonl") for k in "abc"}
+    cli.main(base + ["--burn", "1", "--frames", "3", "--out", str(paths["a"][0]),
+                     "--metrics", str(paths["a"][1])])
+    cli.main(base + ["--frames", "1", "--resume", str(paths["a"][0]), "--out",
+                     str(paths["b"][0]), "--metrics", str(paths["b"][1])])
+    cli.main(base + ["--burn", "1", "--frames", "4", "--out", str(paths["c"][0]),
+                     "--metrics", str(paths["c"][1])])
+    resumed, _ = checkpoint.load(paths["b"][0], "cpu")
+    straight, cfg = checkpoint.load(paths["c"][0], "cpu")
+    for name, x, y in zip(resumed._fields, resumed, straight):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, msg=name)
+    assert cfg.measure_loops and cfg.frames_per_launch == 2 and int(straight.step) == 1 + 5 * 4
+
+    recs = _records(paths["a"][1])
+    frames = [r for r in recs if r["type"] == "frame"]
+    assert [r["frame"] for r in frames] == [0, 1, 2]  # one record per frame, as in JAX
+    for r in frames:
+        assert r["stable_frac"] == 1.0 and 0.0 < r["plaquette"] <= 1.0
+        assert r["plaquette_exact_2d"] == pytest.approx(0.44638996589653)
+        assert np.isfinite([r["drift_max"], r["polyakov_re"], r["polyakov_im"]]).all()
+    loops = [r for r in recs if r["type"] == "wilson_loops"]
+    assert len(loops) == 1 and np.asarray(loops[0]["w"]).shape == (4, 4)
+    assert recs[-1]["type"] == "summary" and recs[-1]["total_site_updates"] == 2 * 2 * 256 * 4 * 3
+
+    jres = jruntime.run_gauge(JGaugeConfig.from_json(cfg.to_json()), backend="xla",
+                              sink=jmetrics.MetricsSink(), burn_frames=1)
+    for leaf, got, want in zip(straight._fields, straight, jres.state):
+        want = np.asarray(want)
+        if leaf in ("runs", "stab_cnt", "step"):
+            np.testing.assert_array_equal(got.numpy().astype(want.dtype), want, err_msg=leaf)
+        elif leaf == "plaq_mean":
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6, err_msg=leaf)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-6, err_msg=leaf)
+
+
+def test_run_gauge_records_every_frame_and_batches_only_the_burn_in(monkeypatch, tmp_path):
+    # the kernel route, run here through the kernels' plain versions (CPU tensors)
+    from stochquant_tpu_torch.kernels import gauge_kernel as gk
+
+    cfg = GaugeConfig(group="u1", beta=1.0, shape=(4, 8), n_chains=2, loops=3, frames=4, seed=5,
+                      frames_per_launch=2)
+    plain = runtime.run_gauge(cfg, device="cpu", sink=metrics.MetricsSink(), burn_frames=3).state
+    calls, saved = [], []
+    multi, single, save = gk.gauge_frames_multi, gk.gauge_frame, checkpoint.save
+    monkeypatch.setattr(runtime, "select_gauge_backend", lambda *args: ("cuda", None))
+    monkeypatch.setattr(gk, "gauge_frames_multi",
+                        lambda s, a, c, K: calls.append(K) or multi(s, a, c, K))
+    monkeypatch.setattr(gk, "gauge_frame", lambda s, a, c: calls.append(1) or single(s, a, c))
+    monkeypatch.setattr(checkpoint, "save", lambda p, s, c, *, frames_done=None: saved.append(
+        frames_done) or save(p, s, c, frames_done=frames_done))
+    recs = []
+    res = runtime.run_gauge(cfg, device="cpu", sink=metrics.MetricsSink(callback=recs.append),
+                            burn_frames=3, checkpoint_out=str(tmp_path / "g.npz"),
+                            checkpoint_every=3)
+    assert calls == [2, 1, 1, 1, 1, 1]  # burn-in: one K=2 launch + the remainder
+    assert [r["frame"] for r in recs if r["type"] == "frame"] == [0, 1, 2, 3]
+    assert saved == [3, 4]
+    for name, a, b in zip(plain._fields, res.state, plain):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+
+
+def test_gauge_preemption_and_auto_resume_are_bitwise(tmp_path):
+    cfg = GaugeConfig(group="su2", beta=2.0, shape=(4, 8), n_chains=2, loops=3, frames=4, seed=5)
+    full = runtime.run_gauge(cfg, device="cpu", sink=metrics.MetricsSink(), burn_frames=1).state
+    ck = tmp_path / "pre.npz"
+    calls = {"n": 0}
+
+    def stop():
+        calls["n"] += 1
+        return calls["n"] >= 2
+
+    mpath = tmp_path / "m.jsonl"
+    with open(mpath, "w") as fh:
+        runtime.run_gauge(cfg, device="cpu", sink=metrics.MetricsSink(stream=fh), burn_frames=1,
+                          checkpoint_out=str(ck), stop=stop)
+    assert any(r["type"] == "preempted" and r["frames_done"] == 2 for r in _records(mpath))
+    res = runtime.run_gauge(cfg, device="cpu", sink=metrics.MetricsSink(), burn_frames=1,
+                            checkpoint_in=str(ck), resume_progress=True)
+    for name, a, b in zip(full._fields, res.state, full):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+    with pytest.raises(ValueError, match="incompatible"):
+        runtime.run_gauge(dataclasses.replace(cfg, group="u1"), device="cpu",
+                          sink=metrics.MetricsSink(), checkpoint_in=str(ck))
