@@ -80,10 +80,39 @@ non-zero:
     K = 1 at 256 chains (u1 and su2 on 16×128, su3 on 8×128, loops 10) with
     kernel 11 held against its plain version.
 
-Prints a JSON line with the seven kernels' numbers (name, route, source,
-the TPU kernel it replaces, main-path launches, max|Δ|, ms and plain ms),
-then the card's name and power limit, and last ``{"ok": true, "device":
-{...}}``.
+13. D-dim field kernels vs plain: kernels 6 (``field_pair_nd``) and 7
+    (``field_chunk_nd``) against their plain versions on small cases that
+    reach every branch — 4-D and 3-D, SYNC and CHECKERBOARD, both Threefry
+    variants, a block that spans the whole lattice and tiles with a
+    recomputed halo, three strips along dim 0, a last dim longer than a
+    warp, a chain holding a NaN site and a chain that trips (both rejected),
+    W = 2, W = 4 and a W = 4 chunk with a W = 2 tail, the chunk path's
+    trajectory equal to the pair path's, and kernel 7 on blocks split in one
+    and in two dims away from the origin (2-D, 3-D and 4-D).  Limits as in
+    6, the per-block sums and the slice sums held as means;
+14. D-dim main path: ``cli run --preset phi4_4d --chains 4 --loops 20`` at
+    the preset's 32⁴ (one burn-in frame, 3 frames, ``--resume`` for one
+    more, and an uninterrupted 4-frame run: bitwise equal; finite
+    observables, stable_frac ≥ 0.99), once on the pair path (kernel 6
+    launched, kernel 7 not) and once with ``--exchange-steps 4`` (kernel 7
+    launched, kernel 6 not); each kernel from its run's checkpoint held
+    against its plain version at 32⁴ × 4;
+15. D-dim timings at ``bench.py``'s cell (32⁴, loops 20, seed 9, 8 frames)
+    at 1 and at 8 chains: MLUPS of the pair path, the chunk path (W = 4) and
+    the plain path (medians of 3 reps after a warm-up), CUDA-event ms per
+    launch of kernels 6 and 7 beside their plain versions' wall ms, held
+    against each other, under ``torch.profiler`` the device's idle share
+    (busy and wall time of the same 8 profiled frames) and the top kernels
+    of each kernel path, and kernel 6 over several ``tile_rows``.
+
+``python3 chip_smoke.py --log PATH`` also writes every printed line to PATH.
+
+Prints a JSON line with the nine kernels' numbers (name, route, source, the
+TPU kernel it replaces, main-path launches, max|Δ|, ms and plain ms at the
+timed shape, the bound: the least ms the card could take for that launch,
+the resource that binds it, and the ms of one PyTorch call computing the
+same function, null where there is none), then the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -110,6 +139,8 @@ KERNELS = {
     "field_frame": ("field_kernel.cu", "stochquant_tpu/kernels/field_kernel.py:205"),
     "field_frames_multi": ("field_kernel.cu", "stochquant_tpu/kernels/field_kernel.py:498"),
     "field_pair": ("field_kernel_tiled.cu", "stochquant_tpu/kernels/field_kernel_tiled.py:189"),
+    "field_pair_nd": ("field_kernel_nd.cu", "stochquant_tpu/kernels/field_kernel_nd.py:327"),
+    "field_chunk_nd": ("field_kernel_nd.cu", "stochquant_tpu/kernels/field_kernel_nd.py:977"),
     "gauge_frame": ("gauge_kernel.cu", "stochquant_tpu/kernels/gauge_kernel.py:434"),
     "gauge_frames_multi": ("gauge_kernel.cu", "stochquant_tpu/kernels/gauge_kernel.py:1144"),
 }
@@ -125,6 +156,8 @@ BENCH_GAUGE = {
     "su3": dict(group="su3", beta=5.0, shape=(64, 64), n_chains=8, dtau=1e-3, loops=50,
                 seed=19, grow_after=10**9),
 }
+# bench.py's D-dim cell (bench.py:492-534), at 1 chain as there and at 8
+BENCH_ND = dict(action="phi4", shape=(32, 32, 32, 32), loops=20, seed=9, grow_after=10**9)
 MULTI_GAUGE = {
     "u1": dict(group="u1", beta=1.0, shape=(16, 128), dtau=5e-3),
     "su2": dict(group="su2", beta=2.0, shape=(16, 128), dtau=2e-3),
@@ -132,8 +165,78 @@ MULTI_GAUGE = {
 }
 
 
+# The bound of a launch: the larger of its bytes over the card's memory rate
+# (every input read once, every output written once) and its operations over
+# the card's float32 rate outside the tensor cores (NVIDIA's data sheet, H100
+# SXM).  Operations are counted per site and micro-step from the kernels'
+# sources, every arithmetic, compare/select and transcendental call as one:
+#   noise: one Threefry-2x32 evaluation (5 per round + 3 per key injection +
+#     4) and Box-Muller (8 for the two uniforms, 4 transcendentals, 4
+#     products) per two micro-steps: (119 + 16) / 2 at 20 rounds;
+#   chain (chain_kernel.cu substep): stencil 4, drift 3, update and clamp 7,
+#     detector maxima 6, observables 8, and the action's force: double_well
+#     on the kink background 11 (x_cl with its tanh, ddV), anharmonic 5;
+#   field (field_common.cuh, field_kernel_nd.cu nd_sweep): 4 D + 1 stencil,
+#     dV 5, update and clamp 11, observables 5 D + 10, maxima 3: 9 D + 30;
+#   gauge (gauge_kernel.cu pass1 + pass2, per site = 2 links, noise apart):
+#     u1 46 (4 plaquette angles, 5 transcendentals, 2 wraps), su2 391 + 138
+#     (13 quaternion products, exponential, normalisation), su3 2770 + 3424
+#     (26 3x3 complex products, Cayley-Hamilton exponential, projection);
+#     noise draws per link: 1, 3 and 8.
+HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+NOISE_OPS = (119 + 16) / 2
+CHAIN_OPS = {"double_well": 28 + 11, "anharmonic": 28 + 5}
+GAUGE_OPS = {"u1": 46 + 2 * 1 * NOISE_OPS, "su2": 391 + 138 + 2 * 3 * NOISE_OPS,
+             "su3": 2770 + 3424 + 2 * 8 * NOISE_OPS}
+
+
+def field_ops(ndim: int) -> float:
+    return 9 * ndim + 30 + NOISE_OPS
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least ms the card could take, which resource binds)."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def kernel_bounds() -> dict:
+    """The bound of each kernel's timed launch, from that launch's shapes."""
+    prod = math.prod
+    h, c2 = HEADLINE, CONFIG2
+    sites = h["n_chains"] * h["n_sites"]
+    out = {"chain_frame": bound(  # f in; f and the four per-site sums out
+        sites * 4 * 6, sites * h["loops"] * (CHAIN_OPS[h["action"]] + NOISE_OPS))}
+    sites = c2["n_chains"] * c2["n_sites"]
+    out["chain_frames_multi"] = bound(  # f and four per-site means in and out, K = 16
+        sites * 4 * 10, sites * c2["loops"] * 16 * (CHAIN_OPS[c2["action"]] + NOISE_OPS))
+    f = BENCH_FIELD
+    sites = f["n_chains"] * prod(f["shape"])
+    out["field_frame"] = bound(sites * 4 * 2, sites * f["loops"] * field_ops(2))
+    out["field_frames_multi"] = bound(sites * 4 * 2, sites * f["loops"] * 10 * field_ops(2))
+    sites = TILED_FIELD["n_chains"] * prod(TILED_FIELD["shape"])
+    out["field_pair"] = bound(sites * 4 * 2, sites * 2 * field_ops(2))
+    shape = BENCH_ND["shape"]
+    sites = prod(shape)  # 1 chain
+    out["field_pair_nd"] = bound(sites * 4 * 2, sites * 2 * field_ops(len(shape)))
+    ext = sites // shape[0] * (shape[0] + 2 * 4)  # W = 4, synchronous: halo 4 on dim 0
+    out["field_chunk_nd"] = bound((ext + sites) * 4, sites * 4 * field_ops(len(shape)))
+    g = BENCH_GAUGE["u1"]
+    sites = g["n_chains"] * prod(g["shape"])
+    out["gauge_frame"] = bound(sites * 2 * 4 * 2, sites * g["loops"] * GAUGE_OPS["u1"])
+    sites = 256 * prod(MULTI_GAUGE["u1"]["shape"])  # loops 10, K = 8
+    out["gauge_frames_multi"] = bound(sites * 2 * 4 * 2, sites * 10 * 8 * GAUGE_OPS["u1"])
+    return out
+
+
+LOG_FILE = None  # with --log PATH: every printed line goes there too
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if LOG_FILE is not None:
+        LOG_FILE.write(msg + "\n")
+        LOG_FILE.flush()
 
 
 def card_line() -> str:
@@ -182,22 +285,26 @@ EXACT = ("runs", "stab_cnt", "step", "unstable", "stable")
 # the kernels than by torch.mean / torch.sum in the plain versions
 SITE_REDUCED = {"mag_mean", "mag2_mean", "mag4_mean", "absmag_mean", "phi2_mean", "act_mean",
                 "corr_mean", "ms", "m2s", "m4s", "ams", "p2s", "acs", "cs", "sl0", "sl1",
-                "strip_means", "plaq_mean"}
+                "strip_means", "slice_means", "plaq_mean"}
 
 
 def leaves(result) -> list:
     """(name, tensor) leaves of a kernel's result: frame sums, a (state,
-    metrics) pair, or the field pair kernel's (phi, sl0, sl1, stats), whose
-    per-strip sums are compared as strip means (a sum of 16k sites near zero
-    carries the rounding of its terms, not of its value)."""
+    metrics) pair, a field pair kernel's (phi, sl0, sl1, stats) or the chunk
+    kernel's (phi, slice sums, stats), whose per-block sums and slice sums
+    are compared as means (a sum of 16k sites near zero carries the rounding
+    of its terms, not of its value)."""
     if hasattr(result, "_fields"):
         return list(zip(result._fields, result))
-    if len(result) == 4:
-        phi, sl0, sl1, stats = result
-        sites = phi.shape[1] // stats.shape[1] * phi.shape[2]
-        return [("phi", phi), ("sl0", sl0), ("sl1", sl1),
-                ("strip_means", stats[..., [0, 1, 2, 5, 6, 7]] / sites),
-                ("strip_max", stats[..., [3, 4, 8, 9]])]
+    if len(result) in (3, 4):
+        phi, stats = result[0], result[-1]
+        sites = phi[0].numel() // stats.shape[1]
+        cols = range(stats.shape[2])
+        sums, maxima = [c for c in cols if c % 5 < 3], [c for c in cols if c % 5 >= 3]
+        slices = ([("sl0", result[1]), ("sl1", result[2])] if len(result) == 4 else
+                  [("slice_means", result[1] / (phi[0].numel() // phi.shape[1]))])
+        return [("phi", phi), *slices, ("strip_means", stats[..., sums] / sites),
+                ("strip_max", stats[..., maxima])]
     state, metrics = result
     return list(zip(state._fields, state)) + list(metrics.items())
 
@@ -224,7 +331,7 @@ def gate(label: str, got, want) -> float:
             bad.append(name + " (NaN)")
             continue
         x, y = x[~nan], y[~nan]
-        diff = (x.double() - y.double()).abs()
+        diff = torch.where(x == y, 0.0, (x.double() - y.double()).abs())  # inf meets inf
         err = float(diff.max()) if diff.numel() else 0.0
         worst = max(worst, err)
         if name in SITE_REDUCED:
@@ -477,11 +584,13 @@ def check_field_records(tmp: Path, part: str) -> None:
         f"{frames[-1]['binder']:.4f}, avg_mlups {recs[-1]['avg_mlups']}")
 
 
-def field_cli_runs(torch, cli, checkpoint, counters, tmp: Path, tag: str, extra: list) -> dict:
+def field_cli_runs(torch, cli, checkpoint, counters, tmp: Path, tag: str, extra: list,
+                   preset: str = "phi4_2d", chains: int = 16) -> dict:
     """Burn-in + 3 frames, --resume for 1, and an uninterrupted burn-in + 4
-    frames of preset phi4_2d at 16 chains; every launch count set to 0 just
-    before and read just after.  Returns the counts."""
-    common = ["run", "--preset", "phi4_2d", "--chains", "16", "--device", "cuda",
+    frames of a field preset (phi4_2d at 16 chains unless told otherwise);
+    every launch count set to 0 just before and read just after.  Returns
+    the counts."""
+    common = ["run", "--preset", preset, "--chains", str(chains), "--device", "cuda",
               "--frames-per-launch", "2", *extra]
     for fn in counters.values():
         fn.launches = 0
@@ -494,7 +603,7 @@ def field_cli_runs(torch, cli, checkpoint, counters, tmp: Path, tag: str, extra:
                        "--out", str(tmp / f"{tag}c.npz"), "--metrics", str(tmp / f"{tag}c.jsonl")])
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
-    log(f"  {' '.join(extra) or 'whole-lattice'}: 3 + resume 1 + uninterrupted 4 frames in "
+    log(f"  {preset} {' '.join(extra) or '(defaults)'}: 3 + resume 1 + uninterrupted 4 frames in "
         f"{time.time() - t0:.1f}s; launch counts {launches}")
     for part in "abc":
         check_field_records(tmp, tag + part)
@@ -895,7 +1004,245 @@ def phase_gauge_timings(torch, device, gk, gauge, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# D-dim field path: kernels 6 and 7
+# ---------------------------------------------------------------------------
+
+def nd_gate_cases(FieldConfig, Sweep):
+    """(name, config, tile_rows, chain given a NaN site or None, per-chain Δτ
+    or None): small cases for every branch of kernels 6 and 7."""
+    kw = dict(action="phi4", dtau=0.01, loops=6, seed=9)
+    return [
+        # 128 chains: every block spans its whole lattice and wraps inside the tile
+        ("4d_sync_whole_lattice", FieldConfig(shape=(4, 6, 4, 4), n_chains=128, **kw),
+         None, None, None),
+        ("4d_sync_tiles_threefry13", FieldConfig(shape=(8, 8, 4, 4), n_chains=2,
+                                                 rng_impl="threefry13", **kw), 2, None, None),
+        ("4d_checkerboard_three_strips", FieldConfig(shape=(12, 12, 8, 8), n_chains=2,
+                                                     sweep=Sweep.CHECKERBOARD, **kw),
+         4, None, None),
+        ("3d_sync_long_last_dim", FieldConfig(shape=(8, 12, 40), n_chains=3, **kw), 4, None, None),
+        ("3d_checkerboard_free_field", FieldConfig(**{**kw, "action": "free_field"},
+                                                   shape=(16, 8, 6), n_chains=2,
+                                                   sweep=Sweep.CHECKERBOARD), None, None, None),
+        ("4d_nan_site", FieldConfig(shape=(8, 8, 4, 4), n_chains=3, **kw), 4, 1, None),
+        ("4d_one_chain_trips", FieldConfig(shape=(8, 8, 4, 4), n_chains=3, **kw), 2, None,
+         [0.01, 50.0, 0.01]),
+    ]
+
+
+def extended_block(torch, phi, halos, offsets, loc):
+    """The block at ``offsets`` of the periodic lattice ``phi`` (C, *shape),
+    extended by ``halos[d]`` sites per side."""
+    for d, (h, o, n) in enumerate(zip(halos, offsets, loc)):
+        idx = (torch.arange(n + 2 * h, device=phi.device) + (o - h)) % phi.shape[d + 1]
+        phi = phi.index_select(d + 1, idx)
+    return phi.contiguous()
+
+
+def phase_nd_gate(torch, nd, ft, field, actions, cfgmod, device) -> None:
+    """Kernels 6 and 7 against their plain versions on the card."""
+    import dataclasses
+
+    for name, cfg, tile, nan_chain, dtaus in nd_gate_cases(cfgmod.FieldConfig, cfgmod.Sweep):
+        act = actions.get_field(cfg.action)
+        s0 = field.init_field_state(cfg, device=device)
+        if nan_chain is not None:
+            phi = s0.phi.clone()
+            phi.view(phi.shape[0], -1)[nan_chain, 5] = float("nan")
+            s0 = s0._replace(phi=phi)
+        if dtaus is not None:
+            s0 = s0._replace(dtau=torch.tensor(dtaus, dtype=torch.float32, device=device))
+        tiles = nd.resolve_tiles(cfg, cfg.shape, cfg.n_chains, tile)
+        step = int(s0.step)
+        gate(f"{name} field_pair_nd tiles {tiles}",
+             nd.field_pair_nd(s0.phi, s0.dtau, act, cfg, step, tile),
+             nd.field_pair_nd_ref(s0.phi, s0.dtau, act, cfg, step, tile))
+        pair = nd.run_field_frames_nd(s0, act, cfg, 2, tile_rows=tile)
+        plain = nd.run_field_frames_nd(s0, act, cfg, 2, tile_rows=tile,
+                                       pair=nd.field_pair_nd_ref)
+        gate(f"{name} field_pair_nd x2 frames", pair, plain)
+        # exchange_steps 4 with loops 6: a W = 4 chunk and a W = 2 tail per frame
+        chunk_cfg = dataclasses.replace(cfg, exchange_steps=4)
+        if nd.chunk_halos(cfg, 4, (True,))[0] < cfg.shape[0]:
+            chunk = nd.run_field_frames_nd(s0, act, chunk_cfg, 2, tile_rows=tile)
+            gate(f"{name} field_chunk_nd W=4+2 x2 frames", chunk,
+                 nd.run_field_frames_nd(s0, act, chunk_cfg, 2, tile_rows=tile,
+                                        chunk=nd.field_chunk_nd_ref))
+            gate(f"{name} chunk path vs pair path", chunk, pair)
+        gate(f"{name} field_chunk_nd W=2 x1 frame",
+             nd.field_frame_nd_chunk(s0, act, cfg, 2, tile_rows=tile),
+             nd.field_frame_nd_chunk(s0, act, cfg, 2, tile_rows=tile,
+                                     chunk=nd.field_chunk_nd_ref))
+        stable = plain[1]["stable"]
+        if nan_chain is not None or dtaus is not None:
+            bad = 1
+            if not (bool(stable.all(dim=0).sum() == cfg.n_chains - 1)
+                    and not bool(stable[:, bad].any())):
+                raise SystemExit(f"gate case {name} did not reject exactly chain {bad}")
+        elif not bool(stable.all()):
+            raise SystemExit(f"gate case {name} rejected a frame")
+
+    # kernel 7 on blocks of a split lattice, away from the origin
+    FieldConfig, Sweep = cfgmod.FieldConfig, cfgmod.Sweep
+    for name, cfg, W, split, loc, off, tile in [
+        ("2d_split_01", FieldConfig(shape=(24, 48), n_chains=3, seed=5), 6, (True, True),
+         (12, 16), (12, 32), 4),
+        ("3d_split_01_checkerboard", FieldConfig(shape=(16, 12, 40), n_chains=2, seed=5,
+                                                 sweep=Sweep.CHECKERBOARD), 2,
+         (True, True, False), (8, 6, 40), (8, 6, 0), None),
+        ("4d_split_0", FieldConfig(shape=(16, 8, 4, 4), n_chains=2, seed=5), 4,
+         (True, False, False, False), (8, 8, 4, 4), (8, 0, 0, 0), 2),
+        ("4d_split_03", FieldConfig(shape=(8, 4, 4, 12), n_chains=2, seed=5,
+                                    rng_impl="threefry13"), 2, (True, False, False, True),
+         (4, 4, 4, 6), (4, 0, 0, 6), None),
+    ]:
+        act = actions.get_field(cfg.action)
+        s0 = field.init_field_state(cfg, device=device)
+        ext = extended_block(torch, s0.phi, nd.chunk_halos(cfg, W, split), off, loc)
+        got = nd.field_chunk_nd(ext, s0.dtau, act, cfg, W, split, 3, off, 5, tile)
+        gate(f"{name} field_chunk_nd W={W} block {loc} at {off}", got,
+             nd.field_chunk_nd_ref(ext, s0.dtau, act, cfg, W, split, 3, off, 5, tile))
+        # the block alone takes the values the whole lattice has there
+        whole = ft.micro_steps(s0.phi, s0.dtau, act, cfg, 3, W, chain_offset=5)[-1][1]
+        index = (slice(None),) + tuple(slice(o, o + n) for o, n in zip(off, loc))
+        if not torch.equal(got[0], whole[index]):
+            raise SystemExit(f"gate case {name}: the block differs from the whole lattice")
+
+
+def phase_nd_main_path(torch, nd, cli, checkpoint, actions, tmp: Path):
+    """The port's CLI on preset phi4_4d at its 32^4, 4 chains, loops 20: on
+    the pair path (kernel 6) and with --exchange-steps 4 (kernel 7); then each
+    kernel from its run's checkpoint against its plain version.  Returns
+    (launch counts, max|Δ| per kernel)."""
+    counters = {"field_pair_nd": nd.field_pair_nd, "field_chunk_nd": nd.field_chunk_nd}
+    sized = ["--loops", "20"]
+    pair = field_cli_runs(torch, cli, checkpoint, counters, tmp, "p", sized,
+                          preset="phi4_4d", chains=4)
+    if pair["field_pair_nd"] < 1 or pair["field_chunk_nd"]:
+        raise SystemExit(f"the phi4_4d main path did not run kernel 6 alone: {pair}")
+    chunk = field_cli_runs(torch, cli, checkpoint, counters, tmp, "c",
+                           sized + ["--exchange-steps", "4"], preset="phi4_4d", chains=4)
+    if chunk["field_chunk_nd"] < 1 or chunk["field_pair_nd"]:
+        raise SystemExit(f"the --exchange-steps 4 main path did not run kernel 7 alone: {chunk}")
+
+    err = {}
+    state, cfg = checkpoint.load(tmp / "pa.npz", "cuda")
+    if tuple(cfg.shape) != (32, 32, 32, 32):
+        raise SystemExit(f"phi4_4d ran at {cfg.shape}, not at its 32^4")
+    act, step = actions.get_field(cfg.action), int(state.step)
+    err["field_pair_nd"] = gate(
+        f"main path C={cfg.n_chains} {cfg.shape} field_pair_nd",
+        nd.field_pair_nd(state.phi, state.dtau, act, cfg, step),
+        nd.field_pair_nd_ref(state.phi, state.dtau, act, cfg, step))
+    state, cfg = checkpoint.load(tmp / "ca.npz", "cuda")
+    split = (True, False, False, False)
+    ext = extended_block(torch, state.phi, nd.chunk_halos(cfg, 4, split), (0,) * 4, cfg.shape)
+    step = int(state.step)
+    err["field_chunk_nd"] = gate(
+        f"main path C={cfg.n_chains} {cfg.shape} field_chunk_nd W=4",
+        nd.field_chunk_nd(ext, state.dtau, act, cfg, 4, split, step),
+        nd.field_chunk_nd_ref(ext, state.dtau, act, cfg, 4, split, step))
+    return {"field_pair_nd": pair["field_pair_nd"],
+            "field_chunk_nd": chunk["field_chunk_nd"]}, err
+
+
+def device_profile(torch, fn):
+    """(wall seconds, device-busy seconds, [(kernel name, seconds)] by time)
+    of ``fn`` under torch.profiler: wall and busy time of the same window, so
+    that 1 - busy / wall is the device's idle share of it."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((ev.key, us * 1e-6))
+    rows.sort(key=lambda r: -r[1])
+    return wall, sum(t for _, t in rows), rows
+
+
+def phase_nd_timings(torch, device, nd, field, actions, cfgmod, card: str) -> dict:
+    """MLUPS of the pair path, the chunk path (W = 4) and the plain path at
+    bench.py's 32^4 cell at 1 and 8 chains (medians of 3 reps of 8 frames
+    after a warm-up; the plain path 2 frames), kernels 6 and 7 alone beside
+    their plain versions, held against each other, and the device's idle
+    share of each kernel path under torch.profiler."""
+    import dataclasses
+
+    out = {}
+    split = (True, False, False, False)
+    for C in (1, 8):
+        cfg = cfgmod.FieldConfig(**BENCH_ND, n_chains=C)
+        chunk_cfg = dataclasses.replace(cfg, exchange_steps=4)
+        act = actions.get_field(cfg.action)
+        ups = C * math.prod(cfg.shape) * cfg.loops
+        state, _ = nd.run_field_frames_nd(field.init_field_state(cfg, device=device), act, cfg, 1)
+        tiles = nd.resolve_tiles(cfg, cfg.shape, C)
+        for label, run_cfg in (("pair", cfg), ("chunk", chunk_cfg)):
+            run = lambda n: nd.run_field_frames_nd(state, act, run_cfg, n)  # noqa: E731
+            run(1)
+            reps = []
+            for _ in range(3):
+                holder = {}
+                reps.append(timed(torch, lambda: holder.update(r=run(8))))
+            t = sorted(reps)[1]
+            stable = float(holder["r"][1]["stable"].float().mean())
+            wall, busy, rows = device_profile(torch, lambda: run(8))
+            idle = 1.0 - busy / wall
+            key = f"nd_32_4_x{C}_{label}"
+            out[key] = dict(mlups=ups * 8 / t / 1e6, seconds=t, reps=reps, idle=idle)
+            log(f"  32^4 x {C} {label:5s} path (tiles {tiles}): {ups * 8 / t / 1e6:.1f} MLUPS "
+                f"(median of 3 reps of 8 frames, {t:.4f}s = {t / 8 * 1e3:.3f} ms per frame; reps "
+                f"{[round(r, 4) for r in reps]}; stable {stable:.4f}); 8 more frames under "
+                f"torch.profiler: device busy {busy / 8 * 1e3:.3f} ms of {wall / 8 * 1e3:.3f} ms "
+                f"wall per frame, idle {idle:.1%} of that window [{card}]")
+            for kname, sec in rows[:4]:
+                log(f"      {sec / busy:6.1%} of device time  {kname[:90]}")
+        t = timed(torch, lambda: field.run_field_frames(state, act, cfg, 2))
+        out[f"nd_32_4_x{C}_plain"] = dict(mlups=ups * 2 / t / 1e6, seconds=t, reps=[t])
+        log(f"  32^4 x {C} plain path: {ups * 2 / t / 1e6:.2f} MLUPS (2 frames, {t:.3f}s) [{card}]")
+
+        step = int(state.step)
+        ext = extended_block(torch, state.phi, nd.chunk_halos(cfg, 4, split), (0,) * 4, cfg.shape)
+        launch = {
+            "field_pair_nd": (lambda: nd.field_pair_nd(state.phi, state.dtau, act, cfg, step),
+                              lambda: nd.field_pair_nd_ref(state.phi, state.dtau, act, cfg, step)),
+            "field_chunk_nd": (lambda: nd.field_chunk_nd(ext, state.dtau, act, cfg, 4, split, step),
+                               lambda: nd.field_chunk_nd_ref(ext, state.dtau, act, cfg, 4, split,
+                                                             step)),
+        }
+        for kname, (kernel, plain) in launch.items():
+            got = kernel()
+            ms = cuda_ms(torch, kernel, reps=10)
+            plain()  # warm-up of the allocator
+            holder = {}
+            plain_ms = timed(torch, lambda: holder.update(r=plain())) * 1e3
+            err = gate(f"32^4 x {C} {kname}", got, holder["r"])
+            log(f"  {kname:15s} kernel {ms:.3f} ms/launch (CUDA events, mean of 10), plain "
+                f"version {plain_ms:.1f} ms (once) at 32^4 x {C}, tiles {tiles} [{card}]")
+            out[f"{kname}_x{C}_ms"] = ms
+            out[kname + "_err"] = max(out.get(kname + "_err", 0.0), err)
+            if C == 1:  # the kernels line reports bench.py's cell
+                out[kname + "_ms"], out[kname + "_plain_ms"] = ms, plain_ms
+        for rows0 in ((2, 4, 8) if C == 1 else (4, 8, 16, 32)):
+            pair = lambda: nd.field_pair_nd(state.phi, state.dtau, act, cfg, step, rows0)  # noqa: E731
+            pair()
+            log(f"  field_pair_nd   tile_rows {rows0:2d} (tiles "
+                f"{nd.resolve_tiles(cfg, cfg.shape, C, rows0)}): "
+                f"{cuda_ms(torch, pair, reps=10):.3f} ms/launch at 32^4 x {C} [{card}]")
+    return out
+
+
 def main() -> int:
+    global LOG_FILE
     if not (ROOT / "stochquant_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(stochquant_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -912,6 +1259,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "--log":
+        Path(sys.argv[2]).parent.mkdir(parents=True, exist_ok=True)
+        LOG_FILE = open(sys.argv[2], "w")
+    elif len(sys.argv) > 1:
+        print("usage: python3 chip_smoke.py [--log PATH]", file=sys.stderr)
+        return 2
     card = card_line()
     log(f"[1] device: {name}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"nvidia-smi: {card}")
@@ -923,6 +1276,7 @@ def main() -> int:
     from stochquant_tpu_torch.kernels import _build
     from stochquant_tpu_torch.kernels import chain_kernel as ck
     from stochquant_tpu_torch.kernels import field_kernel as fk
+    from stochquant_tpu_torch.kernels import field_kernel_nd as nd
     from stochquant_tpu_torch.kernels import field_kernel_tiled as ft
     from stochquant_tpu_torch.kernels import gauge_kernel as gk
 
@@ -986,6 +1340,24 @@ def main() -> int:
     log(f"[12] gauge timings [{card}]:")
     t.update(phase_gauge_timings(torch, device, gk, gauge, card))
 
+    # 13. D-dim field kernels vs plain on the card
+    log(f"[13] D-dim field kernels vs plain PyTorch versions on the card (exact leaves equal; "
+        f"φ, lrg, Δτ, maxima within {GATE:g}; per-block and slice means within rtol "
+        f"{FIELD_RTOL:g}, atol {FIELD_ATOL:g}):")
+    phase_nd_gate(torch, nd, ft, field, actions, cfgmod, device)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 14. D-dim main path
+        log("[14] D-dim main path: cli run --preset phi4_4d --chains 4 --loops 20, then with "
+            "--exchange-steps 4:")
+        nd_launches, nd_main_err = phase_nd_main_path(torch, nd, cli, checkpoint, actions,
+                                                      Path(tmp))
+        launches.update(nd_launches)
+
+    # 15. D-dim timings at bench.py's 32^4 cell, with kernel vs plain there
+    log(f"[15] D-dim field timings [{card}]:")
+    t.update(phase_nd_timings(torch, device, nd, field, actions, cfgmod, card))
+
     # max_abs_err: the comparisons at the main paths' shapes (chain: headline
     # K=1, main-path state K=2, config 2 K=16; field: 256^2 x 16 K=1 and K=10,
     # main-path states K=2 and one tiled pair, 1024^2 x 16 tiled; gauge: the
@@ -997,20 +1369,29 @@ def main() -> int:
            "field_frames_multi": max(field_err["field_frames_multi"],
                                      t["field_frames_multi_err"]),
            "field_pair": max(field_err["field_pair"], t["field_pair_err"]),
+           "field_pair_nd": max(nd_main_err["field_pair_nd"], t["field_pair_nd_err"]),
+           "field_chunk_nd": max(nd_main_err["field_chunk_nd"], t["field_chunk_nd_err"]),
            "gauge_frame": max(gauge_main_err["gauge_frame"], t["gauge_frame_err"]),
            "gauge_frames_multi": max(gauge_main_err["gauge_frames_multi"],
                                      t["gauge_frames_multi_err"])}
+    # library_ms: no single PyTorch call computes a fused frame, pair or chunk
+    # of Langevin micro-steps with its noise, detector and observables
+    bounds = kernel_bounds()
     kernels = [
         {"name": kname, "route": "cuda", "source": CSRC + src, "replaces": replaces,
          "launches": launches[kname], "max_abs_err": err[kname],
-         "ms": t[kname + "_ms"], "plain_ms": t[kname + "_plain_ms"]}
+         "ms": t[kname + "_ms"], "plain_ms": t[kname + "_plain_ms"],
+         "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1], "library_ms": None}
         for kname, (src, replaces) in KERNELS.items()
     ]
-    print(json.dumps({"kernels": kernels, "mlups": {
+    for k in kernels:
+        log(f"  {k['name']:19s} {k['ms']:10.3f} ms/launch, bound {k['bound_ms']:.4f} ms by "
+            f"{k['bound_by']}: {k['bound_ms'] / k['ms']:.2%} of the bound's rate [{card}]")
+    log(json.dumps({"kernels": kernels, "mlups": {
         k: v["mlups"] for k, v in t.items() if isinstance(v, dict)}}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}))
+    log(card)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                           "count": torch.cuda.device_count()}}))
     return 0
 
 

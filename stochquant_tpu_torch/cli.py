@@ -7,6 +7,8 @@ Examples:
     python -m stochquant_tpu_torch.cli run --preset harmosc --device cpu --frames 5 --loops 20
     python -m stochquant_tpu_torch.cli run --preset phi4_2d --chains 16 --frames 20
     python -m stochquant_tpu_torch.cli run --preset phi4_2d --chains 16 --tile-rows 64
+    python -m stochquant_tpu_torch.cli run --preset phi4_4d --chains 4 --frames 20
+    python -m stochquant_tpu_torch.cli run --preset phi4_4d --chains 4 --exchange-steps 4
     python -m stochquant_tpu_torch.cli run --preset su3_2d --frames 20 --measure-loops
     python -m stochquant_tpu_torch.cli run --preset u1_2d --device cpu --frames 3 --loops 10
 """
@@ -43,7 +45,7 @@ def _apply_overrides(cfg, args):
         ("frames", "frames"), ("loops", "loops"), ("chains", "n_chains"),
         ("dtau", "dtau"), ("seed", "seed"), ("fps", "fps"),
         ("frames_per_launch", "frames_per_launch"), ("rng", "rng_impl"),
-        ("tile_rows", "tile_rows"),
+        ("tile_rows", "tile_rows"), ("exchange_steps", "exchange_steps"),
     ):
         value = getattr(args, arg)
         if value is not None and hasattr(cfg, field):
@@ -113,13 +115,19 @@ def main(argv=None):
         "--backend", default="auto", choices=list(runtime.BACKENDS),
         help="execution path: the hand-written CUDA kernels vs the plain "
         "PyTorch integrator; auto = cuda on a CUDA device, torch on the CPU "
-        "(phi4_4d runs only with torch: its kernel is not ported yet; auto runs "
-        "su2_4d and su3_4d on the plain path, as the JAX package has no 4-D gauge kernel)",
+        "(auto runs su2_4d and su3_4d, which have no kernel, on the plain path and "
+        "records a backend_fallback)",
     )
     r.add_argument(
         "--tile-rows", type=int,
-        help="field presets: strip height of the tiled CUDA kernel (any value "
-        "routes a 2-D run to it; default: whole-lattice kernels up to 1 MiB)",
+        help="field presets: dim-0 rows one block of the tiled CUDA kernels owns (any "
+        "value routes a 2-D run to the strip-tiled kernel; default: whole-lattice kernels "
+        "up to 1 MiB in 2-D, a rule that fills the card in D >= 3)",
+    )
+    r.add_argument(
+        "--exchange-steps", type=int,
+        help="D >= 3 field presets: micro-steps per launch of the chunk kernel (W, even; "
+        "above 2 a frame runs W-step chunk launches instead of pair launches)",
     )
     r.add_argument(
         "--frames-per-launch", type=int,

@@ -6,12 +6,14 @@ and checkpoints interchange.  Only the dtype accessor differs:
 
 Field comments that name the Pallas backend describe the JAX package; in this
 package the CUDA backend reads ``frames_per_launch`` (chain kernel 2 and
-field kernel 4, K frames per launch) and ``FieldConfig.tile_rows`` (field
-kernel 5's strip height), and ignores ``block_chains``, which stays for
-checkpoint compatibility: one launch covers every chain (see
+field kernel 4, K frames per launch), ``FieldConfig.tile_rows`` (the dim-0
+rows one block of field kernels 5, 6 and 7 owns) and, for D >= 3 lattices,
+``FieldConfig.exchange_steps`` (W > 2 runs frames through the W-step chunk
+kernel 7 instead of the pair kernel 6), and ignores ``block_chains``, which
+stays for checkpoint compatibility: one launch covers every chain (see
 ``kernels.chain_kernel.run_frames_kernel``).  Fields that belong to features
 not ported yet (``block_chains=0`` and ``tile_rows=0`` autotune,
-``mesh_chain_axis``, ``mesh_axes``, ``exchange_steps``, ``prefer_rdma``,
+``mesh_chain_axis``, ``mesh_axes``, ``exchange_steps=0`` autotune, ``prefer_rdma``,
 ``rng_impl="hardware"``, ``Scheme.LM``/``EXACT``, ``accumulate_spectrum``)
 raise a ``ValueError`` naming the feature where the run starts, or, for the
 halo-runner knobs, are unused.

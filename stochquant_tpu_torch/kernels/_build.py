@@ -29,7 +29,8 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("chain_kernel.cu", "field_kernel.cu", "field_kernel_tiled.cu", "gauge_kernel.cu")
+_SOURCES = ("chain_kernel.cu", "field_kernel.cu", "field_kernel_tiled.cu",
+            "field_kernel_nd.cu", "gauge_kernel.cu")
 _HEADERS = ("sq_rng.cuh", "field_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -132,6 +133,27 @@ class FieldParams(ctypes.Structure):
     ]
 
 
+#: most lattice dimensions kernels 6 and 7 take (``SQ_ND_MAXD`` in the source)
+ND_MAX_DIMS = 5
+
+
+class FieldNdParams(ctypes.Structure):
+    """Launch parameters of the D-dim field kernels 6 and 7, field for field
+    the ``FieldNdParams`` struct of ``csrc/field_kernel_nd.cu``: the 2-D
+    kernels' ``FieldParams`` (action, noise and launch constants), then the
+    geometry of the input array, the owned block and the blocks' tiles."""
+
+    _fields_ = [("f", FieldParams)] + [
+        (name, ctypes.c_int32) for name in (
+            "nd", "n_steps", "depth", "n_blocks", "ext_sites", "n_inner",
+        )
+    ] + [
+        (name, ctypes.c_int32 * ND_MAX_DIMS) for name in (
+            "G", "A", "loc", "ab", "gb", "T", "th", "nt",
+        )
+    ]
+
+
 class GaugeParams(ctypes.Structure):
     """Launch parameters of the gauge kernels 10 and 11, field for field the
     ``GaugeParams`` struct of ``csrc/gauge_kernel.cu`` (all 4-byte fields)."""
@@ -159,10 +181,12 @@ def library() -> ctypes.CDLL:
     chain = ctypes.POINTER(ChainParams)
     field = ctypes.POINTER(FieldParams)
     gauge = ctypes.POINTER(GaugeParams)
+    field_nd = ctypes.POINTER(FieldNdParams)
     for fn, params, n_ptr in (
         (lib.sq_chain_frame, chain, 12), (lib.sq_chain_frames, chain, 23),
         (lib.sq_field_frame, field, 11), (lib.sq_field_frames, field, 21),
         (lib.sq_field_pair, field, 7),
+        (lib.sq_field_pair_nd, field_nd, 8), (lib.sq_field_chunk_nd, field_nd, 8),
         (lib.sq_gauge_frame, gauge, 9), (lib.sq_gauge_frames, gauge, 18),
     ):
         fn.argtypes = [params] + [ptr] * n_ptr + [ptr]  # tensors, then the stream

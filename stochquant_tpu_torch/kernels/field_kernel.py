@@ -64,8 +64,8 @@ def check_kernel_config(cfg: FieldConfig) -> None:
     field_mod.check_field_supported(cfg)
     if cfg.ndim != 2:
         raise ValueError(
-            f"the field kernels take 2-D lattices, not shape {cfg.shape} (the D >= 3 "
-            "kernel is not ported yet; backend='torch' runs the plain integrator)"
+            f"the whole-lattice and strip-tiled field kernels take 2-D lattices, not shape "
+            f"{cfg.shape} (D >= 3 lattices run kernels.field_kernel_nd)"
         )
     if cfg.dtype != "float32":
         raise ValueError(f"the field kernels are float32-only, not {cfg.dtype}")
@@ -74,8 +74,11 @@ def check_kernel_config(cfg: FieldConfig) -> None:
 def kernel_params(shape, action: FieldAction, cfg: FieldConfig, *, step0: int,
                   chain_offset: int = 0, n_frames: int = 1, tile_rows: int = 0,
                   halo: int = 0) -> "_build.FieldParams":
-    """The ``FieldParams`` struct of one launch on a (C, L0, L1) field."""
-    C, L0, L1 = shape
+    """The ``FieldParams`` struct of one launch on a (C, *lattice) field.
+    ``L0``, ``L1`` and ``inv_l1`` are the 2-D kernels' and stay 0 for another
+    lattice rank (kernels 6 and 7 take their geometry in ``FieldNdParams``)."""
+    C, *lattice = shape
+    L0, L1 = lattice if len(lattice) == 2 else (0, 0)
     code, m2, hm2, l6, l24 = _action_constants(action)
     f32 = np.float32
     a = cfg.spacing
@@ -85,10 +88,11 @@ def kernel_params(shape, action: FieldAction, cfg: FieldConfig, *, step0: int,
         grow_after=min(cfg.grow_after, 2**31 - 1), has_dtau_max=int(cfg.dtau_max is not None),
         tile_rows=tile_rows, halo=halo, n_tiles=L0 // tile_rows if tile_rows else 0,
         seed=rng.u32(cfg.seed), step0=rng.u32(int(step0)), chain0=rng.u32(chain_offset),
-        m2=m2, hm2=hm2, l6=l6, l24=l24, inv_a2=f32(1.0 / (a * a)), measure=f32(a * a),
+        m2=m2, hm2=hm2, l6=l6, l24=l24, inv_a2=f32(1.0 / (a * a)),
+        measure=f32(a ** len(lattice)),
         c_amp=f32(cfg.noise_amp), clamp=f32(cfg.clamp), shrink=f32(cfg.shrink),
         dtau_max=f32(cfg.dtau_max if cfg.dtau_max is not None else 0.0),
-        inv_loops=f32(1.0 / cfg.loops), loops_f=f32(cfg.loops), inv_l1=f32(1.0 / L1),
+        inv_loops=f32(1.0 / cfg.loops), loops_f=f32(cfg.loops), inv_l1=f32(1.0 / L1 if L1 else 0.0),
     )
 
 

@@ -1,0 +1,485 @@
+"""CUDA kernels for D-dimensional (D ≥ 3) scalar-field lattices, their plain
+PyTorch versions, and the frames around them.
+
+Port of ``stochquant_tpu/kernels/field_kernel_nd.py``:
+
+* kernel 6, :func:`field_pair_nd` (``_build_pair_kernel`` / ``_pair_call``):
+  one pair of micro-steps — both Box–Muller outputs of one Threefry draw —
+  of every chain of a periodic D-dim lattice.  Returns φ after the pair, the
+  dim-0 slice **means** of the two pre-update fields and per-block statistics.
+  Plain version: :func:`field_pair_nd_ref`.  :func:`field_frame_nd` scans the
+  pairs of a frame.
+* kernel 7, :func:`field_chunk_nd` (``_build_sharded_chunk_kernel`` /
+  ``make_sharded_chunk_step_md``): W micro-steps (W even) on a block that
+  carries ``halos[d]`` extra sites per side in every split dim, with noise
+  and checkerboard parity from **global** coordinates (per-dim offsets), so
+  the recomputed halo sites take the values their owner computes.  Returns
+  the owned block after W steps, the per-step dim-0 slice **sums** over
+  owned sites and per-block statistics of the owned sites, for D ≥ 2.  Plain
+  version: :func:`field_chunk_nd_ref`.  :func:`field_frame_nd_chunk` runs a
+  frame of an unsplit lattice through it, extending dim 0 periodically.
+
+Both kernels are CUDA C++ for ``sm_90a`` (``csrc/field_kernel_nd.cu``).  One
+block of threads owns a **tile** of the lattice and recomputes a halo of
+``depth`` sites (the stencil applications of the launch: W for synchronous
+sweeps, 2W for checkerboard half-sweeps) around it in every dim the tile
+does not span, so nothing is exchanged between blocks.  ``cfg.tile_rows``
+keeps its meaning, the dim-0 rows a block owns; the dim-1 extent of a tile is
+this module's own rule (:func:`resolve_tiles`: halve the larger of the two
+until the launch has ``TARGET_BLOCKS`` blocks), and dims ≥ 2 stay whole.  The
+trajectory does not depend on the tiles: noise is keyed by global (chain,
+site, step).
+
+The statistics come per block, ``stats[c, b, 5·w : 5·w + 5]`` = [Σφ, Σφ²,
+Σs, max|det|, max|φ_new|] of micro-step ``w`` over the owned sites of block
+``b``, blocks in C order of their tile index; the frames sum them.  The
+plain versions cut the same blocks.  Like the JAX kernels, a chain that trips
+keeps evolving to the end of the frame; the rollback discards it.
+
+A wrapper given CPU tensors runs its plain version; given CUDA tensors it
+launches its kernel, or raises.  ``field_pair_nd.launches`` and
+``field_chunk_nd.launches`` count launches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from stochquant_tpu_torch import rng
+from stochquant_tpu_torch.actions.base import true_divide
+from stochquant_tpu_torch.actions.phi4 import FieldAction
+from stochquant_tpu_torch.config import FieldConfig, Sweep
+from stochquant_tpu_torch.integrators import field as field_mod
+from stochquant_tpu_torch.integrators.field import FieldState
+from stochquant_tpu_torch.integrators.langevin import stack_metrics
+from stochquant_tpu_torch.kernels import _build
+from stochquant_tpu_torch.kernels.field_kernel import kernel_params
+from stochquant_tpu_torch.kernels.field_kernel_tiled import (
+    micro_steps, obs_init, obs_step, obs_sums,
+)
+
+__all__ = [
+    "field_pair_nd",
+    "field_pair_nd_ref",
+    "field_chunk_nd",
+    "field_chunk_nd_ref",
+    "field_frame_nd",
+    "field_frame_nd_chunk",
+    "run_field_frames_nd",
+    "default_tile_rows",
+    "resolve_tiles",
+    "chunk_halos",
+    "Geometry",
+]
+
+#: blocks a launch should have before the default tiles stop shrinking (an
+#: H100 has 132 multiprocessors)
+TARGET_BLOCKS = 128
+#: smallest extent the default rule gives a tile in a dim it cuts
+MIN_TILE = 2
+#: threads per block of kernels 6 and 7 (``ND_THREADS`` in the source)
+THREADS = 512
+#: dynamic shared memory a block may take for its slice partial sums
+SMEM_BUDGET = 200 * 1024
+
+
+def stencil_depth(cfg: FieldConfig, n_steps: int) -> int:
+    """Stencil applications of ``n_steps`` micro-steps: one per synchronous
+    sweep, two per checkerboard pair of half-sweeps."""
+    return n_steps * (2 if cfg.sweep == Sweep.CHECKERBOARD else 1)
+
+
+def chunk_halos(cfg: FieldConfig, W: int, split_dims) -> tuple:
+    """Sites per side a W-step chunk needs beyond the owned block: the stencil
+    depth in every split dim, none in the others."""
+    depth = stencil_depth(cfg, W)
+    return tuple(depth if s else 0 for s in split_dims)
+
+
+def resolve_tiles(cfg: FieldConfig, loc, n_chains: int, tile_rows=None) -> tuple:
+    """The extents of one block's tile of the owned block ``loc``.
+
+    Dim 0: ``tile_rows``, else ``cfg.tile_rows``, else this rule; dim 1: this
+    rule; dims ≥ 2: whole.  The rule starts from the whole extents and halves
+    the larger free one (dim 0 on a tie) while the launch has fewer than
+    ``TARGET_BLOCKS`` blocks and the extent stays even and above
+    ``MIN_TILE``."""
+    loc = tuple(loc)
+    tiles = list(loc)
+    t0 = tile_rows if tile_rows is not None else cfg.tile_rows
+    if t0 == 0:
+        raise ValueError("tile_rows=0 (autotune) is not ported yet: give a tile height or None")
+    if t0:
+        if t0 < 0 or loc[0] % t0:
+            raise ValueError(f"tile_rows={t0} must divide the dim-0 extent {loc[0]}")
+        tiles[0] = t0
+    free = [d for d in (0, 1) if d < len(loc) and not (d == 0 and t0)]
+    while n_chains * (loc[0] // tiles[0]) * (loc[1] // tiles[1]) < TARGET_BLOCKS:
+        cand = [d for d in free if tiles[d] % 2 == 0 and tiles[d] > MIN_TILE]
+        if not cand:
+            break
+        d = max(cand, key=lambda d: (tiles[d], -d))
+        tiles[d] //= 2
+    return tuple(tiles)
+
+
+def default_tile_rows(cfg: FieldConfig, n_chains=None) -> int:
+    """The dim-0 rows a block owns when none are given."""
+    return resolve_tiles(cfg, cfg.shape, n_chains or cfg.n_chains)[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """Where one launch's blocks sit: the global lattice ``shape``, the owned
+    block ``loc`` whose origin has global coordinates ``offsets``, the
+    ``halos`` the input array carries per side, the ``tiles`` and the
+    stencil ``depth`` of the launch."""
+
+    shape: tuple
+    loc: tuple
+    halos: tuple
+    offsets: tuple
+    tiles: tuple
+    depth: int
+
+    @property
+    def tile_halos(self) -> tuple:
+        """Per dim 0 where a tile spans an unsplit dim (periodic inside the
+        tile), else ``depth`` sites recomputed per side."""
+        return tuple(0 if (h == 0 and t == n) else self.depth
+                     for h, t, n in zip(self.halos, self.tiles, self.loc))
+
+    @property
+    def ext(self) -> tuple:
+        return tuple(t + 2 * h for t, h in zip(self.tiles, self.tile_halos))
+
+    @property
+    def array(self) -> tuple:
+        return tuple(n + 2 * h for n, h in zip(self.loc, self.halos))
+
+    @property
+    def n_tiles(self) -> tuple:
+        return tuple(n // t for n, t in zip(self.loc, self.tiles))
+
+    @property
+    def n_blocks(self) -> int:
+        return math.prod(self.n_tiles)
+
+    def blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """(C, *loc) → (C, n_blocks, sites per tile), blocks in C order."""
+        C, D = x.shape[0], len(self.loc)
+        view = [C]
+        for n, t in zip(self.n_tiles, self.tiles):
+            view += [n, t]
+        perm = [0] + [1 + 2 * d for d in range(D)] + [2 + 2 * d for d in range(D)]
+        return x.reshape(view).permute(perm).reshape(C, self.n_blocks, -1)
+
+    def owned(self, x: torch.Tensor) -> torch.Tensor:
+        """The owned block of a (C, *array) tensor."""
+        index = (slice(None),) + tuple(slice(h, h + n) for h, n in zip(self.halos, self.loc))
+        return x[index]
+
+
+def _geometry(cfg: FieldConfig, loc, halos, offsets, n_steps, n_chains, tile_rows) -> Geometry:
+    shape = tuple(cfg.shape)
+    for d, (n, h, g) in enumerate(zip(loc, halos, shape)):
+        if h == 0 and n != g:
+            raise ValueError(f"dim {d} carries no halo, so the block must span its whole "
+                             f"extent {g}, not {n}")
+        if n > g:
+            raise ValueError(f"the owned block spans {n} sites of dim {d}, the lattice {g}")
+    tiles = resolve_tiles(cfg, loc, n_chains, tile_rows)
+    geo = Geometry(shape, tuple(loc), tuple(halos), tuple(int(o) for o in offsets), tiles,
+                   stencil_depth(cfg, n_steps))
+    if geo.tiles[0] * (THREADS // 32) * 4 > SMEM_BUDGET:
+        raise ValueError(f"tile_rows={geo.tiles[0]}: the slice partial sums of so many dim-0 "
+                         f"rows do not fit a block's shared memory; give a smaller tile_rows")
+    return geo
+
+
+def check_nd_config(cfg: FieldConfig) -> None:
+    """Raise for what kernels 6 and 7 (and their plain versions, which keep
+    the kernels' contract) do not take."""
+    if not rng.counter_based(cfg.rng_impl):
+        raise ValueError(
+            "the D-dim field kernels require counter-based noise (halo sites are "
+            "recomputed redundantly in neighbouring blocks, which only agrees when noise "
+            f"is a pure function of (site, step)), not rng_impl={cfg.rng_impl!r}: use "
+            "rng_impl='threefry' or 'threefry13'"
+        )
+    field_mod.check_field_supported(cfg)
+    if cfg.dtype != "float32":
+        raise ValueError(f"the field kernels are float32-only, not {cfg.dtype}")
+    if not 2 <= cfg.ndim <= _build.ND_MAX_DIMS:
+        raise ValueError(f"the D-dim field kernels take 2 to {_build.ND_MAX_DIMS} lattice "
+                         f"dims, not shape {cfg.shape}")
+    if math.prod(cfg.shape) > 1 << 32:
+        raise ValueError(f"lattice {cfg.shape} has more sites than a 32-bit site id counts")
+
+
+def _block_stats(geo: Geometry, steps) -> torch.Tensor:
+    """(C, n_blocks, 5 per micro-step) from the owned (pre, post, |det|, s)."""
+    cols = []
+    for pre, post, absdet, act in steps:
+        b = geo.blocks
+        cols += [b(pre).sum(-1), b(pre * pre).sum(-1), b(act).sum(-1),
+                 b(absdet).amax(-1), b(torch.abs(post)).amax(-1)]
+    return torch.stack(cols, dim=-1)
+
+
+def _launch(entry: str, geo: Geometry, src, dtau, action, cfg, n_steps, step, chain_offset):
+    """Allocate the outputs and per-block scratch of one launch of ``entry``
+    and launch it.  Returns (owned block after ``n_steps`` micro-steps, slice
+    sums (C, n_steps, L0_loc), stats (C, n_blocks, 5·n_steps))."""
+    C, dev = src.shape[0], src.device
+    if dev.type != "cuda":
+        raise ValueError(f"the D-dim field kernels run on 'cuda' or 'cpu' tensors, not {dev}")
+    _build.check_leaves(SimpleNamespace(phi=src, dtau=dtau),
+                        {"phi": ((C,) + geo.array, torch.float32), "dtau": ((C,), torch.float32)},
+                        dev)
+    ext_sites = math.prod(geo.ext)
+    if ext_sites >= 1 << 31 or C > 65535:
+        raise ValueError(f"a tile of {geo.ext} sites or {C} chains exceeds the kernel's ranges")
+    params = _build.FieldNdParams()
+    params.f = kernel_params((C,) + geo.shape, action, cfg, step0=step,
+                             chain_offset=chain_offset)
+    n_inner = geo.n_blocks // geo.n_tiles[0]
+    params.nd, params.n_steps, params.depth = len(geo.shape), n_steps, geo.depth
+    params.n_blocks, params.ext_sites, params.n_inner = geo.n_blocks, ext_sites, n_inner
+    for d, th in enumerate(geo.tile_halos):
+        params.G[d], params.A[d], params.loc[d] = geo.shape[d], geo.array[d], geo.loc[d]
+        params.ab[d] = (geo.halos[d] - th) % geo.array[d]
+        params.gb[d] = (geo.offsets[d] - th) % geo.shape[d]
+        params.T[d], params.th[d], params.nt[d] = geo.tiles[d], th, geo.n_tiles[d]
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    out, slp = empty(C, *geo.loc), empty(C, n_steps, geo.loc[0], n_inner)
+    stats = empty(C, geo.n_blocks, 5 * n_steps)
+    scratch = empty(3, C * geo.n_blocks * ext_sites)
+    _build.launch(entry, params, (src, dtau, out, slp, stats, *scratch.unbind(0)), dev)
+    return out, slp.sum(-1), stats
+
+
+# ---------------------------------------------------------------------------
+# kernel 6: one micro-step pair of a periodic D-dim lattice
+# ---------------------------------------------------------------------------
+
+
+def _pair_geometry(phi, cfg, tile_rows) -> Geometry:
+    check_nd_config(cfg)
+    shape = tuple(cfg.shape)
+    if tuple(phi.shape[1:]) != shape:
+        raise ValueError(f"phi has lattice {tuple(phi.shape[1:])}, cfg {cfg.shape}")
+    zeros = (0,) * len(shape)
+    return _geometry(cfg, shape, zeros, zeros, 2, phi.shape[0], tile_rows)
+
+
+def field_pair_nd_ref(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction,
+                      cfg: FieldConfig, step: int, tile_rows=None, chain_offset: int = 0):
+    """Plain PyTorch version of kernel 6: two micro-steps of the whole
+    periodic lattice from counter ``step`` with per-chain step sizes
+    ``dtau``.  Returns (phi after the pair, dim-0 slice means of the two
+    pre-update fields (C, L0) each, stats (C, n_blocks, 10))."""
+    geo = _pair_geometry(phi, cfg, tile_rows)
+    steps = micro_steps(phi, dtau, action, cfg, step, 2, chain_offset=chain_offset)
+    C, L0 = phi.shape[:2]
+    inv_sl = float(np.float32(1.0 / (phi[0, 0].numel())))
+    means = lambda x: x.reshape(C, L0, -1).sum(-1) * inv_sl  # noqa: E731
+    return steps[1][1], means(phi), means(steps[0][1]), _block_stats(geo, steps)
+
+
+def field_pair_nd(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction, cfg: FieldConfig,
+                  step: int, tile_rows=None, chain_offset: int = 0):
+    """Kernel 6: one micro-step pair of every chain of a D-dim lattice, tile
+    by tile.  Returns what :func:`field_pair_nd_ref` returns."""
+    geo = _pair_geometry(phi, cfg, tile_rows)
+    if phi.device.type == "cpu":
+        return field_pair_nd_ref(phi, dtau, action, cfg, step, tile_rows, chain_offset)
+    out, sl, stats = _launch("sq_field_pair_nd", geo, phi, dtau, action, cfg, 2, step,
+                             chain_offset)
+    field_pair_nd.launches += 1
+    inv_sl = float(np.float32(1.0 / (phi[0, 0].numel())))
+    return out, sl[:, 0] * inv_sl, sl[:, 1] * inv_sl, stats
+
+
+field_pair_nd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 7: W micro-steps of a halo-extended block
+# ---------------------------------------------------------------------------
+
+
+def _chunk_geometry(ext, cfg, W, split_dims, offsets, tile_rows) -> Geometry:
+    check_nd_config(cfg)
+    if W % 2 or W < 2:
+        raise ValueError(f"the chunk kernel advances an even number of steps, not W={W}")
+    split_dims = tuple(bool(s) for s in split_dims)
+    if len(split_dims) != cfg.ndim or ext.dim() != cfg.ndim + 1:
+        raise ValueError(f"split_dims {split_dims} and the block {tuple(ext.shape)} must have "
+                         f"the lattice's {cfg.ndim} dims")
+    halos = chunk_halos(cfg, W, split_dims)
+    for d, (h, n) in enumerate(zip(halos, cfg.shape)):
+        if h >= n:
+            raise ValueError(f"chunk halo depth {h} on dim {d} reaches the full global extent "
+                             f"{n}; reduce exchange_steps")
+    loc = tuple(n - 2 * h for n, h in zip(ext.shape[1:], halos))
+    if min(loc) < 1:
+        raise ValueError(f"the block {tuple(ext.shape[1:])} is thinner than its halos {halos}")
+    offsets = tuple(offsets) if offsets is not None else (0,) * cfg.ndim
+    return _geometry(cfg, loc, halos, offsets, W, ext.shape[0], tile_rows)
+
+
+def field_chunk_nd_ref(ext: torch.Tensor, dtau: torch.Tensor, action: FieldAction,
+                       cfg: FieldConfig, W: int, split_dims, step_base: int, offsets=None,
+                       chain_offset: int = 0, tile_rows=None):
+    """Plain PyTorch version of kernel 7.  The whole extended block is
+    advanced with a periodic wrap inside it; what the wrap gets wrong in a
+    split dim moves inward one site per stencil application and stops at the
+    owned block's edge.  Returns (owned block after W steps (C, *loc), per-step
+    dim-0 slice sums over owned sites (C, W, L0_loc), stats (C, n_blocks,
+    5·W) over owned sites)."""
+    geo = _chunk_geometry(ext, cfg, W, split_dims, offsets, tile_rows)
+    dev, D = ext.device, cfg.ndim
+    strides = [math.prod(geo.shape[d + 1:]) for d in range(D)]
+    site = torch.zeros((1,) * (D + 1), dtype=torch.int64, device=dev)
+    parity = torch.zeros((1,) * (D + 1), dtype=torch.int64, device=dev)
+    for d in range(D):
+        view = [1] * (D + 1)
+        view[d + 1] = geo.array[d]
+        g = (torch.arange(geo.array[d], dtype=torch.int64, device=dev)
+             + (geo.offsets[d] - geo.halos[d])) % geo.shape[d]
+        site = site + g.view(view) * strides[d]
+        parity = parity + g.view(view)
+    steps = micro_steps(ext, dtau, action, cfg, step_base, W, chain_offset=chain_offset,
+                        site_ids=site, even=parity % 2 == 0)
+    steps = [tuple(geo.owned(x) for x in s) for s in steps]
+    C, L0 = ext.shape[0], geo.loc[0]
+    slices = torch.stack([pre.reshape(C, L0, -1).sum(-1) for pre, *_ in steps], dim=1)
+    return steps[-1][1].contiguous(), slices, _block_stats(geo, steps)
+
+
+def field_chunk_nd(ext: torch.Tensor, dtau: torch.Tensor, action: FieldAction, cfg: FieldConfig,
+                   W: int, split_dims, step_base: int, offsets=None, chain_offset: int = 0,
+                   tile_rows=None):
+    """Kernel 7: W micro-steps in one launch on the block ``ext`` (C,
+    *(loc + 2·halos)), extended by ``chunk_halos(cfg, W, split_dims)`` sites
+    per side in every split dim (an unsplit dim spans the whole lattice and
+    wraps).  ``offsets`` are the global coordinates of the owned block's
+    origin, ``step_base`` the counter of the first step, ``chain_offset`` the
+    global id of chain 0.  ``phi_out`` is the owned block itself (the JAX
+    kernel keeps the extended extent in dims ≥ 1 and leaves the cut to its
+    caller).  Returns what :func:`field_chunk_nd_ref` returns."""
+    geo = _chunk_geometry(ext, cfg, W, split_dims, offsets, tile_rows)
+    if ext.device.type == "cpu":
+        return field_chunk_nd_ref(ext, dtau, action, cfg, W, split_dims, step_base, offsets,
+                                  chain_offset, tile_rows)
+    out = _launch("sq_field_chunk_nd", geo, ext, dtau, action, cfg, W, step_base, chain_offset)
+    field_chunk_nd.launches += 1
+    return out
+
+
+field_chunk_nd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# frames
+# ---------------------------------------------------------------------------
+
+
+def _check_frame(state: FieldState, cfg: FieldConfig) -> None:
+    if cfg.ndim < 3:
+        raise ValueError("field_kernel_nd covers D >= 3 lattices (2-D has its own kernels), "
+                         f"not shape {cfg.shape}")
+    check_nd_config(cfg)
+    if cfg.loops % 2:
+        raise ValueError(f"the D-dim kernels need an even loops count (pair launches), "
+                         f"not {cfg.loops}")
+    if tuple(state.phi.shape[1:]) != tuple(cfg.shape):
+        raise ValueError(f"state.phi has lattice {tuple(state.phi.shape[1:])}, cfg {cfg.shape}")
+
+
+def field_frame_nd(state: FieldState, action: FieldAction, cfg: FieldConfig, *,
+                   tile_rows=None, chain_offset: int = 0, pair=None):
+    """One frame (``cfg.loops`` micro-steps, loops even) through the pair
+    kernel: a scan over micro-step pairs with the observable and detector
+    step in PyTorch, then the accept/reject and adaptive-Δτ epilogue of
+    ``integrators.field``.  ``pair`` is the pair function (default
+    :func:`field_pair_nd`; :func:`field_pair_nd_ref` forces the plain
+    version).  Returns (state, metrics)."""
+    _check_frame(state, cfg)
+    pair = pair or field_pair_nd
+    volume = float(math.prod(cfg.shape))
+    vals = obs_init(state)
+    phi = state.phi
+    step0 = int(state.step)
+    for k in range(cfg.loops // 2):
+        phi, sl0, sl1, stats = pair(phi, state.dtau, action, cfg, step0 + 2 * k, tile_rows,
+                                    chain_offset)
+        vals = obs_step(vals, sl0, stats[:, :, :5], volume)
+        vals = obs_step(vals, sl1, stats[:, :, 5:], volume)
+    return field_mod.field_frame_epilogue(state, obs_sums(phi, vals), cfg)
+
+
+def field_frame_nd_chunk(state: FieldState, action: FieldAction, cfg: FieldConfig, W: int, *,
+                         tile_rows=None, chain_offset: int = 0, chunk=None):
+    """One frame of an unsplit D ≥ 3 lattice through the W-step chunk kernel:
+    per chunk dim 0 is extended periodically (``[phi[-H:], phi, phi[:H]]``)
+    and one launch advances ``min(W, loops)`` micro-steps; what is left of
+    ``loops`` runs as a shorter tail chunk.  The per-step statistics step and
+    the epilogue are :func:`field_frame_nd`'s, so the trajectory equals the
+    pair path's.  ``chunk`` is the chunk function (default
+    :func:`field_chunk_nd`).  Returns (state, metrics)."""
+    _check_frame(state, cfg)
+    if W % 2:
+        raise ValueError(f"the chunk kernel needs an even exchange_steps, not W={W}")
+    chunk = chunk or field_chunk_nd
+    L0 = cfg.shape[0]
+    volume = float(math.prod(cfg.shape))
+    n_per_slice = volume / L0
+    split = (True,) + (False,) * (cfg.ndim - 1)
+    W_main = min(W, cfg.loops)
+    n_chunks = cfg.loops // W_main
+    widths = [W_main] * n_chunks + [cfg.loops - n_chunks * W_main]
+    vals = obs_init(state)
+    phi = state.phi
+    step = int(state.step)
+    for Wx in widths:
+        if not Wx:
+            continue
+        H = chunk_halos(cfg, Wx, split)[0]
+        if H >= L0:
+            raise ValueError(f"chunk halo depth {H} on dim 0 reaches the full global extent "
+                             f"{L0}; reduce exchange_steps")
+        ext = torch.cat([phi[:, L0 - H:], phi, phi[:, :H]], dim=1)
+        phi, sl, stats = chunk(ext, state.dtau, action, cfg, Wx, split, step, None,
+                               chain_offset, tile_rows)
+        for w in range(Wx):
+            vals = obs_step(vals, true_divide(sl[:, w], n_per_slice),
+                            stats[:, :, 5 * w:5 * w + 5], volume)
+        step += Wx
+    return field_mod.field_frame_epilogue(state, obs_sums(phi, vals), cfg)
+
+
+def run_field_frames_nd(state: FieldState, action: FieldAction, cfg: FieldConfig, n_frames: int,
+                        *, tile_rows=None, chain_offset: int = 0, pair=None, chunk=None):
+    """``n_frames`` frames of a D ≥ 3 lattice — the counterpart of
+    ``stochquant_tpu.kernels.field_kernel_nd.run_field_frames_nd``: with
+    ``cfg.exchange_steps`` W > 2 (and even ``loops``) through the W-step chunk
+    kernel, else through the pair kernel.  Returns (state, metrics) with
+    metrics of shape (n_frames, C)."""
+    W = cfg.exchange_steps
+    per_frame = []
+    for _ in range(n_frames):
+        if W and W > 2 and cfg.loops % 2 == 0:
+            state, m = field_frame_nd_chunk(state, action, cfg, W, tile_rows=tile_rows,
+                                            chain_offset=chain_offset, chunk=chunk)
+        else:
+            state, m = field_frame_nd(state, action, cfg, tile_rows=tile_rows,
+                                      chain_offset=chain_offset, pair=pair)
+        per_frame.append(m)
+    return state, stack_metrics(per_frame)

@@ -9,7 +9,10 @@ SYNC, 4 for CHECKERBOARD), and returns per-strip statistics and the slice
 means of the two pre-update fields.  Plain version: :func:`field_pair_ref`,
 which updates the whole lattice at once and cuts the same statistics per
 strip.  :func:`field_frame_tiled` scans the pairs of a frame, runs the
-per-pair statistics step in PyTorch and then the frame epilogue.
+per-pair statistics step in PyTorch and then the frame epilogue.  The
+micro-step arithmetic (:func:`micro_steps`) and the statistics step
+(:func:`obs_init`, :func:`obs_step`, :func:`obs_sums`) are written for any
+dimension: the D ≥ 3 kernels 6 and 7 (``field_kernel_nd``) share them.
 
 Like the JAX tiled path, a chain that trips keeps evolving until the frame
 ends: the rollback discards those values, so accepted trajectories and the
@@ -42,6 +45,10 @@ __all__ = [
     "field_pair",
     "field_pair_ref",
     "field_frame_tiled",
+    "micro_steps",
+    "obs_init",
+    "obs_step",
+    "obs_sums",
     "run_field_frames_tiled",
     "resolve_tile_rows",
     "halo_depth",
@@ -109,25 +116,34 @@ def check_tiled_config(cfg: FieldConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def field_pair_ref(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction,
-                   cfg: FieldConfig, step: int, tile_rows: int):
-    """Plain PyTorch version of kernel 5: two micro-steps from ``phi`` at
-    counter ``step`` with per-chain step sizes ``dtau``.  Returns (phi after
-    the pair, slice means of the two pre-update fields (C, L0) each, stats
-    (C, L0 / tile_rows, 10)): per strip [Σφ, Σφ², Σs, max|det|, max|φ_new|]
-    of the first micro-step, then of the second."""
-    C, L0, L1 = phi.shape
-    nt = L0 // tile_rows
+def micro_steps(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction, cfg: FieldConfig,
+                step: int, n_steps: int = 2, *, chain_offset: int = 0, site_ids=None, even=None):
+    """``n_steps`` (even) Euler–Maruyama micro-steps of a (C, *block) field of
+    any dimension from counter ``step``, periodic within the block, each pair
+    drawing both Box–Muller outputs of one Threefry evaluation: the arithmetic
+    that kernels 5, 6 and 7 share.
+
+    ``site_ids`` (int64, broadcastable to the block) are the sites' global
+    linear ids and ``even`` their global checkerboard parity; by default the
+    block is the whole lattice.  Returns one (pre-update field, post-update
+    field, |det|, action density of the pre-update field) per micro-step."""
+    C, shape = phi.shape[0], tuple(phi.shape[1:])
+    ndim = len(shape)
     dev, dtype = phi.device, phi.dtype
     a = cfg.spacing
     clamp = float(np.float32(cfg.clamp))
-    dtau_b = dtau.reshape(C, 1, 1)
-    namp = field_mod.noise_scale(dtau, cfg).reshape(C, 1, 1)
-    even = field_mod.checkerboard_mask((L0, L1), 2, dev) if cfg.sweep == Sweep.CHECKERBOARD else None
-    e0, e1 = rng.normal_pair_for_shape(
-        cfg.seed, rng.Stream.FIELD, step, (C, L0, L1), rounds=rng.rounds_of(cfg.rng_impl),
-        device=dev,
-    )
+    bshape = (C,) + (1,) * ndim
+    dtau_b = dtau.reshape(bshape)
+    namp = field_mod.noise_scale(dtau, cfg).reshape(bshape)
+    if cfg.sweep != Sweep.CHECKERBOARD:
+        even = None
+    elif even is None:
+        even = field_mod.checkerboard_mask(shape, ndim, dev)
+    if site_ids is None:
+        site_ids = rng.global_site_index(shape, shape, device=dev)[None]
+    chain_ids = rng.u32(torch.arange(C, dtype=torch.int64, device=dev) + chain_offset)
+    key = rng.chain_key(rng.Stream.FIELD, chain_ids.view(bshape))
+    rounds = rng.rounds_of(cfg.rng_impl)
 
     def em_apply(p, mask, noise, lap):
         # non-finite sites put +inf into |det|, so the one max finds the
@@ -143,14 +159,33 @@ def field_pair_ref(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction,
         return newp, absdet
 
     def micro(p, noise):
-        lap = periodic_laplacian(p, a, 2)
-        act = action.action_density(p, a, 2).to(dtype)
+        lap = periodic_laplacian(p, a, ndim)
+        act = action.action_density(p, a, ndim).to(dtype)
         if even is None:
             newp, absdet = em_apply(p, None, noise, lap)
-            return newp, absdet, act
+            return p, newp, absdet, act
         p_e, absdet_e = em_apply(p, even, noise, lap)
-        newp, absdet_o = em_apply(p_e, ~even, noise, periodic_laplacian(p_e, a, 2))
-        return newp, torch.maximum(absdet_e, absdet_o), act
+        newp, absdet_o = em_apply(p_e, ~even, noise, periodic_laplacian(p_e, a, ndim))
+        return p, newp, torch.maximum(absdet_e, absdet_o), act
+
+    steps = []
+    for k in range(n_steps // 2):
+        e0, e1 = rng.normal_pair(cfg.seed, key, site_ids, rng.u32(int(step) + 2 * k), rounds)
+        steps.append(micro(phi, namp * e0.to(dtype)))
+        steps.append(micro(steps[-1][1], namp * e1.to(dtype)))
+        phi = steps[-1][1]
+    return steps
+
+
+def field_pair_ref(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction,
+                   cfg: FieldConfig, step: int, tile_rows: int):
+    """Plain PyTorch version of kernel 5: two micro-steps from ``phi`` at
+    counter ``step`` with per-chain step sizes ``dtau``.  Returns (phi after
+    the pair, slice means of the two pre-update fields (C, L0) each, stats
+    (C, L0 / tile_rows, 10)): per strip [Σφ, Σφ², Σs, max|det|, max|φ_new|]
+    of the first micro-step, then of the second."""
+    C, L0, L1 = phi.shape
+    nt = L0 // tile_rows
 
     def strip_stats(pre, post, absdet, act):
         strips = lambda x: x.reshape(C, nt, tile_rows * L1)  # noqa: E731
@@ -159,12 +194,10 @@ def field_pair_ref(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction,
             strips(absdet).amax(-1), strips(torch.abs(post)).amax(-1),
         ], dim=-1)
 
-    phi1, absdet0, act0 = micro(phi, namp * e0.to(dtype))
-    phi2, absdet1, act1 = micro(phi1, namp * e1.to(dtype))
+    first, second = micro_steps(phi, dtau, action, cfg, step)
     inv_l1 = float(np.float32(1.0 / L1))
-    stats = torch.cat([strip_stats(phi, phi1, absdet0, act0),
-                       strip_stats(phi1, phi2, absdet1, act1)], dim=-1)
-    return phi2, phi.sum(-1) * inv_l1, phi1.sum(-1) * inv_l1, stats
+    stats = torch.cat([strip_stats(*first), strip_stats(*second)], dim=-1)
+    return second[1], phi.sum(-1) * inv_l1, first[1].sum(-1) * inv_l1, stats
 
 
 def field_pair(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction, cfg: FieldConfig,
@@ -203,6 +236,42 @@ field_pair.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def obs_init(state: FieldState):
+    """The frame-local sums a frame of pair or chunk launches starts from:
+    (ΣM, ΣM², ΣM⁴, Σ|M|, Σ⟨φ²⟩, Σ⟨s⟩, Σ slice correlator, unstable, lrg_vl)."""
+    C = state.phi.shape[0]
+    zc = torch.zeros((C,), dtype=state.phi.dtype, device=state.phi.device)
+    return (zc, zc, zc, zc, zc, zc, torch.zeros_like(state.corr_mean),
+            torch.zeros((C,), dtype=torch.bool, device=zc.device), state.lrg_vl)
+
+
+def obs_step(vals, s_slice, st, volume: float):
+    """One micro-step's observable and detector step on the per-block
+    statistics ``st`` (C, blocks, 5) and the slice means ``s_slice`` (C, L0):
+    frame-local sample sums (two-level accumulation, accum.py).  A chain that
+    has tripped stops adding to the sums and to ``lrg``."""
+    ms, m2s, m4s, ams, p2s, acs, cs, unstable, lrg = vals
+    mag = true_divide(st[:, :, 0].sum(dim=1), volume)
+    phi2 = true_divide(st[:, :, 1].sum(dim=1), volume)
+    act = true_divide(st[:, :, 2].sum(dim=1), volume)
+    tripped = st[:, :, 3].amax(dim=1) > lrg
+    corr = s_slice * s_slice[:, :1]
+    keep = lambda new, old: torch.where(unstable, old, new)  # noqa: E731
+    mag2 = mag * mag
+    return (
+        keep(ms + mag, ms), keep(m2s + mag2, m2s), keep(m4s + mag2 * mag2, m4s),
+        keep(ams + torch.abs(mag), ams), keep(p2s + phi2, p2s), keep(acs + act, acs),
+        torch.where(unstable[:, None], cs, cs + corr), unstable | tripped,
+        keep(torch.maximum(lrg, st[:, :, 4].amax(dim=1)), lrg),
+    )
+
+
+def obs_sums(phi: torch.Tensor, vals) -> FieldFrameSums:
+    """The frame sums after the last :func:`obs_step`, for the epilogue."""
+    ms, m2s, m4s, ams, p2s, acs, cs, unstable, lrg = vals
+    return FieldFrameSums(phi, ms, m2s, m4s, ams, p2s, acs, cs, lrg, unstable)
+
+
 def field_frame_tiled(state: FieldState, action: FieldAction, cfg: FieldConfig, *,
                       tile_rows=None, pair=None):
     """One frame (``cfg.loops`` micro-steps, loops even) through the pair
@@ -214,38 +283,15 @@ def field_frame_tiled(state: FieldState, action: FieldAction, cfg: FieldConfig, 
     check_tiled_config(cfg)
     tile_rows = resolve_tile_rows(cfg, tile_rows)
     pair = pair or field_pair
-    C = state.phi.shape[0]
     volume = float(cfg.shape[0] * cfg.shape[1])
-
-    def obs_step(vals, s_slice, st):
-        # frame-local sample sums (two-level accumulation, accum.py)
-        ms, m2s, m4s, ams, p2s, acs, cs, unstable, lrg = vals
-        mag = true_divide(st[:, :, 0].sum(dim=1), volume)
-        phi2 = true_divide(st[:, :, 1].sum(dim=1), volume)
-        act = true_divide(st[:, :, 2].sum(dim=1), volume)
-        tripped = st[:, :, 3].amax(dim=1) > lrg
-        corr = s_slice * s_slice[:, :1]
-        keep = lambda new, old: torch.where(unstable, old, new)  # noqa: E731
-        mag2 = mag * mag
-        return (
-            keep(ms + mag, ms), keep(m2s + mag2, m2s), keep(m4s + mag2 * mag2, m4s),
-            keep(ams + torch.abs(mag), ams), keep(p2s + phi2, p2s), keep(acs + act, acs),
-            torch.where(unstable[:, None], cs, cs + corr), unstable | tripped,
-            keep(torch.maximum(lrg, st[:, :, 4].amax(dim=1)), lrg),
-        )
-
-    zc = torch.zeros((C,), dtype=state.phi.dtype, device=state.phi.device)
-    vals = (zc, zc, zc, zc, zc, zc, torch.zeros_like(state.corr_mean),
-            torch.zeros((C,), dtype=torch.bool, device=zc.device), state.lrg_vl)
+    vals = obs_init(state)
     phi = state.phi
     step0 = int(state.step)
     for k in range(cfg.loops // 2):
         phi, sl0, sl1, stats = pair(phi, state.dtau, action, cfg, step0 + 2 * k, tile_rows)
-        vals = obs_step(vals, sl0, stats[:, :, :5])
-        vals = obs_step(vals, sl1, stats[:, :, 5:])
-    ms, m2s, m4s, ams, p2s, acs, cs, unstable, lrg = vals
-    sums = FieldFrameSums(phi, ms, m2s, m4s, ams, p2s, acs, cs, lrg, unstable)
-    return field_mod.field_frame_epilogue(state, sums, cfg)
+        vals = obs_step(vals, sl0, stats[:, :, :5], volume)
+        vals = obs_step(vals, sl1, stats[:, :, 5:], volume)
+    return field_mod.field_frame_epilogue(state, obs_sums(phi, vals), cfg)
 
 
 def run_field_frames_tiled(state: FieldState, action: FieldAction, cfg: FieldConfig,

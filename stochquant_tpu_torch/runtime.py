@@ -27,7 +27,9 @@ from stochquant_tpu_torch.integrators import field as field_mod
 from stochquant_tpu_torch.integrators import gauge as gauge_mod
 from stochquant_tpu_torch.integrators import langevin
 from stochquant_tpu_torch.io import checkpoint as ckpt_mod
-from stochquant_tpu_torch.kernels import chain_kernel, field_kernel, field_kernel_tiled, gauge_kernel
+from stochquant_tpu_torch.kernels import (
+    chain_kernel, field_kernel, field_kernel_nd, field_kernel_tiled, gauge_kernel,
+)
 from stochquant_tpu_torch.observables import gauge_loops
 
 BACKENDS = ("auto", "cuda", "torch")
@@ -208,21 +210,23 @@ def run_chain(
 #: The JAX package's routing rule (``stochquant_tpu.runtime._FIELD_VMEM_FIELD_BYTES``):
 #: a 2-D float32 lattice of up to 1 MiB per chain runs whole-lattice frames
 #: (kernels 3 and 4); larger ones, or any run with ``tile_rows`` set, run
-#: the strip-tiled pair kernel (kernel 5).
+#: the strip-tiled pair kernel (kernel 5).  D >= 3 lattices run kernels 6 and 7.
 WHOLE_LATTICE_MAX_BYTES = 1 << 20
 
 
 def select_field_backend(cfg: FieldConfig, backend: str, device) -> str:
     """Resolve a field run's path: 'cuda' (kernels 3 and 4), 'cuda_tiled'
-    (kernel 5) or 'torch' (the plain PyTorch integrator, any dimension).
+    (kernel 5), 'cuda_nd' (kernels 6 and 7, D >= 3) or 'torch' (the plain
+    PyTorch integrator, any dimension).
 
     'auto' takes the CUDA kernels on a CUDA device and 'torch' on the CPU.
     On the CUDA route every case the kernels do not cover raises, naming it
-    (D >= 3 lattices, ``tile_rows=0`` autotune, an odd ``loops`` on the
-    tiled path, a dtype other than float32); ``backend='torch'`` is the
-    explicit way to run the plain integrator there.  ``Scheme.EXACT``,
-    ``rng_impl='hardware'``, ``mesh_axes`` and ``mesh_chain_axis`` raise on
-    every route: they are not ported yet."""
+    (``tile_rows=0`` autotune, an odd ``loops`` on the paths of pair
+    launches: the tiled 2-D kernel and the D >= 3 kernels, a dtype other
+    than float32); ``backend='torch'`` is the explicit way to run the plain
+    integrator there.  ``Scheme.EXACT``, ``rng_impl='hardware'``,
+    ``mesh_axes`` and ``mesh_chain_axis`` raise on every route: they are not
+    ported yet."""
     device = torch.device(device)
     if backend not in BACKENDS:
         raise ValueError(f"unknown field backend {backend!r}; known: {BACKENDS}")
@@ -238,15 +242,18 @@ def select_field_backend(cfg: FieldConfig, backend: str, device) -> str:
         return "torch"
     if device.type != "cuda":
         raise ValueError(f"backend='cuda' runs the CUDA kernels and needs a CUDA device, not {device}")
-    if cfg.ndim != 2:
-        raise ValueError(
-            f"a {cfg.ndim}-D lattice needs the D >= 3 field kernel, which is not ported "
-            "yet: run it with backend='torch' (the plain integrator)"
-        )
     if cfg.tile_rows == 0:
         raise ValueError("tile_rows=0 (autotune) is not ported yet: give a strip height or None")
     if cfg.dtype != "float32":
         raise ValueError(f"the field kernels are float32-only, not {cfg.dtype}; use backend='torch'")
+    if cfg.ndim >= 3:
+        field_kernel_nd.check_nd_config(cfg)
+        if cfg.loops % 2:
+            raise ValueError(
+                f"the D >= 3 field kernels need an even loops count (pair launches), not "
+                f"{cfg.loops}: give an even count, or run backend='torch' (the plain integrator)"
+            )
+        return "cuda_nd"
     lattice_bytes = math.prod(cfg.shape) * 4
     if cfg.tile_rows is None and lattice_bytes <= WHOLE_LATTICE_MAX_BYTES:
         return "cuda"
@@ -297,6 +304,8 @@ def run_field(
             return field_kernel_tiled.run_field_frames_tiled(
                 state, act, cfg, n, tile_rows=cfg.tile_rows
             )
+        if route == "cuda_nd":
+            return field_kernel_nd.run_field_frames_nd(state, act, cfg, n, tile_rows=cfg.tile_rows)
         return field_mod.run_field_frames(state, act, cfg, n)
 
     frames_done = (

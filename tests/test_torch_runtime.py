@@ -211,6 +211,12 @@ BASE = FieldConfig(shape=(256, 256), loops=100)
     (dict(shape=(32, 32, 32, 32)), "torch", CUDA, "torch"),
     ({}, "auto", torch.device("cpu"), "torch"),
     (dict(shape=(32, 32, 32, 32)), "auto", torch.device("cpu"), "torch"),
+    # D >= 3 lattices run kernels 6 and 7 on a CUDA device
+    (dict(shape=(32, 32, 32, 32)), "auto", CUDA, "cuda_nd"),
+    (dict(shape=(16, 16, 16)), "cuda", CUDA, "cuda_nd"),
+    (dict(shape=(32, 32, 32, 32), exchange_steps=4, tile_rows=8), "auto", CUDA, "cuda_nd"),
+    (dict(shape=(8, 8, 4, 4, 2), sweep=Sweep.CHECKERBOARD, rng_impl="threefry13"), "cuda", CUDA,
+     "cuda_nd"),
 ])
 def test_field_routing(change, backend, device, want):
     cfg = dataclasses.replace(BASE, **change)
@@ -218,8 +224,15 @@ def test_field_routing(change, backend, device, want):
 
 
 @pytest.mark.parametrize("change,backend,device,match", [
-    (dict(shape=(32, 32, 32, 32)), "auto", CUDA, "D >= 3"),
-    (dict(shape=(16, 16, 16)), "cuda", CUDA, "D >= 3"),
+    # an odd loops on a path of pair launches raises on 'auto' as on 'cuda':
+    # no route gives way to the plain integrator on a CUDA device unasked
+    (dict(shape=(32, 32, 32, 32), loops=7), "cuda", CUDA, "D >= 3"),
+    (dict(shape=(32, 32, 32, 32), loops=7), "auto", CUDA, "backend='torch'"),
+    (dict(shape=(16, 16, 16), loops=1, exchange_steps=4), "auto", CUDA, "even loops"),
+    (dict(shape=(2048, 2048), loops=5), "auto", CUDA, "even loops"),
+    (dict(shape=(4, 4, 2, 2, 2, 2)), "auto", CUDA, "lattice dims"),
+    (dict(shape=(16, 16, 16), tile_rows=0), "auto", CUDA, "autotune"),
+    (dict(shape=(16, 16, 16), dtype="float64"), "auto", CUDA, "float32"),
     (dict(mesh_axes=("x", None)), "auto", CUDA, "mesh_axes"),
     (dict(mesh_axes=("x", None)), "torch", torch.device("cpu"), "mesh_axes"),
     (dict(mesh_chain_axis="chains"), "auto", CUDA, "mesh_chain_axis"),
@@ -230,6 +243,7 @@ def test_field_routing(change, backend, device, want):
     (dict(scheme=Scheme.EXACT), "torch", torch.device("cpu"), "EXACT"),
     (dict(dtype="float64"), "cuda", CUDA, "float32"),
     (dict(tile_rows=64, loops=7), "auto", CUDA, "even loops"),
+    (dict(tile_rows=64, loops=7), "cuda", CUDA, "even loops"),
     (dict(shape=(2048, 2048), loops=5), "cuda", CUDA, "even loops"),
     ({}, "cuda", torch.device("cpu"), "CUDA device"),
     ({}, "pallas", CUDA, "backend"),
@@ -238,6 +252,81 @@ def test_field_routing_raises_for_what_is_not_ported(change, backend, device, ma
     cfg = dataclasses.replace(BASE, **change)
     with pytest.raises(ValueError, match=match):
         runtime.select_field_backend(cfg, backend, device)
+
+
+def test_run_field_raises_for_an_odd_loops_on_the_nd_route(monkeypatch):
+    # what 'auto' does on a CUDA device for an odd loops in 4-D, run here on the CPU:
+    # it raises before any frame runs; backend='torch' is the explicit plain path
+    real = runtime.select_field_backend
+    monkeypatch.setattr(runtime, "select_field_backend",
+                        lambda cfg, backend, device: real(cfg, backend, CUDA))
+    cfg = dataclasses.replace(PRESETS["phi4_4d"], shape=(4, 4, 4, 4), n_chains=1, loops=3, frames=1)
+    recs = []
+    with pytest.raises(ValueError, match="even loops"):
+        runtime.run_field(cfg, device="cpu", sink=metrics.MetricsSink(callback=recs.append))
+    assert recs == []
+    runtime.run_field(cfg, device="cpu", backend="torch",
+                      sink=metrics.MetricsSink(callback=recs.append))
+    assert [r["type"] for r in recs] == ["frame", "summary"]
+
+
+CUT_4D = dataclasses.replace(PRESETS["phi4_4d"], shape=(8, 8, 4, 4), n_chains=2, loops=4)
+
+
+@pytest.mark.parametrize("extra,launches", [([], "pair"), (["--exchange-steps", "4"], "chunk")])
+def test_cli_run_phi4_4d_cut_resumes_bitwise_and_matches_jax(extra, launches, monkeypatch,
+                                                             tmp_path):
+    """The slice as a whole: ``cli run --preset phi4_4d`` on the kernel route
+    (its wrappers run their plain versions on CPU tensors), at a cut shape."""
+    from stochquant_tpu_torch.kernels import field_kernel_nd as nd
+
+    monkeypatch.setitem(cli.PRESETS, "phi4_4d", CUT_4D)
+    real = runtime.select_field_backend
+    monkeypatch.setattr(runtime, "select_field_backend",
+                        lambda cfg, backend, device: real(cfg, backend, CUDA))
+    calls = {"pair": 0, "chunk": 0}
+    pair, chunk = nd.field_pair_nd, nd.field_chunk_nd
+    monkeypatch.setattr(nd, "field_pair_nd",
+                        lambda *a: calls.__setitem__("pair", calls["pair"] + 1) or pair(*a))
+    monkeypatch.setattr(nd, "field_chunk_nd",
+                        lambda *a: calls.__setitem__("chunk", calls["chunk"] + 1) or chunk(*a))
+    base = ["run", "--preset", "phi4_4d", "--device", "cpu", *extra]
+    paths = {k: (tmp_path / f"{k}.npz", tmp_path / f"{k}.jsonl") for k in "abc"}
+    cli.main(base + ["--burn", "1", "--frames", "3", "--out", str(paths["a"][0]),
+                     "--metrics", str(paths["a"][1])])
+    cli.main(base + ["--frames", "1", "--resume", str(paths["a"][0]), "--out",
+                     str(paths["b"][0]), "--metrics", str(paths["b"][1])])
+    cli.main(base + ["--burn", "1", "--frames", "4", "--out", str(paths["c"][0]),
+                     "--metrics", str(paths["c"][1])])
+    other = "chunk" if launches == "pair" else "pair"
+    assert calls[launches] == 10 * (2 if launches == "pair" else 1) and calls[other] == 0
+    resumed, _ = checkpoint.load(paths["b"][0], "cpu")
+    straight, cfg = checkpoint.load(paths["c"][0], "cpu")
+    for name, x, y in zip(resumed._fields, resumed, straight):
+        torch.testing.assert_close(x, y, rtol=0, atol=0, msg=name)
+    assert cfg.shape == (8, 8, 4, 4) and int(straight.step) == 1 + 5 * 4
+    assert cfg.exchange_steps == (4 if extra else None)
+    frames = [r for r in _records(paths["a"][1]) if r["type"] == "frame"]
+    assert [r["frame"] for r in frames] == [0, 1, 2]
+
+    # the JAX runtime from the same checkpoint gives the same record and state
+    jrecs = []
+    jcfg = dataclasses.replace(JFieldConfig.from_json(cfg.to_json()), frames=1)
+    jres = jruntime.run_field(jcfg, backend="xla", checkpoint_in=str(paths["a"][0]),
+                              sink=jmetrics.MetricsSink(callback=jrecs.append))
+    got = [r for r in _records(paths["b"][1]) if r["type"] == "frame"][0]
+    want = [r for r in jrecs if r["type"] == "frame"][0]
+    assert got["stable_frac"] == want["stable_frac"] == 1.0 and got["dtau"] == want["dtau"]
+    for key in FIELD_OBS:
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-3, atol=1e-6, err_msg=key)
+    for leaf, g, w in zip(resumed._fields, resumed, jres.state):
+        w = np.asarray(w)
+        if leaf in ("runs", "stab_cnt", "step"):
+            np.testing.assert_array_equal(g.numpy().astype(w.dtype), w, err_msg=leaf)
+        elif leaf in MEANS:
+            np.testing.assert_allclose(g.numpy(), w, rtol=3e-5, atol=3e-6, err_msg=leaf)
+        else:
+            np.testing.assert_allclose(g.numpy(), w, rtol=2e-6, atol=2e-6, err_msg=leaf)
 
 
 GAUGE_BASE = GaugeConfig(group="u1", shape=(16, 16), n_chains=4, loops=10)
