@@ -105,9 +105,45 @@ non-zero:
     (busy and wall time of the same 8 profiled frames) and the top kernels
     of each kernel path, and kernel 6 over several ``tile_rows``.
 
+16. kernel 9 (``field_halo_step``) vs its plain version on small cases that
+    reach every branch: SYNC and both CHECKERBOARD half-sweeps, every set of
+    split dims, non-zero chain, row and column offsets, both Box-Muller
+    outputs, both Threefry variants, extents that are no multiple of the
+    block, strips of several rows, a NaN on an interior site and one on an
+    edge slice.  New φ and the interior maxima within 2e-6, the interior
+    count of non-finite updates exactly, the sums (held as means) as in 6;
+17. kernel 12 (``gauge_chunk``) vs its plain version for U(1), SU(2) and
+    SU(3): W = 2, 4 and 8, a block away from the origin, one whose halo wraps
+    the global lattice, a cap event, and a NaN link in an owned and in a halo
+    row.  The ``bad`` and ``capped`` flags exactly; links and drift max within
+    2e-6; the plaquette sum (held as a mean) as in 6;
+18. the lattice-split main paths at full width through ``runtime.run_field``
+    and ``runtime.run_gauge`` with a mesh on the one card (the device twice:
+    a lattice that is really cut; and ``bench.py``'s ring of one): field 256²
+    × 16, loops 50 (``bench.py:544-553``) on ``cuda_step`` (kernel 9),
+    ``cuda`` and ``auto`` (the chunk path: kernel 7) and ``torch``, φ and
+    every decision bitwise equal to the unsplit run (kernel 3) and the means
+    within the gate; a chain-only mesh (kernel 3 per shard) bitwise equal in
+    every leaf; gauge u1 256² × 32 loops 100 (``bench.py:397-400``) and su3
+    64² × 8 loops 50 on ``cuda`` (the chunk runner: kernel 12) against the
+    per-step halo runner (``auto``, which records its choice) and the unsplit
+    kernel 10, links bitwise with the cap quiescent.  Every run's launch
+    counters are set to 0 before and must afterwards show exactly the
+    expected kernels and counts; a resume from the whole-state checkpoint is
+    bitwise equal to the uninterrupted run; stable_frac ≥ 0.99; then kernels
+    9 and 12 on a shard of the final states against their plain versions;
+19. lattice-split timings at those shapes: (link-)MLUPS of every backend
+    through the runners (median of 3 reps after a warm-up), the device's idle
+    share and the kernels' own time per launch under ``torch.profiler``, and
+    kernels 9 and 12 alone (CUDA events) beside their plain versions' wall ms,
+    held against each other.
+
+Every timing phase ([5], [9], [12], [15], [19]) ends with the range of the
+card's SM clock, power draw and temperature sampled while it ran.
+
 ``python3 chip_smoke.py --log PATH`` also writes every printed line to PATH.
 
-Prints a JSON line with the nine kernels' numbers (name, route, source, the
+Prints a JSON line with the eleven kernels' numbers (name, route, source, the
 TPU kernel it replaces, main-path launches, max|Δ|, ms and plain ms at the
 timed shape, the bound: the least ms the card could take for that launch,
 the resource that binds it, and the ms of one PyTorch call computing the
@@ -117,6 +153,7 @@ limit, and last ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import subprocess
@@ -141,8 +178,10 @@ KERNELS = {
     "field_pair": ("field_kernel_tiled.cu", "stochquant_tpu/kernels/field_kernel_tiled.py:189"),
     "field_pair_nd": ("field_kernel_nd.cu", "stochquant_tpu/kernels/field_kernel_nd.py:327"),
     "field_chunk_nd": ("field_kernel_nd.cu", "stochquant_tpu/kernels/field_kernel_nd.py:977"),
+    "field_halo_step": ("field_halo_kernel.cu", "stochquant_tpu/kernels/field_halo_kernel.py:190"),
     "gauge_frame": ("gauge_kernel.cu", "stochquant_tpu/kernels/gauge_kernel.py:434"),
     "gauge_frames_multi": ("gauge_kernel.cu", "stochquant_tpu/kernels/gauge_kernel.py:1144"),
+    "gauge_chunk": ("gauge_kernel.cu", "stochquant_tpu/kernels/gauge_kernel.py:1401"),
 }
 FIELD_RTOL, FIELD_ATOL = 3e-5, 3e-6  # site-reduced sums: tests/test_field_kernel.py:35
 BENCH_FIELD = dict(shape=(256, 256), n_chains=16, loops=100, seed=13, grow_after=10**9)
@@ -186,6 +225,7 @@ MULTI_GAUGE = {
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 NOISE_OPS = (119 + 16) / 2
 CHAIN_OPS = {"double_well": 28 + 11, "anharmonic": 28 + 5}
+GAUGE_PLANES = {"u1": 2, "su2": 8, "su3": 36}  # float32 planes of a chain's links
 GAUGE_OPS = {"u1": 46 + 2 * 1 * NOISE_OPS, "su2": 391 + 138 + 2 * 3 * NOISE_OPS,
              "su3": 2770 + 3424 + 2 * 8 * NOISE_OPS}
 
@@ -221,11 +261,27 @@ def kernel_bounds() -> dict:
     out["field_pair_nd"] = bound(sites * 4 * 2, sites * 2 * field_ops(len(shape)))
     ext = sites // shape[0] * (shape[0] + 2 * 4)  # W = 4, synchronous: halo 4 on dim 0
     out["field_chunk_nd"] = bound((ext + sites) * 4, sites * 4 * field_ops(len(shape)))
-    g = BENCH_GAUGE["u1"]
-    sites = g["n_chains"] * prod(g["shape"])
-    out["gauge_frame"] = bound(sites * 2 * 4 * 2, sites * g["loops"] * GAUGE_OPS["u1"])
-    sites = 256 * prod(MULTI_GAUGE["u1"]["shape"])  # loops 10, K = 8
-    out["gauge_frames_multi"] = bound(sites * 2 * 4 * 2, sites * 10 * 8 * GAUGE_OPS["u1"])
+    # kernel 9 on one shard of the split 256^2 x 16 lattice (x = 2): phi in and
+    # out; a launch is one step, so it draws a whole Threefry pair per site
+    sites = f["n_chains"] * prod(f["shape"]) // 2
+    out["field_halo_step"] = bound(sites * 4 * 2, sites * (field_ops(2) + NOISE_OPS))
+    for group, g in BENCH_GAUGE.items():  # the kernels line reports u1
+        planes = GAUGE_PLANES[group]
+        sites = g["n_chains"] * prod(g["shape"])
+        out["gauge_frame_" + group] = bound(sites * planes * 4 * 2,
+                                            sites * g["loops"] * GAUGE_OPS[group])
+        sites = 256 * prod(MULTI_GAUGE[group]["shape"])  # loops 10, K = 8
+        out["gauge_frames_multi_" + group] = bound(sites * planes * 4 * 2,
+                                                   sites * 10 * 8 * GAUGE_OPS[group])
+        # kernel 12 on one shard (x = 2), W = H = 8: the extended block in, the
+        # owned rows out; step k needs the owned rows and 2 (W - 1 - k) more
+        loc0, W = g["shape"][0] // 2, 8
+        cols = g["n_chains"] * g["shape"][1]
+        out["gauge_chunk_" + group] = bound(
+            cols * (2 * loc0 + 2 * W) * planes * 4,
+            cols * (W * loc0 + W * (W - 1)) * GAUGE_OPS[group])
+    for name in ("gauge_frame", "gauge_frames_multi", "gauge_chunk"):
+        out[name] = out[name + "_u1"]
     return out
 
 
@@ -245,6 +301,52 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+class CardSampler:
+    """Samples the card's SM clock, power draw and temperature every 200 ms
+    (``nvidia-smi -lms``) while a timing phase runs and logs their range when
+    it ends: the same binary runs slower on a card that is clocked down, so a
+    time is only read beside the clock it was taken at."""
+
+    QUERY = ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader,nounits", "-lms", "200"]
+
+    def __init__(self, label: str):
+        self.label, self.proc = label, None
+
+    def __enter__(self):
+        try:
+            self.proc = subprocess.Popen(self.QUERY, stdout=subprocess.PIPE,
+                                         stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self.proc = None
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is None:
+            log(f"  card during {self.label}: nvidia-smi unavailable")
+            return False
+        self.proc.terminate()
+        try:
+            text, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            text, _ = self.proc.communicate()
+        rows = []
+        for line in text.splitlines():
+            try:
+                rows.append([float(v) for v in line.split(",")])
+            except ValueError:
+                continue
+        if rows:
+            mhz, watts, temp = (sorted(col) for col in zip(*rows))
+            log(f"  card during {self.label}: SM clock {mhz[0]:.0f}-{mhz[-1]:.0f} MHz (median "
+                f"{mhz[len(mhz) // 2]:.0f}), power {watts[0]:.1f}-{watts[-1]:.1f} W, "
+                f"{temp[0]:.0f}-{temp[-1]:.0f} C over {len(rows)} samples")
+        else:
+            log(f"  card during {self.label}: no samples")
+        return False
 
 
 def gate_cases(ChainConfig, BoundaryCondition, Formulation, Scheme):
@@ -278,7 +380,7 @@ def gate_cases(ChainConfig, BoundaryCondition, Formulation, Scheme):
     ]
 
 
-EXACT = ("runs", "stab_cnt", "step", "unstable", "stable")
+EXACT = ("runs", "stab_cnt", "step", "unstable", "stable", "n_bad", "bad", "capped")
 
 
 # field leaves whose values are sums over sites, taken in another order by
@@ -1148,9 +1250,9 @@ def phase_nd_main_path(torch, nd, cli, checkpoint, actions, tmp: Path):
 
 
 def device_profile(torch, fn):
-    """(wall seconds, device-busy seconds, [(kernel name, seconds)] by time)
-    of ``fn`` under torch.profiler: wall and busy time of the same window, so
-    that 1 - busy / wall is the device's idle share of it."""
+    """(wall seconds, device-busy seconds, [(kernel name, seconds, calls)] by
+    time) of ``fn`` under torch.profiler: wall and busy time of the same
+    window, so that 1 - busy / wall is the device's idle share of it."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -1164,9 +1266,9 @@ def device_profile(torch, fn):
         if us is None:
             us = getattr(ev, "self_cuda_time_total", 0)
         if us > 0:
-            rows.append((ev.key, us * 1e-6))
+            rows.append((ev.key, us * 1e-6, ev.count))
     rows.sort(key=lambda r: -r[1])
-    return wall, sum(t for _, t in rows), rows
+    return wall, sum(r[1] for r in rows), rows
 
 
 def phase_nd_timings(torch, device, nd, field, actions, cfgmod, card: str) -> dict:
@@ -1204,7 +1306,7 @@ def phase_nd_timings(torch, device, nd, field, actions, cfgmod, card: str) -> di
                 f"{[round(r, 4) for r in reps]}; stable {stable:.4f}); 8 more frames under "
                 f"torch.profiler: device busy {busy / 8 * 1e3:.3f} ms of {wall / 8 * 1e3:.3f} ms "
                 f"wall per frame, idle {idle:.1%} of that window [{card}]")
-            for kname, sec in rows[:4]:
+            for kname, sec, _ in rows[:4]:
                 log(f"      {sec / busy:6.1%} of device time  {kname[:90]}")
         t = timed(torch, lambda: field.run_field_frames(state, act, cfg, 2))
         out[f"nd_32_4_x{C}_plain"] = dict(mlups=ups * 2 / t / 1e6, seconds=t, reps=[t])
@@ -1238,6 +1340,407 @@ def phase_nd_timings(torch, device, nd, field, actions, cfgmod, card: str) -> di
             log(f"  field_pair_nd   tile_rows {rows0:2d} (tiles "
                 f"{nd.resolve_tiles(cfg, cfg.shape, C, rows0)}): "
                 f"{cuda_ms(torch, pair, reps=10):.3f} ms/launch at 32^4 x {C} [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the lattice-split halo paths: kernels 9 and 12, the mesh and the runners
+# ---------------------------------------------------------------------------
+
+HaloStep = collections.namedtuple(
+    "HaloStep", "phi ms p2s acs slice_means max_det n_bad max_new")
+GaugeChunk = collections.namedtuple("GaugeChunk", "planes plaq_mean dmax bad capped")
+
+
+def halo_step_leaves(out) -> HaloStep:
+    """Kernel 9's eight outputs with the site sums held as means (a sum of
+    many sites near zero carries the rounding of its terms, not of its value)."""
+    phi, mag, phi2, act, sl, max_det, n_bad, max_new = out
+    sites = phi[0].numel()
+    return HaloStep(phi, mag / sites, phi2 / sites, act / sites, sl / phi.shape[2], max_det,
+                    n_bad, max_new)
+
+
+def halo_step_cases(FieldConfig, Sweep):
+    """(name, global config, block shape, (chain, row, column) offsets, split
+    dims, Box-Muller parity, half-sweep, (chain, row, column) of a NaN site or
+    None): small cases for every branch of kernel 9."""
+    kw = dict(action="phi4", dtau=0.01, seed=21)
+    cb = dict(sweep=Sweep.CHECKERBOARD)
+    return [
+        ("sync_split_0", FieldConfig(shape=(48, 40), n_chains=3, **kw), (24, 40), (3, 24, 0),
+         (True, False), 0, 0, None),
+        ("sync_split_1_threefry13", FieldConfig(shape=(16, 96), n_chains=2,
+                                                rng_impl="threefry13", **kw),
+         (16, 48), (0, 0, 48), (False, True), 1, 0, None),
+        ("sync_split_01_ragged", FieldConfig(shape=(50, 70), n_chains=3, **kw), (25, 35),
+         (7, 25, 35), (True, True), 1, 0, None),
+        ("sync_unsplit_free_field", FieldConfig(**{**kw, "action": "free_field"}, shape=(20, 33),
+                                                n_chains=2), (20, 33), (0, 0, 0),
+         (False, False), 0, 0, None),
+        ("checkerboard_even_half", FieldConfig(shape=(50, 70), n_chains=3, **cb, **kw), (25, 35),
+         (1, 25, 35), (True, True), 0, 0, None),
+        ("checkerboard_odd_half", FieldConfig(shape=(50, 70), n_chains=3, **cb, **kw), (25, 35),
+         (1, 25, 35), (True, True), 1, 1, None),
+        ("strips_of_4_rows", FieldConfig(shape=(40, 64), n_chains=64, **kw), (20, 64),
+         (64, 20, 0), (True, False), 0, 0, None),
+        ("nan_interior_site", FieldConfig(shape=(48, 40), n_chains=3, **kw), (24, 40), (0, 24, 0),
+         (True, False), 0, 0, (1, 5, 7)),
+        ("nan_edge_slice", FieldConfig(shape=(48, 40), n_chains=3, **kw), (24, 40), (0, 0, 0),
+         (True, False), 1, 0, (2, 0, 9)),
+    ]
+
+
+def phase_halo_step_gate(torch, fh, field, actions, cfgmod, device) -> None:
+    """Kernel 9 against its plain version on the card."""
+    for name, cfg, loc, offs, split, parity, half, nan in halo_step_cases(cfgmod.FieldConfig,
+                                                                          cfgmod.Sweep):
+        act = actions.get_field(cfg.action)
+        s0 = field.init_field_state(cfg, device=device)
+        phi = s0.phi[:, offs[1]:offs[1] + loc[0], offs[2]:offs[2] + loc[1]].contiguous()
+        if nan is not None:
+            phi[nan] = float("nan")
+        args = (phi, s0.dtau, act, cfg, 6, parity, half, offs, split)
+        got, want = fh.field_halo_step(*args), fh.field_halo_step_ref(*args)
+        gate(f"{name} field_halo_step block {loc} at {offs}", halo_step_leaves(got),
+             halo_step_leaves(want))
+        n_bad = want[6]
+        if nan is not None and name == "nan_interior_site" and not (
+                float(n_bad[nan[0]]) >= 1 and float(n_bad.sum()) == float(n_bad[nan[0]])):
+            raise SystemExit(f"gate case {name}: the NaN site was not counted in its chain alone")
+
+
+def gauge_chunk_leaves(out, W: int) -> GaugeChunk:
+    planes, ps, dmax, bad, capped = out
+    return GaugeChunk(planes, ps / (W * planes.shape[2] * planes.shape[3]), dmax, bad, capped)
+
+
+def extended_planes(torch, planes, row_off: int, loc0: int, H: int):
+    """Rows row_off - H .. row_off + loc0 + H of the periodic planes (C, P, L0, L1)."""
+    idx = (torch.arange(loc0 + 2 * H, device=planes.device) + (row_off - H)) % planes.shape[2]
+    return planes.index_select(2, idx).contiguous()
+
+
+def phase_gauge_chunk_gate(torch, gk, gauge, device) -> None:
+    """Kernel 12 against its plain version on the card: per group W = 2, 4
+    and 8, a block away from the origin, one whose halo wraps the global
+    lattice, a cap event, and a NaN link in an owned and in a halo row."""
+    import dataclasses
+
+    for group, beta, dtau in (("u1", 1.0, 5e-3), ("su2", 2.0, 2e-3), ("su3", 5.0, 1e-3)):
+        base = gauge.GaugeConfig(group=group, beta=beta, shape=(16, 32), n_chains=3, dtau=dtau,
+                                 seed=41, hot_start=True)
+        act = gauge.resolve_gauge_action(base)
+        s0 = gauge.init_gauge_state(base, act, device=device)
+        planes = gk.links_to_planes(s0.links, act)
+        for name, W, loc0, row_off, cap, nan in [
+            ("W2_away_from_origin", 2, 4, 8, 20.0, False),
+            ("W4_halo_wraps_the_lattice", 4, 8, 8, 20.0, False),
+            ("W8_whole_lattice_owned_half", 8, 8, 0, 20.0, False),
+            ("W4_cap_event", 4, 8, 4, 0.5, False),
+            ("W4_nan_links", 4, 8, 4, 20.0, True),
+        ]:
+            cfg = dataclasses.replace(base, drift_cap=cap)
+            ext = extended_planes(torch, planes, row_off, loc0, W)
+            if nan:  # chain 0: the halo row beside the owned rows; chain 1: an owned row
+                ext[0, 0, W - 1, 3] = float("nan")
+                ext[1, 1, W + 2, 5] = float("nan")
+            args = (ext, s0.dtau, act, cfg, loc0, W, 11, 5, row_off)
+            got, want = gk.gauge_chunk(*args), gk.gauge_chunk_ref(*args)
+            gate(f"{group} {name} gauge_chunk rows {row_off}..{row_off + loc0}",
+                 gauge_chunk_leaves(got, W), gauge_chunk_leaves(want, W))
+            bad, capped = want[3].tolist(), want[4].tolist()
+            if nan and bad != [True, True, False]:
+                raise SystemExit(f"gate case {group} {name}: bad flags {bad}")
+            if not nan and (any(bad) or capped != [cap < 1.0] * 3):
+                raise SystemExit(f"gate case {group} {name}: flags bad {bad} capped {capped}")
+
+
+def counted(torch, counters: dict, want: dict, label: str, fn):
+    """Run ``fn`` with every launch counter set to 0 just before and read just
+    after; the kernels launched, and how often, must be exactly ``want``."""
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.time()
+    result = fn()
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items() if c.launches}
+    log(f"  {label}: {time.time() - t0:.2f}s, launches {got or 'none'}")
+    if got != want:
+        raise SystemExit(f"{label}: launches {got}, expected {want}")
+    return result
+
+
+def check_records(recs: list, label: str, keys) -> None:
+    frames = [r for r in recs if r["type"] == "frame"]
+    if not frames or recs[-1]["type"] != "summary":
+        raise SystemExit(f"{label}: missing frame or summary records")
+    for r in frames:
+        if r["stable_frac"] < 0.99:
+            raise SystemExit(f"{label}: stable_frac {r['stable_frac']} < 0.99")
+        if not all(isinstance(r[k], float) and math.isfinite(r[k]) for k in keys):
+            raise SystemExit(f"{label}: non-finite observables in {r}")
+
+
+def same_state(torch, label: str, got, want, bitwise) -> None:
+    """``bitwise`` leaves equal bit for bit; the others through the gate."""
+    gate(label, got, want)
+    names = got._fields if bitwise == "all" else bitwise
+    for name in names:
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise SystemExit(f"{label}: {name} is not bitwise equal")
+
+
+FIELD_EXACT = ("phi", "runs", "dtau", "stab_cnt", "lrg_vl", "step")
+GAUGE_EXACT = ("links", "drift_max", "runs", "dtau", "stab_cnt", "step")
+SPLIT_FIELD = dict(BENCH_FIELD, loops=50)  # bench.py:544-553
+
+
+def phase_split_main_path(torch, mods, tmp: Path):
+    """The lattice-split main paths at full width through runtime.run_field /
+    run_gauge with a mesh on the one card (the device twice, and bench.py's
+    ring of one).  Returns (launch counts per kernel, max|Δ| per kernel)."""
+    import dataclasses
+
+    runtime, metrics, cfgmod, gauge = mods["runtime"], mods["metrics"], mods["cfgmod"], mods["gauge"]
+    parallel, fh, gk, actions = mods["parallel"], mods["fh"], mods["gk"], mods["actions"]
+    counters = mods["counters"]
+    totals = {k: 0 for k in counters}
+
+    def run(kind, cfg, label, want, keys, **kw):
+        recs = []
+        fn = runtime.run_field if kind == "field" else runtime.run_gauge
+        res = counted(torch, counters, want, label,
+                      lambda: fn(cfg, sink=metrics.MetricsSink(callback=recs.append), **kw))
+        check_records(recs, label, keys)
+        for k, v in want.items():
+            totals[k] += v
+        return res.state, recs
+
+    dev = "cuda:0"
+    x2 = parallel.make_mesh([("x", 2)], devices=dev)
+    x1 = parallel.make_mesh([("x", 1)], devices=dev)
+    c2 = parallel.make_mesh([("chain", 2)], devices=dev)
+
+    # ---- field: 256^2 x 16, loops 50 ------------------------------------
+    frames, fkeys = 3, ("mag", "phi2", "binder")
+    base = cfgmod.FieldConfig(**SPLIT_FIELD, frames=frames)
+    cfg = dataclasses.replace(base, mesh_axes=("x", None))
+    loops = cfg.loops
+    chunks = -(-loops // 8)  # W = 8: six chunks and a W = 2 tail
+    where = f"field {cfg.shape} x {cfg.n_chains} loops {loops}"
+    unsplit, _ = run("field", base, f"{where} unsplit, backend cuda",
+                     {"field_frame": frames}, fkeys, device=dev, backend="cuda")
+    step, _ = run("field", cfg, f"{where} x=2, backend cuda_step",
+                  {"field_halo_step": loops * frames * 2}, fkeys, mesh=x2, backend="cuda_step")
+    chunk, _ = run("field", cfg, f"{where} x=2, backend cuda (the chunk path)",
+                   {"field_chunk_nd": chunks * frames * 2}, fkeys, mesh=x2, backend="cuda")
+    auto, _ = run("field", cfg, f"{where} x=2, backend auto", {"field_chunk_nd": chunks * frames * 2},
+                  fkeys, mesh=x2)
+    plain, _ = run("field", cfg, f"{where} x=2, backend torch", {}, fkeys, mesh=x2,
+                   backend="torch")
+    for name, got in (("cuda_step", step), ("cuda", chunk), ("auto", auto), ("torch", plain)):
+        same_state(torch, f"{where} x=2 {name} vs unsplit kernel 3", got, unsplit, FIELD_EXACT)
+    ccfg = dataclasses.replace(base, mesh_axes=(None, None), mesh_chain_axis="chain")
+    got, _ = run("field", ccfg, f"{where} chain=2, backend cuda (kernel 3 per shard)",
+                 {"field_frame": frames * 2}, fkeys, mesh=c2, backend="cuda")
+    same_state(torch, f"{where} chain=2 vs unsplit kernel 3", got, unsplit, "all")
+    got, _ = run("field", cfg, f"{where} ring of one, backend cuda_step",
+                 {"field_halo_step": loops * frames}, fkeys, mesh=x1, backend="cuda_step")
+    same_state(torch, f"{where} ring of one cuda_step vs unsplit", got, unsplit, FIELD_EXACT)
+    got, _ = run("field", cfg, f"{where} ring of one, backend cuda_pair",
+                 {"field_chunk_nd": chunks * frames}, fkeys, mesh=x1, backend="cuda_pair")
+    same_state(torch, f"{where} ring of one cuda_pair vs unsplit", got, unsplit, FIELD_EXACT)
+    # resume from the whole-state checkpoint of a split run
+    ck = str(tmp / "split_field.npz")
+    run("field", dataclasses.replace(cfg, frames=2), f"{where} x=2 cuda_step, 2 frames",
+        {"field_halo_step": loops * 2 * 2}, fkeys, mesh=x2, backend="cuda_step", checkpoint_out=ck)
+    got, _ = run("field", cfg, f"{where} x=2 cuda_step, resumed for the 3rd",
+                 {"field_halo_step": loops * 2}, fkeys, mesh=x2, backend="cuda_step",
+                 checkpoint_in=ck, resume_progress=True)
+    same_state(torch, f"{where} x=2 cuda_step resumed vs uninterrupted", got, step, "all")
+
+    # kernel 9 at the shape the main path gives it: shard 1 of the final state
+    err = {}
+    act = actions.get_field(cfg.action)
+    shard = parallel.shard_field_state(step, x2, cfg)[1]
+    args = (shard.phi, shard.dtau, act, cfg, int(step.step), 1, 0,
+            (0, cfg.shape[0] // 2, 0), (True, False))
+    err["field_halo_step"] = gate(
+        f"main path shard {tuple(shard.phi.shape)} field_halo_step",
+        halo_step_leaves(fh.field_halo_step(*args)),
+        halo_step_leaves(fh.field_halo_step_ref(*args)))
+
+    # ---- gauge: u1 256^2 x 32 loops 100, su3 64^2 x 8 loops 50 -------------
+    gkeys = ("plaquette", "drift_max")
+    for group, frames in (("u1", 2), ("su3", 1)):
+        base = gauge.GaugeConfig(**BENCH_GAUGE[group], frames=frames)
+        cfg = dataclasses.replace(base, mesh_axes=("x", None))
+        per_frame = -(-cfg.loops // 8)  # W = 8
+        where = f"gauge {group} {cfg.shape} x {cfg.n_chains} loops {cfg.loops}"
+        unsplit, _ = run("gauge", base, f"{where} unsplit, backend cuda",
+                         {"gauge_frame": frames}, gkeys, device=dev, backend="cuda")
+        chunk, _ = run("gauge", cfg, f"{where} x=2, backend cuda (the chunk runner)",
+                       {"gauge_chunk": per_frame * frames * 2}, gkeys, mesh=x2, backend="cuda")
+        plain, recs = run("gauge", cfg, f"{where} x=2, backend auto (the per-step halo runner)",
+                          {}, gkeys, mesh=x2)
+        if recs[0]["type"] != "backend_fallback":
+            raise SystemExit(f"{where}: auto under a mesh did not record its choice of runner")
+        if not float(unsplit.drift_max.max()) < cfg.drift_cap:
+            raise SystemExit(f"{where}: the drift cap was not quiescent")
+        same_state(torch, f"{where} x=2 chunk runner vs unsplit kernel 10", chunk, unsplit,
+                   GAUGE_EXACT)
+        same_state(torch, f"{where} x=2 chunk runner vs per-step halo runner", chunk, plain,
+                   GAUGE_EXACT)
+        if group == "u1":
+            got, _ = run("gauge", cfg, f"{where} ring of one, backend cuda",
+                         {"gauge_chunk": per_frame * frames}, gkeys, mesh=x1, backend="cuda")
+            same_state(torch, f"{where} ring of one vs unsplit", got, unsplit, GAUGE_EXACT)
+            ck = str(tmp / "split_gauge.npz")
+            run("gauge", dataclasses.replace(cfg, frames=1), f"{where} x=2 chunk, 1 frame",
+                {"gauge_chunk": per_frame * 2}, gkeys, mesh=x2, backend="cuda", checkpoint_out=ck)
+            got, _ = run("gauge", cfg, f"{where} x=2 chunk, resumed for the 2nd",
+                         {"gauge_chunk": per_frame * 2}, gkeys, mesh=x2, backend="cuda",
+                         checkpoint_in=ck, resume_progress=True)
+            same_state(torch, f"{where} x=2 chunk resumed vs uninterrupted", got, chunk, "all")
+        # kernel 12 at the shape the main path gives it: shard 1's extended block
+        act = gauge.resolve_gauge_action(cfg)
+        loc0 = cfg.shape[0] // 2
+        ext = extended_planes(torch, gk.links_to_planes(chunk.links, act), loc0, loc0, 8)
+        args = (ext, chunk.dtau, act, cfg, loc0, 8, int(chunk.step), 0, loc0)
+        err["gauge_chunk"] = max(err.get("gauge_chunk", 0.0), gate(
+            f"main path {group} block {tuple(ext.shape)} gauge_chunk W=8",
+            gauge_chunk_leaves(gk.gauge_chunk(*args), 8),
+            gauge_chunk_leaves(gk.gauge_chunk_ref(*args), 8)))
+    return totals, err
+
+
+def phase_split_timings(torch, mods, card: str) -> dict:
+    """(Link-)MLUPS of each split backend at the main paths' shapes through the
+    runners (median of 3 reps after a warm-up), the device's idle share under
+    torch.profiler, and kernels 9 and 12 alone (CUDA events) beside their plain
+    versions' wall ms, held against each other."""
+    import dataclasses
+
+    cfgmod, gauge, field, actions = mods["cfgmod"], mods["gauge"], mods["field"], mods["actions"]
+    parallel, halo, gauge_halo = mods["parallel"], mods["halo"], mods["gauge_halo"]
+    fh, gk = mods["fh"], mods["gk"]
+    out = {}
+    meshes = {"x=2": parallel.make_mesh([("x", 2)], devices="cuda:0"),
+              "x=1": parallel.make_mesh([("x", 1)], devices="cuda:0")}
+    dev = meshes["x=2"].devices[0]
+
+    def time_runner(key, label, runner, shards, frames, ups, profile):
+        shards, _ = runner(shards, 1)  # warm-up
+        reps = []
+        for _ in range(3):
+            holder = {}
+            reps.append(timed(torch, lambda: holder.update(r=runner(shards, frames))))
+        t = sorted(reps)[1]
+        stable = float(holder["r"][1]["stable"].float().mean())
+        out[key] = dict(mlups=ups * frames / t / 1e6, seconds=t, reps=reps)
+        msg = (f"  {label}: {out[key]['mlups']:.1f} MLUPS (median of 3 reps of {frames} frames, "
+               f"{t / frames * 1e3:.3f} ms per frame; reps {[round(r, 4) for r in reps]}; stable "
+               f"{stable:.4f})")
+        if profile:
+            wall, busy, rows = device_profile(torch, lambda: runner(shards, frames))
+            out[key]["idle"] = 1.0 - busy / wall
+            msg += (f"; {frames} more under torch.profiler: device busy {busy / frames * 1e3:.3f} "
+                    f"of {wall / frames * 1e3:.3f} ms wall per frame, idle {out[key]['idle']:.1%}")
+        log(msg + f" [{card}]")
+        if profile:
+            for kname, sec, calls in rows[:4]:
+                log(f"      {sec / busy:6.1%} of device time  {kname[:90]}")
+            for kname, sec, calls in rows:  # the hand-written kernel alone, per launch
+                if kname.startswith("void field_halo_step_kernel") or kname.startswith(
+                        "void gauge_chunk_kernel") or kname.startswith("void field_chunk_nd"):
+                    out[key]["kernel_us"] = sec / calls * 1e6
+                    log(f"      {kname[5:28]}: {sec / calls * 1e6:.2f} µs of device time per "
+                        f"launch over {calls} launches (profiler)")
+        return shards
+
+    # ---- field 256^2 x 16, loops 50 ---------------------------------------
+    cfg = cfgmod.FieldConfig(**SPLIT_FIELD, mesh_axes=("x", None))
+    act = actions.get_field(cfg.action)
+    s0 = field.init_field_state(cfg, device=dev)
+    ups = cfg.n_chains * math.prod(cfg.shape) * cfg.loops
+    shards = None
+    for mname, backend, frames in (("x=2", "cuda_step", 4), ("x=2", "cuda", 8), ("x=2", "torch", 2),
+                                   ("x=1", "cuda_step", 4), ("x=1", "cuda_pair", 8)):
+        mesh = meshes[mname]
+        runner = halo.make_halo_runner(act, cfg, mesh, backend=backend)
+        got = time_runner(f"split_field_{mname}_{backend}",
+                          f"field {cfg.shape} x {cfg.n_chains} loops {cfg.loops}, {mname}, {backend} ({runner.backend})",
+                          runner, parallel.shard_field_state(s0, mesh, cfg), frames, ups,
+                          profile=backend != "torch")
+        if (mname, backend) == ("x=2", "cuda_step"):
+            shards = got
+    ccfg = dataclasses.replace(cfg, mesh_axes=(None, None), mesh_chain_axis="chain")
+    cmesh = parallel.make_mesh([("chain", 2)], devices=dev)
+    time_runner("split_field_chain=2_cuda",
+                f"field {cfg.shape} x {cfg.n_chains} loops {cfg.loops}, chain=2, cuda (kernel 3)",
+                halo.make_halo_runner(act, ccfg, cmesh, backend="cuda"),
+                parallel.shard_field_state(s0, cmesh, ccfg), 8, ups, profile=True)
+
+    sh = shards[1]
+    args = (sh.phi, sh.dtau, act, cfg, int(sh.step), 0, 0, (0, cfg.shape[0] // 2, 0),
+            (True, False))
+    got = fh.field_halo_step(*args)
+    call_ms = cuda_ms(torch, lambda: fh.field_halo_step(*args), reps=50)
+    fh.field_halo_step_ref(*args)
+    holder = {}
+    plain_ms = timed(torch, lambda: holder.update(r=fh.field_halo_step_ref(*args))) * 1e3
+    out["field_halo_step_err"] = gate(f"shard {tuple(sh.phi.shape)} field_halo_step",
+                                      halo_step_leaves(got), halo_step_leaves(holder["r"]))
+    # "ms" is CUDA events around the wrapper, as for every other kernel; a launch
+    # here is shorter than the host takes to issue it, so that is the host's
+    # pace, and the kernel's own time is kept beside it: the profiler's device
+    # time per launch in the x = 2 cuda_step run above (the same shape)
+    kernel_us = out["split_field_x=2_cuda_step"].get("kernel_us")
+    if not kernel_us:
+        raise SystemExit("[19] torch.profiler showed no field_halo_step_kernel row in the x=2 "
+                         "cuda_step run: the kernel's device time was not measured")
+    out["field_halo_step_ms"], out["field_halo_step_plain_ms"] = call_ms, plain_ms
+    out["field_halo_step_device_us"] = kernel_us
+    log(f"  field_halo_step {call_ms:.4f} ms per call of the wrapper with its allocations and "
+        f"the two reductions of the per-strip partials (CUDA events, mean of 50: the host's "
+        f"pace); the kernel alone {kernel_us:.2f} µs of device time per launch (profiler); plain "
+        f"version {plain_ms:.2f} ms (once) at {tuple(sh.phi.shape)} [{card}]")
+
+    # ---- gauge u1 256^2 x 32 loops 100, su3 64^2 x 8 loops 50 ---------------
+    for group in ("u1", "su3"):
+        cfg = gauge.GaugeConfig(**BENCH_GAUGE[group], mesh_axes=("x", None))
+        act = gauge.resolve_gauge_action(cfg)
+        s0 = gauge.init_gauge_state(cfg, act, device=dev)
+        ups = link_updates(cfg, 1)
+        where = f"gauge {group} {cfg.shape} x {cfg.n_chains} loops {cfg.loops}"
+        for mname, kind, frames in (("x=2", "chunk", 3), ("x=1", "chunk", 3), ("x=2", "halo", 1)):
+            if group == "su3" and mname == "x=1":
+                continue
+            mesh = meshes[mname]
+            make = (gauge_halo.make_gauge_chunk_runner if kind == "chunk"
+                    else gauge_halo.make_gauge_halo_runner)
+            got = time_runner(f"split_gauge_{group}_{mname}_{kind}", f"{where}, {mname}, {kind} runner",
+                              make(act, cfg, mesh), parallel.shard_gauge_state(s0, act, mesh, cfg),
+                              frames, ups, profile=kind == "chunk")
+            if (mname, kind) == ("x=2", "chunk"):
+                shards = got
+        loc0 = cfg.shape[0] // 2
+        whole = parallel.gather_gauge_state(shards, act, meshes["x=2"], cfg)
+        ext = extended_planes(torch, gk.links_to_planes(whole.links, act), loc0, loc0, 8)
+        args = (ext, whole.dtau, act, cfg, loc0, 8, int(whole.step), 0, loc0)
+        got = gk.gauge_chunk(*args)
+        ms = cuda_ms(torch, lambda: gk.gauge_chunk(*args), reps=5)
+        holder = {}
+        plain_ms = timed(torch, lambda: holder.update(r=gk.gauge_chunk_ref(*args))) * 1e3
+        e = gate(f"{group} block {tuple(ext.shape)} gauge_chunk W=8", gauge_chunk_leaves(got, 8),
+                 gauge_chunk_leaves(holder["r"], 8))
+        out["gauge_chunk_err"] = max(out.get("gauge_chunk_err", 0.0), e)
+        out[f"gauge_chunk_{group}_ms"], out[f"gauge_chunk_{group}_plain_ms"] = ms, plain_ms
+        log(f"  {group} gauge_chunk kernel {ms:.3f} ms/launch (CUDA events, mean of 5), plain "
+            f"version {plain_ms:.1f} ms (once) at {tuple(ext.shape)}, W = 8 [{card}]")
+    out["gauge_chunk_ms"], out["gauge_chunk_plain_ms"] = (out["gauge_chunk_u1_ms"],
+                                                          out["gauge_chunk_u1_plain_ms"])
     return out
 
 
@@ -1278,7 +1781,10 @@ def main() -> int:
     from stochquant_tpu_torch.kernels import field_kernel as fk
     from stochquant_tpu_torch.kernels import field_kernel_nd as nd
     from stochquant_tpu_torch.kernels import field_kernel_tiled as ft
+    from stochquant_tpu_torch.kernels import field_halo_kernel as fh
     from stochquant_tpu_torch.kernels import gauge_kernel as gk
+    from stochquant_tpu_torch import parallel
+    from stochquant_tpu_torch.parallel import gauge_halo, halo
 
     # 2. build
     t0 = time.time()
@@ -1298,7 +1804,8 @@ def main() -> int:
 
         # 5. chain timings, with kernel vs plain at the main path's shapes
         log(f"[5] chain timings [{card}]:")
-        t = phase_timings(torch, device, ck, langevin, actions, cfgmod, card)
+        with CardSampler("[5]"):
+            t = phase_timings(torch, device, ck, langevin, actions, cfgmod, card)
 
         # 6. field kernels vs plain on the card
         log(f"[6] field kernels vs plain PyTorch versions on the card (exact leaves equal; φ, "
@@ -1320,7 +1827,8 @@ def main() -> int:
 
     # 9. field timings, with kernel vs plain at the timed shapes
     log(f"[9] field timings [{card}]:")
-    t.update(phase_field_timings(torch, device, fk, ft, field, actions, cfgmod, large, card))
+    with CardSampler("[9]"):
+        t.update(phase_field_timings(torch, device, fk, ft, field, actions, cfgmod, large, card))
 
     # 10. gauge kernels vs plain on the card
     log(f"[10] gauge kernels vs plain PyTorch versions on the card (exact leaves equal; links, "
@@ -1338,7 +1846,8 @@ def main() -> int:
 
     # 12. gauge timings at bench.py's shapes, with kernel vs plain there
     log(f"[12] gauge timings [{card}]:")
-    t.update(phase_gauge_timings(torch, device, gk, gauge, card))
+    with CardSampler("[12]"):
+        t.update(phase_gauge_timings(torch, device, gk, gauge, card))
 
     # 13. D-dim field kernels vs plain on the card
     log(f"[13] D-dim field kernels vs plain PyTorch versions on the card (exact leaves equal; "
@@ -1356,7 +1865,40 @@ def main() -> int:
 
     # 15. D-dim timings at bench.py's 32^4 cell, with kernel vs plain there
     log(f"[15] D-dim field timings [{card}]:")
-    t.update(phase_nd_timings(torch, device, nd, field, actions, cfgmod, card))
+    with CardSampler("[15]"):
+        t.update(phase_nd_timings(torch, device, nd, field, actions, cfgmod, card))
+
+    # 16, 17. kernels 9 and 12 vs plain on the card
+    log(f"[16] kernel 9 (field_halo_step) vs its plain PyTorch version on the card (new φ, the "
+        f"maxima within {GATE:g}, the count exact; means within rtol {FIELD_RTOL:g}, atol "
+        f"{FIELD_ATOL:g}):")
+    phase_halo_step_gate(torch, fh, field, actions, cfgmod, device)
+    log(f"[17] kernel 12 (gauge_chunk) vs its plain PyTorch version on the card (flags exact; "
+        f"links, drift max within {GATE:g}; plaquette mean within rtol {FIELD_RTOL:g}, atol "
+        f"{FIELD_ATOL:g}):")
+    phase_gauge_chunk_gate(torch, gk, gauge, device)
+
+    mods = dict(runtime=runtime, metrics=metrics, cfgmod=cfgmod, gauge=gauge, field=field,
+                actions=actions, parallel=parallel, halo=halo, gauge_halo=gauge_halo, fh=fh, gk=gk,
+                counters={"field_frame": fk.field_frame, "field_frames_multi": fk.field_frames_multi,
+                          "field_pair": ft.field_pair, "field_pair_nd": nd.field_pair_nd,
+                          "field_chunk_nd": nd.field_chunk_nd, "field_halo_step": fh.field_halo_step,
+                          "gauge_frame": gk.gauge_frame,
+                          "gauge_frames_multi": gk.gauge_frames_multi,
+                          "gauge_chunk": gk.gauge_chunk})
+    with tempfile.TemporaryDirectory() as tmp:
+        # 18. the lattice-split main paths
+        log("[18] lattice-split main paths: runtime.run_field / run_gauge with a mesh on the one "
+            "card (field 256^2 x 16 loops 50; gauge u1 256^2 x 32 loops 100, su3 64^2 x 8 loops "
+            "50):")
+        split_launches, split_err = phase_split_main_path(torch, mods, Path(tmp))
+    for k, v in split_launches.items():  # a kernel on several main paths: the sum of its runs
+        launches[k] = launches.get(k, 0) + v
+
+    # 19. timings of the split paths, with kernels 9 and 12 vs plain at those shapes
+    log(f"[19] lattice-split timings [{card}]:")
+    with CardSampler("[19]"):
+        t.update(phase_split_timings(torch, mods, card))
 
     # max_abs_err: the comparisons at the main paths' shapes (chain: headline
     # K=1, main-path state K=2, config 2 K=16; field: 256^2 x 16 K=1 and K=10,
@@ -1371,6 +1913,8 @@ def main() -> int:
            "field_pair": max(field_err["field_pair"], t["field_pair_err"]),
            "field_pair_nd": max(nd_main_err["field_pair_nd"], t["field_pair_nd_err"]),
            "field_chunk_nd": max(nd_main_err["field_chunk_nd"], t["field_chunk_nd_err"]),
+           "field_halo_step": max(split_err["field_halo_step"], t["field_halo_step_err"]),
+           "gauge_chunk": max(split_err["gauge_chunk"], t["gauge_chunk_err"]),
            "gauge_frame": max(gauge_main_err["gauge_frame"], t["gauge_frame_err"]),
            "gauge_frames_multi": max(gauge_main_err["gauge_frames_multi"],
                                      t["gauge_frames_multi_err"])}
@@ -1384,9 +1928,22 @@ def main() -> int:
          "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1], "library_ms": None}
         for kname, (src, replaces) in KERNELS.items()
     ]
+    # kernel 9 also carries the profiler's device time per launch ("ms" is the host's pace)
+    halo_k = next(k for k in kernels if k["name"] == "field_halo_step")
+    halo_k["device_us"] = t["field_halo_step_device_us"]
+    log(f"  field_halo_step: bound {halo_k['bound_ms'] * 1e3 / halo_k['device_us']:.2%} of the "
+        f"kernel's device time of {halo_k['device_us']:.2f} µs (profiler) [{card}]")
     for k in kernels:
         log(f"  {k['name']:19s} {k['ms']:10.3f} ms/launch, bound {k['bound_ms']:.4f} ms by "
             f"{k['bound_by']}: {k['bound_ms'] / k['ms']:.2%} of the bound's rate [{card}]")
+    for kname, key in (("gauge_frame", "gauge_{}_ms"), ("gauge_frames_multi", "gauge_{}_multi_ms"),
+                       ("gauge_chunk", "gauge_chunk_{}_ms")):
+        for group in ("su2", "su3"):
+            if key.format(group) in t:
+                b, by = bounds[f"{kname}_{group}"]
+                ms = t[key.format(group)]
+                log(f"  {kname + ' ' + group:19s} {ms:10.3f} ms/launch, bound {b:.4f} ms by {by}: "
+                    f"{b / ms:.2%} of the bound's rate [{card}]")
     log(json.dumps({"kernels": kernels, "mlups": {
         k: v["mlups"] for k, v in t.items() if isinstance(v, dict)}}))
     log(card)

@@ -369,11 +369,45 @@ class GaugeAction:
         d = _bcast(dtau_eff, f.dim())
         return d * f + torch.sqrt(2.0 * d) * self.noise_to_tangent(eta)
 
-    def drift_norm(self, f):
+    def drift_magnitude(self, f):
+        """Per-link generator-space magnitude of the drift, (C, D, *L)."""
         raise NotImplementedError
+
+    def drift_norm(self, f):
+        """Per-chain max of :meth:`drift_magnitude` (NaN propagates)."""
+        return _chain_max(self.drift_magnitude(f))
 
     def apply_update(self, links, omega):
         raise NotImplementedError
+
+    # --- domain-decomposition support (parallel/gauge_halo.py): the state
+    # layouts differ per group, so the halo runner asks each action where the
+    # lattice dims live and for a per-site plaquette density it can cut to
+    # the owned sites and sum across shards.
+
+    def lattice_axes(self, ndim: int) -> tuple:
+        """Axes of the state array holding the lattice dims."""
+        raise NotImplementedError
+
+    def noise_lattice_axes(self, ndim: int) -> tuple:
+        """Axes of the ``noise_shape`` array holding the lattice dims."""
+        raise NotImplementedError
+
+    def plaquette_site(self, links, mu: int, nu: int, ndim: int):
+        """(C, *L) plaquette observable (1/N)ReTr U_{μν}(x)."""
+        raise NotImplementedError
+
+    def plaquette_site_mean(self, links, ndim: int):
+        """(C, *L) local plaquette density: the per-site mean over unordered
+        orientations of the observable whose lattice mean is
+        ``mean_plaquette``."""
+        acc, n = None, 0
+        for mu in range(ndim):
+            for nu in range(mu + 1, ndim):
+                w = self.plaquette_site(links, mu, nu, ndim)
+                acc = w if acc is None else acc + w
+                n += 1
+        return true_divide(acc, float(n))
 
     def hot_start(self, links, eta):
         """Randomized links from identity ``links`` and one noise draw."""
@@ -439,8 +473,17 @@ class U1Wilson(GaugeAction):
     def noise_shape(self, n_chains, ndim, lattice):
         return (n_chains, ndim) + tuple(lattice)
 
-    def drift_norm(self, f):
-        return _chain_max(torch.abs(f))
+    def drift_magnitude(self, f):
+        return torch.abs(f)
+
+    def lattice_axes(self, ndim):
+        return tuple(range(2, 2 + ndim))  # (C, D, *L)
+
+    def noise_lattice_axes(self, ndim):
+        return tuple(range(2, 2 + ndim))
+
+    def plaquette_site(self, theta, mu, nu, ndim):
+        return torch.cos(self.plaquette_angle(theta, mu, nu, ndim))
 
     def apply_update(self, theta, omega):
         """θ ← wrap(θ + ω), rounding half to even."""
@@ -522,9 +565,18 @@ class SU2Wilson(GaugeAction):
     def noise_shape(self, n_chains, ndim, lattice):
         return (n_chains, 3, ndim) + tuple(lattice)
 
-    def drift_norm(self, f):
-        """Max over (direction, sites) of √(Σ_a f_a²); f is (C, 3, D, *L)."""
-        return _chain_max(torch.sqrt(f[:, 0] * f[:, 0] + f[:, 1] * f[:, 1] + f[:, 2] * f[:, 2]))
+    def drift_magnitude(self, f):
+        """√(Σ_a f_a²) per link; f is (C, 3, D, *L)."""
+        return torch.sqrt(f[:, 0] * f[:, 0] + f[:, 1] * f[:, 1] + f[:, 2] * f[:, 2])
+
+    def lattice_axes(self, ndim):
+        return tuple(range(3, 3 + ndim))  # (C, 4, D, *L)
+
+    def noise_lattice_axes(self, ndim):
+        return tuple(range(3, 3 + ndim))  # (C, 3, D, *L)
+
+    def plaquette_site(self, q, mu, nu, ndim):
+        return self.plaquette(q, mu, nu)
 
 
 @register_gauge("su3")
@@ -625,15 +677,24 @@ class SU3Wilson(GaugeAction):
             per_mu.append(_join(h))
         return torch.stack(per_mu, dim=1)
 
-    def drift_norm(self, f):
-        """√(2·Σ_ij |H_ij|²) per link, max over links."""
+    def drift_magnitude(self, f):
+        """√(2·Σ_ij |H_ij|²) per link."""
         F = _split(f)
         frob = None
         for r in range(3):
             for c in range(3):
                 v = F[r][c][0] * F[r][c][0] + F[r][c][1] * F[r][c][1]
                 frob = v if frob is None else frob + v
-        return _chain_max(torch.sqrt(2.0 * frob))
+        return torch.sqrt(2.0 * frob)
+
+    def lattice_axes(self, ndim):
+        return tuple(range(2, 2 + ndim))  # (C, D, *L, 3, 3)
+
+    def noise_lattice_axes(self, ndim):
+        return tuple(range(3, 3 + ndim))  # (C, 8, D, *L)
+
+    def plaquette_site(self, links, mu, nu, ndim):
+        return self._retr_n(links, mu, nu)
 
     def apply_update(self, links, omega):
         """U ← exp(iΩ)U, exact group exponential + re-unitarization."""

@@ -18,7 +18,8 @@ for two micro-steps.
 
 The complexified groups (and the gauge cooling that acts on them) are not
 ported yet and raise.
-State lives on one device, given explicitly, except ``step``: a 0-d int64
+State lives on one device, given explicitly (links split over a device mesh
+are a list of such states: ``parallel.gauge_halo``), except ``step``: a 0-d int64
 tensor on the host holding a uint32 value.
 """
 
@@ -58,8 +59,11 @@ class GaugeConfig:
     copy of the JAX package's ``GaugeConfig``, so its JSON is byte-equal.
 
     Fields of features not ported yet (``beta_im`` and the complexified
-    groups, ``mesh_axes``, ``mesh_chain_axis``) raise where the run starts;
-    ``exchange_steps`` is unused without a mesh.  ``cooling_rate`` acts on
+    groups) raise where the run starts.  ``mesh_axes`` / ``mesh_chain_axis``
+    split the links over the mesh given to ``runtime.run_gauge(mesh=)``
+    (``parallel.gauge_halo``), where ``exchange_steps`` is the chunk runner's
+    W (0: chosen from the slab); all three are unused without a mesh.
+    ``cooling_rate`` acts on
     the complexified groups only, as in the JAX package: the compact
     actions have no cooling step."""
 

@@ -30,7 +30,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("chain_kernel.cu", "field_kernel.cu", "field_kernel_tiled.cu",
-            "field_kernel_nd.cu", "gauge_kernel.cu")
+            "field_kernel_nd.cu", "field_halo_kernel.cu", "gauge_kernel.cu")
 _HEADERS = ("sq_rng.cuh", "field_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -154,9 +154,26 @@ class FieldNdParams(ctypes.Structure):
     ]
 
 
+class FieldHaloParams(ctypes.Structure):
+    """Launch parameters of the per-micro-step halo kernel 9, field for field
+    the ``FieldHaloParams`` struct of ``csrc/field_halo_kernel.cu``: the 2-D
+    kernels' ``FieldParams`` of the local block, then where the block sits in
+    the global lattice, which Box-Muller output and half-sweep this launch is,
+    which dims are split, and the strips the chain's block is cut into."""
+
+    _fields_ = [("f", FieldParams)] + [
+        (name, ctypes.c_int32) for name in (
+            "gL1", "row_off", "col_off", "parity", "half", "sh0", "sh1", "rows_per_block",
+            "n_strips",
+        )
+    ]
+
+
 class GaugeParams(ctypes.Structure):
-    """Launch parameters of the gauge kernels 10 and 11, field for field the
-    ``GaugeParams`` struct of ``csrc/gauge_kernel.cu`` (all 4-byte fields)."""
+    """Launch parameters of the gauge kernels 10, 11 and 12, field for field
+    the ``GaugeParams`` struct of ``csrc/gauge_kernel.cu`` (all 4-byte
+    fields).  The last six are the chunk kernel's (kernel 12): there ``L0`` is
+    the extended block's rows, ``L0g`` the global lattice's."""
 
     _fields_ = [
         (name, ctypes.c_int32) for name in (
@@ -166,6 +183,8 @@ class GaugeParams(ctypes.Structure):
         (name, ctypes.c_float) for name in (
             "coef", "cap", "clip_hi", "inv_vol", "shrink", "dtau_max", "inv_loops", "loops_f",
         )
+    ] + [(name, ctypes.c_uint32) for name in ("chain_off", "row_off")] + [
+        (name, ctypes.c_int32) for name in ("loc0", "H", "W", "L0g")
     ]
 
 
@@ -182,12 +201,15 @@ def library() -> ctypes.CDLL:
     field = ctypes.POINTER(FieldParams)
     gauge = ctypes.POINTER(GaugeParams)
     field_nd = ctypes.POINTER(FieldNdParams)
+    field_halo = ctypes.POINTER(FieldHaloParams)
     for fn, params, n_ptr in (
         (lib.sq_chain_frame, chain, 12), (lib.sq_chain_frames, chain, 23),
         (lib.sq_field_frame, field, 11), (lib.sq_field_frames, field, 21),
         (lib.sq_field_pair, field, 7),
         (lib.sq_field_pair_nd, field_nd, 8), (lib.sq_field_chunk_nd, field_nd, 8),
+        (lib.sq_field_halo_step, field_halo, 5),
         (lib.sq_gauge_frame, gauge, 9), (lib.sq_gauge_frames, gauge, 18),
+        (lib.sq_gauge_chunk, gauge, 10),
     ):
         fn.argtypes = [params] + [ptr] * n_ptr + [ptr]  # tensors, then the stream
         fn.restype = ctypes.c_int

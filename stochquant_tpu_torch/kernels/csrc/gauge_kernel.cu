@@ -1,6 +1,6 @@
 // 2-D compact Wilson gauge Langevin frames for NVIDIA Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of stochquant_tpu/kernels/gauge_kernel.py:
+// Replaces the three Pallas TPU kernels of stochquant_tpu/kernels/gauge_kernel.py:
 //   kernel 10  sq_gauge_frame  <- _frame_call_g / _build_frame_kernel with
 //              _u1_ops, _su2_ops (_su2_step_math_fn) and _su3_ops
 //              (one frame of `loops` micro-steps per chain; returns the links,
@@ -9,6 +9,10 @@
 //   kernel 11  sq_gauge_frames <- _multiframe_call / _build_multiframe_kernel
 //              (K frames per launch with the accept/reject, plaquette merge,
 //              (lo, hi) sample-count carry and adaptive-dtau epilogue in-kernel)
+//   kernel 12  sq_gauge_chunk  <- _chunk_call_g / _build_gauge_chunk_kernel /
+//              make_gauge_chunk_step (W micro-steps, W even, of a shard's block
+//              of a lattice split along dim 0, extended by H = W halo rows a
+//              side; see "the chunk kernel" below)
 //
 // Per micro-step and chain: the drift F of every link; the drift norm, max
 // over the chain's lattice; dtau_eff = dtau * min(1, cap / max(dnorm, 1e-30));
@@ -61,6 +65,13 @@ struct GaugeParams {
     float clip_hi;        // float32(1 - 1e-6), the arccos argument's upper bound
     float inv_vol;        // float32(1 / (L0 L1))
     float shrink, dtau_max, inv_loops, loops_f;
+    // kernel 12 only; there L0 is the extended block's rows (loc0 + 2 H)
+    uint32_t chain_off;   // global id of this launch's first chain
+    uint32_t row_off;     // global row of the owned block's first row
+    int32_t loc0;         // owned rows
+    int32_t H;            // halo rows above and below
+    int32_t W;            // micro-steps of the launch
+    int32_t L0g;          // rows of the global lattice
 };
 
 enum { GROUP_U1 = 0, GROUP_SU2 = 1, GROUP_SU3 = 2 };
@@ -383,22 +394,31 @@ __device__ __forceinline__ void pass1(const GaugeParams& p, const float* __restr
     }
 }
 
-// Noise of plane q at site i for this micro-step.
-template <int NP>
+// Noise of plane q at site i for this micro-step.  The counter is the C-order
+// index over (noise plane, L0, L1) of the *global* lattice: in a chunk launch
+// row r of the extended block is global row (row_off + r - H) mod L0g.
+template <int NP, bool CHUNK>
 __device__ __forceinline__ float noise(const GaugeParams& p, float* __restrict__ zk, int q,
                                        int i, int mode, uint32_t k1, uint32_t step) {
     const size_t V = (size_t)p.L0 * p.L1;
     const size_t at = q * V + i;
     if (mode == NOISE_KEPT) return zk[at];
+    uint32_t ctr = (uint32_t)at;
+    if constexpr (CHUNK) {
+        const int r = i / p.L1, c = i - r * p.L1;
+        int rg = ((int)(p.row_off % (uint32_t)p.L0g) + r - p.H) % p.L0g;
+        if (rg < 0) rg += p.L0g;
+        ctr = (uint32_t)q * (uint32_t)(p.L0g * p.L1) + (uint32_t)rg * (uint32_t)p.L1 + (uint32_t)c;
+    }
     float z0, z1;
-    normal_pair<20>(p.seed, k1, (uint32_t)at, step, z0, z1);
+    normal_pair<20>(p.seed, k1, ctr, step, z0, z1);
     if (mode == NOISE_DRAW_KEEP) zk[at] = z1;
     return z0;
 }
 
 // Pass 2 at site i: the update of both directions' links, in place; bad is
 // set where a new link is not finite.
-template <int G>
+template <int G, bool CHUNK = false>
 __device__ __forceinline__ void pass2(const GaugeParams& p, float* __restrict__ L,
                                       const float* __restrict__ F, float* __restrict__ zk, int i,
                                       int mode, uint32_t k1, uint32_t step, float de, float na,
@@ -407,7 +427,7 @@ __device__ __forceinline__ void pass2(const GaugeParams& p, float* __restrict__ 
     if constexpr (G == GROUP_U1) {
 #pragma unroll
         for (int mu = 0; mu < 2; ++mu) {
-            const float eta = noise<2>(p, zk, mu, i, mode, k1, step);
+            const float eta = noise<2, CHUNK>(p, zk, mu, i, mode, k1, step);
             const float t = L[mu * V + i] + (de * F[mu * V + i] + na * eta);
             const float two_pi = 6.2831854820251465f;  // float32(2 pi)
             const float nt = t - two_pi * rintf(t / two_pi);
@@ -421,7 +441,7 @@ __device__ __forceinline__ void pass2(const GaugeParams& p, float* __restrict__ 
 #pragma unroll
             for (int a = 0; a < 3; ++a)
                 om[a] = de * F[(2 * a + mu) * V + i] +
-                        na * noise<6>(p, zk, 2 * a + mu, i, mode, k1, step);
+                        na * noise<6, CHUNK>(p, zk, 2 * a + mu, i, mode, k1, step);
             const Quat q = qnormalize(qmul(qexp_su2(om[0], om[1], om[2]), qload(L, V, mu, i)));
             L[(0 + mu) * V + i] = q.w;
             L[(2 + mu) * V + i] = q.x;
@@ -434,7 +454,7 @@ __device__ __forceinline__ void pass2(const GaugeParams& p, float* __restrict__ 
         for (int mu = 0; mu < 2; ++mu) {
             float e[8];
 #pragma unroll
-            for (int a = 0; a < 8; ++a) e[a] = noise<16>(p, zk, 2 * a + mu, i, mode, k1, step);
+            for (int a = 0; a < 8; ++a) e[a] = noise<16, CHUNK>(p, zk, 2 * a + mu, i, mode, k1, step);
             const M3 nt = noise_h(e);
             const M3 h = mload(F, V, mu, i);
             M3 om;
@@ -631,6 +651,88 @@ gauge_frames_kernel(GaugeParams p, const float* __restrict__ links_in,
     }
 }
 
+// ---- kernel 12: the chunk kernel ---------------------------------------------
+//
+// W micro-steps on the links of a shard's block of a lattice split along dim
+// 0, extended by H = W rows of its ring neighbours above and below: (C, P,
+// loc0 + 2 H, L1).  Dim 1 spans the whole lattice and wraps; dim 0 wraps
+// inside the extended block, and what that gets wrong moves inward one row per
+// step and stops at the owned rows after W = H steps.  The halo rows are
+// recomputed, not exchanged: their noise comes from the global counters, so
+// they take the values their owner computes.  Chunk mode has no drift-cap
+// rescale (it would need the lattice-wide drift max of every step: a
+// collective per micro-step); a step whose owned drift norm exceeds the cap
+// sets `capped` and the runner rejects the frame.  Nor does it freeze a chain
+// whose links turn non-finite: `bad` rejects the frame as well.  Out: the owned
+// rows after W steps, sum over steps of the owned sites' plaquette (a sum: the
+// runner completes it across shards and normalises), the owned drift-norm max
+// (NaN propagates), and the two flags.  While the cap is quiescent the scale
+// of kernels 10 and 11 is exactly 1, and the links agree bit for bit.
+//
+// Design: as kernel 10, one block per chain with pass 1, a block reduction and
+// pass 2 per micro-step; the statistics take the owned rows only.  Nothing is
+// chain-global per step here, so a chain could be cut over several blocks with
+// a recomputed halo, as field kernel 7 is: left for the PR that makes it fast.
+
+template <int G>
+__global__ void __launch_bounds__(Layout<G>::T)
+gauge_chunk_kernel(GaugeParams p, const float* __restrict__ ext_in,
+                   const float* __restrict__ dtau_in, float* __restrict__ work,
+                   float* __restrict__ owned_out, float* __restrict__ ps_out,
+                   float* __restrict__ dmax_out, int32_t* __restrict__ bad_out,
+                   int32_t* __restrict__ cap_out, float* __restrict__ force,
+                   float* __restrict__ zk_all) {
+    constexpr int T = Layout<G>::T;
+    __shared__ float red[3 * (T / 32)];
+    const int ch = blockIdx.x;
+    const int V = p.L0 * p.L1;  // the extended block
+    float* L = work + (size_t)ch * Layout<G>::P * V;
+    float* F = force + (size_t)ch * Layout<G>::FP * V;
+    float* zk = zk_all + (size_t)ch * Layout<G>::NP * V;
+    copy_own<G>(p, ext_in + (size_t)ch * Layout<G>::P * V, L);
+    __syncthreads();
+    const uint32_t k1 = (uint32_t)STREAM_FIELD ^ ((p.chain_off + (uint32_t)ch) << 8);
+    const float dtau = dtau_in[ch];
+    const float na = sqrtf(2.0f * dtau);
+    const int own_lo = p.H * p.L1, own_hi = (p.H + p.loc0) * p.L1;
+    float ps = 0.0f, dmax = 0.0f;
+    int bad = 0, capped = 0;
+    for (int k = 0; k < p.W; ++k) {  // block-uniform control flow
+        float pl = 0.0f, dn = 0.0f;
+        for (int i = threadIdx.x; i < V; i += T) {
+            float pl_site = 0.0f, dn_site = 0.0f;
+            pass1<G>(p, L, F, i, pl_site, dn_site);
+            if (i >= own_lo && i < own_hi) {
+                pl += pl_site;
+                dn = nan_max(dn, dn_site);
+            }
+        }
+        const Tot t = block_reduce<T>(pl, dn, 0, red);
+        ps = ps + t.plaq;
+        dmax = nan_max(dmax, t.dnorm);
+        capped |= t.dnorm > p.cap;
+        const int mode = (k & 1) ? NOISE_KEPT : NOISE_DRAW_KEEP;
+        const uint32_t step = p.step0 + (uint32_t)(k & ~1);
+        for (int i = threadIdx.x; i < V; i += T) {
+            int bad_site = 0;
+            pass2<G, true>(p, L, F, zk, i, mode, k1, step, dtau, na, bad_site);
+            if (i >= own_lo && i < own_hi) bad |= bad_site;
+        }
+        __syncthreads();  // new links are read as neighbours next; red is free again
+    }
+    bad = block_reduce<T>(0.0f, 0.0f, bad, red).bad;
+    const size_t own = (size_t)p.loc0 * p.L1;
+    for (int q = 0; q < Layout<G>::P; ++q)
+        for (size_t i = threadIdx.x; i < own; i += T)
+            owned_out[((size_t)ch * Layout<G>::P + q) * own + i] = L[(size_t)q * V + own_lo + i];
+    if (threadIdx.x == 0) {
+        ps_out[ch] = ps;
+        dmax_out[ch] = dmax;
+        bad_out[ch] = bad;
+        cap_out[ch] = capped;
+    }
+}
+
 // ---- C entry points (loaded with ctypes) ----------------------------------
 
 static bool valid_gauge_launch(const GaugeParams& p) {
@@ -671,5 +773,18 @@ extern "C" int sq_gauge_frames(const GaugeParams* p, const float* links_in,
     SQ_GAUGE_DISPATCH(gauge_frames_kernel, links_in, dmax_in, dtau_in, pm_in, runs_in, stab_in,
                       links_out, dmax_out, dtau_out, pm_out, runs_out, stab_out, hist_stable,
                       hist_dtau, hist_dmax, work, force, zk);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int sq_gauge_chunk(const GaugeParams* p, const float* ext_in, const float* dtau_in,
+                              float* work, float* owned_out, float* ps_out, float* dmax_out,
+                              int32_t* bad_out, int32_t* cap_out, float* force, float* zk,
+                              void* stream) {
+    const bool ok = valid_gauge_launch(*p) && p->W >= 2 && p->W % 2 == 0 && p->H >= 0 &&
+                    p->loc0 >= 1 && p->L0 == p->loc0 + 2 * p->H && p->L0g >= 1 &&
+                    (long long)p->L0g * p->L1 <= (1LL << 24);
+    if (!ok) return (int)cudaErrorInvalidValue;
+    SQ_GAUGE_DISPATCH(gauge_chunk_kernel, ext_in, dtau_in, work, owned_out, ps_out, dmax_out,
+                      bad_out, cap_out, force, zk);
     return (int)cudaGetLastError();
 }

@@ -74,6 +74,8 @@ __all__ = [
     "default_tile_rows",
     "resolve_tiles",
     "chunk_halos",
+    "chunk_geometry",
+    "default_exchange_steps",
     "Geometry",
 ]
 
@@ -314,24 +316,41 @@ field_pair_nd.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _chunk_geometry(ext, cfg, W, split_dims, offsets, tile_rows) -> Geometry:
+def default_exchange_steps(cfg: FieldConfig) -> int:
+    """Micro-steps per halo exchange (W) when ``cfg.exchange_steps`` is unset:
+    the JAX package's rule, 8 for 2-D lattices and 2 for D >= 3."""
+    return 8 if cfg.ndim == 2 else 2
+
+
+def chunk_geometry(cfg: FieldConfig, n_chains: int, loc, W: int, split_dims, offsets=None,
+                   tile_rows=None) -> Geometry:
+    """The geometry of one chunk launch on an owned block ``loc``; raises
+    ``ValueError`` for a (cfg, W, split) the chunk kernel does not admit."""
     check_nd_config(cfg)
     if W % 2 or W < 2:
         raise ValueError(f"the chunk kernel advances an even number of steps, not W={W}")
     split_dims = tuple(bool(s) for s in split_dims)
-    if len(split_dims) != cfg.ndim or ext.dim() != cfg.ndim + 1:
-        raise ValueError(f"split_dims {split_dims} and the block {tuple(ext.shape)} must have "
+    if len(split_dims) != cfg.ndim or len(loc) != cfg.ndim:
+        raise ValueError(f"split_dims {split_dims} and the block {tuple(loc)} must have "
                          f"the lattice's {cfg.ndim} dims")
     halos = chunk_halos(cfg, W, split_dims)
     for d, (h, n) in enumerate(zip(halos, cfg.shape)):
         if h >= n:
             raise ValueError(f"chunk halo depth {h} on dim {d} reaches the full global extent "
                              f"{n}; reduce exchange_steps")
-    loc = tuple(n - 2 * h for n, h in zip(ext.shape[1:], halos))
     if min(loc) < 1:
-        raise ValueError(f"the block {tuple(ext.shape[1:])} is thinner than its halos {halos}")
+        raise ValueError(f"the extended block is thinner than its halos {halos}")
     offsets = tuple(offsets) if offsets is not None else (0,) * cfg.ndim
-    return _geometry(cfg, loc, halos, offsets, W, ext.shape[0], tile_rows)
+    return _geometry(cfg, tuple(loc), halos, offsets, W, n_chains, tile_rows)
+
+
+def _chunk_geometry(ext, cfg, W, split_dims, offsets, tile_rows) -> Geometry:
+    if ext.dim() != cfg.ndim + 1 or len(split_dims) != cfg.ndim:
+        raise ValueError(f"split_dims {tuple(split_dims)} and the block {tuple(ext.shape)} must "
+                         f"have the lattice's {cfg.ndim} dims")
+    halos = chunk_halos(cfg, W, split_dims)
+    loc = tuple(n - 2 * h for n, h in zip(ext.shape[1:], halos))
+    return chunk_geometry(cfg, ext.shape[0], loc, W, split_dims, offsets, tile_rows)
 
 
 def field_chunk_nd_ref(ext: torch.Tensor, dtau: torch.Tensor, action: FieldAction,

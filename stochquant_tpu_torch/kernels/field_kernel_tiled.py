@@ -245,17 +245,25 @@ def obs_init(state: FieldState):
             torch.zeros((C,), dtype=torch.bool, device=zc.device), state.lrg_vl)
 
 
-def obs_step(vals, s_slice, st, volume: float):
+def obs_step(vals, s_slice, st, volume: float, s0=None, bad=None):
     """One micro-step's observable and detector step on the per-block
     statistics ``st`` (C, blocks, 5) and the slice means ``s_slice`` (C, L0):
     frame-local sample sums (two-level accumulation, accum.py).  A chain that
-    has tripped stops adding to the sums and to ``lrg``."""
+    has tripped stops adding to the sums and to ``lrg``.
+
+    The halo runners (``parallel.halo``) pass the blocks of every shard of the
+    lattice in ``st``, a shard's own rows in ``s_slice`` with the mean of
+    global slice 0 in ``s0`` (C, 1), and in ``bad`` (C,) the chains holding a
+    non-finite update that ``st`` does not already show as an infinite
+    max|det|."""
     ms, m2s, m4s, ams, p2s, acs, cs, unstable, lrg = vals
     mag = true_divide(st[:, :, 0].sum(dim=1), volume)
     phi2 = true_divide(st[:, :, 1].sum(dim=1), volume)
     act = true_divide(st[:, :, 2].sum(dim=1), volume)
     tripped = st[:, :, 3].amax(dim=1) > lrg
-    corr = s_slice * s_slice[:, :1]
+    if bad is not None:
+        tripped = tripped | bad
+    corr = s_slice * (s_slice[:, :1] if s0 is None else s0)
     keep = lambda new, old: torch.where(unstable, old, new)  # noqa: E731
     mag2 = mag * mag
     return (

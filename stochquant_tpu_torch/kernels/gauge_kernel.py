@@ -10,8 +10,12 @@ Port of ``stochquant_tpu/kernels/gauge_kernel.py``:
 * kernel 11, :func:`gauge_frames_multi` — K frames per launch with the
   epilogue in-kernel (``_multiframe_call``).  Plain version:
   :func:`gauge_frames_multi_ref`.
+* kernel 12, :func:`gauge_chunk` — W micro-steps of a shard's block of a
+  lattice split along dim 0, extended by H = W halo rows a side
+  (``_chunk_call_g`` / ``make_gauge_chunk_step``), for the chunk runner of
+  ``parallel.gauge_halo``.  Plain version: :func:`gauge_chunk_ref`.
 
-Both are CUDA C++ for ``sm_90a`` (``csrc/gauge_kernel.cu``), built by
+All are CUDA C++ for ``sm_90a`` (``csrc/gauge_kernel.cu``), built by
 ``_build`` at first use, for U(1), SU(2) and SU(3) Wilson actions on 2-D
 lattices without cooling (:func:`supports`, the JAX package's rule).  The
 kernels hold a chain's links as float32 planes (C, P, L0, L1): P = 2 for
@@ -22,7 +26,8 @@ first two and a transposition of SU(3)'s complex64 matrices.
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel on PyTorch's current stream, or raises — it never falls
 back.  Each wrapper counts its kernel launches in a plain integer
-attribute, ``gauge_frame.launches`` and ``gauge_frames_multi.launches``.
+attribute: ``gauge_frame.launches``, ``gauge_frames_multi.launches`` and
+``gauge_chunk.launches``.
 
 Metrics follow the JAX package's XLA frame on every path: a frame's
 ``drift_max`` metric is the frame's running max even when the frame is
@@ -31,6 +36,8 @@ there instead).
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -52,6 +59,11 @@ __all__ = [
     "run_gauge_frames_kernel",
     "links_to_planes",
     "planes_to_links",
+    "links_to_planes_shaped",
+    "planes_to_links_shaped",
+    "gauge_chunk",
+    "gauge_chunk_ref",
+    "make_gauge_chunk_step",
 ]
 
 # action class -> (group code of the CUDA source, link planes, noise planes, force planes)
@@ -102,6 +114,24 @@ def planes_to_links(planes: torch.Tensor, action) -> torch.Tensor:
     if isinstance(action, SU2Wilson):
         return planes.reshape(C, 4, 2, L0, L1)
     return planes.reshape(C, 2, L0, L1)
+
+
+def links_to_planes_shaped(links: torch.Tensor, action, C: int, shape) -> torch.Tensor:
+    """:func:`links_to_planes` for a block of ``C`` chains on a lattice extent
+    ``shape`` that need not be ``cfg.shape`` (a shard's local block, or one
+    extended by halo rows); the extent is checked."""
+    planes = links_to_planes(links, action)
+    if tuple(planes.shape) != (C, _GROUPS[type(action)][1]) + tuple(shape):
+        raise ValueError(f"links {tuple(links.shape)} are not {C} chains on a {tuple(shape)} block")
+    return planes
+
+
+def planes_to_links_shaped(planes: torch.Tensor, action, C: int, shape) -> torch.Tensor:
+    """Inverse of :func:`links_to_planes_shaped`."""
+    if tuple(planes.shape) != (C, _GROUPS[type(action)][1]) + tuple(shape):
+        raise ValueError(f"planes {tuple(planes.shape)} are not {C} chains on a {tuple(shape)} "
+                         "block")
+    return planes_to_links(planes, action)
 
 
 def kernel_params(action, cfg: GaugeConfig, *, step0: int,
@@ -232,6 +262,143 @@ def gauge_frames_multi(state: GaugeState, action, cfg: GaugeConfig, K: int):
 
 
 gauge_frames_multi.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 12: W micro-steps of a dim-0 halo-extended block
+# ---------------------------------------------------------------------------
+#
+# Chunk mode has no drift-cap rescale (it would need the lattice-wide drift
+# max of every micro-step: a collective per step) and no per-chain freeze: a
+# step whose owned drift norm exceeds the cap sets ``capped``, a non-finite
+# owned link sets ``bad``, and the runner rejects the frame for either.  While
+# the cap is quiescent the scale of kernels 10 and 11 is exactly 1.0 and the
+# links agree with theirs bit for bit.
+
+
+def _chunk_halo(action, cfg: GaugeConfig, loc0: int, W: int) -> int:
+    """The halo depth H = W of a chunk of ``W`` steps on ``loc0`` owned rows;
+    raises for what kernel 12 does not take."""
+    check_kernel_config(action, cfg)
+    if W % 2 or W < 2:
+        raise ValueError(f"the gauge chunk kernel advances an even number of micro-steps "
+                         f"(W >= 2), not W={W}")
+    if W > loc0 or loc0 > cfg.shape[0]:
+        raise ValueError(f"gauge chunk halo depth H={W} exceeds the local slab ({loc0} rows of "
+                         f"{cfg.shape[0]}): the exchange is single-hop; lower exchange_steps or "
+                         "use the per-step halo runner")
+    return W
+
+
+def _check_chunk(ext, dtau, action, cfg: GaugeConfig, loc0: int, W: int) -> int:
+    """Validate one chunk call; returns the halo depth H."""
+    H = _chunk_halo(action, cfg, loc0, W)
+    want = (ext.shape[0], _GROUPS[type(action)][1], loc0 + 2 * H, cfg.shape[1])
+    if tuple(ext.shape) != want or tuple(dtau.shape) != (ext.shape[0],):
+        raise ValueError(f"expected extended planes {want} and dtau ({ext.shape[0]},), got "
+                         f"{tuple(ext.shape)} and {tuple(dtau.shape)}")
+    return H
+
+
+def gauge_chunk_ref(ext: torch.Tensor, dtau: torch.Tensor, action, cfg: GaugeConfig, loc0: int,
+                    W: int, step_base: int, chain_off: int = 0, row_off: int = 0):
+    """Plain PyTorch version of kernel 12 (see :func:`gauge_chunk`)."""
+    H = _check_chunk(ext, dtau, action, cfg, loc0, W)
+    C, _, E0, L1 = ext.shape
+    L0g = cfg.shape[0]
+    dev = ext.device
+    cap = float(np.float32(cfg.drift_cap))
+    NP = _GROUPS[type(action)][2]
+    noise_shape = action.noise_shape(C, 2, (E0, L1))
+    # global noise counters: C-order index over (noise plane, L0g, L1), row r
+    # of the extended block being global row (row_off + r - H) mod L0g
+    rows = (torch.arange(E0, dtype=torch.int64, device=dev) + (int(row_off) - H)) % L0g
+    site = (torch.arange(NP, dtype=torch.int64, device=dev).view(NP, 1, 1) * (L0g * L1)
+            + rows.view(1, E0, 1) * L1
+            + torch.arange(L1, dtype=torch.int64, device=dev).view(1, 1, L1))
+    site = rng.u32(site).reshape((1,) + tuple(noise_shape[1:]))
+    chains = rng.u32(torch.arange(C, dtype=torch.int64, device=dev) + int(chain_off))
+    k1 = rng.chain_key(rng.Stream.FIELD, chains).view((C,) + (1,) * (len(noise_shape) - 1))
+    own = torch.zeros((1, 1, E0, 1), dtype=torch.bool, device=dev)
+    own[:, :, H:H + loc0] = True
+
+    links = planes_to_links(ext, action)
+    ps = torch.zeros((C,), dtype=torch.float32, device=dev)
+    dmax = torch.zeros((C,), dtype=torch.float32, device=dev)
+    bad = torch.zeros((C,), dtype=torch.bool, device=dev)
+    capped = torch.zeros((C,), dtype=torch.bool, device=dev)
+    for k in range(0, W, 2):
+        for eta in rng.normal_pair(rng.u32(cfg.seed), k1, site, rng.u32(int(step_base) + k)):
+            f = action.drift(links, 2)
+            dnorm = torch.amax(torch.where(own, action.drift_magnitude(f), 0.0), dim=(1, 2, 3))
+            plaq = torch.where(own[:, 0], action.plaquette_site(links, 0, 1, 2), 0.0)
+            links = action.apply_update(links, action.omega(f, eta, dtau))
+            fin = torch.isfinite(links_to_planes(links, action)) | ~own
+            ps = ps + plaq.sum(dim=(1, 2))
+            dmax = torch.maximum(dmax, dnorm)
+            bad = bad | ~torch.all(fin.reshape(C, -1), dim=1)
+            capped = capped | (dnorm > cap)
+    owned = links_to_planes(links, action)[:, :, H:H + loc0].contiguous()
+    return owned, ps, dmax, bad, capped
+
+
+def gauge_chunk(ext: torch.Tensor, dtau: torch.Tensor, action, cfg: GaugeConfig, loc0: int,
+                W: int, step_base: int, chain_off: int = 0, row_off: int = 0):
+    """Kernel 12: ``W`` (even) micro-steps on the extended planes ``ext``
+    (C, P, loc0 + 2H, L1), H = W rows of the ring neighbours above and below
+    the ``loc0`` owned rows.  Dim 1 spans the whole lattice; dim 0 wraps inside
+    the block, and what that gets wrong stops at the owned rows after W steps.
+    ``cfg`` carries the global lattice; the noise of extended row r is that of
+    global row ``(row_off + r - H) mod L0`` of chain ``chain_off + c``, from
+    counter ``step_base`` on.  Returns the owned planes (C, P, loc0, L1), the
+    sum over steps and owned sites of the plaquette, the owned drift-norm max
+    (NaN propagates), and the ``bad`` and ``capped`` flags, (C,) each."""
+    H = _check_chunk(ext, dtau, action, cfg, loc0, W)
+    dev = ext.device
+    if dev.type == "cpu":
+        return gauge_chunk_ref(ext, dtau, action, cfg, loc0, W, step_base, chain_off, row_off)
+    if dev.type != "cuda":
+        raise ValueError(f"gauge kernels run on 'cuda' or 'cpu' tensors, not {dev}")
+    C, P, E0, L1 = ext.shape
+    _, _, NP, FP = _GROUPS[type(action)]
+    _build.check_leaves(SimpleNamespace(ext=ext, dtau=dtau),
+                        {"ext": ((C, P, E0, L1), torch.float32), "dtau": ((C,), torch.float32)},
+                        dev)
+    params = kernel_params(action, cfg, step0=step_base)
+    params.n_chains, params.L0, params.loops = C, E0, W
+    params.chain_off, params.row_off = rng.u32(int(chain_off)), rng.u32(int(row_off))
+    params.loc0, params.H, params.W, params.L0g = loc0, H, W, cfg.shape[0]
+    empty = _empty(dev)
+    work, owned = empty((C, P, E0, L1)), empty((C, P, loc0, L1))
+    ps, dmax = empty((C,)), empty((C,))
+    bad, capped = empty((C,), torch.int32), empty((C,), torch.int32)
+    force, zk = empty((C, FP, E0, L1)), empty((C, NP, E0, L1))
+    _build.launch("sq_gauge_chunk", params,
+                  (ext, dtau, work, owned, ps, dmax, bad, capped, force, zk), dev)
+    gauge_chunk.launches += 1
+    return owned, ps, dmax, bad != 0, capped != 0
+
+
+gauge_chunk.launches = 0
+
+
+def make_gauge_chunk_step(action, cfg: GaugeConfig, c_local: int, loc0: int, W: int, *,
+                          chunk=None):
+    """``(step, H)`` with ``step(ext_planes, dtau, step_base, chain_off,
+    row_off) -> (owned_planes, plaq_sum, dmax, bad, capped)`` for blocks of
+    ``c_local`` chains and ``loc0`` owned rows, as the JAX package's
+    ``make_gauge_chunk_step``.  ``chunk`` is the kernel wrapper (default
+    :func:`gauge_chunk`; :func:`gauge_chunk_ref` forces the plain version)."""
+    H = _chunk_halo(action, cfg, loc0, W)
+    fn = chunk or gauge_chunk
+    want = (c_local, _GROUPS[type(action)][1], loc0 + 2 * H, cfg.shape[1])
+
+    def step(ext_planes, dtau, step_base, chain_off, row_off):
+        if tuple(ext_planes.shape) != want:
+            raise ValueError(f"expected extended planes {want}, got {tuple(ext_planes.shape)}")
+        return fn(ext_planes, dtau, action, cfg, loc0, W, step_base, chain_off, row_off)
+
+    return step, H
 
 
 # ---------------------------------------------------------------------------

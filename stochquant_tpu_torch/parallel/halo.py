@@ -1,0 +1,612 @@
+"""Explicit domain decomposition of a scalar-field lattice: the halo runner
+(port of ``stochquant_tpu.parallel.halo``).
+
+Each shard of the mesh (``parallel.mesh``) owns a contiguous lattice block,
+exchanges edge slices with its ring neighbours and updates its block locally.
+The runner is written over the *list* of shards: local math is a loop over
+the shards, a collective is one call of ``parallel.mesh`` between two such
+loops.  The trajectory is bitwise that of the unsplit integrator: noise is
+keyed by global coordinates, halo values are copies, and the per-chain
+reductions are exact (max) or tolerance-tested (sum).
+
+Backends of :func:`make_halo_runner`:
+
+``torch``      the per-micro-step stencil in plain PyTorch, any D and dtype
+               (the JAX package's ``xla``), with ``overlap=True`` (bulk stencil
+               on the local wrap, then an edge fixup that alone reads the
+               halos) or ``False`` (halos joined to the block first).
+``cuda``       the kernels composed with the decomposition.  No lattice dim
+               cut (a chain-only mesh): the whole-frame kernels 3 / 6 per
+               shard with ``chain_offset``.  A cut lattice whose geometry the
+               chunk kernel admits (:func:`chunk_backend_available`): kernel
+               7, W micro-steps per launch on a block extended by an H-deep
+               halo in every cut dim, exchanged once per chunk (two-phase, in
+               ascending dim, so corners arrive through the neighbours'
+               already-extended blocks; multi-hop when a slab is thinner than
+               the halo).  Otherwise, in 2-D, the per-step kernel 9.
+``cuda_step``  kernel 9 per micro-step (``kernels.field_halo_kernel``) and an
+               exact O(surface) edge fixup in PyTorch; 2-D, float32,
+               counter-based noise.
+``cuda_pair``  kernel 7 forced; a mesh axis of size 1 on dim 0 is allowed (a
+               ring of one).
+``cuda_rdma``  not ported: kernel 8 (the chunk kernel that fetches its own
+               halos from the neighbour's memory) needs two GPUs.
+
+On CPU tensors the kernel wrappers run their plain versions, so every backend
+runs on a mesh of CPU devices; on CUDA tensors they launch or raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from stochquant_tpu_torch import rng
+from stochquant_tpu_torch.actions.base import true_divide
+from stochquant_tpu_torch.actions.phi4 import FieldAction
+from stochquant_tpu_torch.config import FieldConfig, Sweep
+from stochquant_tpu_torch.integrators import field as field_mod
+from stochquant_tpu_torch.kernels import field_halo_kernel, field_kernel
+from stochquant_tpu_torch.kernels import field_kernel_nd as fknd
+from stochquant_tpu_torch.kernels.field_kernel_tiled import obs_init, obs_step, obs_sums
+from stochquant_tpu_torch.parallel import mesh as mesh_mod
+from stochquant_tpu_torch.parallel.mesh import DeviceMesh
+
+__all__ = ["halo_shifted", "chunk_backend_available", "resolve_backend", "make_halo_runner",
+           "HALO_BACKENDS", "RDMA_NOT_PORTED"]
+
+HALO_BACKENDS = ("torch", "cuda", "cuda_step", "cuda_pair", "cuda_rdma")
+RDMA_NOT_PORTED = ("kernel 8 (the chunk kernel that fetches its own dim-0 halos from the "
+                   "neighbour GPU's memory: backend='cuda_rdma', prefer_rdma) is not ported "
+                   "yet; it needs a machine with two GPUs")
+
+
+def _shift(xs: list, mesh: DeviceMesh, axis, delta: int) -> list:
+    """Every shard's neighbour ``delta`` steps along ``axis``; a ring of one
+    is its own neighbour."""
+    if mesh.axis_size(axis) == 1:
+        return list(xs)
+    return mesh_mod.ppermute(xs, mesh, axis, delta)
+
+
+def halo_shifted(xs: list, axis: int, mesh: DeviceMesh, mesh_axis):
+    """(x shifted −1, x shifted +1) along tensor dim ``axis`` with periodic
+    wraparound across the shard ring, for the per-shard blocks ``xs``.
+
+    Returns (ups, downs) with up[i] = x[i+1] and down[i] = x[i−1] in *global*
+    coordinates.  For an unsplit axis this is ``torch.roll``; for a split one
+    the wrap elements come from the ring neighbours."""
+    if mesh.axis_size(mesh_axis) == 1:
+        return ([torch.roll(x, -1, axis) for x in xs], [torch.roll(x, 1, axis) for x in xs])
+    L = xs[0].shape[axis]
+    right = _shift([x.narrow(axis, 0, 1) for x in xs], mesh, mesh_axis, +1)
+    left = _shift([x.narrow(axis, L - 1, 1) for x in xs], mesh, mesh_axis, -1)
+    ups = [torch.cat([x.narrow(axis, 1, L - 1), r], dim=axis) for x, r in zip(xs, right)]
+    downs = [torch.cat([lh, x.narrow(axis, 0, L - 1)], dim=axis) for x, lh in zip(xs, left)]
+    return ups, downs
+
+
+def _chunk_guard_geometry(cfg: FieldConfig, mesh: DeviceMesh):
+    """The derivation the chunk guard shares with the runner.  ``None`` when
+    the common preconditions fail, else (local_shape, c_local, sharded_dims,
+    W to probe)."""
+    if cfg.dtype != "float32" or cfg.loops % 2 or not rng.counter_based(cfg.rng_impl):
+        return None
+    W_try = cfg.exchange_steps or fknd.default_exchange_steps(cfg)
+    if not W_try or W_try % 2:
+        return None
+    lat = cfg.mesh_axes or (None,) * cfg.ndim
+    local_shape = tuple(s // mesh.axis_size(ax) for s, ax in zip(cfg.shape, lat))
+    c_local = cfg.n_chains // mesh.axis_size(cfg.mesh_chain_axis)
+    sharded_dims = tuple(mesh.axis_size(ax) > 1 for ax in lat)
+    return local_shape, c_local, sharded_dims, min(W_try, max(cfg.loops, 2))
+
+
+def chunk_backend_available(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh) -> bool:
+    """True when the chunk kernel (kernel 7) admits this (cfg, mesh) split:
+    the one guard that :func:`make_halo_runner`'s backend resolution and
+    ``runtime.select_field_backend`` share, so that the router and the runner
+    cannot disagree."""
+    geo = _chunk_guard_geometry(cfg, mesh)
+    if geo is None:
+        return False
+    local_shape, c_local, sharded_dims, W_probe = geo
+    try:
+        field_kernel._action_constants(action)
+        fknd.chunk_geometry(cfg, c_local, local_shape, W_probe, sharded_dims)
+    except ValueError:
+        return False
+    return True
+
+
+def resolve_backend(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, backend: str) -> str:
+    """The path a backend of :func:`make_halo_runner` takes for this (cfg,
+    mesh), as the JAX package resolves 'pallas': 'torch', 'cuda_frame'
+    (kernels 3 / 6 per shard), 'cuda_nd' (kernel 7) or 'cuda_step' (kernel 9).
+    Raises for what the asked backend does not cover; the one copy the runner
+    and ``runtime.select_field_backend`` share."""
+    if backend not in HALO_BACKENDS:
+        raise ValueError(f"unknown halo backend {backend!r}; known: {HALO_BACKENDS}")
+    if backend == "cuda_rdma" or cfg.prefer_rdma:
+        raise ValueError(RDMA_NOT_PORTED)
+    ndim = cfg.ndim
+    lat_spec = tuple(cfg.mesh_axes)
+    sharded_dims = tuple(mesh.axis_size(ax) > 1 for ax in lat_spec)
+    if backend == "cuda_pair":
+        if not any(sharded_dims) and not lat_spec[0]:
+            raise ValueError("backend='cuda_pair' needs a split lattice dim (or "
+                             "cfg.mesh_axes[0] set for the ring of one)")
+        backend = "cuda_nd"
+    if backend == "cuda":
+        if not any(sharded_dims):
+            backend = "cuda_frame"
+        elif chunk_backend_available(action, cfg, mesh):
+            backend = "cuda_nd"
+        elif ndim == 2:
+            backend = "cuda_step"
+        else:
+            raise ValueError(
+                "this D >= 3 split geometry is not admissible for the composed chunk kernel "
+                "(odd loops or exchange_steps, noise that is not counter-based, or a halo as "
+                "deep as the lattice); use backend='torch'")
+    if backend in ("cuda_frame", "cuda_step", "cuda_nd") and cfg.dtype != "float32":
+        raise ValueError("the halo kernels are float32-only; use backend='torch' for other dtypes")
+    if backend == "cuda_step" and ndim != 2:
+        raise ValueError("the per-micro-step halo kernel supports 2-D lattices; D >= 3 split "
+                         "lattices use backend='cuda' (the chunk kernel) or 'torch'")
+    if backend == "cuda_frame" and ndim >= 3 and (cfg.loops % 2
+                                                  or not rng.counter_based(cfg.rng_impl)):
+        raise ValueError("the D-dim whole-frame kernel needs an even cfg.loops and "
+                         "counter-based noise (rng_impl='threefry'); use backend='torch' "
+                         "otherwise")
+    if backend == "cuda_step" and not rng.counter_based(cfg.rng_impl):
+        raise ValueError("the lattice-split kernel path requires rng_impl='threefry' or "
+                         "'threefry13' (the exact edge fixup re-derives counter noise)")
+    if backend == "cuda_nd":
+        if cfg.loops % 2:
+            raise ValueError("the composed chunk kernel needs an even cfg.loops")
+        if cfg.exchange_steps == 0:
+            raise ValueError("exchange_steps=0 (autotune) is not ported yet: give an even W "
+                             "or None")
+    return backend
+
+
+def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
+                     overlap: bool = True, backend: str = "torch", step=None, chunk=None):
+    """Build ``run(shards, n_frames) -> (shards, metrics)`` executing the field
+    frame loop on a lattice split over ``mesh``.
+
+    ``cfg.mesh_axes`` names the mesh axis of each lattice dim (None = whole);
+    ``cfg.mesh_chain_axis`` optionally splits the chains.  ``shards`` is the
+    list ``parallel.shard_field_state`` makes with the same cfg; ``metrics``
+    are (n_frames, C) tensors on the mesh's first device.
+
+    overlap (``torch`` backend): True runs the bulk stencil on the local wrap
+    and fixes the edge slices up from the halos; False joins the halos to the
+    block first.  Both give the same bits.  ``step`` / ``chunk`` replace the
+    kernel 9 / kernel 7 wrapper (their ``_ref`` functions force the plain
+    versions)."""
+    if cfg.mesh_axes is None:
+        raise ValueError("cfg.mesh_axes required for the halo runner")
+    field_mod.check_field_supported(cfg)
+    backend = resolve_backend(action, cfg, mesh, backend)
+    ndim, shape = cfg.ndim, tuple(cfg.shape)
+    ca, lat_spec = cfg.mesh_chain_axis, tuple(cfg.mesh_axes)
+    n_shards = mesh.size
+    sizes, local_shape, c_local, ch_offs, lat_offs = mesh_mod.split_geometry(cfg, mesh)
+    sharded_dims = tuple(n > 1 for n in sizes)
+    dtype = cfg.torch_dtype
+    a = cfg.spacing
+    inv_a2 = 1.0 / (a * a)
+    clamp = float(np.float32(cfg.clamp))
+    checkerboard = cfg.sweep == Sweep.CHECKERBOARD
+    rounds = rng.rounds_of(cfg.rng_impl)
+
+    volume = float(math.prod(shape))
+    n_per_slice = volume / shape[0]
+    lat_reduce = tuple(range(1, ndim + 1))
+    nonzero_reduce = tuple(range(2, ndim + 1))
+    lat_mesh_axes = tuple(ax for ax, n in zip(lat_spec, sizes) if n > 1)
+    other_axes = lat_mesh_axes[1:] if sizes[0] > 1 else lat_mesh_axes
+    ax0 = lat_spec[0] if sizes[0] > 1 else None
+    devs = mesh.devices
+    # the shard that holds global slice 0 of each shard's dim-0 ring
+    row0_of = [mesh.neighbor(i, ax0, -mesh.coord(i, ax0)) if ax0 else i for i in range(n_shards)]
+    each = range(n_shards)
+
+    def exchange_halos(phis):
+        """Per shard {dim: (left halo, right halo)} for every split dim.  The
+        bulk stencil below does not read them: only the edge fixup does."""
+        pending = [{} for _ in each]
+        for d in range(ndim):
+            if not sharded_dims[d]:
+                continue
+            axis, L = d + 1, local_shape[d]
+            right = _shift([p.narrow(axis, 0, 1) for p in phis], mesh, lat_spec[d], +1)
+            left = _shift([p.narrow(axis, L - 1, 1) for p in phis], mesh, lat_spec[d], -1)
+            for i in each:
+                pending[i][d] = (left[i], right[i])
+        return pending
+
+    def laplacian_blocking(phis):
+        laps = [torch.zeros_like(p) for p in phis]
+        for d in range(ndim):
+            ups, downs = halo_shifted(phis, d + 1, mesh, lat_spec[d])
+            laps = [lap + (up + dn - 2.0 * p) for lap, up, dn, p in zip(laps, ups, downs, phis)]
+        return [lap * inv_a2 for lap in laps]
+
+    def laplacian_overlapped(phis):
+        """Bitwise the unsplit ∇²: the bulk stencil runs on the local wrap,
+        then the two edge slices of every exchanged dim are recomputed from
+        the true neighbours with the bulk's operand order."""
+        pending = exchange_halos(phis)
+        laps = []
+        for phi, pend in zip(phis, pending):
+            lap = torch.zeros_like(phi)
+            for d in range(ndim):
+                axis = d + 1
+                c = torch.roll(phi, -1, axis) + torch.roll(phi, 1, axis) - 2.0 * phi
+                if d in pend:
+                    left, right = pend[d]
+                    L = phi.shape[axis]
+                    up_first = phi.narrow(axis, 1, 1) if L > 1 else right
+                    down_last = phi.narrow(axis, L - 2, 1) if L > 1 else left
+                    c.narrow(axis, 0, 1).copy_(up_first + left - 2.0 * phi.narrow(axis, 0, 1))
+                    c.narrow(axis, L - 1, 1).copy_(
+                        right + down_last - 2.0 * phi.narrow(axis, L - 1, 1))
+                lap = lap + c
+            laps.append(lap * inv_a2)
+        return laps
+
+    def action_density_overlapped(phis):
+        pending = exchange_halos(phis)
+        out = []
+        for phi, pend in zip(phis, pending):
+            kin = torch.zeros_like(phi)
+            for d in range(ndim):
+                axis = d + 1
+                up = torch.roll(phi, -1, axis)
+                if d in pend:
+                    up.narrow(axis, phi.shape[axis] - 1, 1).copy_(pend[d][1])
+                diff = up - phi
+                kin = kin + 0.5 * diff * diff * inv_a2
+            out.append(kin + action.V(phi))
+        return out
+
+    def action_density_blocking(phis):
+        kins = [torch.zeros_like(p) for p in phis]
+        for d in range(ndim):
+            ups, _ = halo_shifted(phis, d + 1, mesh, lat_spec[d])
+            kins = [kin + 0.5 * (up - p) * (up - p) * inv_a2
+                    for kin, up, p in zip(kins, ups, phis)]
+        return [kin + action.V(p) for kin, p in zip(kins, phis)]
+
+    laplacian = laplacian_overlapped if overlap else laplacian_blocking
+    action_density_local = action_density_overlapped if overlap else action_density_blocking
+
+    def parity_mask(offs, block_shape, dev):
+        """'Even' sites of the *global* checkerboard on a block at ``offs``."""
+        s = torch.zeros((1,) + tuple(block_shape), dtype=torch.int64, device=dev)
+        for d, n in enumerate(block_shape):
+            view = [1] * (ndim + 1)
+            view[d + 1] = n
+            s = s + (torch.arange(n, dtype=torch.int64, device=dev) + offs[d]).view(view)
+        return s % 2 == 0
+
+    W_main = W_tail = n_chunks = 0
+    chunk_split = None
+    kstep = None
+    if backend == "cuda_step":
+        kstep = field_halo_kernel.make_local_step(action, cfg, local_shape, c_local,
+                                                  sharded_dims, step=step)
+    elif backend == "cuda_nd":
+        W_cfg = cfg.exchange_steps or fknd.default_exchange_steps(cfg)
+        if W_cfg % 2 or W_cfg < 2:
+            raise ValueError("cfg.exchange_steps must be even and >= 2")
+        # an explicit cuda_pair on an unsplit dim 0 (a ring of one) keeps the
+        # dim-0 halo machinery live, so the chunk path itself can be timed
+        chunk_split = (sharded_dims if any(sharded_dims)
+                       else (bool(lat_spec[0]),) + (False,) * (ndim - 1))
+        W_main = min(W_cfg, cfg.loops)
+        n_chunks = cfg.loops // W_main
+        W_tail = cfg.loops - n_chunks * W_main
+        for Wx in (W_main, W_tail):
+            if Wx:
+                fknd.chunk_geometry(cfg, c_local, local_shape, Wx, chunk_split)
+        chunk_fn = chunk or fknd.field_chunk_nd
+    elif backend == "cuda_frame":
+        local_cfg = dataclasses.replace(cfg, n_chains=c_local, mesh_axes=None,
+                                        mesh_chain_axis=None)
+
+    # ---------------- the shared micro-step tail ---------------------------
+
+    def slice_stats(s_slice_loc):
+        """Complete the dim-0 slice sums across the other mesh axes, turn them
+        into means, and find the mean of global slice 0 for every shard."""
+        s_slice = mesh_mod.psum(s_slice_loc, mesh, other_axes)
+        s_slice = [true_divide(s, n_per_slice) for s in s_slice]
+        s0 = [s_slice[row0_of[i]][:, :1].to(devs[i]) for i in each]
+        return s_slice, s0
+
+    def finish_micro_step(phis, newphis, vals, max_det, bad, npmax, mag, phi2, act, s_slice_loc):
+        """The micro-step tail every per-step backend ends in: the reductions
+        completed across shards, the trip decision, the observable sums and
+        the per-chain freeze, through ``obs_step``'s one set of expressions."""
+        st = mesh_mod.pcat(
+            [torch.stack([mag[i], phi2[i], act[i], max_det[i], npmax[i]], dim=-1)[:, None]
+             for i in each], mesh, lat_mesh_axes, dim=1)
+        anybad = mesh_mod.pany(bad, mesh, lat_mesh_axes)
+        s_slice, s0 = slice_stats(s_slice_loc)
+        out_phis, out_vals = [], []
+        for i in each:
+            u = vals[i][7].reshape((c_local,) + (1,) * ndim)
+            out_phis.append(torch.where(u, phis[i], newphis[i]))
+            out_vals.append(obs_step(vals[i], s_slice[i], st[i], volume, s0=s0[i],
+                                     bad=anybad[i]))
+        return out_phis, out_vals
+
+    # ---------------- backend 'torch' --------------------------------------
+
+    def em_apply(phis, masks, noises, dtaus):
+        laps = laplacian(phis)
+        out = []
+        for i in each:
+            phi = phis[i]
+            det = (laps[i] - action.dV(phi).to(dtype)) * dtaus[i]
+            new_raw = phi + det + noises[i]
+            fin = torch.isfinite(new_raw)
+            newphi = torch.where(fin, torch.clamp(new_raw, -clamp, clamp), clamp)
+            if masks is not None:
+                newphi = torch.where(masks[i], newphi, phi)
+                det = torch.where(masks[i], det, 0.0)
+                fin = fin | ~masks[i]
+            out.append((newphi, torch.abs(det), fin))
+        return [o[0] for o in out], [o[1] for o in out], [o[2] for o in out]
+
+    def micro_step(phis, vals, etas, namps, dtaus, evens):
+        noises = [namps[i] * etas[i] for i in each]
+        if checkerboard:
+            phi_e, absdet_e, fin_e = em_apply(phis, evens, noises, dtaus)
+            newphis, absdet_o, fin_o = em_apply(phi_e, [~m for m in evens], noises, dtaus)
+            absdet = [torch.maximum(x, y) for x, y in zip(absdet_e, absdet_o)]
+            fin = [x & y for x, y in zip(fin_e, fin_o)]
+        else:
+            newphis, absdet, fin = em_apply(phis, None, noises, dtaus)
+        dens = action_density_local(phis)
+        return finish_micro_step(
+            phis, newphis, vals,
+            [torch.amax(x, dim=lat_reduce) for x in absdet],
+            [~torch.all(f.reshape(c_local, -1), dim=1) for f in fin],
+            [torch.amax(torch.abs(p), dim=lat_reduce) for p in newphis],
+            [torch.sum(p, dim=lat_reduce) for p in phis],
+            [torch.sum(p * p, dim=lat_reduce) for p in phis],
+            [torch.sum(x.to(dtype), dim=lat_reduce) for x in dens],
+            [torch.sum(p, dim=nonzero_reduce) if nonzero_reduce else p for p in phis],
+        )
+
+    def noise_pairs(step):
+        pairs = [rng.normal_pair_for_shape(
+            cfg.seed, rng.Stream.FIELD, step, (c_local,) + local_shape,
+            global_lattice_shape=shape, chain_offset=ch_offs[i], lattice_offsets=lat_offs[i],
+            rounds=rounds, device=devs[i]) for i in each]
+        return [p[0].to(dtype) for p in pairs], [p[1].to(dtype) for p in pairs]
+
+    # ---------------- backend 'cuda_step': kernel 9 + exact edge fixup ------
+
+    def slice_laplacian(phi, pend, d, side):
+        """True laplacian on the first / last slice along split dim d,
+        composed dim 0 then dim 1 like the kernel body."""
+        axis = d + 1
+        L = phi.shape[axis]
+        idx = 0 if side == 0 else L - 1
+        sl = lambda x: x.narrow(axis, idx, 1)  # noqa: E731
+        sl_phi = sl(phi)
+        left, right = pend[d]
+        if side == 0:
+            up_d = phi.narrow(axis, 1, 1) if L > 1 else right
+            c_own = up_d + left - 2.0 * sl_phi
+        else:
+            down_d = phi.narrow(axis, L - 2, 1) if L > 1 else left
+            c_own = right + down_d - 2.0 * sl_phi
+        e = 1 - d
+        e_axis = e + 1
+        Le = phi.shape[e_axis]
+        up_e = torch.roll(sl_phi, -1, e_axis)
+        down_e = torch.roll(sl_phi, 1, e_axis)
+        if e in pend:
+            el, er = pend[e]
+            up_e.narrow(e_axis, Le - 1, 1).copy_(sl(er))
+            down_e.narrow(e_axis, 0, 1).copy_(sl(el))
+        c_other = up_e + down_e - 2.0 * sl_phi
+        zero = torch.zeros_like(sl_phi)
+        lap = (zero + c_own + c_other) if d == 0 else (zero + c_other + c_own)
+        return sl_phi, lap * inv_a2, idx
+
+    def edge_noise(pair_base):
+        """Per shard {(dim, side): (η of the pair's first step, of its second,
+        the slice's global offsets, its shape)} for the edge slices of every
+        split dim, re-derived from the sites' global counters.  One draw
+        serves both micro-steps of the pair and both checkerboard half-sweeps."""
+        out = []
+        for i in each:
+            noise = {}
+            for d in range(ndim):
+                if not sharded_dims[d]:
+                    continue
+                for side, idx in ((0, 0), (1, local_shape[d] - 1)):
+                    slice_shape = tuple(1 if dd == d else local_shape[dd] for dd in range(ndim))
+                    offs = tuple(lat_offs[i][dd] + (idx if dd == d else 0) for dd in range(ndim))
+                    e0, e1 = rng.normal_pair_for_shape(
+                        cfg.seed, rng.Stream.FIELD, pair_base, (c_local,) + slice_shape,
+                        global_lattice_shape=shape, chain_offset=ch_offs[i],
+                        lattice_offsets=offs, rounds=rounds, device=devs[i])
+                    noise[(d, side)] = (e0.to(dtype), e1.to(dtype), offs, slice_shape)
+            out.append(noise)
+        return out
+
+    def apply_fixup(phi, newphi, pend, noise, parity, mask_kind, namp, dtau_b):
+        """Splice the halo-informed updates of the edge slices into the
+        kernel's bulk result (in place: ``newphi`` is the kernel's fresh
+        output); returns it with the edge detector partials."""
+        dev = phi.device
+        ed = torch.zeros((c_local,), dtype=dtype, device=dev)
+        eb = torch.zeros((c_local,), dtype=torch.bool, device=dev)
+        ep = torch.zeros((c_local,), dtype=dtype, device=dev)
+        for d in pend:
+            axis = d + 1
+            for side in (0, 1):
+                sl_phi, lap, idx = slice_laplacian(phi, pend, d, side)
+                e0, e1, offs, slice_shape = noise[(d, side)]
+                noise_sl = namp * (e1 if parity else e0)
+                det = (lap - action.dV(sl_phi).to(dtype)) * dtau_b
+                new_raw = sl_phi + det + noise_sl
+                fin = torch.isfinite(new_raw)
+                new_sl = torch.where(fin, torch.clamp(new_raw, -clamp, clamp), clamp)
+                if mask_kind is not None:
+                    mask_sl = parity_mask(offs, slice_shape, dev)
+                    if mask_kind == "odd":
+                        mask_sl = ~mask_sl
+                    new_sl = torch.where(mask_sl, new_sl, sl_phi)
+                    det = torch.where(mask_sl, det, 0.0)
+                    fin = fin | ~mask_sl
+                newphi.narrow(axis, idx, 1).copy_(new_sl)
+                ed = torch.maximum(ed, torch.amax(torch.abs(det), dim=lat_reduce))
+                eb = eb | ~torch.all(fin.reshape(c_local, -1), dim=1)
+                ep = torch.maximum(ep, torch.amax(torch.abs(new_sl), dim=lat_reduce))
+        return newphi, ed, eb, ep
+
+    def act_corrections(phi, pend):
+        """Forward-difference corrections of the kernel's locally wrapped
+        action sum: only the last slice of each exchanged dim differs."""
+        corr = torch.zeros((c_local,), dtype=dtype, device=phi.device)
+        for d in pend:
+            axis = d + 1
+            L = phi.shape[axis]
+            last, first = phi.narrow(axis, L - 1, 1), phi.narrow(axis, 0, 1)
+            diff_l = first - last
+            diff_t = pend[d][1] - last
+            corr = corr + torch.sum(
+                0.5 * diff_t * diff_t * inv_a2 - 0.5 * diff_l * diff_l * inv_a2, dim=lat_reduce)
+        return corr
+
+    def micro_step_kernel(phis, vals, pair_base, parity, noise, namps, dtaus, dtau_bs):
+        koffs = [(ch_offs[i],) + lat_offs[i] for i in each]
+        pending = exchange_halos(phis)
+
+        def half_sweep(src, pend, half, kind):
+            outs = [kstep(src[i], dtaus[i], pair_base, parity, half, koffs[i]) for i in each]
+            fixed = [apply_fixup(src[i], outs[i][0], pend[i], noise[i], parity, kind, namps[i],
+                                 dtau_bs[i]) for i in each]
+            return outs, fixed
+
+        if checkerboard:
+            o, fx_e = half_sweep(phis, pending, 0, "even")
+            phi_e = [f[0] for f in fx_e]
+            # the odd half re-exchanges the halos of the fresh even sites and
+            # its observables are ignored (they sample once per micro-step)
+            o2, fx_o = half_sweep(phi_e, exchange_halos(phi_e), 1, "odd")
+            newphis = [f[0] for f in fx_o]
+            max_det = [torch.maximum(torch.maximum(o[i][5], fx_e[i][1]),
+                                     torch.maximum(o2[i][5], fx_o[i][1])) for i in each]
+            bad = [(o[i][6] > 0) | fx_e[i][2] | (o2[i][6] > 0) | fx_o[i][2] for i in each]
+            npmax = [torch.maximum(o2[i][7], fx_o[i][3]) for i in each]
+        else:
+            o, fx = half_sweep(phis, pending, 0, None)
+            newphis = [f[0] for f in fx]
+            max_det = [torch.maximum(o[i][5], fx[i][1]) for i in each]
+            bad = [(o[i][6] > 0) | fx[i][2] for i in each]
+            npmax = [torch.maximum(o[i][7], fx[i][3]) for i in each]
+        act = [o[i][3] + act_corrections(phis[i], pending[i]) for i in each]
+        return finish_micro_step(phis, newphis, vals, max_det, bad, npmax,
+                                 [o[i][1] for i in each], [o[i][2] for i in each], act,
+                                 [o[i][4] for i in each])
+
+    # ---------------- backend 'cuda_nd': kernel 7, one exchange per chunk ---
+
+    def extend(xs, d, Hd):
+        """Every block extended by Hd sites per side along lattice dim d via
+        the ring; multi-hop when the local extent is thinner than Hd."""
+        ax, axis = lat_spec[d], d + 1
+        Ld = xs[0].shape[axis]
+        if Hd <= Ld:
+            down = _shift([x.narrow(axis, 0, Hd) for x in xs], mesh, ax, +1)
+            up = _shift([x.narrow(axis, Ld - Hd, Hd) for x in xs], mesh, ax, -1)
+        else:
+            k = -(-Hd // Ld)  # hops per side
+            ups = [_shift(xs, mesh, ax, -j) for j in range(1, k + 1)]
+            downs = [_shift(xs, mesh, ax, +j) for j in range(1, k + 1)]
+            up = [torch.cat([u[i] for u in reversed(ups)], dim=axis).narrow(
+                axis, k * Ld - Hd, Hd) for i in each]
+            down = [torch.cat([dn[i] for dn in downs], dim=axis).narrow(axis, 0, Hd)
+                    for i in each]
+        return [torch.cat([u, x, dn], dim=axis).contiguous()
+                for u, x, dn in zip(up, xs, down)]
+
+    def chunk_step(phis, vals, dtaus, Wx, step):
+        halos = fknd.chunk_halos(cfg, Wx, chunk_split)
+        exts = phis
+        for d in range(ndim):
+            if halos[d]:
+                exts = extend(exts, d, halos[d])
+        outs = [chunk_fn(exts[i], dtaus[i], action, cfg, Wx, chunk_split, step, lat_offs[i],
+                         ch_offs[i], None) for i in each]
+        for w in range(Wx):
+            st = mesh_mod.pcat([o[2][:, :, 5 * w:5 * w + 5] for o in outs], mesh,
+                               lat_mesh_axes, dim=1)
+            s_slice, s0 = slice_stats([o[1][:, w] for o in outs])
+            vals = [obs_step(vals[i], s_slice[i], st[i], volume, s0=s0[i]) for i in each]
+        return [o[0] for o in outs], vals
+
+    # ---------------- the frame ---------------------------------------------
+
+    def frame(states):
+        if backend == "cuda_frame":
+            out = []
+            for i, st in enumerate(states):
+                if ndim >= 3:
+                    out.append(fknd.field_frame_nd(st, action, local_cfg,
+                                                   chain_offset=ch_offs[i]))
+                else:
+                    out.append(field_mod.field_frame_epilogue(
+                        st, field_kernel.field_frame(st, action, local_cfg, ch_offs[i]),
+                        local_cfg))
+            return [o[0] for o in out], [o[1] for o in out]
+
+        step0 = int(states[0].step)
+        phis = [s.phi for s in states]
+        vals = [obs_init(s) for s in states]
+        dtaus = [s.dtau for s in states]
+        if backend == "cuda_nd":
+            step = step0
+            for Wx in [W_main] * n_chunks + [W_tail]:
+                if Wx:
+                    phis, vals = chunk_step(phis, vals, dtaus, Wx, step)
+                    step += Wx
+        else:
+            bshape = (c_local,) + (1,) * ndim
+            dtau_bs = [d.reshape(bshape) for d in dtaus]
+            namps = [field_mod.noise_scale(d, cfg).reshape(bshape) for d in dtaus]
+            if backend == "cuda_step":
+                for k in range(cfg.loops):
+                    if k % 2 == 0:
+                        noise = edge_noise(step0 + k)
+                    phis, vals = micro_step_kernel(phis, vals, step0 + (k & ~1), k & 1, noise,
+                                                   namps, dtaus, dtau_bs)
+            else:
+                evens = ([parity_mask(lat_offs[i], local_shape, devs[i]) for i in each]
+                         if checkerboard else None)
+                for k in range(0, cfg.loops, 2):
+                    e0, e1 = noise_pairs(step0 + k)
+                    phis, vals = micro_step(phis, vals, e0, namps, dtau_bs, evens)
+                    if k + 1 < cfg.loops:
+                        phis, vals = micro_step(phis, vals, e1, namps, dtau_bs, evens)
+        out = [field_mod.field_frame_epilogue(states[i], obs_sums(phis[i], vals[i]), cfg)
+               for i in each]
+        return [o[0] for o in out], [o[1] for o in out]
+
+    run = mesh_mod.frame_loop(frame, mesh, ca)
+    run.backend = backend
+    return run

@@ -1,0 +1,431 @@
+"""Device mesh, state placement and collectives (port of
+``stochquant_tpu.parallel.mesh``).
+
+The JAX package runs one ``shard_map`` program per device and lets XLA move
+the data.  PyTorch has no twin of that, so the port's mesh is a
+**single-process mesh of** ``torch.device`` **s**: one host thread drives every
+shard in turn, each shard's tensors live on its own device, and kernels are
+launched on that device's current stream.  A sharded state is a plain list of
+per-shard local states, one per mesh position in C order of the mesh
+coordinates.
+
+A device may appear in the mesh more than once.  That is what lets one GPU
+(or the CPU, in the tests) run a lattice that is really cut: with non-zero
+global offsets, edge slices that need their neighbours, and reductions that
+have to be completed across shards.  The JAX package gets the same from its
+virtual CPU devices.  With one device repeated, all shards share a stream and
+run one after the other.
+
+The collectives are plain functions over the list of shards:
+
+* :func:`ppermute` gives every shard its ring neighbour's tensor
+  (``.to(device)`` when the devices differ; a copy between two streams of
+  different devices is ordered after the producer's kernel by PyTorch);
+* :func:`psum`, :func:`pmax` and :func:`pany` reduce the shards' partials in
+  ascending mesh index, **once**, and hand the same tensor to every shard, so
+  the replicas of a per-chain scalar can never part.  ``pmax`` propagates NaN
+  (``torch.maximum``).
+
+``torch.distributed`` is not used here: gloo has no CUDA send/recv and NCCL
+refuses two ranks on one GPU, so neither could run a cut lattice on a
+one-GPU machine.  A multi-host module would sit beside this one.
+
+Because the noise is keyed by global (chain, site, step) coordinates, any
+placement produces the same field trajectory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from stochquant_tpu_torch.integrators.field import FieldState
+from stochquant_tpu_torch.integrators.gauge import GaugeState
+from stochquant_tpu_torch.integrators.langevin import ChainState, stack_metrics
+
+__all__ = [
+    "DeviceMesh",
+    "make_mesh",
+    "ppermute",
+    "psum",
+    "pmax",
+    "pany",
+    "pcat",
+    "field_state_spec",
+    "gauge_state_spec",
+    "chain_state_spec",
+    "shard_state",
+    "gather_state",
+    "shard_field_state",
+    "gather_field_state",
+    "shard_gauge_state",
+    "gather_gauge_state",
+    "shard_chain_state",
+    "gather_chain_state",
+    "shard_state_from_numpy",
+    "gather_metrics",
+    "split_geometry",
+    "frame_loop",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceMesh:
+    """Named axes over a flat tuple of devices (C order of the coordinates)."""
+
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    devices: Tuple[torch.device, ...]
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def axis_size(self, name: Optional[str]) -> int:
+        """Shards along axis ``name``; 1 for ``None`` and for a name the mesh
+        does not have (that dim then stays whole)."""
+        if name not in self.axis_names:
+            return 1
+        return self.shape[self.axis_names.index(name)]
+
+    def coords(self, i: int) -> Tuple[int, ...]:
+        return tuple(int(c) for c in _unravel(i, self.shape))
+
+    def coord(self, i: int, name: Optional[str]) -> int:
+        """Shard ``i``'s coordinate along axis ``name``; 0 where
+        :meth:`axis_size` is 1."""
+        if name not in self.axis_names:
+            return 0
+        return self.coords(i)[self.axis_names.index(name)]
+
+    def index(self, coords: Sequence[int]) -> int:
+        i = 0
+        for c, n in zip(coords, self.shape):
+            i = i * n + c % n
+        return i
+
+    def neighbor(self, i: int, name: str, delta: int) -> int:
+        """The shard ``delta`` steps along the ring of axis ``name``."""
+        c = list(self.coords(i))
+        c[self.axis_names.index(name)] += delta
+        return self.index(c)
+
+    def groups(self, names: Sequence[str]) -> tuple:
+        """The sets of shards that differ only in their coordinates along
+        ``names``, each in ascending mesh index."""
+        return _groups(self, tuple(names))
+
+
+@functools.lru_cache(maxsize=None)
+def _groups(mesh: "DeviceMesh", names: tuple) -> tuple:
+    reduce_axes = {mesh.axis_names.index(n) for n in names}
+    keyed: dict = {}
+    for i in range(mesh.size):
+        key = tuple(v for a, v in enumerate(mesh.coords(i)) if a not in reduce_axes)
+        keyed.setdefault(key, []).append(i)
+    return tuple(tuple(g) for g in keyed.values())
+
+
+def _unravel(i: int, shape) -> list:
+    out = []
+    for n in reversed(shape):
+        out.append(i % n)
+        i //= n
+    return out[::-1]
+
+
+def _resolve(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"mesh device {device} requested but no CUDA device is available")
+        index = torch.cuda.current_device() if device.index is None else device.index
+        if index >= torch.cuda.device_count():
+            raise RuntimeError(f"mesh device cuda:{index} requested but this machine has "
+                               f"{torch.cuda.device_count()} CUDA device(s)")
+        return torch.device("cuda", index)
+    if device.type != "cpu":
+        raise ValueError(f"unsupported mesh device {device}; use 'cuda' or 'cpu' devices")
+    return device
+
+
+def make_mesh(axes: Sequence[Tuple[str, int]], devices=None) -> DeviceMesh:
+    """Build a mesh from (name, size) pairs, e.g. ``[("chain", 2), ("x", 4)]``.
+
+    ``devices``: a list with at least one device per mesh position (a device
+    may repeat), or a single device that every shard then shares, or ``None``
+    for the machine's CUDA devices, one per position.  A CUDA device the
+    machine lacks raises, as does a list that is too short."""
+    names = tuple(n for n, _ in axes)
+    sizes = tuple(int(s) for _, s in axes)
+    if len(set(names)) != len(names) or any(s < 1 for s in sizes):
+        raise ValueError(f"mesh axes need distinct names and sizes >= 1, got {list(axes)}")
+    n = math.prod(sizes)
+    if devices is None:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n > have:
+            raise ValueError(
+                f"mesh needs {n} devices, this machine has {have} CUDA device(s): pass "
+                "devices= (a device may repeat, e.g. devices='cuda:0' or 'cpu')")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    elif isinstance(devices, (str, torch.device)):
+        devices = [devices] * n
+    devices = list(devices)
+    if n > len(devices):
+        raise ValueError(f"mesh needs {n} devices, have {len(devices)}")
+    return DeviceMesh(names, sizes, tuple(_resolve(d) for d in devices[:n]))
+
+
+# ---------------------------------------------------------------------------
+# collectives over the list of shards
+# ---------------------------------------------------------------------------
+
+
+def ppermute(xs: list, mesh: DeviceMesh, axis: str, delta: int) -> list:
+    """``out[i]`` = the tensor of the shard ``delta`` steps along ``axis``
+    from shard ``i`` (periodic), on shard ``i``'s device."""
+    return [xs[mesh.neighbor(i, axis, delta)].to(mesh.devices[i]) for i in range(mesh.size)]
+
+
+def _preduce(xs: list, mesh: DeviceMesh, axes: Sequence[str], op) -> list:
+    axes = [a for a in axes if a]
+    if not axes:
+        return list(xs)
+    out = [None] * mesh.size
+    for group in mesh.groups(axes):
+        acc = xs[group[0]]
+        for j in group[1:]:
+            acc = op(acc, xs[j].to(acc.device))
+        for i in group:
+            out[i] = acc.to(mesh.devices[i])
+    return out
+
+
+def psum(xs: list, mesh: DeviceMesh, axes: Sequence[str]) -> list:
+    """Sum over the shards along ``axes``, in ascending mesh index."""
+    return _preduce(xs, mesh, axes, torch.add)
+
+
+def pmax(xs: list, mesh: DeviceMesh, axes: Sequence[str]) -> list:
+    """Max over the shards along ``axes``; NaN propagates."""
+    return _preduce(xs, mesh, axes, torch.maximum)
+
+
+def pany(xs: list, mesh: DeviceMesh, axes: Sequence[str]) -> list:
+    """Logical or over the shards along ``axes``."""
+    return _preduce(xs, mesh, axes, torch.logical_or)
+
+
+def pcat(xs: list, mesh: DeviceMesh, axes: Sequence[str], dim: int) -> list:
+    """The tensors of the shards along ``axes`` joined along ``dim`` in
+    ascending mesh index, once, and handed to each of them: the partials of a
+    reduction that the receiver completes itself."""
+    axes = [a for a in axes if a]
+    if not axes:
+        return list(xs)
+    out = [None] * mesh.size
+    for group in mesh.groups(axes):
+        lead = mesh.devices[group[0]]
+        joined = torch.cat([xs[j].to(lead) for j in group], dim=dim)
+        for i in group:
+            out[i] = joined.to(mesh.devices[i])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# state placement: a spec names the mesh axis of every tensor dim
+# ---------------------------------------------------------------------------
+
+
+def field_state_spec(cfg) -> FieldState:
+    """Per leaf, the mesh axis of each dim: phi over (chain, *mesh_axes); the
+    per-chain scalars over chain; the time-slice correlator over (chain,
+    axis of lattice dim 0); ``step`` whole on the host."""
+    ca = cfg.mesh_chain_axis
+    lat = tuple(cfg.mesh_axes or (None,) * cfg.ndim)
+    row = (ca,)
+    return FieldState(
+        phi=(ca, *lat), mag_mean=row, mag2_mean=row, mag4_mean=row, absmag_mean=row,
+        phi2_mean=row, act_mean=row, corr_mean=(ca, lat[0]),
+        runs=(ca, None), dtau=row, stab_cnt=row, lrg_vl=row, step=None,
+    )
+
+
+def gauge_state_spec(action, cfg) -> GaugeState:
+    """Per leaf, the mesh axis of each dim: links over chain and, on the
+    action's lattice axes, ``cfg.mesh_axes``; the rest over chain."""
+    ca = cfg.mesh_chain_axis
+    lat = tuple(cfg.mesh_axes or (None,) * cfg.ndim)
+    links = [None] * len(action.state_shape(cfg.n_chains, cfg.ndim, cfg.shape))
+    links[0] = ca
+    for d, axis in enumerate(action.lattice_axes(cfg.ndim)):
+        links[axis] = lat[d]
+    row = (ca,)
+    return GaugeState(links=tuple(links), plaq_mean=row, drift_max=row, runs=(ca, None),
+                      dtau=row, stab_cnt=row, step=None)
+
+
+def chain_state_spec(chain_axis: Optional[str]) -> ChainState:
+    """Chains sharded, sites local."""
+    row, mat = (chain_axis,), (chain_axis, None)
+    return ChainState(
+        f=mat, omega=row, x_mean=mat, xx0_mean=mat, x2_mean=mat, x4_mean=mat,
+        runs=mat, dtau=row, stab_cnt=row, lrg_vl=row, spec_mean=mat, step=None,
+    )
+
+
+def _block(spec, mesh: DeviceMesh, i: int, shape) -> tuple:
+    """The index of shard ``i``'s block of a whole tensor of ``shape``."""
+    index = []
+    for d, name in enumerate(spec):
+        n = mesh.axis_size(name)
+        if shape[d] % n:
+            raise ValueError(f"dim {d} of extent {shape[d]} is not divisible by mesh axis "
+                             f"{name!r} of size {n}")
+        loc = shape[d] // n
+        c = mesh.coord(i, name)
+        index.append(slice(c * loc, (c + 1) * loc))
+    return tuple(index)
+
+
+def shard_state(state, spec, mesh: DeviceMesh) -> list:
+    """A whole state → the list of per-shard local states (each leaf a
+    contiguous copy on its shard's device; ``step`` shared, on the host)."""
+    shards = []
+    for i, dev in enumerate(mesh.devices):
+        leaves = []
+        for leaf, sp in zip(state, spec):
+            if sp is None:
+                leaves.append(leaf)
+            else:
+                leaves.append(leaf[_block(sp, mesh, i, leaf.shape)].to(dev).clone(
+                    memory_format=torch.contiguous_format))
+        shards.append(type(state)(*leaves))
+    return shards
+
+
+def gather_state(shards: list, spec, mesh: DeviceMesh, device=None, only=None):
+    """The inverse of :func:`shard_state`: the whole state on ``device``
+    (default: the mesh's first device).  ``only`` names the leaves to gather;
+    the others come back as ``None`` (a run loop reads the per-chain scalars
+    every frame and the lattice only at a checkpoint)."""
+    device = mesh.devices[0] if device is None else torch.device(device)
+    leaves = []
+    for k, (name, sp) in enumerate(zip(spec._fields, spec)):
+        first = shards[0][k]
+        if only is not None and name not in only:
+            leaves.append(None)
+            continue
+        if sp is None:
+            leaves.append(first)
+            continue
+        shape = [n * mesh.axis_size(ax) for n, ax in zip(first.shape, sp)]
+        whole = torch.empty(shape, dtype=first.dtype, device=device)
+        for i in range(mesh.size):
+            whole[_block(sp, mesh, i, shape)] = shards[i][k].to(device)
+        leaves.append(whole)
+    return type(shards[0])(*leaves)
+
+
+def shard_field_state(state: FieldState, mesh: DeviceMesh, cfg) -> list:
+    return shard_state(state, field_state_spec(cfg), mesh)
+
+
+def gather_field_state(shards: list, mesh: DeviceMesh, cfg, device=None) -> FieldState:
+    return gather_state(shards, field_state_spec(cfg), mesh, device)
+
+
+def shard_gauge_state(state: GaugeState, action, mesh: DeviceMesh, cfg) -> list:
+    return shard_state(state, gauge_state_spec(action, cfg), mesh)
+
+
+def gather_gauge_state(shards: list, action, mesh: DeviceMesh, cfg, device=None) -> GaugeState:
+    return gather_state(shards, gauge_state_spec(action, cfg), mesh, device)
+
+
+def shard_chain_state(state: ChainState, mesh: DeviceMesh, chain_axis: str = "chain") -> list:
+    return shard_state(state, chain_state_spec(chain_axis), mesh)
+
+
+def gather_chain_state(shards: list, mesh: DeviceMesh, chain_axis: str = "chain",
+                       device=None) -> ChainState:
+    return gather_state(shards, chain_state_spec(chain_axis), mesh, device)
+
+
+def shard_state_from_numpy(arrays: dict, mesh: DeviceMesh, cfg, action=None) -> list:
+    """The JAX package's state as numpy arrays (a sharded ``jax.Array``
+    gathers with ``np.asarray``) → this package's per-shard states for
+    ``mesh`` and ``cfg``: both packages then start a split run from the same
+    bits.  ``action`` is needed for a gauge state."""
+    from stochquant_tpu_torch.io import checkpoint
+
+    state = checkpoint.state_from_numpy(arrays, "cpu")
+    if isinstance(state, FieldState):
+        return shard_field_state(state, mesh, cfg)
+    if isinstance(state, GaugeState):
+        return shard_gauge_state(state, action, mesh, cfg)
+    return shard_chain_state(state, mesh, cfg.mesh_chain_axis)
+
+
+def gather_metrics(per_shard: list, mesh: DeviceMesh, chain_axis: Optional[str]) -> dict:
+    """Per-shard metrics of (frames, C_local) leaves → (frames, C) on the
+    mesh's first device (the shards along the lattice axes hold replicas)."""
+    out = {}
+    for key in per_shard[0]:
+        stacked = [m[key] for m in per_shard]
+        whole_c = stacked[0].shape[1] * mesh.axis_size(chain_axis)
+        whole = torch.empty((stacked[0].shape[0], whole_c), dtype=stacked[0].dtype,
+                            device=mesh.devices[0])
+        for i in range(mesh.size):
+            whole[_block((None, chain_axis), mesh, i, whole.shape)] = stacked[i].to(whole.device)
+        out[key] = whole
+    return out
+
+
+# ---------------------------------------------------------------------------
+# what the field and gauge runners share
+# ---------------------------------------------------------------------------
+
+
+def split_geometry(cfg, mesh: DeviceMesh):
+    """How ``cfg.mesh_axes`` / ``cfg.mesh_chain_axis`` cut a run over ``mesh``:
+    (shards per lattice dim, the local lattice shape, chains per shard, and per
+    shard its global chain offset and its global lattice offsets).  Raises
+    where an extent does not divide."""
+    lat_spec = tuple(cfg.mesh_axes)
+    if len(lat_spec) != cfg.ndim:
+        raise ValueError(f"mesh_axes {lat_spec} must name one entry per lattice dim of {cfg.shape}")
+    sizes = tuple(mesh.axis_size(ax) for ax in lat_spec)
+    local_shape = tuple(s // n for s, n in zip(cfg.shape, sizes))
+    for s, ls, n, ax in zip(cfg.shape, local_shape, sizes, lat_spec):
+        if ls * n != s:
+            raise ValueError(f"lattice dim {s} not divisible by mesh axis {ax}")
+    c_local = cfg.n_chains // mesh.axis_size(cfg.mesh_chain_axis)
+    if c_local * mesh.axis_size(cfg.mesh_chain_axis) != cfg.n_chains:
+        raise ValueError(f"n_chains {cfg.n_chains} not divisible by mesh axis "
+                         f"{cfg.mesh_chain_axis}")
+    ch_offs = [mesh.coord(i, cfg.mesh_chain_axis) * c_local for i in range(mesh.size)]
+    lat_offs = [tuple(mesh.coord(i, ax) * ls for ax, ls in zip(lat_spec, local_shape))
+                for i in range(mesh.size)]
+    return sizes, local_shape, c_local, ch_offs, lat_offs
+
+
+def frame_loop(frame, mesh: DeviceMesh, chain_axis: Optional[str]):
+    """``run(shards, n_frames) -> (shards, metrics)`` around a runner's
+    ``frame(shards) -> (shards, per-shard metrics)``; the metrics come back as
+    (n_frames, C) tensors on the mesh's first device."""
+    def run(states, n_frames: int):
+        if len(states) != mesh.size:
+            raise ValueError(f"expected {mesh.size} per-shard states, got {len(states)}")
+        per_frame = []
+        for _ in range(n_frames):
+            states, m = frame(states)
+            per_frame.append(m)
+        per_shard = [stack_metrics([m[i] for m in per_frame]) for i in range(mesh.size)]
+        return states, gather_metrics(per_shard, mesh, chain_axis)
+
+    return run

@@ -8,6 +8,12 @@ the connected correlator; fields: magnetization, ⟨φ²⟩, susceptibility,
 Binder cumulant; gauge: the mean plaquette beside its exact 2-D value, the
 drift max and, with ``measure_loops``, the Polyakov loop) and writes
 full-state checkpoints that resume bitwise (in this package or the JAX one).
+
+``run_field`` and ``run_gauge`` take ``mesh=`` (``parallel.make_mesh``): with
+``cfg.mesh_axes`` set the lattice is split over the mesh and the halo runners
+of ``parallel.halo`` / ``parallel.gauge_halo`` run the frames.  The state is
+then a list of per-shard states inside the loop; checkpoints are of the
+whole-state kind (gathered first), and the result carries the whole state.
 """
 
 from __future__ import annotations
@@ -31,8 +37,13 @@ from stochquant_tpu_torch.kernels import (
     chain_kernel, field_kernel, field_kernel_nd, field_kernel_tiled, gauge_kernel,
 )
 from stochquant_tpu_torch.observables import gauge_loops
+from stochquant_tpu_torch.parallel import gauge_halo as gauge_halo_mod
+from stochquant_tpu_torch.parallel import halo as halo_mod
+from stochquant_tpu_torch.parallel import mesh as mesh_mod
 
 BACKENDS = ("auto", "cuda", "torch")
+#: field backends under a mesh: 'auto', then ``parallel.halo.HALO_BACKENDS``
+HALO_FIELD_BACKENDS = ("auto",) + halo_mod.HALO_BACKENDS
 
 
 @dataclasses.dataclass
@@ -111,13 +122,62 @@ def _check_resume_compat(loaded_cfg, cfg, checkpoint_in, fields) -> None:
         )
 
 
-def _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done) -> bool:
+def _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, whole=None) -> bool:
+    """Poll ``stop``; when set, checkpoint (``whole`` gathers a split state
+    first) and record the preemption."""
     if stop is None or not stop():
         return False
     if checkpoint_out:
-        ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
+        ckpt_mod.save(checkpoint_out, whole(state) if whole else state, cfg,
+                      frames_done=frames_done)
     sink.emit({"type": "preempted", "frames_done": frames_done, "checkpoint": checkpoint_out})
     return True
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    """Where a mesh run assembles whole states (checkpoints, the result):
+    ``device``, or the mesh's first device."""
+    return mesh.devices[0] if device is None else resolve_device(device)
+
+
+def _mesh_on_cuda(mesh) -> bool:
+    kinds = {d.type for d in mesh.devices}
+    if len(kinds) != 1:
+        raise ValueError(f"a mesh mixes device types {sorted(kinds)}; use CUDA devices or the CPU")
+    return kinds == {"cuda"}
+
+
+def _check_mesh_cfg(cfg, mesh) -> bool:
+    """True for a split run (``mesh`` and ``cfg.mesh_axes``); a config that
+    names mesh axes without a mesh, or a mesh without ``cfg.mesh_axes``, raises."""
+    if mesh is None:
+        for name in ("mesh_axes", "mesh_chain_axis"):
+            if getattr(cfg, name) is not None:
+                raise ValueError(f"cfg.{name}={getattr(cfg, name)!r} names mesh axes but no mesh "
+                                 "was given: pass mesh=parallel.make_mesh(...)")
+        return False
+    if cfg.mesh_axes is None:
+        raise ValueError("a mesh needs cfg.mesh_axes: one mesh axis name per lattice dim "
+                         "(None = that dim stays whole)")
+    return True
+
+
+class _SplitState:
+    """A run loop's view of a state that is a list of per-shard states."""
+
+    def __init__(self, spec, mesh, device, scalars):
+        self.spec, self.mesh, self.device, self._scalars = spec, mesh, device, scalars
+
+    def shard(self, whole) -> list:
+        return mesh_mod.shard_state(whole, self.spec, self.mesh)
+
+    def whole(self, shards):
+        return mesh_mod.gather_state(shards, self.spec, self.mesh, self.device)
+
+    def scalars(self, shards):
+        """The per-chain leaves a frame record reads; the lattice is ``None``."""
+        return mesh_mod.gather_state(shards, self.spec, self.mesh, self.device,
+                                     only=self._scalars)
 
 
 def run_chain(
@@ -214,7 +274,29 @@ def run_chain(
 WHOLE_LATTICE_MAX_BYTES = 1 << 20
 
 
-def select_field_backend(cfg: FieldConfig, backend: str, device) -> str:
+def _select_halo_backend(cfg: FieldConfig, backend: str, mesh) -> str:
+    """The halo runner's backend for a split run (see :func:`select_field_backend`)."""
+    if backend not in HALO_FIELD_BACKENDS:
+        raise ValueError(f"field backend {backend!r} is not available under the halo runner "
+                         f"(mesh + cfg.mesh_axes); known: {HALO_FIELD_BACKENDS}")
+    on_cuda = _mesh_on_cuda(mesh)
+    if backend == "auto":
+        backend = "cuda" if on_cuda else "torch"
+    if backend == "torch":
+        return "torch"
+    if not on_cuda:
+        raise ValueError(f"backend={backend!r} runs the CUDA kernels and needs a mesh of CUDA "
+                         f"devices, not {sorted({str(d) for d in mesh.devices})}")
+    if cfg.exchange_steps == 0:
+        raise ValueError("exchange_steps=0 (autotune) is not ported yet: give an even W or None")
+    if cfg.dtype != "float32":
+        raise ValueError(f"the field kernels are float32-only, not {cfg.dtype}; use backend='torch'")
+    # raises where no kernel covers this (cfg, mesh): nothing gives way to 'torch' unasked
+    halo_mod.resolve_backend(actions_mod.get_field(cfg.action), cfg, mesh, backend)
+    return backend
+
+
+def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> str:
     """Resolve a field run's path: 'cuda' (kernels 3 and 4), 'cuda_tiled'
     (kernel 5), 'cuda_nd' (kernels 6 and 7, D >= 3) or 'torch' (the plain
     PyTorch integrator, any dimension).
@@ -224,18 +306,25 @@ def select_field_backend(cfg: FieldConfig, backend: str, device) -> str:
     (``tile_rows=0`` autotune, an odd ``loops`` on the paths of pair
     launches: the tiled 2-D kernel and the D >= 3 kernels, a dtype other
     than float32); ``backend='torch'`` is the explicit way to run the plain
-    integrator there.  ``Scheme.EXACT``, ``rng_impl='hardware'``,
-    ``mesh_axes`` and ``mesh_chain_axis`` raise on every route: they are not
-    ported yet."""
+    integrator there.  ``Scheme.EXACT`` and ``rng_impl='hardware'`` raise on
+    every route: they are not ported yet.
+
+    With ``mesh`` (and ``cfg.mesh_axes``) the result is a backend of
+    ``parallel.halo.make_halo_runner``: 'torch', 'cuda' (kernels 3 / 6 per
+    shard on a chain-only mesh, the chunk kernel 7 on a cut lattice it
+    admits, else in 2-D the per-step kernel 9), or an explicit 'cuda_step' /
+    'cuda_pair'; ``device`` is then ignored (the mesh names the devices).
+    'auto' on a CUDA mesh is 'cuda', and as on the unsplit route every case
+    the kernels do not cover raises (a D >= 3 split the chunk kernel does not
+    admit, a dtype other than float32); ``WHOLE_LATTICE_MAX_BYTES`` plays no
+    part under a mesh.  'cuda_rdma', ``prefer_rdma`` (kernel 8) and
+    ``exchange_steps=0`` (autotune) raise."""
+    field_mod.check_field_supported(cfg)
+    if _check_mesh_cfg(cfg, mesh):
+        return _select_halo_backend(cfg, backend, mesh)
     device = torch.device(device)
     if backend not in BACKENDS:
         raise ValueError(f"unknown field backend {backend!r}; known: {BACKENDS}")
-    field_mod.check_field_supported(cfg)
-    if cfg.mesh_axes is not None or cfg.mesh_chain_axis is not None:
-        raise ValueError(
-            "mesh_axes / mesh_chain_axis (a field sharded over a device mesh, the "
-            "halo runner) are not ported yet"
-        )
     if backend == "auto":
         backend = "cuda" if device.type == "cuda" else "torch"
     if backend == "torch":
@@ -268,34 +357,52 @@ def select_field_backend(cfg: FieldConfig, backend: str, device) -> str:
 def run_field(
     cfg: FieldConfig,
     *,
-    device,
+    device=None,
     backend: str = "auto",
     burn_frames: int = 0,
     sink: Optional[metrics_mod.MetricsSink] = None,
     checkpoint_out: Optional[str] = None,
     checkpoint_in: Optional[str] = None,
     checkpoint_every: int = 0,
+    mesh=None,
     stop=None,
     resume_progress: bool = False,
 ) -> RunResult:
-    """Run a D-dimensional field ensemble per the config on ``device``;
-    returns the final state.
+    """Run a D-dimensional field ensemble per the config on ``device``, or
+    with ``mesh`` and ``cfg.mesh_axes`` split over the mesh's devices by the
+    halo runner (``device`` then only says where whole states are assembled:
+    default the mesh's first device); returns the final whole state.
 
-    backend: 'auto', 'cuda' or 'torch', resolved by
-    :func:`select_field_backend`.  stop and resume_progress as in
-    :func:`run_chain`."""
-    device = resolve_device(device)
-    route = select_field_backend(cfg, backend, device)
-    act = actions_mod.get_field(cfg.action)
+    backend: 'auto', 'cuda' or 'torch' (under a mesh also 'cuda_step' and
+    'cuda_pair'), resolved by :func:`select_field_backend`.  stop and
+    resume_progress as in :func:`run_chain`."""
     sink = sink or metrics_mod.MetricsSink()
+    act = actions_mod.get_field(cfg.action)
+    split = None
+    if mesh is None:
+        if device is None:
+            raise ValueError("run_field needs device= (or mesh= with cfg.mesh_axes)")
+        device = resolve_device(device)
+        route = select_field_backend(cfg, backend, device)
+    else:
+        route = select_field_backend(cfg, backend, device, mesh)
+        device = _mesh_device(mesh, device)
+        runner = halo_mod.make_halo_runner(act, cfg, mesh, backend=route)
+        split = _SplitState(
+            mesh_mod.field_state_spec(cfg), mesh, device,
+            ("mag_mean", "mag2_mean", "mag4_mean", "absmag_mean", "phi2_mean"))
 
     if checkpoint_in:
         state, loaded_cfg = ckpt_mod.load(checkpoint_in, device)
         _check_resume_compat(loaded_cfg, cfg, checkpoint_in, ("action", "shape", "n_chains"))
     else:
         state = field_mod.init_field_state(cfg, device=device)
+    if split:
+        state = split.shard(state)
 
     def run_n(state, n):
+        if split:
+            return runner(state, n)
         if route == "cuda":
             return field_kernel.run_field_frames_kernel(
                 state, act, cfg, n, frames_per_launch=min(cfg.frames_per_launch, n)
@@ -308,14 +415,16 @@ def run_field(
             return field_kernel_nd.run_field_frames_nd(state, act, cfg, n, tile_rows=cfg.tile_rows)
         return field_mod.run_field_frames(state, act, cfg, n)
 
+    whole = split.whole if split else (lambda s: s)
     frames_done = (
-        _frames_already_done(state, cfg, checkpoint_in)
+        _frames_already_done(state[0] if split else state, cfg, checkpoint_in)
         if (resume_progress and checkpoint_in)
         else 0
     )
     if burn_frames and frames_done == 0:
         state, _ = run_n(state, burn_frames)
-        state = field_mod.reset_field_means(state)
+        state = ([field_mod.reset_field_means(s) for s in state] if split
+                 else field_mod.reset_field_means(state))
 
     volume = math.prod(cfg.shape)
     updates_per_frame = cfg.n_chains * volume * cfg.loops
@@ -325,12 +434,13 @@ def run_field(
         state, m = run_n(state, n)
         frames_done += n
         host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+        view = split.scalars(state) if split else state
         obs = {
-            "mag": float(host(state.mag_mean).mean()),
-            "abs_mag": float(host(state.absmag_mean).mean()),
-            "phi2": float(host(state.phi2_mean).mean()),
-            "susceptibility": float(host(field_mod.susceptibility(state, volume)).mean()),
-            "binder": float(host(field_mod.binder_cumulant(state)).mean()),
+            "mag": float(host(view.mag_mean).mean()),
+            "abs_mag": float(host(view.absmag_mean).mean()),
+            "phi2": float(host(view.phi2_mean).mean()),
+            "susceptibility": float(host(field_mod.susceptibility(view, volume)).mean()),
+            "binder": float(host(field_mod.binder_cumulant(view)).mean()),
         }
         sink.frame(
             frames_done - 1,
@@ -341,10 +451,11 @@ def run_field(
             observables=obs,
         )
         if checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0:
-            ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
-        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done):
+            ckpt_mod.save(checkpoint_out, whole(state), cfg, frames_done=frames_done)
+        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, whole):
             break
 
+    state = whole(state)
     if checkpoint_out:
         ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
     summary = sink.summary()
@@ -352,7 +463,7 @@ def run_field(
     return RunResult(state=state, cfg=cfg, summary=summary)
 
 
-def select_gauge_backend(cfg: gauge_mod.GaugeConfig, backend: str, device):
+def select_gauge_backend(cfg: gauge_mod.GaugeConfig, backend: str, device, mesh=None):
     """Resolve a gauge run's path: ('cuda', None) for kernels 10 and 11, or
     ('torch', reason) for the plain PyTorch integrator, with ``reason`` set
     when 'auto' on a CUDA device falls back (the caller records it).
@@ -362,17 +473,33 @@ def select_gauge_backend(cfg: gauge_mod.GaugeConfig, backend: str, device):
     configurations (``su2_4d``, ``su3_4d``) have no kernel in the JAX package
     either and run the plain path on the device.  'cuda' raises for a case
     the kernels do not cover, naming it; 'torch' is the plain path on any
-    device.  The complexified groups, ``mesh_axes`` and ``mesh_chain_axis``
-    raise on every route: they are not ported yet."""
-    device = torch.device(device)
+    device.  The complexified groups raise on every route: they are not
+    ported yet.
+
+    With ``mesh`` (and ``cfg.mesh_axes``) the links are split over the mesh
+    and ``device`` is ignored: 'torch' is the per-step halo runner
+    (``parallel.gauge_halo.make_gauge_halo_runner``, exact drift-cap rescale),
+    'cuda' the chunk runner (kernel 12: a cap event rejects the frame).  The
+    two differ in what a cap event does, so 'auto' keeps the per-step runner,
+    as the JAX package does, and where kernel 12 would apply says so in
+    ``reason``; 'cuda' opts into the chunk runner and raises for what it does
+    not cover."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown gauge backend {backend!r}; known: {BACKENDS}")
     act = gauge_mod.resolve_gauge_action(cfg)
-    if cfg.mesh_axes is not None or cfg.mesh_chain_axis is not None:
-        raise ValueError(
-            "mesh_axes / mesh_chain_axis (gauge links sharded over a device mesh: kernel 12 "
-            "and the halo runner) are not ported yet"
-        )
+    if _check_mesh_cfg(cfg, mesh):
+        on_cuda = _mesh_on_cuda(mesh)
+        if backend == "cuda":
+            if not on_cuda:
+                raise ValueError("backend='cuda' runs the CUDA kernels and needs a mesh of CUDA "
+                                 f"devices, not {sorted({str(d) for d in mesh.devices})}")
+            return "cuda", None
+        if backend == "auto" and on_cuda and gauge_kernel.supports(act, cfg):
+            return "torch", ("a split gauge run on 'auto' keeps the per-step halo runner (exact "
+                             "drift-cap rescale); backend='cuda' opts into the chunk runner "
+                             "(kernel 12), where a cap event rejects the frame")
+        return "torch", None
+    device = torch.device(device)
     if backend == "torch" or (backend == "auto" and device.type != "cuda"):
         return "torch", None
     if device.type != "cuda":
@@ -392,64 +519,88 @@ def select_gauge_backend(cfg: gauge_mod.GaugeConfig, backend: str, device):
 def run_gauge(
     cfg: gauge_mod.GaugeConfig,
     *,
-    device,
+    device=None,
     backend: str = "auto",
     burn_frames: int = 0,
     sink: Optional[metrics_mod.MetricsSink] = None,
     checkpoint_out: Optional[str] = None,
     checkpoint_in: Optional[str] = None,
     checkpoint_every: int = 0,
+    mesh=None,
     stop=None,
     resume_progress: bool = False,
 ) -> RunResult:
     """Run a compact lattice-gauge Langevin ensemble (``GaugeConfig``) on
-    ``device``; returns the final state.
+    ``device``, or with ``mesh`` and ``cfg.mesh_axes`` split over the mesh's
+    devices (``device`` then only says where whole states are assembled);
+    returns the final whole state.
 
     backend: 'auto', 'cuda' or 'torch', resolved by
     :func:`select_gauge_backend`.  One metrics record per frame, as in the
     JAX package's runner, so ``frames_per_launch`` batches only the burn-in
     (kernel 11 there, kernel 10 + the PyTorch epilogue per recorded frame).
     stop and resume_progress as in :func:`run_chain`."""
-    device = resolve_device(device)
     sink = sink or metrics_mod.MetricsSink()
-    route, reason = select_gauge_backend(cfg, backend, device)
+    split = None
+    if mesh is None:
+        if device is None:
+            raise ValueError("run_gauge needs device= (or mesh= with cfg.mesh_axes)")
+        device = resolve_device(device)
+        route, reason = select_gauge_backend(cfg, backend, device)
+    else:
+        route, reason = select_gauge_backend(cfg, backend, device, mesh)
+        device = _mesh_device(mesh, device)
     if reason:
         sink.emit({"type": "backend_fallback", "backend": "torch", "reason": reason})
     act = gauge_mod.resolve_gauge_action(cfg)
+    if mesh is not None:
+        make = (gauge_halo_mod.make_gauge_chunk_runner if route == "cuda"
+                else gauge_halo_mod.make_gauge_halo_runner)
+        runner = make(act, cfg, mesh)
+        split = _SplitState(mesh_mod.gauge_state_spec(act, cfg), mesh, device, ("plaq_mean",))
 
     if checkpoint_in:
         state, loaded_cfg = ckpt_mod.load(checkpoint_in, device)
         _check_resume_compat(loaded_cfg, cfg, checkpoint_in, ("group", "shape", "n_chains"))
     else:
         state = gauge_mod.init_gauge_state(cfg, act, device=device)
+    if split:
+        state = split.shard(state)
 
     def run_n(state, n):
+        if split:
+            return runner(state, n)
         if route == "cuda":
             return gauge_kernel.run_gauge_frames_kernel(
                 state, act, cfg, n, frames_per_launch=min(cfg.frames_per_launch, n))
         return gauge_mod.run_gauge_frames(state, act, cfg, n)
 
+    whole = split.whole if split else (lambda s: s)
     frames_done = (
-        _frames_already_done(state, cfg, checkpoint_in)
+        _frames_already_done(state[0] if split else state, cfg, checkpoint_in)
         if (resume_progress and checkpoint_in)
         else 0
     )
     if burn_frames and frames_done == 0:
         state, _ = run_n(state, burn_frames)
-        state = gauge_mod.reset_gauge_means(state)
+        state = ([gauge_mod.reset_gauge_means(s) for s in state] if split
+                 else gauge_mod.reset_gauge_means(state))
 
     exact2d = gauge_mod.exact_plaquette_2d(cfg.group, cfg.beta) if cfg.ndim == 2 else None
     updates_per_frame = cfg.n_chains * cfg.ndim * math.prod(cfg.shape) * cfg.loops
     while frames_done < cfg.frames:
         state, m = run_n(state, 1)
         frames_done += 1
+        # the Polyakov loop reads the whole lattice; the plaquette only a scalar
+        view = state if not split else (whole(state) if cfg.measure_loops
+                                        else split.scalars(state))
         obs = {
-            "plaquette": float(state.plaq_mean.mean()),
+            "plaquette": float(view.plaq_mean.mean()),
             "plaquette_exact_2d": exact2d,
             "drift_max": float(m["drift_max"].max()),
         }
         if cfg.measure_loops:
-            p = gauge_loops.polyakov_loop(act, state.links, 0).mean(dim=0)
+            p = gauge_loops.polyakov_loop(act, view.links, 0).mean(dim=0)
             obs["polyakov_re"], obs["polyakov_im"] = float(p[0]), float(p[1])
         sink.frame(
             frames_done - 1,
@@ -460,10 +611,11 @@ def run_gauge(
             observables=obs,
         )
         if checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0:
-            ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
-        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done):
+            ckpt_mod.save(checkpoint_out, whole(state), cfg, frames_done=frames_done)
+        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, whole):
             break
 
+    state = whole(state)
     if checkpoint_out:
         ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
     if cfg.measure_loops:

@@ -114,12 +114,46 @@ def test_port_imports_without_jax_or_triton():
         "import stochquant_tpu_torch.kernels.gauge_kernel, stochquant_tpu_torch.actions.gauge\n"
         "import stochquant_tpu_torch.integrators.gauge\n"
         "import stochquant_tpu_torch.observables.gauge_loops\n"
+        "import stochquant_tpu_torch.kernels.field_kernel_nd\n"
+        "import stochquant_tpu_torch.kernels.field_halo_kernel\n"
+        "import stochquant_tpu_torch.parallel, stochquant_tpu_torch.parallel.mesh\n"
+        "import stochquant_tpu_torch.parallel.halo, stochquant_tpu_torch.parallel.gauge_halo\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'stochquant_tpu'))\n"
         "assert not bad, bad\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
+
+
+def test_split_lattice_modules_import_where_jax_is_blocked():
+    """The mesh, both halo runners and the new kernel modules import, and a
+    split run starts, in a process where importing jax, triton or the JAX
+    package raises."""
+    code = (
+        "import sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'triton', 'stochquant_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import stochquant_tpu_torch.parallel, stochquant_tpu_torch.parallel.halo\n"
+        "import stochquant_tpu_torch.parallel.gauge_halo\n"
+        "import stochquant_tpu_torch.kernels.field_halo_kernel\n"
+        "from stochquant_tpu_torch import runtime, metrics, parallel\n"
+        "from stochquant_tpu_torch.config import FieldConfig\n"
+        "cfg = FieldConfig(shape=(8, 8), n_chains=2, loops=2, frames=1, mesh_axes=('x', None))\n"
+        "mesh = parallel.make_mesh([('x', 2)], devices='cpu')\n"
+        "res = runtime.run_field(cfg, mesh=mesh, sink=metrics.MetricsSink(callback=lambda r: 0))\n"
+        "assert res.state.phi.shape == (2, 8, 8)\n"
+    )
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|stochquant_tpu)\b", re.M)
+    assert not pattern.search((ROOT / "chip_smoke.py").read_text())
 
 
 def test_no_port_module_imports_jax_or_triton():

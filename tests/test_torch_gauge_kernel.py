@@ -148,8 +148,9 @@ def test_su3_plane_layout():
 
 
 def test_kernel_parameters_mirror_the_cuda_struct():
-    # 8 integer fields, 2 unsigned and 8 floats, in the order of csrc/gauge_kernel.cu
-    assert ctypes.sizeof(_build.GaugeParams) == 18 * 4
+    # 8 integer fields, 2 unsigned and 8 floats, then the chunk kernel's 2 unsigned and
+    # 4 integers, in the order of csrc/gauge_kernel.cu
+    assert ctypes.sizeof(_build.GaugeParams) == 24 * 4
     src = (_build._CSRC / "gauge_kernel.cu").read_text()
     start = src.index("struct GaugeParams {")
     body = src[start:src.index("};", start)]
@@ -217,3 +218,155 @@ def test_cuda_kernels_match_plain_versions(cuda_device, group):
                 torch.testing.assert_close(x, y, rtol=3e-5, atol=3e-6, msg=leaf)
             else:
                 torch.testing.assert_close(x, y, rtol=0, atol=2e-6, equal_nan=True, msg=leaf)
+
+
+# ---------------------------------------------------------------------------
+# kernel 12: W micro-steps of a dim-0 halo-extended block
+# ---------------------------------------------------------------------------
+
+
+def _extended(planes, row_off, loc0, H):
+    """Rows row_off - H .. row_off + loc0 + H of periodic planes (C, P, L0, L1)."""
+    idx = (np.arange(loc0 + 2 * H) + row_off - H) % planes.shape[2]
+    return np.ascontiguousarray(planes[:, :, idx])
+
+
+@pytest.mark.parametrize("group,shape,loc0,W,row_off,cap", [
+    ("u1", (16, 16), 8, 4, 8, 20.0),    # the halo wraps the global lattice
+    ("u1", (16, 16), 8, 6, 0, 20.0),    # tests/test_gauge_halo.py's auto W at x = 2
+    ("u1", (16, 16), 4, 2, 12, 1e-6),   # a cap event on every chain
+    ("su2", (8, 16), 4, 4, 4, 20.0),
+    ("su2", (8, 16), 4, 2, 0, 0.5),
+])
+def test_chunk_ref_matches_one_pallas_chunk_call(group, shape, loc0, W, row_off, cap):
+    """``gauge_chunk_ref`` against ``make_gauge_chunk_step(..., interpret=True)``
+    on the same extended block: owned links within 2e-6, the plaquette as a
+    mean within rtol 1e-5, the drift max within rtol 2e-6, both flags exactly."""
+    cfg = dataclasses.replace(CFG[group], shape=shape, n_chains=2, drift_cap=cap)
+    jcfg, jact, js, _ = _start(cfg)
+    step, H = jgk.make_gauge_chunk_step(jact, jcfg, 2, loc0, W, interpret=True)
+    assert H == W
+    planes = np.asarray(jgk.links_to_planes_shaped(js.links, jact, 2, shape))
+    ext = _extended(planes, row_off, loc0, H)
+    dtau = np.array([cfg.dtau, 1.3 * cfg.dtau], np.float32)
+    want = [np.asarray(w) for w in step(jnp.asarray(ext), jnp.asarray(dtau), 5, 3, row_off)]
+    got = gk.gauge_chunk_ref(torch.from_numpy(ext), torch.from_numpy(dtau),
+                             tg.resolve_gauge_action(cfg), cfg, loc0, W, 5, 3, row_off)
+    assert got[0].shape == (2, planes.shape[1], loc0, shape[1]) and got[0].is_contiguous()
+    np.testing.assert_allclose(got[0].numpy(), want[0], **LINKS_TOL[group])
+    sites = W * loc0 * shape[1]
+    np.testing.assert_allclose(got[1].numpy() / sites, want[1] / sites, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got[2].numpy(), want[2], rtol=2e-6)
+    np.testing.assert_array_equal(got[3].numpy(), want[3])
+    np.testing.assert_array_equal(got[4].numpy(), want[4])
+    assert not got[3].any() and bool(got[4].all()) == (cap < 1.0)
+
+
+@pytest.mark.parametrize("group", ["u1", "su2", "su3"])
+def test_chunk_on_a_ring_of_one_equals_the_unsplit_frame_while_the_cap_is_quiescent(group):
+    """The whole lattice extended by its own rows: W steps of the chunk give
+    the links of a frame of W loops bit for bit (the cap's scale is exactly
+    1), the frame's plaquette sum and drift max; and so the JAX package's XLA
+    frame within the links' tolerance (su3: rtol 2e-5)."""
+    W = 4
+    cfg = dataclasses.replace(CFG[group], shape=(4, 8), n_chains=2, loops=W, drift_cap=20.0,
+                              dtau_max=None, grow_after=10**9)
+    jcfg, jact, js, port = _start(cfg)
+    act = tg.resolve_gauge_action(cfg)
+    planes = gk.links_to_planes_shaped(port.links, act, 2, cfg.shape)
+    ext = torch.cat([planes, planes, planes], dim=2)[:, :, 4 - W:8 + W].contiguous()
+    owned, ps, dmax, bad, capped = gk.gauge_chunk(ext, port.dtau, act, cfg, 4, W, int(port.step))
+    sums = tg.gauge_frame_sums(port, act, cfg)
+    assert torch.equal(gk.planes_to_links_shaped(owned, act, 2, cfg.shape), sums.links)
+    assert torch.equal(dmax, sums.dmax) and not bad.any() and not capped.any()
+    torch.testing.assert_close(ps / 32.0, sums.ps, rtol=1e-5, atol=1e-6)
+    want, _ = jg.run_gauge_frames(js, jact, jcfg, 1)
+    np.testing.assert_allclose(gk.planes_to_links(owned, act).numpy(), np.asarray(want.links),
+                               **LINKS_TOL[group])
+
+
+def test_chunk_flags_and_nan_rows():
+    """``bad`` is per chain and takes the owned rows: a NaN link in an owned
+    row, or in the halo row beside them (it moves inward a row per step), sets
+    it, and the chain's drift max is NaN; the other chains are untouched."""
+    cfg = dataclasses.replace(CFG["u1"], shape=(16, 8), n_chains=3)
+    act = tg.resolve_gauge_action(cfg)
+    s0 = tg.init_gauge_state(cfg, act, device="cpu")
+    W, loc0 = 2, 6
+    ext = torch.from_numpy(_extended(gk.links_to_planes(s0.links, act).numpy(), 4, loc0, W))
+    clean = gk.gauge_chunk_ref(ext, s0.dtau, act, cfg, loc0, W, 1, 0, 4)
+    dirty = ext.clone()
+    dirty[1, 1, W + 1, 3] = float("nan")      # an owned row
+    dirty[2, 0, W - 1, 5] = float("nan")      # the halo row beside the owned rows
+    got = gk.gauge_chunk_ref(dirty, s0.dtau, act, cfg, loc0, W, 1, 0, 4)
+    assert got[3].tolist() == [False, True, True] and not clean[3].any()
+    for g, c in zip(got, clean):
+        assert torch.equal(g[0], c[0])
+    assert torch.isnan(got[2][1]) and torch.isnan(got[0][1]).any()
+
+
+@pytest.mark.parametrize("group", ["u1", "su2", "su3"])
+def test_cpu_chunk_runs_the_plain_version_without_launching(group):
+    cfg = dataclasses.replace(CFG[group], shape=(8, 8), n_chains=2, drift_cap=20.0)
+    act = tg.resolve_gauge_action(cfg)
+    s0 = tg.init_gauge_state(cfg, act, device="cpu")
+    planes = gk.links_to_planes_shaped(s0.links, act, 2, (8, 8))
+    ext = torch.from_numpy(_extended(planes.numpy(), 4, 4, 2))
+    step, H = gk.make_gauge_chunk_step(act, cfg, 2, 4, 2)
+    before = gk.gauge_chunk.launches
+    got = step(ext, s0.dtau, 7, 0, 4)
+    want = gk.gauge_chunk_ref(ext, s0.dtau, act, cfg, 4, 2, 7, 0, 4)
+    assert gk.gauge_chunk.launches == before and H == 2
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # a block alone takes the values the whole lattice has there (the noise is
+    # keyed by the global row), and another chain offset gives other noise
+    whole = tg.gauge_frame_sums(s0._replace(step=torch.tensor(7)), act,
+                                dataclasses.replace(cfg, loops=2)).links
+    assert torch.equal(gk.planes_to_links_shaped(got[0], act, 2, (4, 8)),
+                       whole.narrow(act.lattice_axes(2)[0], 4, 4))
+    assert not torch.equal(step(ext, s0.dtau, 7, 1, 4)[0], got[0])
+    with pytest.raises(ValueError, match="expected extended planes"):
+        step(ext[:, :, 1:], s0.dtau, 7, 1, 4)
+    with pytest.raises(ValueError, match="not 2 chains on a"):
+        gk.links_to_planes_shaped(s0.links, act, 2, (4, 8))
+
+
+@pytest.mark.parametrize("kw,W,loc0,match", [
+    ({}, 3, 4, "even number"),
+    ({}, 0, 4, "even number"),
+    ({}, 6, 4, "exceeds the local slab"),
+    (dict(shape=(4, 4, 4, 4)), 2, 4, "2-D"),
+    (dict(cooling_rate=0.1), 2, 4, "cooling"),
+])
+def test_chunk_step_refuses_what_the_kernel_does_not_take(kw, W, loc0, match):
+    cfg = dataclasses.replace(CFG["u1"], **kw)
+    with pytest.raises(ValueError, match=match):
+        gk.make_gauge_chunk_step(tg.resolve_gauge_action(cfg), cfg, 2, loc0, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["u1", "su2", "su3"])
+@pytest.mark.parametrize("W,loc0,row_off,cap", [(2, 4, 8, 20.0), (8, 8, 0, 20.0), (4, 8, 4, 0.5)])
+def test_cuda_chunk_kernel_matches_plain_version(cuda_device, group, W, loc0, row_off, cap):
+    cfg = dataclasses.replace(CFG[group], shape=(16, 32), n_chains=3, drift_cap=cap)
+    act = tg.resolve_gauge_action(cfg)
+    s0 = tg.init_gauge_state(cfg, act, device="cpu")
+    ext = torch.from_numpy(_extended(gk.links_to_planes(s0.links, act).numpy(), row_off, loc0, W))
+    ext[0, 0, W - 1, 3] = float("nan")
+    ext, dtau = ext.to(cuda_device), s0.dtau.to(cuda_device)
+    before = gk.gauge_chunk.launches
+    got = gk.gauge_chunk(ext, dtau, act, cfg, loc0, W, 11, 5, row_off)
+    want = gk.gauge_chunk_ref(ext, dtau, act, cfg, loc0, W, 11, 5, row_off)
+    torch.cuda.synchronize()
+    assert gk.gauge_chunk.launches == before + 1
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    assert got[3].tolist() == [True, False, False]
+    sites = W * loc0 * 32
+    torch.testing.assert_close(got[1] / sites, want[1] / sites, rtol=3e-5, atol=3e-6,
+                               equal_nan=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.gauge_chunk(ext.transpose(2, 3).contiguous().transpose(2, 3), dtau, act, cfg, loc0, W,
+                       11, 5, row_off)

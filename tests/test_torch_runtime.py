@@ -472,3 +472,258 @@ def test_gauge_preemption_and_auto_resume_are_bitwise(tmp_path):
     with pytest.raises(ValueError, match="incompatible"):
         runtime.run_gauge(dataclasses.replace(cfg, group="u1"), device="cpu",
                           sink=metrics.MetricsSink(), checkpoint_in=str(ck))
+
+
+# ---------------------------------------------------------------------------
+# a lattice split over a device mesh: run_field(mesh=), run_gauge(mesh=)
+# ---------------------------------------------------------------------------
+
+from stochquant_tpu_torch.actions import phi4  # noqa: E402
+from stochquant_tpu_torch.parallel import DeviceMesh, halo, make_mesh  # noqa: E402
+
+
+def _cuda_mesh(*axes):
+    """A mesh of one CUDA device repeated, built without asking the machine
+    for a GPU (``make_mesh`` would): the routing functions only read it."""
+    names, sizes = tuple(n for n, _ in axes), tuple(s for _, s in axes)
+    return DeviceMesh(names, sizes, (torch.device("cuda", 0),) * int(np.prod(sizes)))
+
+
+def _cpu_mesh(*axes):
+    return make_mesh(list(axes), devices="cpu")
+
+
+X2 = dict(mesh_axes=("x", None))
+CHAIN = dict(mesh_axes=(None, None), mesh_chain_axis="chain")
+
+
+@pytest.mark.parametrize("change,mesh,backend,want", [
+    (X2, _cpu_mesh(("x", 2)), "auto", "torch"),
+    (X2, _cpu_mesh(("x", 2)), "torch", "torch"),
+    (X2, _cuda_mesh(("x", 2)), "auto", "cuda"),
+    (X2, _cuda_mesh(("x", 2)), "torch", "torch"),
+    (X2, _cuda_mesh(("x", 2)), "cuda_step", "cuda_step"),
+    (X2, _cuda_mesh(("x", 1)), "cuda_pair", "cuda_pair"),
+    (dict(X2, loops=7), _cuda_mesh(("x", 2)), "auto", "cuda"),  # kernel 9, 128 KiB blocks
+    (CHAIN, _cuda_mesh(("chain", 2)), "auto", "cuda"),
+    # on a mesh of CUDA devices 'auto' is 'cuda' at any block size: kernel 3 per
+    # shard, kernel 7 where the chunk geometry admits the split, else kernel 9
+    (dict(CHAIN, shape=(1024, 512)), _cuda_mesh(("chain", 2)), "auto", "cuda"),
+    (dict(X2, shape=(2048, 512)), _cuda_mesh(("x", 2)), "auto", "cuda"),
+    (dict(X2, shape=(2048, 512), loops=7), _cuda_mesh(("x", 2)), "auto", "cuda"),
+    (dict(X2, shape=(2048, 512), loops=7), _cuda_mesh(("x", 2)), "cuda", "cuda"),
+    (dict(shape=(32, 32, 32, 32), mesh_axes=("x", None, None, None)), _cuda_mesh(("x", 2)),
+     "auto", "cuda"),
+])
+def test_field_routing_under_a_mesh(change, mesh, backend, want):
+    cfg = dataclasses.replace(BASE, **change)
+    assert runtime.select_field_backend(cfg, backend, None, mesh) == want
+
+
+@pytest.mark.parametrize("change,want", [
+    (X2, "cuda_nd"),                                   # kernel 7
+    (dict(X2, loops=7), "cuda_step"),                  # kernel 9
+    (dict(X2, shape=(2048, 512), loops=7), "cuda_step"),
+    (CHAIN, "cuda_frame"),                             # kernel 3 per shard
+    (dict(CHAIN, shape=(1024, 512)), "cuda_frame"),
+])
+def test_auto_on_a_cuda_mesh_resolves_to_a_kernel_at_any_block_size(change, want):
+    cfg = dataclasses.replace(BASE, **change)
+    mesh = _cuda_mesh(("x", 2)) if "x" in cfg.mesh_axes else _cuda_mesh(("chain", 2))
+    assert runtime.select_field_backend(cfg, "auto", None, mesh) == "cuda"
+    assert halo.resolve_backend(phi4.get_field(cfg.action), cfg, mesh, "cuda") == want
+
+
+@pytest.mark.parametrize("change,mesh,backend,match", [
+    (X2, _cuda_mesh(("x", 2)), "cuda_rdma", "kernel 8"),
+    (dict(X2, prefer_rdma=True), _cuda_mesh(("x", 2)), "auto", "kernel 8"),
+    (dict(X2, exchange_steps=0), _cuda_mesh(("x", 2)), "auto", "autotune"),
+    (dict(X2, exchange_steps=0), _cuda_mesh(("x", 2)), "cuda_pair", "autotune"),
+    (dict(X2, dtype="float64"), _cuda_mesh(("x", 2)), "auto", "float32"),
+    (X2, _cpu_mesh(("x", 2)), "cuda", "mesh of CUDA devices"),
+    (X2, _cpu_mesh(("x", 2)), "cuda_step", "mesh of CUDA devices"),
+    (X2, _cuda_mesh(("x", 2)), "cuda_tiled", "not available under the halo runner"),
+    ({}, _cuda_mesh(("x", 2)), "auto", "needs cfg.mesh_axes"),
+    (dict(mesh_chain_axis="chain"), _cuda_mesh(("chain", 2)), "auto", "needs cfg.mesh_axes"),
+    (X2, DeviceMesh(("x",), (2,), (torch.device("cpu"), torch.device("cuda", 0))), "auto",
+     "mixes device types"),
+    (dict(X2, rng_impl="hardware"), _cpu_mesh(("x", 2)), "torch", "hardware"),
+    # no kernel covers these on the card, and nothing gives way to 'torch' unasked
+    (dict(shape=(32, 32, 32, 32), mesh_axes=("x", None, None, None), loops=7),
+     _cuda_mesh(("x", 2)), "auto", "use backend='torch'"),
+])
+def test_field_routing_under_a_mesh_raises_for_what_is_not_ported(change, mesh, backend, match):
+    cfg = dataclasses.replace(BASE, **change)
+    with pytest.raises(ValueError, match=match):
+        runtime.select_field_backend(cfg, backend, None, mesh)
+
+
+@pytest.mark.parametrize("mesh_axes,mesh_shape,chain_ax", [
+    (("x", "y"), [("chain", 2), ("x", 2), ("y", 2)], "chain"),
+    (("x", None), [("x", 4)], None),
+])
+def test_run_field_on_a_mesh_checkpoints_resumes_bitwise_and_equals_the_unsplit_run(
+        tmp_path, mesh_axes, mesh_shape, chain_ax):
+    base = FieldConfig(action="phi4", shape=(8, 8), dtau=0.01, n_chains=4, loops=5, frames=4,
+                       seed=3)
+    cfg = dataclasses.replace(base, mesh_axes=mesh_axes, mesh_chain_axis=chain_ax)
+    mesh = make_mesh(mesh_shape, devices="cpu")
+    recs = []
+    full = runtime.run_field(cfg, mesh=mesh, sink=metrics.MetricsSink(callback=recs.append),
+                             burn_frames=1)
+    frames = [r for r in recs if r["type"] == "frame"]
+    assert len(frames) == 4 and all(np.isfinite(r[k]) for r in frames for k in FIELD_OBS)
+    assert frames[-1]["stable_frac"] == 1.0 and recs[-1]["type"] == "summary"
+    want = runtime.run_field(base, device="cpu", sink=metrics.MetricsSink(), burn_frames=1).state
+    assert full.state.phi.shape == (4, 8, 8) and full.state.corr_mean.shape == (4, 8)
+    for name in ("phi", "dtau", "lrg_vl", "runs", "stab_cnt", "step"):
+        assert torch.equal(getattr(full.state, name), getattr(want, name)), name
+    for name in ("mag_mean", "mag2_mean", "phi2_mean", "act_mean", "corr_mean"):
+        torch.testing.assert_close(getattr(full.state, name), getattr(want, name), rtol=1e-4,
+                                   atol=1e-6, msg=name)
+
+    # a whole-state checkpoint: 2 frames, then resumed on the mesh for the other 2
+    ck = tmp_path / "split.npz"
+    runtime.run_field(dataclasses.replace(cfg, frames=2), mesh=mesh, sink=metrics.MetricsSink(),
+                      burn_frames=1, checkpoint_out=str(ck))
+    state, loaded = checkpoint.load(ck, "cpu")
+    assert state.phi.shape == (4, 8, 8) and loaded.mesh_axes == mesh_axes
+    assert checkpoint.read_meta(ck)["frames_done"] == 2
+    res = runtime.run_field(cfg, mesh=mesh, sink=metrics.MetricsSink(), checkpoint_in=str(ck),
+                            resume_progress=True)
+    for name, a, b in zip(full.state._fields, res.state, full.state):
+        assert torch.equal(a, b), name
+    # and the same checkpoint resumes unsplit, or on another mesh, to the same φ
+    other = runtime.run_field(dataclasses.replace(base, frames=4), device="cpu",
+                              sink=metrics.MetricsSink(), checkpoint_in=str(ck),
+                              resume_progress=True)
+    assert torch.equal(other.state.phi, full.state.phi)
+
+
+def test_run_field_on_a_mesh_preempts_with_a_whole_state_checkpoint(tmp_path):
+    cfg = FieldConfig(action="phi4", shape=(8, 8), dtau=0.01, n_chains=2, loops=4, frames=5,
+                      seed=3, mesh_axes=("x", "y"))
+    mesh = make_mesh([("x", 2), ("y", 2)], devices="cpu")
+    full = runtime.run_field(cfg, mesh=mesh, sink=metrics.MetricsSink()).state
+    calls = {"n": 0}
+
+    def stop():
+        calls["n"] += 1
+        return calls["n"] >= 2
+
+    recs, ck = [], tmp_path / "p.npz"
+    runtime.run_field(cfg, mesh=mesh, sink=metrics.MetricsSink(callback=recs.append),
+                      checkpoint_out=str(ck), stop=stop)
+    assert any(r["type"] == "preempted" and r["frames_done"] == 2 for r in recs)
+    assert checkpoint.load(ck, "cpu")[0].phi.shape == (2, 8, 8)
+    res = runtime.run_field(cfg, mesh=mesh, sink=metrics.MetricsSink(), checkpoint_in=str(ck),
+                            resume_progress=True)
+    for name, a, b in zip(full._fields, res.state, full):
+        assert torch.equal(a, b), name
+
+
+def test_run_field_records_the_backend_fallback_under_a_mesh(monkeypatch):
+    # there is none to record: what 'auto' does on a mesh of CUDA devices for a 2-D chain-only
+    # mesh, run here on the CPU (kernel 3's wrapper runs its plain version on CPU tensors), is
+    # the 'cuda' route, bitwise the plain runner, with no backend_fallback record
+    monkeypatch.setattr(runtime, "_mesh_on_cuda", lambda mesh: True)
+    cfg = FieldConfig(action="phi4", shape=(8, 8), n_chains=2, loops=3, frames=1,
+                      mesh_axes=(None, None), mesh_chain_axis="chain")
+    mesh = make_mesh([("chain", 2)], devices="cpu")
+    recs = []
+    auto = runtime.run_field(cfg, mesh=mesh, sink=metrics.MetricsSink(callback=recs.append))
+    assert [r["type"] for r in recs] == ["frame", "summary"]
+    plain = runtime.run_field(cfg, mesh=mesh, backend="torch", sink=metrics.MetricsSink())
+    assert torch.equal(auto.state.phi, plain.state.phi)
+    with pytest.raises(ValueError, match="use backend='torch'"):
+        runtime.run_field(dataclasses.replace(cfg, shape=(4, 4, 4), mesh_axes=("chain", None, None),
+                                              mesh_chain_axis=None), mesh=mesh)
+    with pytest.raises(ValueError, match="device="):
+        runtime.run_field(dataclasses.replace(cfg, mesh_axes=None, mesh_chain_axis=None))
+
+
+GX2 = dict(mesh_axes=("x", None))
+
+
+@pytest.mark.parametrize("change,mesh,backend,want,reasoned", [
+    (GX2, _cpu_mesh(("x", 2)), "auto", "torch", False),
+    (GX2, _cpu_mesh(("x", 2)), "torch", "torch", False),
+    (GX2, _cuda_mesh(("x", 2)), "torch", "torch", False),
+    (GX2, _cuda_mesh(("x", 2)), "cuda", "cuda", False),
+    # auto keeps the per-step runner (exact rescale) and says that kernel 12 would apply
+    (GX2, _cuda_mesh(("x", 2)), "auto", "torch", True),
+    (dict(GX2, group="su3"), _cuda_mesh(("x", 2)), "auto", "torch", True),
+    (dict(group="su3", shape=(4, 4, 4, 4), mesh_axes=("x", None, None, None)),
+     _cuda_mesh(("x", 2)), "auto", "torch", False),
+])
+def test_gauge_routing_under_a_mesh(change, mesh, backend, want, reasoned):
+    cfg = dataclasses.replace(GAUGE_BASE, **change)
+    route, reason = runtime.select_gauge_backend(cfg, backend, None, mesh)
+    assert route == want and bool(reason) == reasoned
+    if reasoned:
+        assert "kernel 12" in reason
+
+
+@pytest.mark.parametrize("change,mesh,backend,match", [
+    (GX2, _cpu_mesh(("x", 2)), "cuda", "mesh of CUDA devices"),
+    ({}, _cpu_mesh(("x", 2)), "auto", "needs cfg.mesh_axes"),
+    (GX2, _cpu_mesh(("x", 2)), "pallas", "backend"),
+    (dict(GX2, group="cu1"), _cpu_mesh(("x", 2)), "auto", "not ported"),
+])
+def test_gauge_routing_under_a_mesh_raises(change, mesh, backend, match):
+    cfg = dataclasses.replace(GAUGE_BASE, **change)
+    with pytest.raises(ValueError, match=match):
+        runtime.select_gauge_backend(cfg, backend, None, mesh)
+
+
+@pytest.mark.parametrize("group,measure_loops", [("u1", True), ("su2", False)])
+def test_run_gauge_on_a_mesh_checkpoints_resumes_bitwise_and_equals_the_unsplit_run(
+        tmp_path, group, measure_loops):
+    base = GaugeConfig(group=group, beta=2.0, shape=(8, 8), n_chains=2, dtau=2e-3, loops=4,
+                       frames=3, seed=5, hot_start=True, measure_loops=measure_loops)
+    cfg = dataclasses.replace(base, mesh_axes=("x", "y"))
+    mesh = make_mesh([("x", 2), ("y", 2)], devices="cpu")
+    recs = []
+    full = runtime.run_gauge(cfg, mesh=mesh, sink=metrics.MetricsSink(callback=recs.append),
+                             burn_frames=1)
+    frames = [r for r in recs if r["type"] == "frame"]
+    assert len(frames) == 3 and all(np.isfinite(r["plaquette"]) for r in frames)
+    assert ("polyakov_re" in frames[0]) == measure_loops
+    assert any(r["type"] == "wilson_loops" for r in recs) == measure_loops
+    want = runtime.run_gauge(base, device="cpu", sink=metrics.MetricsSink(), burn_frames=1).state
+    for name in ("links", "drift_max", "dtau", "runs", "stab_cnt", "step"):
+        assert torch.equal(getattr(full.state, name), getattr(want, name)), name
+    torch.testing.assert_close(full.state.plaq_mean, want.plaq_mean, rtol=1e-5, atol=1e-7)
+
+    ck = tmp_path / "g.npz"
+    runtime.run_gauge(dataclasses.replace(cfg, frames=1), mesh=mesh, sink=metrics.MetricsSink(),
+                      burn_frames=1, checkpoint_out=str(ck))
+    assert checkpoint.load(ck, "cpu")[0].links.shape == want.links.shape
+    res = runtime.run_gauge(cfg, mesh=mesh, sink=metrics.MetricsSink(), checkpoint_in=str(ck),
+                            resume_progress=True)
+    for name, a, b in zip(full.state._fields, res.state, full.state):
+        assert torch.equal(a, b), name
+
+
+def test_run_gauge_chunk_backend_and_the_auto_record_under_a_mesh(monkeypatch):
+    """What run_gauge does on a mesh of CUDA devices, run here on the CPU (the
+    chunk kernel's wrapper runs its plain version on CPU tensors): 'cuda' is
+    the chunk runner and gives the per-step runner's links; 'auto' runs the
+    per-step runner and records why."""
+    monkeypatch.setattr(runtime, "_mesh_on_cuda", lambda mesh: True)
+    cfg = GaugeConfig(group="u1", beta=1.0, shape=(16, 16), n_chains=2, dtau=5e-3, loops=4,
+                      frames=2, seed=5, mesh_axes=("x", None), grow_after=10**9)
+    mesh = make_mesh([("x", 2)], devices="cpu")
+    recs = []
+    auto = runtime.run_gauge(cfg, mesh=mesh, sink=metrics.MetricsSink(callback=recs.append))
+    assert recs[0]["type"] == "backend_fallback" and "kernel 12" in recs[0]["reason"]
+    recs = []
+    chunk = runtime.run_gauge(cfg, mesh=mesh, backend="cuda",
+                              sink=metrics.MetricsSink(callback=recs.append))
+    assert recs[0]["type"] == "frame" and chunk.summary["total_site_updates"] > 0
+    assert torch.equal(chunk.state.links, auto.state.links)
+    with pytest.raises(ValueError, match="even"):
+        runtime.run_gauge(dataclasses.replace(cfg, loops=3), mesh=mesh, backend="cuda",
+                          sink=metrics.MetricsSink())
+    with pytest.raises(ValueError, match="device="):
+        runtime.run_gauge(dataclasses.replace(cfg, mesh_axes=None))
