@@ -138,12 +138,39 @@ non-zero:
     kernels 9 and 12 alone (CUDA events) beside their plain versions' wall ms,
     held against each other.
 
-Every timing phase ([5], [9], [12], [15], [19]) ends with the range of the
-card's SM clock, power draw and temperature sampled while it ran.
+20. ``rng_impl='hardware'``: the Philox-4x32-10 variants of kernels 1-4 vs
+    their plain versions on every case of 3 and of 6 (kernel 5 apart, which
+    draws Threefry only), limits as there; kernel 1 + the PyTorch epilogue and
+    kernel 2, kernel 3 + epilogue and kernel 4, bitwise equal;
+21. the ``--rng hardware`` main paths at full width: ``cli run --preset
+    double_well --chains 65536 --dtau 2e-4 --rng hardware`` as in 4,
+    ``runtime.run_chain`` on config 2 (anharmonic, N = 1024, 256 chains,
+    frames_per_launch 16) and ``cli run --preset phi4_2d --chains 16 --rng
+    hardware`` as in 7: every launch a Philox launch, resumes bitwise,
+    stable_frac ≥ 0.99, and each ensemble's ⟨x²⟩ / ⟨φ²⟩ within 6 standard
+    errors of the Threefry run's;
+22. the schemes no kernel implements, on the card through the entry points
+    (``auto`` records a ``backend_fallback`` and launches no kernel): ``cli
+    run --preset quartic_large`` (256 × 1024, the power spectrum: finite,
+    Parseval), ``--preset harmosc --scheme lm`` and ``--scheme exact``,
+    ``--preset phi4_2d --scheme exact`` (ETD1) and ``runtime.run_field`` on a
+    free field under ``Scheme.EXACT`` (⟨φ²⟩ against the lattice's exact
+    value); resumes bitwise; then each at a small size on the card against
+    the CPU run of the same code (float leaves within 2e-5, chains under
+    EXACT 5e-4, fields under EXACT 5e-5, the spectrum 1e-4 of a chain's
+    largest mode);
+23. Philox beside Threefry in turns (threefry, hardware, hardware,
+    threefry): MLUPS at the headline, config 2 (K = 16) and field 256² × 16
+    (frames per launch 1 and 10); each Philox variant's CUDA-event ms beside
+    its plain version's wall ms, held against each other.
+
+Every timing phase ([5], [9], [12], [15], [19], [22], [23]) ends with the
+range of the card's SM clock, power draw and temperature sampled while it ran.
 
 ``python3 chip_smoke.py --log PATH`` also writes every printed line to PATH.
 
-Prints a JSON line with the eleven kernels' numbers (name, route, source, the
+Prints a JSON line with the numbers of the eleven kernels and the four
+Philox variants (name, route, source, the
 TPU kernel it replaces, main-path launches, max|Δ|, ms and plain ms at the
 timed shape, the bound: the least ms the card could take for that launch,
 the resource that binds it, and the ms of one PyTorch call computing the
@@ -182,6 +209,11 @@ KERNELS = {
     "gauge_frame": ("gauge_kernel.cu", "stochquant_tpu/kernels/gauge_kernel.py:434"),
     "gauge_frames_multi": ("gauge_kernel.cu", "stochquant_tpu/kernels/gauge_kernel.py:1144"),
     "gauge_chunk": ("gauge_kernel.cu", "stochquant_tpu/kernels/gauge_kernel.py:1401"),
+    # rng_impl='hardware': the Philox variants, for the TPU kernels' on-core generator branch
+    "chain_frame_hw": ("chain_kernel.cu", "stochquant_tpu/kernels/chain_kernel.py:219"),
+    "chain_frames_multi_hw": ("chain_kernel.cu", "stochquant_tpu/kernels/chain_kernel.py:412"),
+    "field_frame_hw": ("field_kernel.cu", "stochquant_tpu/kernels/field_kernel.py:157"),
+    "field_frames_multi_hw": ("field_kernel.cu", "stochquant_tpu/kernels/field_kernel.py:319"),
 }
 FIELD_RTOL, FIELD_ATOL = 3e-5, 3e-6  # site-reduced sums: tests/test_field_kernel.py:35
 BENCH_FIELD = dict(shape=(256, 256), n_chains=16, loops=100, seed=13, grow_after=10**9)
@@ -212,6 +244,10 @@ MULTI_GAUGE = {
 #   noise: one Threefry-2x32 evaluation (5 per round + 3 per key injection +
 #     4) and Box-Muller (8 for the two uniforms, 4 transcendentals, 4
 #     products) per two micro-steps: (119 + 16) / 2 at 20 rounds;
+#   Philox noise (rng_impl='hardware', kernels 1-4): one Philox-4x32-10
+#     evaluation (8 per round: two high and two low products, four xors; 2 per
+#     key bump, nine bumps: 98) and two Box-Mullers (32) per four micro-steps:
+#     (98 + 32) / 4;
 #   chain (chain_kernel.cu substep): stencil 4, drift 3, update and clamp 7,
 #     detector maxima 6, observables 8, and the action's force: double_well
 #     on the kink background 11 (x_cl with its tanh, ddV), anharmonic 5;
@@ -224,14 +260,15 @@ MULTI_GAUGE = {
 #     noise draws per link: 1, 3 and 8.
 HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
 NOISE_OPS = (119 + 16) / 2
+PHILOX_NOISE_OPS = (98 + 32) / 4
 CHAIN_OPS = {"double_well": 28 + 11, "anharmonic": 28 + 5}
 GAUGE_PLANES = {"u1": 2, "su2": 8, "su3": 36}  # float32 planes of a chain's links
 GAUGE_OPS = {"u1": 46 + 2 * 1 * NOISE_OPS, "su2": 391 + 138 + 2 * 3 * NOISE_OPS,
              "su3": 2770 + 3424 + 2 * 8 * NOISE_OPS}
 
 
-def field_ops(ndim: int) -> float:
-    return 9 * ndim + 30 + NOISE_OPS
+def field_ops(ndim: int, noise: float = NOISE_OPS) -> float:
+    return 9 * ndim + 30 + noise
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -254,6 +291,17 @@ def kernel_bounds() -> dict:
     sites = f["n_chains"] * prod(f["shape"])
     out["field_frame"] = bound(sites * 4 * 2, sites * f["loops"] * field_ops(2))
     out["field_frames_multi"] = bound(sites * 4 * 2, sites * f["loops"] * 10 * field_ops(2))
+    # the Philox variants at the same shapes: the same bytes, their own noise count
+    sites = h["n_chains"] * h["n_sites"]
+    out["chain_frame_hw"] = bound(
+        sites * 4 * 6, sites * h["loops"] * (CHAIN_OPS[h["action"]] + PHILOX_NOISE_OPS))
+    sites = c2["n_chains"] * c2["n_sites"]
+    out["chain_frames_multi_hw"] = bound(
+        sites * 4 * 10, sites * c2["loops"] * 16 * (CHAIN_OPS[c2["action"]] + PHILOX_NOISE_OPS))
+    sites = f["n_chains"] * prod(f["shape"])
+    hw_ops = field_ops(2, PHILOX_NOISE_OPS)
+    out["field_frame_hw"] = bound(sites * 4 * 2, sites * f["loops"] * hw_ops)
+    out["field_frames_multi_hw"] = bound(sites * 4 * 2, sites * f["loops"] * 10 * hw_ops)
     sites = TILED_FIELD["n_chains"] * prod(TILED_FIELD["shape"])
     out["field_pair"] = bound(sites * 4 * 2, sites * 2 * field_ops(2))
     shape = BENCH_ND["shape"]
@@ -396,8 +444,8 @@ def leaves(result) -> list:
     kernel's (phi, slice sums, stats), whose per-block sums and slice sums
     are compared as means (a sum of 16k sites near zero carries the rounding
     of its terms, not of its value)."""
-    if hasattr(result, "_fields"):
-        return list(zip(result._fields, result))
+    if hasattr(result, "_fields"):  # an optional leaf that is off (FrameSums.specs) is None
+        return [(n, t) for n, t in zip(result._fields, result) if t is not None]
     if len(result) in (3, 4):
         phi, stats = result[0], result[-1]
         sites = phi[0].numel() // stats.shape[1]
@@ -450,6 +498,23 @@ def gate(label: str, got, want) -> float:
     return worst
 
 
+# per-chain means of the main paths' final states, kept for [21]'s comparison of
+# the Philox runs with the Threefry runs of [4] and [7]
+SANITY = {}
+
+
+def same_mean(label: str, a, b, card: str) -> None:
+    """Two ensembles' per-chain means of one observable must agree within 6
+    standard errors of their difference (independent noise, same physics)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    se = math.sqrt(float(a.var()) / a.numel() + float(b.var()) / b.numel())
+    z = abs(float(a.mean()) - float(b.mean())) / max(se, 1e-300)
+    log(f"  {label}: {float(a.mean()):.6f} (Philox) against {float(b.mean()):.6f} (Threefry), "
+        f"{z:.2f} standard errors apart (limit 6) [{card}]")
+    if not z < 6.0:
+        raise SystemExit(f"{label}: the Philox ensemble's mean is {z:.1f} standard errors off")
+
+
 def phase_gate(ck, langevin, actions, cfgmod, device) -> None:
     """Kernel wrapper vs plain version on the card, on small cases that
     reach every branch of the kernels."""
@@ -467,14 +532,17 @@ def phase_gate(ck, langevin, actions, cfgmod, device) -> None:
              ck.chain_frames_multi(s0, act, cfg, n), ck.chain_frames_multi_ref(s0, act, cfg, n))
 
 
-def phase_main_path(torch, ck, cli, checkpoint, actions, tmp: Path) -> tuple[dict, float]:
-    """The port's CLI on the double_well preset at 65,536 chains; then kernel
-    2 at the K=2 it ran with, from the run's checkpoint, against its plain
-    version.  Returns the launch counts and that max|Δ|."""
+def phase_main_path(torch, ck, cli, checkpoint, actions, tmp: Path,
+                    extra: tuple = ()) -> tuple[dict, float]:
+    """The port's CLI on the double_well preset at 65,536 chains (``extra``:
+    more options, e.g. ``--rng hardware``); then kernel 2 at the K=2 it ran
+    with, from the run's checkpoint, against its plain version.  Returns the
+    launch counts (with the Philox variants' own under ``*_hw``) and that
+    max|Δ|."""
     common = ["run", "--preset", "double_well", "--chains", "65536", "--dtau", "2e-4",
-              "--device", "cuda", "--frames-per-launch", "2"]
-    ck.chain_frame.launches = 0
-    ck.chain_frames_multi.launches = 0
+              "--device", "cuda", "--frames-per-launch", "2", *extra]
+    for fn in (ck.chain_frame, ck.chain_frames_multi):
+        fn.launches = fn.launches_hw = 0
     t0 = time.time()
     cli.main(common + ["--burn", "1", "--frames", "3", "--fps", "3", "--out", str(tmp / "a.npz"),
                        "--metrics", str(tmp / "a.jsonl")])
@@ -484,9 +552,14 @@ def phase_main_path(torch, ck, cli, checkpoint, actions, tmp: Path) -> tuple[dic
                        "--metrics", str(tmp / "c.jsonl")])
     torch.cuda.synchronize()
     launches = {"chain_frame": ck.chain_frame.launches,
-                "chain_frames_multi": ck.chain_frames_multi.launches}
-    log(f"  main path: 3 + resume 1 + uninterrupted 4 frames in {time.time() - t0:.1f}s; "
-        f"launch counts {launches}")
+                "chain_frames_multi": ck.chain_frames_multi.launches,
+                "chain_frame_hw": ck.chain_frame.launches_hw,
+                "chain_frames_multi_hw": ck.chain_frames_multi.launches_hw}
+    if not extra:  # the Threefry run: the Philox variants must not have run
+        if launches.pop("chain_frame_hw") or launches.pop("chain_frames_multi_hw"):
+            raise SystemExit(f"a Philox variant ran without --rng hardware: {launches}")
+    log(f"  main path {' '.join(extra)}: 3 + resume 1 + uninterrupted 4 frames in "
+        f"{time.time() - t0:.1f}s; launch counts {launches}")
     if min(launches.values()) < 1:
         raise SystemExit(f"a kernel of the main path was never launched: {launches}")
 
@@ -516,6 +589,7 @@ def phase_main_path(torch, ck, cli, checkpoint, actions, tmp: Path) -> tuple[dic
         if not torch.isfinite(getattr(resumed, name)).all():
             raise SystemExit(f"non-finite {name} in the final state")
     log("  resumed 4th frame is bitwise equal to the uninterrupted run; final state finite")
+    SANITY["chain_hw" if extra else "chain"] = straight.x2_mean.mean(dim=1)
 
     state, cfg = checkpoint.load(tmp / "a.npz", "cuda")
     act = actions.get(cfg.action)
@@ -696,6 +770,8 @@ def field_cli_runs(torch, cli, checkpoint, counters, tmp: Path, tag: str, extra:
               "--frames-per-launch", "2", *extra]
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "launches_hw"):
+            fn.launches_hw = 0
     t0 = time.time()
     cli.main(common + ["--burn", "1", "--frames", "3", "--fps", "3",
                        "--out", str(tmp / f"{tag}a.npz"), "--metrics", str(tmp / f"{tag}a.jsonl")])
@@ -705,6 +781,12 @@ def field_cli_runs(torch, cli, checkpoint, counters, tmp: Path, tag: str, extra:
                        "--out", str(tmp / f"{tag}c.npz"), "--metrics", str(tmp / f"{tag}c.jsonl")])
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    hw = {name + "_hw": fn.launches_hw for name, fn in counters.items()
+          if hasattr(fn, "launches_hw")}
+    if "hardware" in extra:
+        launches.update(hw)
+    elif any(hw.values()):
+        raise SystemExit(f"a Philox variant ran without --rng hardware: {hw}")
     log(f"  {preset} {' '.join(extra) or '(defaults)'}: 3 + resume 1 + uninterrupted 4 frames in "
         f"{time.time() - t0:.1f}s; launch counts {launches}")
     for part in "abc":
@@ -722,6 +804,7 @@ def field_cli_runs(torch, cli, checkpoint, counters, tmp: Path, tag: str, extra:
         if not torch.isfinite(getattr(resumed, name)).all():
             raise SystemExit(f"non-finite {name} in the final state")
     log("  resumed 4th frame is bitwise equal to the uninterrupted run; final state finite")
+    SANITY["field_" + tag] = straight.phi2_mean
     return launches
 
 
@@ -1744,6 +1827,384 @@ def phase_split_timings(torch, mods, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# rng_impl='hardware': the Philox variants of kernels 1-4
+# ---------------------------------------------------------------------------
+
+def phase_philox_gate(torch, ck, fk, langevin, field, actions, cfgmod, device) -> None:
+    """The Philox variants of kernels 1-4 against their plain versions on the
+    card, on the small gate cases of [3] and [6] under rng_impl='hardware'
+    (the Threefry-13 cases become Philox cases like the others)."""
+    import dataclasses
+
+    hw = lambda cfg: dataclasses.replace(cfg, rng_impl="hardware")  # noqa: E731
+    for name, cfg, n in gate_cases(cfgmod.ChainConfig, cfgmod.BoundaryCondition,
+                                   cfgmod.Formulation, cfgmod.Scheme):
+        cfg = hw(cfg)
+        act = actions.get(cfg.action)
+        s0 = langevin.init_chain_state(cfg, act, device=device)
+        if cfg.bc == cfgmod.BoundaryCondition.DIRICHLET:
+            s0.f[:, 0] = 0.0
+            s0.f[:, -1] = 0.0
+        plain = ck.chain_frames_multi_ref(s0, act, cfg, n)
+        one = ck.run_frames_kernel(s0, act, cfg, n, frames_per_launch=1)
+        gate(f"hw {name} chain_frame x{n} + epilogue", one, plain)
+        multi = ck.chain_frames_multi(s0, act, cfg, n)
+        gate(f"hw {name} chain_frames_multi K={n}", multi, plain)
+        for (leaf, x), (_, y) in zip(leaves(one), leaves(multi)):
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise SystemExit(f"hw {name}: kernel 1 + epilogue and kernel 2 differ in {leaf}")
+        if name == "rejections_double_well" and bool(plain[1]["stable"].all()):
+            raise SystemExit("hw gate case 'rejections_double_well' rejected no frame")
+    for name, cfg, n, stab in field_gate_cases(cfgmod.FieldConfig, cfgmod.Sweep):
+        cfg = hw(cfg)
+        act = actions.get_field(cfg.action)
+        s0 = field.init_field_state(cfg, device=device)
+        if stab is not None:
+            s0 = s0._replace(stab_cnt=torch.tensor(stab, dtype=torch.int32, device=device))
+        plain = fk.field_frames_multi_ref(s0, act, cfg, n)
+        one = fk.run_field_frames_kernel(s0, act, cfg, n)
+        gate(f"hw {name} field_frame x{n} + epilogue", one, plain)
+        multi = fk.field_frames_multi(s0, act, cfg, n)
+        gate(f"hw {name} field_frames_multi K={n}", multi, plain)
+        for (leaf, x), (_, y) in zip(leaves(one), leaves(multi)):
+            if not torch.equal(x.cpu(), y.cpu()):
+                raise SystemExit(f"hw {name}: kernel 3 + epilogue and kernel 4 differ in {leaf}")
+        if name == "rejections" and bool(plain[1]["stable"].all()):
+            raise SystemExit("hw gate case 'rejections' rejected no frame")
+
+
+def phase_philox_timings(torch, device, ck, fk, langevin, field, actions, cfgmod,
+                         card: str) -> dict:
+    """Philox beside Threefry in one call, in turns (threefry, hardware,
+    hardware, threefry): MLUPS of the kernel paths at the headline, config 2
+    (K = 16) and field 256^2 x 16 (frames per launch 1 and 10), medians of 3
+    reps after a warm-up; then each Philox variant alone (CUDA events) beside
+    its plain version's wall ms, held against it."""
+    import dataclasses
+
+    ChainConfig, bc, form = cfgmod.ChainConfig, cfgmod.BoundaryCondition, cfgmod.Formulation
+    out, warm = {}, {}
+    chain_cases = [
+        ("headline", ChainConfig(**HEADLINE), 3, 1),
+        ("config2_fpl16", ChainConfig(**CONFIG2, bc=bc.PERIODIC, formulation=form.DIRECT),
+         16, 16),
+    ]
+    fcfg = cfgmod.FieldConfig(**BENCH_FIELD)
+    field_cases = [("field_256_fpl1", fcfg, 10, 1), ("field_256_fpl10", fcfg, 10, 10)]
+
+    def measure(name, cfg, frames, fpl, is_field):
+        if is_field:
+            act = actions.get_field(cfg.action)
+            init = lambda: field.init_field_state(cfg, device=device)  # noqa: E731
+            run = lambda s: fk.run_field_frames_kernel(  # noqa: E731
+                s, act, cfg, frames, frames_per_launch=fpl)
+            ups = cfg.n_chains * math.prod(cfg.shape) * cfg.loops
+        else:
+            act = actions.get(cfg.action)
+            init = lambda: langevin.init_chain_state(cfg, act, device=device)  # noqa: E731
+            run = lambda s: ck.run_frames_kernel(  # noqa: E731
+                s, act, cfg, frames, frames_per_launch=fpl)
+            ups = cfg.n_chains * cfg.n_sites * cfg.loops
+        key = (name, cfg.rng_impl)
+        if key not in warm:
+            warm[key] = (cfg, act, run(init())[0])  # warm-up: the controller settles
+        state = warm[key][2]
+        reps = []
+        for _ in range(3):
+            holder = {}
+            reps.append(timed(torch, lambda: holder.update(r=run(state))))
+        stable = float(holder["r"][1]["stable"].float().mean())
+        t = sorted(reps)[1]
+        return dict(mlups=ups * frames / t / 1e6, seconds=t, reps=reps, stable=stable)
+
+    for cases, is_field in ((chain_cases, False), (field_cases, True)):
+        for name, cfg, frames, fpl in cases:
+            hw = dataclasses.replace(cfg, rng_impl="hardware")
+            turns = [(cfg, "threefry"), (hw, "hardware"), (hw, "hardware"), (cfg, "threefry")]
+            got = collections.defaultdict(list)
+            for c, tag in turns:
+                got[tag].append(measure(name, c, frames, fpl, is_field))
+            for tag, runs in got.items():
+                best = max(runs, key=lambda r: r["mlups"])
+                out[f"{name}_{tag}"] = dict(best, both=[r["mlups"] for r in runs])
+                log(f"  {name:16s} {tag:9s} kernel path: {[round(r['mlups'], 1) for r in runs]} "
+                    f"MLUPS in its two turns (each a median of 3 reps of {frames} frames; reps "
+                    f"{[[round(x, 4) for x in r['reps']] for r in runs]}; stable "
+                    f"{runs[-1]['stable']:.4f}) [{card}]")
+            a, b = out[f"{name}_threefry"]["both"], out[f"{name}_hardware"]["both"]
+            log(f"  {name:16s} hardware / threefry: {sum(b) / sum(a):.4f} (means of the two turns)")
+
+    def alone(kname, launch, plain, label):
+        got = launch()
+        out[kname + "_ms"] = cuda_ms(torch, launch)
+        holder = {}
+        out[kname + "_plain_ms"] = timed(torch, lambda: holder.update(r=plain())) * 1e3
+        out[kname + "_err"] = gate(f"{label} {kname}", got, holder["r"])
+        log(f"  {kname:22s} kernel {out[kname + '_ms']:.3f} ms/launch (CUDA events, mean of 3), "
+            f"plain version {out[kname + '_plain_ms']:.1f} ms (once) at {label} [{card}]")
+
+    cfg, act, state = warm[("headline", "hardware")]
+    alone("chain_frame_hw", lambda: ck.chain_frame(state, act, cfg),
+          lambda: ck.chain_frame_ref(state, act, cfg),
+          f"C={cfg.n_chains} N={cfg.n_sites} loops={cfg.loops}")
+    cfg2, act2, state2 = warm[("config2_fpl16", "hardware")]
+    alone("chain_frames_multi_hw", lambda: ck.chain_frames_multi(state2, act2, cfg2, 16),
+          lambda: ck.chain_frames_multi_ref(state2, act2, cfg2, 16),
+          f"C={cfg2.n_chains} N={cfg2.n_sites} loops={cfg2.loops} K=16")
+    cfgf, actf, statef = warm[("field_256_fpl1", "hardware")]
+    alone("field_frame_hw", lambda: fk.field_frame(statef, actf, cfgf),
+          lambda: fk.field_frame_ref(statef, actf, cfgf), "256^2 x 16 loops=100")
+    alone("field_frames_multi_hw", lambda: fk.field_frames_multi(statef, actf, cfgf, 10),
+          lambda: fk.field_frames_multi_ref(statef, actf, cfgf, 10), "256^2 x 16 loops=100 K=10")
+    return out
+
+
+def phase_philox_main_path(torch, mods, tmp: Path, card: str):
+    """--rng hardware at full width through the entry points: `cli run` on
+    double_well at 65,536 chains (kernels 1 and 2), `runtime.run_chain` on
+    config 2 at frames_per_launch 16 (kernel 2) and `cli run` on phi4_2d at 16
+    chains (kernels 3 and 4).  Every launch of these runs must be a Philox
+    launch; resumes are bitwise; each ensemble's mean is held against the
+    Threefry run's.  Returns (launch counts, max|Δ| per kernel)."""
+    import dataclasses
+
+    ck, fk, ft, cli, checkpoint = (mods[k] for k in ("ck", "fk", "ft", "cli", "checkpoint"))
+    runtime, metrics, cfgmod, actions = (mods[k] for k in ("runtime", "metrics", "cfgmod",
+                                                           "actions"))
+    hw_dir = tmp / "hw"
+    hw_dir.mkdir()
+    launches, err = {}, {}
+    got, err["chain_frames_multi_hw"] = phase_main_path(
+        torch, ck, cli, checkpoint, actions, hw_dir, extra=("--rng", "hardware"))
+    if (got["chain_frame_hw"] != got["chain_frame"] or got["chain_frame_hw"] < 1
+            or got["chain_frames_multi_hw"] != got["chain_frames_multi"]
+            or got["chain_frames_multi_hw"] < 1):
+        raise SystemExit(f"--rng hardware did not run the Philox variants of kernels 1 and 2 "
+                         f"alone: {got}")
+    launches.update({k: v for k, v in got.items() if k.endswith("_hw")})
+    same_mean("double_well 65,536 chains, site-averaged <x^2> after 1 + 4 frames",
+              SANITY["chain_hw"], SANITY["chain"], card)
+
+    # config 2 (quartic_large without its spectrum channel) at frames_per_launch 16
+    base = dataclasses.replace(cfgmod.PRESETS["quartic_large"], accumulate_spectrum=False,
+                               frames_per_launch=16, fps=16, frames=16)
+    finals = {}
+    for impl in ("hardware", "threefry"):
+        cfg = dataclasses.replace(base, rng_impl=impl)
+        for fn in (ck.chain_frame, ck.chain_frames_multi):
+            fn.launches = fn.launches_hw = 0
+        recs = []
+        sink = lambda: metrics.MetricsSink(callback=recs.append)  # noqa: E731
+        t0 = time.time()
+        if impl == "hardware":  # burn-in 16, then 16 + resumed 16 against 32 uninterrupted
+            a, b = str(tmp / "c2a.npz"), str(tmp / "c2b.npz")
+            runtime.run_chain(cfg, device="cuda", burn_frames=16, sink=sink(), checkpoint_out=a)
+            resumed = runtime.run_chain(cfg, device="cuda", sink=sink(), checkpoint_in=a,
+                                        checkpoint_out=b).state
+        straight = runtime.run_chain(dataclasses.replace(cfg, frames=32), device="cuda",
+                                     burn_frames=16, sink=sink()).state
+        torch.cuda.synchronize()
+        counts = (ck.chain_frame.launches, ck.chain_frames_multi.launches,
+                  ck.chain_frame.launches_hw, ck.chain_frames_multi.launches_hw)
+        want = (0, 6, 0, 6) if impl == "hardware" else (0, 3, 0, 0)
+        log(f"  config 2 (anharmonic N=1024 C=256 loops 1000, fpl 16, burn-in 16) rng {impl}: "
+            f"{time.time() - t0:.2f}s, launches (k1, k2, k1 Philox, k2 Philox) {counts}")
+        if counts != want:
+            raise SystemExit(f"config 2 rng {impl}: launches {counts}, expected {want}")
+        check_records(recs, f"config 2 rng {impl}", ())
+        if impl == "hardware":
+            launches["chain_frames_multi_hw"] += counts[3]
+            for name, x, y in zip(resumed._fields, resumed, straight):
+                if not torch.equal(x, y):
+                    raise SystemExit(f"config 2 rng hardware: 16 + resumed 16 frames differ from "
+                                     f"32 uninterrupted in {name}")
+            log("  config 2 rng hardware: 16 + resumed 16 frames bitwise equal to 32 uninterrupted")
+        finals[impl] = straight
+    same_mean("config 2, site-averaged <x^2> after 16 + 32 frames",
+              finals["hardware"].x2_mean.mean(dim=1), finals["threefry"].x2_mean.mean(dim=1), card)
+
+    # phi4_2d at 16 chains: kernels 3 and 4
+    counters = {"field_frame": fk.field_frame, "field_frames_multi": fk.field_frames_multi,
+                "field_pair": ft.field_pair}
+    got = field_cli_runs(torch, cli, checkpoint, counters, tmp, "h", ["--rng", "hardware"])
+    if (got["field_frame_hw"] != got["field_frame"] or got["field_frame_hw"] < 1
+            or got["field_frames_multi_hw"] != got["field_frames_multi"]
+            or got["field_frames_multi_hw"] < 1 or got["field_pair"]):
+        raise SystemExit(f"--rng hardware did not run the Philox variants of kernels 3 and 4 "
+                         f"alone: {got}")
+    launches.update({k: v for k, v in got.items() if k.endswith("_hw")})
+    same_mean("phi4_2d 256^2 x 16, <phi^2> after 1 + 4 frames", SANITY["field_h"],
+              SANITY["field_w"], card)
+    state, cfg = checkpoint.load(tmp / "ha.npz", "cuda")
+    act = actions.get_field(cfg.action)
+    err["field_frames_multi_hw"] = gate(
+        f"main path rng hardware C={cfg.n_chains} {cfg.shape} field_frames_multi K=2",
+        fk.field_frames_multi(state, act, cfg, 2), fk.field_frames_multi_ref(state, act, cfg, 2))
+    return launches, err
+
+
+PLAIN_TOL = 2e-5        # card vs CPU, the plain path's float32 leaves (other transcendentals)
+PLAIN_TOL_EXACT = 5e-4  # under Scheme.EXACT (chains): two libraries' float32 eigh
+PLAIN_TOL_SPEC = 1e-4   # the spectrum, relative to a chain's largest mode (cuFFT vs pocketfft)
+PLAIN_TOL_FIELD_EXACT = 5e-5  # fields under Scheme.EXACT: float32 rfftn round trips
+
+
+def card_vs_cpu(torch, label: str, run, tol: float, card: str) -> None:
+    """``run(device)`` -> final state on the card and on the CPU: integer
+    leaves equal, float leaves within ``tol`` (the spectrum within
+    PLAIN_TOL_SPEC of each chain's largest mode)."""
+    on_card, on_cpu = run("cuda"), run("cpu")
+    worst, spec = 0.0, None
+    for name, x, y in zip(on_card._fields, on_card, on_cpu):
+        x = x.cpu()
+        if not x.is_floating_point():
+            if not torch.equal(x, y):
+                raise SystemExit(f"{label}: {name} differs between the card and the CPU")
+            continue
+        d = (x.double() - y.double()).abs()
+        if name == "spec_mean":
+            spec = float((d / (y.double().abs().amax(dim=1, keepdim=True) + 1e-30)).max())
+            continue
+        worst = max(worst, float(d.max()))
+    log(f"  {label}: card vs CPU max|Δ| {worst:.3e} (limit {tol:g})"
+        + (f", spectrum {spec:.3e} of the largest mode (limit {PLAIN_TOL_SPEC:g})"
+           if spec is not None else "") + f" [{card}]")
+    if not worst <= tol or (spec is not None and not spec <= PLAIN_TOL_SPEC):
+        raise SystemExit(f"{label}: the plain path on the card disagrees with the CPU")
+
+
+def phase_plain_schemes(torch, mods, tmp: Path, card: str) -> dict:
+    """The schemes no kernel implements (in either package), at full width on
+    the card through the entry points: `cli run` on quartic_large (the power
+    spectrum), harmosc with --scheme lm and --scheme exact, phi4_2d with
+    --scheme exact (ETD1), and `runtime.run_field` on a free field under
+    Scheme.EXACT.  `auto` must record why it runs the plain integrator and
+    launch no kernel; a resume equals the uninterrupted run; then each at a
+    small size on the card against the CPU run of the same code."""
+    import dataclasses
+
+    cli, checkpoint, runtime, metrics, cfgmod = (mods[k] for k in (
+        "cli", "checkpoint", "runtime", "metrics", "cfgmod"))
+    langevin = mods["langevin"]
+    Scheme = cfgmod.Scheme
+    counters = [mods["ck"].chain_frame, mods["ck"].chain_frames_multi, mods["fk"].field_frame,
+                mods["fk"].field_frames_multi, mods["ft"].field_pair]
+    out = {}
+
+    def records(path):
+        return [json.loads(line) for line in open(path)]
+
+    def cli_runs(tag, args, keys):
+        """Burn-in 1 + 2 frames, --resume for 1, uninterrupted 1 + 3."""
+        for fn in counters:
+            fn.launches = 0
+        common = ["run", *args, "--device", "cuda"]
+        t0 = time.time()
+        cli.main(common + ["--burn", "1", "--frames", "2", "--out", str(tmp / f"{tag}a.npz"),
+                           "--metrics", str(tmp / f"{tag}a.jsonl")])
+        cli.main(common + ["--frames", "1", "--resume", str(tmp / f"{tag}a.npz"),
+                           "--out", str(tmp / f"{tag}b.npz"),
+                           "--metrics", str(tmp / f"{tag}b.jsonl")])
+        cli.main(common + ["--burn", "1", "--frames", "3", "--out", str(tmp / f"{tag}c.npz"),
+                           "--metrics", str(tmp / f"{tag}c.jsonl")])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        if any(fn.launches for fn in counters):
+            raise SystemExit(f"{tag}: a kernel was launched on a plain-path run")
+        for part in "abc":
+            recs = records(tmp / f"{tag}{part}.jsonl")
+            if recs[0].get("type") != "backend_fallback" or recs[0].get("backend") != "torch":
+                raise SystemExit(f"{tag}{part}: auto did not record why it runs the plain path")
+            check_records(recs[1:], tag + part, keys)
+        resumed, cfg = checkpoint.load(tmp / f"{tag}b.npz", "cpu")
+        straight, _ = checkpoint.load(tmp / f"{tag}c.npz", "cpu")
+        for name, x, y in zip(resumed._fields, resumed, straight):
+            if not torch.equal(x, y):
+                raise SystemExit(f"{tag}: resumed run differs from the uninterrupted one in {name}")
+        last = records(tmp / f"{tag}c.jsonl")[-1]
+        out[tag + "_mlups"] = {"mlups": last["avg_mlups"]}
+        log(f"  cli run {' '.join(args)}: 2 + resume 1 + uninterrupted 3 frames (and a burn-in "
+            f"each) in {seconds:.1f}s on the plain path, no kernel launched, fallback recorded, "
+            f"resume bitwise, stable_frac >= 0.99; avg_mlups {last['avg_mlups']} [{card}]")
+        return straight, cfg
+
+    # quartic_large: the power-spectrum channel
+    state, cfg = cli_runs("ql", ["--preset", "quartic_large"], ())
+    spec = state.spec_mean.double()
+    if not (torch.isfinite(spec).all() and float(spec.min()) >= 0 and float(spec.max()) > 0):
+        raise SystemExit("quartic_large: the power spectrum is not finite and non-negative")
+    lag0 = langevin.translation_averaged_correlator(state)[:, 0].double()
+    x2 = state.x2_mean.double().mean(dim=1)
+    rel = float(((lag0 - x2).abs() / x2).max())
+    log(f"  quartic_large {tuple(state.spec_mean.shape)} spectrum: lag 0 of the translation-"
+        f"averaged correlator against the site-averaged <x^2>: max relative Δ {rel:.3e} "
+        f"(limit 1e-4; Parseval)")
+    if not rel < 1e-4:
+        raise SystemExit("quartic_large: the spectrum breaks Parseval's identity")
+    small = dataclasses.replace(cfg, n_sites=64, n_chains=8, loops=20, frames=2)
+    card_vs_cpu(torch, "quartic_large cut to N=64 C=8 loops 20, 2 frames",
+                lambda dev: runtime.run_chain(small, device=dev, sink=metrics.MetricsSink(
+                    callback=lambda r: None)).state, PLAIN_TOL, card)
+
+    # harmosc under LM and under the exact-OU scheme
+    # (the preset's dtau 0.3 is the exact scheme's: LM, like EM, needs dtau < dt^2 / 2)
+    for scheme, tol, more in (("lm", PLAIN_TOL, ["--dtau", "2e-3"]),
+                              ("exact", PLAIN_TOL_EXACT, [])):
+        state, cfg = cli_runs("h" + scheme, ["--preset", "harmosc", "--chains", "256",
+                                             "--scheme", scheme, *more], ())
+        for name in ("f", "x_mean", "x2_mean", "x4_mean"):
+            if not torch.isfinite(getattr(state, name)).all():
+                raise SystemExit(f"harmosc --scheme {scheme}: non-finite {name}")
+        if scheme == "exact" and not torch.equal(
+                state.dtau, torch.full_like(state.dtau, cfg.dtau)):
+            raise SystemExit("harmosc --scheme exact: dtau moved (it is frozen under EXACT)")
+        small = dataclasses.replace(cfg, n_sites=32, n_chains=8, loops=20, frames=2)
+        card_vs_cpu(torch, f"harmosc --scheme {scheme} cut to N=32 C=8 loops 20, 2 frames",
+                    lambda dev: runtime.run_chain(small, device=dev, sink=metrics.MetricsSink(
+                        callback=lambda r: None)).state, tol, card)
+
+    # fields: ETD1 on phi4_2d through the CLI, the exact propagator on a free field
+    keys = ("mag", "abs_mag", "phi2", "susceptibility", "binder")
+    state, cfg = cli_runs("fe", ["--preset", "phi4_2d", "--chains", "16", "--scheme", "exact"],
+                          keys)
+    if not torch.isfinite(state.phi).all():
+        raise SystemExit("phi4_2d --scheme exact: non-finite phi")
+    free = cfgmod.FieldConfig(action="free_field", shape=(256, 256), n_chains=16, loops=100,
+                              dtau=0.5, seed=13, scheme=Scheme.EXACT, frames=2)
+    for fn in counters:
+        fn.launches = 0
+    recs = []
+    t0 = time.time()
+    res = runtime.run_field(free, device="cuda", burn_frames=1,
+                            sink=metrics.MetricsSink(callback=recs.append))
+    torch.cuda.synchronize()
+    if any(fn.launches for fn in counters) or recs[0].get("type") != "backend_fallback":
+        raise SystemExit("free_field Scheme.EXACT: a kernel ran or no fallback was recorded")
+    check_records(recs[1:], "free_field exact", keys)
+    act = mods["actions"].get_field("free_field")
+    k = 2.0 * math.pi * torch.fft.fftfreq(256, dtype=torch.float64)
+    bhat = 2.0 * (1.0 - torch.cos(k))[:, None] + 2.0 * (1.0 - torch.cos(k))[None, :] + act.m2
+    want = float((1.0 / bhat).mean())
+    phi2 = res.state.phi2_mean.double().cpu()
+    z = abs(float(phi2.mean()) - want) / (float(phi2.std()) / math.sqrt(phi2.numel()))
+    log(f"  runtime.run_field free_field 256^2 x 16 Scheme.EXACT dtau 0.5 (1 + 2 frames, "
+        f"{time.time() - t0:.1f}s, avg_mlups {recs[-1]['avg_mlups']}): <phi^2> "
+        f"{float(phi2.mean()):.6f} against the lattice's exact {want:.6f}, {z:.2f} standard "
+        f"errors (limit 6); dtau frozen [{card}]")
+    out["free_field_exact_mlups"] = {"mlups": recs[-1]["avg_mlups"]}
+    if not z < 6.0 or not torch.equal(res.state.dtau, torch.full_like(res.state.dtau, 0.5)):
+        raise SystemExit("free_field Scheme.EXACT: <phi^2> off its exact value, or dtau moved")
+    for action, dtau in (("free_field", 0.5), ("phi4", 0.1)):
+        small = cfgmod.FieldConfig(action=action, shape=(32, 32), n_chains=4, loops=10,
+                                   dtau=dtau, seed=5, scheme=Scheme.EXACT, frames=2)
+        card_vs_cpu(torch, f"{action} Scheme.EXACT at 32^2 x 4 loops 10, 2 frames",
+                    lambda dev: runtime.run_field(small, device=dev, sink=metrics.MetricsSink(
+                        callback=lambda r: None)).state, PLAIN_TOL_FIELD_EXACT, card)
+    return out
+
+
+
 def main() -> int:
     global LOG_FILE
     if not (ROOT / "stochquant_tpu_torch").is_dir():
@@ -1900,6 +2361,34 @@ def main() -> int:
     with CardSampler("[19]"):
         t.update(phase_split_timings(torch, mods, card))
 
+    # 20. the Philox variants of kernels 1-4 vs plain on the card
+    log(f"[20] rng_impl='hardware': the Philox variants of kernels 1-4 vs their plain PyTorch "
+        f"versions on the card, on the cases of [3] and [6] (limits as there; kernel 1 + "
+        f"epilogue and kernel 2, kernel 3 + epilogue and kernel 4 bitwise equal):")
+    phase_philox_gate(torch, ck, fk, langevin, field, actions, cfgmod, device)
+
+    mods.update(ck=ck, fk=fk, ft=ft, cli=cli, checkpoint=checkpoint, langevin=langevin)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 21. the --rng hardware main paths
+        log("[21] --rng hardware main paths: cli run --preset double_well --chains 65536 --dtau "
+            "2e-4, runtime.run_chain on config 2 (frames_per_launch 16), cli run --preset "
+            "phi4_2d --chains 16:")
+        hw_launches, hw_err = phase_philox_main_path(torch, mods, Path(tmp), card)
+        launches.update(hw_launches)
+
+        # 22. the schemes of the plain path, on the card
+        log(f"[22] plain-path schemes on the card (no kernel in either package): quartic_large, "
+            f"harmosc --scheme lm / exact, phi4_2d --scheme exact, free_field Scheme.EXACT "
+            f"[{card}]:")
+        with CardSampler("[22]"):
+            t.update(phase_plain_schemes(torch, mods, Path(tmp), card))
+
+    # 23. Philox beside Threefry, and each Philox variant vs plain at the timed shapes
+    log(f"[23] rng_impl='hardware' timings beside threefry [{card}]:")
+    with CardSampler("[23]"):
+        t.update(phase_philox_timings(torch, device, ck, fk, langevin, field, actions, cfgmod,
+                                      card))
+
     # max_abs_err: the comparisons at the main paths' shapes (chain: headline
     # K=1, main-path state K=2, config 2 K=16; field: 256^2 x 16 K=1 and K=10,
     # main-path states K=2 and one tiled pair, 1024^2 x 16 tiled; gauge: the
@@ -1917,7 +2406,13 @@ def main() -> int:
            "gauge_chunk": max(split_err["gauge_chunk"], t["gauge_chunk_err"]),
            "gauge_frame": max(gauge_main_err["gauge_frame"], t["gauge_frame_err"]),
            "gauge_frames_multi": max(gauge_main_err["gauge_frames_multi"],
-                                     t["gauge_frames_multi_err"])}
+                                     t["gauge_frames_multi_err"]),
+           "chain_frame_hw": t["chain_frame_hw_err"],
+           "chain_frames_multi_hw": max(hw_err["chain_frames_multi_hw"],
+                                        t["chain_frames_multi_hw_err"]),
+           "field_frame_hw": t["field_frame_hw_err"],
+           "field_frames_multi_hw": max(hw_err["field_frames_multi_hw"],
+                                        t["field_frames_multi_hw_err"])}
     # library_ms: no single PyTorch call computes a fused frame, pair or chunk
     # of Langevin micro-steps with its noise, detector and observables
     bounds = kernel_bounds()
@@ -1934,7 +2429,7 @@ def main() -> int:
     log(f"  field_halo_step: bound {halo_k['bound_ms'] * 1e3 / halo_k['device_us']:.2%} of the "
         f"kernel's device time of {halo_k['device_us']:.2f} µs (profiler) [{card}]")
     for k in kernels:
-        log(f"  {k['name']:19s} {k['ms']:10.3f} ms/launch, bound {k['bound_ms']:.4f} ms by "
+        log(f"  {k['name']:21s} {k['ms']:10.3f} ms/launch, bound {k['bound_ms']:.4f} ms by "
             f"{k['bound_by']}: {k['bound_ms'] / k['ms']:.2%} of the bound's rate [{card}]")
     for kname, key in (("gauge_frame", "gauge_{}_ms"), ("gauge_frames_multi", "gauge_{}_multi_ms"),
                        ("gauge_chunk", "gauge_chunk_{}_ms")):

@@ -115,8 +115,9 @@ def main(argv=None):
         "--backend", default="auto", choices=list(runtime.BACKENDS),
         help="execution path: the hand-written CUDA kernels vs the plain "
         "PyTorch integrator; auto = cuda on a CUDA device, torch on the CPU "
-        "(auto runs su2_4d and su3_4d, which have no kernel, on the plain path and "
-        "records a backend_fallback)",
+        "(auto runs what has no kernel in either package on the plain path and records "
+        "a backend_fallback: su2_4d, su3_4d, --scheme lm / exact, quartic_large's "
+        "power spectrum)",
     )
     r.add_argument(
         "--tile-rows", type=int,
@@ -126,14 +127,16 @@ def main(argv=None):
     )
     r.add_argument(
         "--exchange-steps", type=int,
-        help="D >= 3 field presets: micro-steps per launch of the chunk kernel (W, even; "
-        "above 2 a frame runs W-step chunk launches instead of pair launches)",
+        help="field presets: micro-steps per launch of the chunk kernel (W, even): in "
+        "D >= 3 a W above 2 runs frames as W-step chunk launches instead of pair launches; "
+        "a lattice split over a mesh (2-D included) exchanges halos every W steps",
     )
     r.add_argument(
         "--frames-per-launch", type=int,
         help="CUDA backend, chain, whole-lattice field and gauge kernels: batch this "
         "many frames per kernel launch with the accept/reject + Δτ epilogue in-kernel "
-        "(gauge runs also write one metrics record per batch)",
+        "(gauge runs write one metrics record per frame, so this batches only their "
+        "burn-in)",
     )
     r.add_argument(
         "--measure-loops", action="store_true",
@@ -141,12 +144,17 @@ def main(argv=None):
     )
     r.add_argument(
         "--scheme", choices=["em", "heun", "lm", "exact"],
-        help="integration scheme (em and heun are ported)",
+        help="integration scheme: em and heun run the chain kernels; lm and exact "
+        "(chains: BACKGROUND formulation with ω frozen; fields: m² > 0, the exact "
+        "propagator on free_field and its ETD1 variant on phi4) run the plain path; "
+        "field presets integrate every scheme but exact with em",
     )
     r.add_argument(
         "--rng", choices=["threefry", "threefry13", "hardware"],
-        help="noise generator: threefry (20 rounds, default) or threefry13 "
-        "(13 rounds, a different stream); hardware is not ported",
+        help="noise generator: threefry (20 rounds, default), threefry13 "
+        "(13 rounds, a different stream) or hardware (the fast-noise setting: the chain "
+        "and whole-lattice field kernels draw Philox-4x32-10, another stream again; the "
+        "plain path ignores it and draws threefry)",
     )
     r.add_argument("--out", help="checkpoint output path (.npz)")
     r.add_argument("--resume", help="checkpoint to resume from (.npz)")

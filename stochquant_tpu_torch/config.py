@@ -14,10 +14,12 @@ stays for checkpoint compatibility: one launch covers every chain (see
 ``kernels.chain_kernel.run_frames_kernel``).  ``FieldConfig.mesh_axes`` /
 ``mesh_chain_axis`` split a field run over the mesh given to
 ``runtime.run_field(mesh=)`` (``parallel.halo``), where ``exchange_steps`` is
-the chunk kernel's W.  Fields that belong to features not ported yet
+the chunk kernel's W.  ``rng_impl="hardware"`` (the TPU's on-core generator in
+the JAX package) selects the Philox-4x32-10 variants of chain kernels 1, 2
+and field kernels 3, 4; every other path ignores it and draws Threefry-20, as
+the JAX package's XLA paths do.  Fields that belong to features not ported yet
 (``block_chains=0`` and ``tile_rows=0`` autotune, ``ChainConfig.mesh_chain_axis``,
-``exchange_steps=0`` autotune, ``prefer_rdma``, ``rng_impl="hardware"``,
-``Scheme.LM``/``EXACT``, ``accumulate_spectrum``) raise a ``ValueError`` naming
+``exchange_steps=0`` autotune, ``prefer_rdma``) raise a ``ValueError`` naming
 the feature where the run starts.
 """
 

@@ -17,8 +17,19 @@ transcendentals; the site means (M, φ², s, slice means) agree to the
 rounding of their sums, whose order differs.
 
 As in the JAX package, every scheme other than ``Scheme.EXACT`` integrates
-with Euler–Maruyama.  ``Scheme.EXACT`` (the exact free-field propagator and
-its ETD1 variant for interacting fields) is not ported yet and raises.
+with Euler–Maruyama.  ``Scheme.EXACT`` propagates the Gaussian part
+(−∇² + m²) exactly per ``rfftn`` mode through ``torch.fft`` (SYNC sweep, one
+program, m² > 0): the pure exact-OU step for ``free_field``, with Δτ frozen,
+and for interacting actions the exponential integrator with the explicit
+ETD1 treatment of V′'s non-Gaussian remainder, which keeps the clamp, the
+detector and the Δτ controller.  It is a plain-path feature here as in the
+JAX package: no kernel implements it.
+
+``rng_impl='hardware'``: :func:`field_frame_sums` draws the Philox-4x32-10
+stream (``rng.philox_normal_quad``) only when its caller asks with
+``philox=True``, which the plain versions of kernels 3 and 4 do;
+:func:`run_field_frames` never does and draws Threefry-20 under that setting,
+as the JAX package's XLA path does.
 
 State lives on one device, given explicitly, except ``step``: the micro-step
 counter is a 0-d int64 tensor on the host (a uint32 value).
@@ -26,6 +37,7 @@ counter is a 0-d int64 tensor on the host (a uint32 value).
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -33,7 +45,7 @@ import torch
 
 from stochquant_tpu_torch import rng
 from stochquant_tpu_torch.actions.base import true_divide
-from stochquant_tpu_torch.actions.phi4 import FieldAction
+from stochquant_tpu_torch.actions.phi4 import FieldAction, FreeField
 from stochquant_tpu_torch.config import FieldConfig, Scheme, Sweep
 from stochquant_tpu_torch.integrators import accum
 from stochquant_tpu_torch.integrators.langevin import host_step, stack_metrics
@@ -87,15 +99,62 @@ class FieldFrameSums(NamedTuple):
     unstable: torch.Tensor  # (C,) bool
 
 
-def check_field_supported(cfg: FieldConfig) -> None:
-    """Raise for the field features that are not ported yet."""
+def check_field_supported(cfg: FieldConfig, action: FieldAction) -> None:
+    """Raise for a field config no path runs: ``Scheme.EXACT`` without a
+    positive Gaussian curvature, on a CHECKERBOARD sweep or over a mesh."""
     if cfg.scheme == Scheme.EXACT:
+        _exact_field_check(action, cfg)
+
+
+def _exact_field_check(action: FieldAction, cfg: FieldConfig) -> None:
+    if not hasattr(action, "m2"):
         raise ValueError(
-            "Scheme.EXACT for fields (the exact free-field OU propagator per "
-            "rfftn mode and its ETD1 variant for interacting actions) is not "
-            "ported yet: use Scheme.EM"
+            "Scheme.EXACT needs the action's Gaussian curvature (an `m2` "
+            f"attribute) to split the propagator; action {cfg.action!r} "
+            "declares none — use Scheme.EM"
         )
-    rng.rounds_of(cfg.rng_impl)  # raises for rng_impl='hardware'
+    if not float(action.m2) > 0.0:
+        raise ValueError(
+            "Scheme.EXACT requires a positive Gaussian curvature "
+            f"(action.m2 = {float(action.m2)!r}): with m2 <= 0 the free "
+            "propagator amplifies the soft modes and the exponential "
+            "split is invalid — use Scheme.EM/HEUN for the broken phase"
+        )
+    if cfg.sweep != Sweep.SYNC:
+        raise ValueError("Scheme.EXACT uses the synchronous (SYNC) sweep")
+    if cfg.mesh_axes is not None:
+        raise ValueError(
+            "Scheme.EXACT runs single-program (rfftn over the full "
+            "lattice); use mesh_axes=None"
+        )
+
+
+def exact_field_mode_ops(action: FieldAction, cfg: FieldConfig, dtau: torch.Tensor):
+    """Per-Fourier-mode exact-OU factors ``(decay, √var, coef)`` on the rfftn
+    grid for the per-chain step sizes ``dtau`` (C,), as the JAX package builds
+    them: B̂(k) = (2/a²)·Σ_d(1 − cos k_d) + m², decay = e^{−B̂Δτ},
+    var = (c²/a^D)(1 − e^{−2B̂Δτ})/B̂ (a massless zero mode gets its diffusive
+    limit 2Δτ·c²/a^D) and the ETD1 drift weight coef = (1 − e^{−B̂Δτ})/B̂."""
+    shape = tuple(cfg.shape)
+    ndim = len(shape)
+    dtype, dev = cfg.torch_dtype, dtau.device
+    a = cfg.spacing
+    rshape = shape[:-1] + (shape[-1] // 2 + 1,)
+    bhat = torch.zeros(rshape, dtype=dtype, device=dev)
+    for d, n in enumerate(shape):
+        freq = np.fft.rfftfreq(n) if d == ndim - 1 else np.fft.fftfreq(n)
+        k = (2.0 * np.pi) * torch.from_numpy(freq).to(dtype).to(dev)
+        kshape = [1] * ndim
+        kshape[d] = rshape[d]
+        bhat = bhat + (2.0 / (a * a)) * (1.0 - torch.cos(k.reshape(kshape)))
+    bhat = (bhat + torch.tensor(action.m2, dtype=dtype, device=dev))[None]
+    c2m = torch.tensor(cfg.noise_amp**2 / a**ndim, dtype=dtype, device=dev)
+    dt = dtau.to(dtype).reshape((-1,) + (1,) * ndim)
+    decay = torch.exp(-bhat * dt)
+    floor = torch.clamp(bhat, min=1e-8)
+    svar = torch.where(bhat > 1e-8, c2m * (1.0 - decay * decay) / floor, 2.0 * dt * c2m)
+    coef = torch.where(bhat > 1e-8, (1.0 - decay) / floor, dt * torch.ones_like(decay))
+    return decay, torch.sqrt(svar), coef
 
 
 def checkerboard_mask(shape, ndim, device=None) -> torch.Tensor:
@@ -111,7 +170,6 @@ def checkerboard_mask(shape, ndim, device=None) -> torch.Tensor:
 def init_field_state(cfg: FieldConfig, *, device) -> FieldState:
     """Cold start: φ = √(2Δτ)·N(0, 1) from the INIT stream at step 0;
     ``lrg_vl`` = max |φ| per chain; ``step = 1``."""
-    check_field_supported(cfg)
     C = cfg.n_chains
     dtype = cfg.torch_dtype
     shape = (C,) + tuple(cfg.shape)
@@ -144,16 +202,23 @@ def noise_scale(dtau: torch.Tensor, cfg: FieldConfig) -> torch.Tensor:
 
 
 def field_frame_sums(
-    state: FieldState, action: FieldAction, cfg: FieldConfig, chain_offset: int = 0
+    state: FieldState, action: FieldAction, cfg: FieldConfig, chain_offset: int = 0,
+    *, philox: bool = False,
 ) -> FieldFrameSums:
     """One frame of ``cfg.loops`` micro-steps from ``state`` (whose rows are
-    global chains ``chain_offset …``), in pairs that share one Threefry draw.
+    global chains ``chain_offset …``).
 
-    Observables sample the pre-update field; a chain whose detector trips
-    (max |det| > lrg_vl, or a non-finite update) is frozen for the rest of
-    the frame.  Returns the frame sums — the plain version of CUDA kernel 3.
+    Noise comes in groups of consecutive micro-steps counted from the frame's
+    first step: pairs sharing one Threefry draw at counter (site, step of the
+    first), or with ``philox`` (what the plain versions of kernels 3 and 4
+    pass under ``rng_impl='hardware'``) fours sharing one Philox draw; a short
+    last group drops its unused normals.  Observables sample the pre-update
+    field; a chain whose detector trips (max |det| > lrg_vl, or a non-finite
+    update; for the free field under ``Scheme.EXACT`` only the latter) is
+    frozen for the rest of the frame.  Returns the frame sums — the plain
+    version of CUDA kernel 3.
     """
-    check_field_supported(cfg)
+    check_field_supported(cfg, action)
     phi0 = state.phi
     C, shape = phi0.shape[0], tuple(phi0.shape[1:])
     ndim = len(shape)
@@ -167,6 +232,32 @@ def field_frame_sums(
     namp = noise_scale(state.dtau, cfg).reshape(bshape)
     even = checkerboard_mask(shape, ndim, dev) if cfg.sweep == Sweep.CHECKERBOARD else None
     rounds = rng.rounds_of(cfg.rng_impl)
+    exact_scheme = cfg.scheme == Scheme.EXACT
+    exact_interacting = exact_scheme and not isinstance(action, FreeField)
+    if exact_scheme:
+        if philox:
+            raise ValueError("the Philox stream serves the kernels' scheme (EM) only")
+        decay_k, svar_k, coef_k = exact_field_mode_ops(action, cfg, state.dtau)
+
+    def exact_apply(phi, eta):
+        """The exact OU transition per Fourier mode, φ ← F⁻¹[decay·Fφ] +
+        F⁻¹[√var·Fη], plus for interacting actions the ETD1 correction
+        F⁻¹[coef·F[−V′_int(φ)]] with the EM path's clamp and detector on it.
+        Returns (new phi, max |det| per chain, bad per chain)."""
+        spectral = lambda w, x: torch.fft.irfftn(  # noqa: E731
+            w * torch.fft.rfftn(x, dim=lat), s=shape, dim=lat).to(dtype)
+        noise = spectral(svar_k, eta)
+        lin = spectral(decay_k, phi)
+        if not exact_interacting:
+            newphi = lin + noise
+            bad = ~torch.all(torch.isfinite(newphi).reshape(C, -1), dim=1)
+            return newphi, torch.zeros((C,), dtype=dtype, device=dev), bad
+        corr = spectral(coef_k, -action.dV_int(phi).to(dtype))
+        new_raw = lin + corr + noise
+        finite = torch.isfinite(new_raw)
+        newphi = torch.where(finite, torch.clamp(new_raw, -clamp, clamp), clamp)
+        absdet = torch.where(finite, torch.abs(corr), math.inf)
+        return newphi, torch.amax(absdet, dim=lat), ~torch.all(finite.reshape(C, -1), dim=1)
 
     def em_apply(phi, mask, noise):
         """EM update on ``mask`` sites (None = all), reading the current phi
@@ -183,17 +274,21 @@ def field_frame_sums(
 
     def micro_step(vals, eta):
         phi, ms, m2s, m4s, ams, p2s, acs, cs, unstable, lrg = vals
-        noise = namp * eta
-        if even is not None:
-            phi_e, absdet_e, fin_e = em_apply(phi, even, noise)
-            newphi, absdet_o, fin_o = em_apply(phi_e, ~even, noise)
-            absdet = torch.maximum(absdet_e, absdet_o)
-            fin = fin_e & fin_o
+        if exact_scheme:
+            newphi, max_det, bad = exact_apply(phi, eta)
+            tripped = (max_det > lrg) | bad if exact_interacting else bad
         else:
-            newphi, absdet, fin = em_apply(phi, None, noise)
-        max_det = torch.amax(absdet, dim=lat)
-        bad = ~torch.all(fin.reshape(C, -1), dim=1)
-        tripped = (max_det > lrg) | bad
+            noise = namp * eta
+            if even is not None:
+                phi_e, absdet_e, fin_e = em_apply(phi, even, noise)
+                newphi, absdet_o, fin_o = em_apply(phi_e, ~even, noise)
+                absdet = torch.maximum(absdet_e, absdet_o)
+                fin = fin_e & fin_o
+            else:
+                newphi, absdet, fin = em_apply(phi, None, noise)
+            max_det = torch.amax(absdet, dim=lat)
+            bad = ~torch.all(fin.reshape(C, -1), dim=1)
+            tripped = (max_det > lrg) | bad
 
         # observables sample the pre-update field
         mag = torch.mean(phi, dim=lat)
@@ -217,24 +312,29 @@ def field_frame_sums(
             keep(torch.maximum(lrg, torch.amax(torch.abs(newphi), dim=lat)), lrg),
         )
 
-    def noise_pair(step):
-        e0, e1 = rng.normal_pair_for_shape(
-            cfg.seed, rng.Stream.FIELD, step, (C,) + shape, chain_offset=chain_offset,
-            rounds=rounds, device=dev,
-        )
-        return e0.to(dtype), e1.to(dtype)
+    def noise_group(step):
+        """The noise fields of the micro-steps from ``step`` on."""
+        if philox:
+            z = rng.philox_normal_quad_for_shape(
+                cfg.seed, rng.Stream.FIELD, step, (C,) + shape, chain_offset=chain_offset,
+                device=dev,
+            )
+        else:
+            z = rng.normal_pair_for_shape(
+                cfg.seed, rng.Stream.FIELD, step, (C,) + shape, chain_offset=chain_offset,
+                rounds=rounds, device=dev,
+            )
+        return tuple(e.to(dtype) for e in z)
 
     zc = torch.zeros((C,), dtype=dtype, device=dev)
     vals = (phi0, zc, zc, zc, zc, zc, zc, torch.zeros_like(state.corr_mean),
             torch.zeros((C,), dtype=torch.bool, device=dev), state.lrg_vl)
     step0 = int(state.step)
-    for p in range(cfg.loops // 2):
-        e0, e1 = noise_pair(step0 + 2 * p)
-        vals = micro_step(vals, e0)
-        vals = micro_step(vals, e1)
-    if cfg.loops % 2:
-        e0, _ = noise_pair(step0 + cfg.loops - 1)
-        vals = micro_step(vals, e0)
+    group = rng.PHILOX_STEPS if philox else 2
+    for s0 in range(0, cfg.loops, group):
+        etas = noise_group(step0 + s0)
+        for g in range(min(group, cfg.loops - s0)):
+            vals = micro_step(vals, etas[g])
     phi, ms, m2s, m4s, ams, p2s, acs, cs, unstable, lrg = vals
     return FieldFrameSums(phi, ms, m2s, m4s, ams, p2s, acs, cs, lrg, unstable)
 
@@ -243,24 +343,31 @@ def field_frame_epilogue(state: FieldState, sums: FieldFrameSums, cfg: FieldConf
     """Accept/reject, running-mean merge and adaptive Δτ for one frame — the
     expressions of the JAX epilogue and of kernel 4's in-kernel one.
     Rejected frames still advance ``step`` (the retry draws fresh noise).
+    ``Scheme.EXACT`` on the free field leaves Δτ as it is (the propagator is
+    exact at the configured step); interacting ETD1 keeps the controller.
     Returns (new_state, metrics)."""
     accept = ~sums.unstable
-    n_new = accum.runs_after(state.runs, cfg.loops)
+    n_new = accum.runs_after(state.runs, cfg.loops).to(state.phi.dtype)
 
     def merged(mean, frame_sum):
         n = n_new if mean.dim() == 1 else n_new[:, None]
         a = accept if mean.dim() == 1 else accept[:, None]
         return torch.where(a, accum.merge_frame_sum(mean, frame_sum, cfg.loops, n), mean)
 
-    grow = accept & (state.stab_cnt >= cfg.grow_after)
-    dtau = torch.where(
-        grow,
-        true_divide(state.dtau, cfg.shrink),
-        torch.where(accept, state.dtau, state.dtau * cfg.shrink),
-    )
-    if cfg.dtau_max is not None:
-        dtau = torch.clamp(dtau, max=float(np.float32(cfg.dtau_max)))
-    stab_cnt = torch.where(accept, torch.where(grow, 0, state.stab_cnt + 1), 0).to(torch.int32)
+    if cfg.scheme == Scheme.EXACT and cfg.action == "free_field":
+        dtau = state.dtau
+        stab_cnt = torch.where(accept, state.stab_cnt + 1, 0).to(torch.int32)
+    else:
+        grow = accept & (state.stab_cnt >= cfg.grow_after)
+        dtau = torch.where(
+            grow,
+            true_divide(state.dtau, cfg.shrink),
+            torch.where(accept, state.dtau, state.dtau * cfg.shrink),
+        )
+        if cfg.dtau_max is not None:
+            dtau = torch.clamp(dtau, max=float(np.float32(cfg.dtau_max)))
+        stab_cnt = torch.where(accept, torch.where(grow, 0, state.stab_cnt + 1),
+                               0).to(torch.int32)
     lrg_vl = torch.where(accept, sums.lrg_vl, state.lrg_vl)
     au = accept.reshape((-1,) + (1,) * (state.phi.dim() - 1))
     new_state = FieldState(

@@ -100,7 +100,7 @@ class ChainParams(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_int32) for name in (
             "n_chains", "n_sites", "threads", "sites_per_thread", "rounds",
-            "loops", "n_frames",
+            "philox", "loops", "n_frames",
         )
     ] + [(name, ctypes.c_uint32) for name in ("seed", "step0", "chain0")] + [
         (name, ctypes.c_int32) for name in (
@@ -122,7 +122,7 @@ class FieldParams(ctypes.Structure):
 
     _fields_ = [
         (name, ctypes.c_int32) for name in (
-            "n_chains", "L0", "L1", "rounds", "loops", "n_frames", "checkerboard",
+            "n_chains", "L0", "L1", "rounds", "philox", "loops", "n_frames", "checkerboard",
             "action", "grow_after", "has_dtau_max", "tile_rows", "halo", "n_tiles",
         )
     ] + [(name, ctypes.c_uint32) for name in ("seed", "step0", "chain0")] + [

@@ -16,7 +16,15 @@ Both are CUDA C++ for ``sm_90a`` (``csrc/chain_kernel.cu``), built by
 given CUDA tensors it launches its kernel on PyTorch's current stream, or
 raises — it never falls back.  Each wrapper counts its kernel launches in a
 plain integer attribute, ``chain_frame.launches`` and
-``chain_frames_multi.launches``.
+``chain_frames_multi.launches``; launches of the Philox variant
+(``rng_impl='hardware'``) are counted on their own as well, in
+``chain_frame.launches_hw`` and ``chain_frames_multi.launches_hw``.
+
+``rng_impl='hardware'`` selects each kernel's Philox-4x32-10 variant — the
+counterpart of the Pallas kernels' on-core generator branch — and, on CPU
+tensors, the plain versions' Philox stream; see ``csrc/chain_kernel.cu`` for
+the keying.  The kernels run ``Scheme.EM`` and ``Scheme.HEUN`` without the
+power-spectrum channel; the wrappers raise for anything else.
 """
 
 from __future__ import annotations
@@ -99,7 +107,8 @@ def _params(state: ChainState, action: QMAction, cfg: ChainConfig,
     f32 = np.float32
     return _build.ChainParams(
         n_chains=C, n_sites=N, threads=threads, sites_per_thread=spt,
-        rounds=rng.rounds_of(cfg.rng_impl), loops=cfg.loops, n_frames=n_frames,
+        rounds=rng.rounds_of(cfg.rng_impl), philox=int(_philox(cfg)), loops=cfg.loops,
+        n_frames=n_frames,
         seed=rng.u32(cfg.seed), step0=rng.u32(int(state.step)),
         chain0=rng.u32(chain_offset), bc=int(cfg.bc),
         background=int(k["background"]), has_zm=int(k["has_zm"]),
@@ -112,6 +121,20 @@ def _params(state: ChainState, action: QMAction, cfg: ChainConfig,
         dtau_max=f32(cfg.dtau_max if cfg.dtau_max is not None else 0.0),
         inv_loops=f32(1.0 / cfg.loops), loops_f=f32(cfg.loops),
     )
+
+
+def _philox(cfg: ChainConfig) -> bool:
+    """True when the kernels (and their plain versions) draw Philox noise."""
+    return cfg.rng_impl == "hardware"
+
+
+def check_kernel_config(cfg: ChainConfig) -> None:
+    """Raise for what the chain kernels (and their plain versions, which keep
+    the kernels' contract) do not take."""
+    reason = langevin.plain_path_only(cfg)
+    if reason:
+        raise ValueError(f"the chain kernels cannot run this config: {reason}; "
+                         "use langevin.run_frames (backend='torch')")
 
 
 def _check_cuda_inputs(state: ChainState) -> None:
@@ -144,14 +167,15 @@ def _route(state: ChainState) -> bool:
 def chain_frame_ref(state: ChainState, action: QMAction, cfg: ChainConfig,
                     chain_offset: int = 0) -> FrameSums:
     """Plain PyTorch version of kernel 1."""
-    return langevin.frame_sums(state, action, cfg, chain_offset)
+    check_kernel_config(cfg)
+    return langevin.frame_sums(state, action, cfg, chain_offset, philox=_philox(cfg))
 
 
 def chain_frame(state: ChainState, action: QMAction, cfg: ChainConfig,
                 chain_offset: int = 0) -> FrameSums:
     """Kernel 1: one frame of ``cfg.loops`` micro-steps for the chains of
     ``state`` (global ids ``chain_offset …``); returns the frame sums."""
-    langevin.check_supported(cfg)
+    check_kernel_config(cfg)
     if not _route(state):
         return chain_frame_ref(state, action, cfg, chain_offset)
     params = _params(state, action, cfg, chain_offset, 1)
@@ -168,12 +192,14 @@ def chain_frame(state: ChainState, action: QMAction, cfg: ChainConfig,
         unstable=torch.empty((C,), dtype=torch.int32, device=dev),
     )
     _build.launch("sq_chain_frame", params,
-                  (state.f, state.omega, state.lrg_vl, state.dtau, *out), dev)
+                  (state.f, state.omega, state.lrg_vl, state.dtau, *out[:8]), dev)
     chain_frame.launches += 1
+    chain_frame.launches_hw += _philox(cfg)
     return out._replace(unstable=out.unstable != 0)
 
 
 chain_frame.launches = 0
+chain_frame.launches_hw = 0
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +214,7 @@ def chain_frames_multi_ref(state: ChainState, action: QMAction, cfg: ChainConfig
     per_frame = []
     for _ in range(K):
         state, m = langevin.frame_epilogue(
-            state, langevin.frame_sums(state, action, cfg, chain_offset), cfg
+            state, chain_frame_ref(state, action, cfg, chain_offset), cfg
         )
         per_frame.append(m)
     return state, langevin.stack_metrics(per_frame)
@@ -200,7 +226,7 @@ def chain_frames_multi(state: ChainState, action: QMAction, cfg: ChainConfig,
     merge, the (lo, hi) count carry and adaptive Δτ in-kernel.  Per-frame
     results equal K launches of kernel 1 plus the PyTorch epilogue.
     Returns (state, metrics) with metrics of shape (K, C)."""
-    langevin.check_supported(cfg)
+    check_kernel_config(cfg)
     if K < 1:
         raise ValueError(f"frames per launch must be >= 1, got {K}")
     if not _route(state):
@@ -232,10 +258,12 @@ def chain_frames_multi(state: ChainState, action: QMAction, cfg: ChainConfig,
         dev,
     )
     chain_frames_multi.launches += 1
+    chain_frames_multi.launches_hw += _philox(cfg)
     return new, {"stable": hist_stable != 0, "dtau": hist_dtau, "max_x": hist_lrg}
 
 
 chain_frames_multi.launches = 0
+chain_frames_multi.launches_hw = 0
 
 
 # ---------------------------------------------------------------------------
@@ -258,7 +286,7 @@ def run_frames_kernel(state: ChainState, action: QMAction, cfg: ChainConfig,
     value 0 raises, as not ported.  Returns (state, metrics) with metrics of
     shape (n_frames, C).
     """
-    langevin.check_supported(cfg)
+    check_kernel_config(cfg)
     if block_chains == 0:
         raise ValueError("block_chains=0 (autotune) is not ported yet")
     K = max(frames_per_launch, 1)

@@ -26,10 +26,24 @@
 // a warp-shuffle plus shared-memory block reduction that every thread
 // finishes itself, so omega, lrg, dtau and the freeze flag are block-uniform
 // registers and a frozen chain leaves the loop without further work.  The
-// collective coordinate's noise is drawn once per pair by thread 0.  The
-// Threefry round count is a template parameter, so the rounds unroll into
-// straight-line integer code.  Making it fast (several chains per warp,
-// CUDA graphs over frames) is later work.
+// collective coordinate's noise is drawn once per noise group by thread 0.
+// The generator is a template parameter (sq_rng.cuh: Threefry-2x32 at 20 or
+// 13 rounds, one evaluation per site and two micro-steps; or Philox-4x32-10
+// for rng_impl='hardware', one per site and four micro-steps), so the rounds
+// unroll into straight-line integer code.  Making it fast (several chains
+// per warp, CUDA graphs over frames) is later work.
+//
+// The Philox stream (the counterpart of the TPU kernels' on-core generator,
+// _build_frame_kernel's hardware-PRNG branch): key (seed, FIELD ^ chain << 8)
+// with the global chain id, counter (site, s, 0, 0) where s is the micro-step
+// counter of the first of the four steps the evaluation serves, counted in
+// fours from the frame's first step; the collective coordinate takes site N
+// of the same stream (the TPU branch's extra lane).  A frame whose `loops`
+// is not a multiple of four drops the last evaluation's unused normals, so
+// no word serves two steps and the stream depends only on (seed, chain,
+// site, step): the same in kernel 1 and kernel 2, at any frames per launch,
+// resumable at any frame boundary, and fresh for a rejected frame's retry
+// (the counter advances by `loops` regardless).
 //
 // Numerics: every expression keeps the operand order of the JAX integrator
 // (stochquant_tpu/integrators/langevin.py) and of the Pallas kernels.  Build
@@ -52,6 +66,7 @@ struct ChainParams {
     int32_t threads;      // T, block size (multiple of 32, <= 512)
     int32_t sites_per_thread;  // ceil(N / T), one of 1, 2, 4, 8
     int32_t rounds;       // Threefry rounds: 20 or 13
+    int32_t philox;       // 1: Philox-4x32-10 (rng_impl='hardware') instead of Threefry
     int32_t loops;        // micro-steps per frame
     int32_t n_frames;     // K (kernel 2)
     uint32_t seed;
@@ -72,6 +87,16 @@ struct ChainParams {
 };
 
 #define SQ_MAX_THREADS 512
+// Register caps of the Philox variants (a group of four normals per site stays
+// live where Threefry keeps two): uncapped, kernel 1 at one site per thread
+// took 58 registers against Threefry's 40 and kernel 2 at two sites 101
+// against 64, so fewer blocks stayed resident on an SM.  The Threefry
+// variants stay uncapped: a minimum of 0 blocks reads as none given, whereas
+// an explicit 1 made ptxas spend more registers on them (40 -> 59 in kernel 1).
+#define SQ_K1_BOUNDS(SPT, GEN) \
+    __launch_bounds__(SQ_MAX_THREADS, (GEN::PHILOX && (SPT) == 1) ? 3 : 0)
+#define SQ_K2_BOUNDS(SPT, GEN) \
+    __launch_bounds__(SQ_MAX_THREADS, (GEN::PHILOX && (SPT) <= 2) ? 2 : 0)
 
 enum { BC_PERIODIC = 0, BC_FIXED_BG = 1, BC_DIRICHLET = 2 };
 
@@ -133,7 +158,7 @@ struct Shared {
     float* f;       // [N] current field, for the neighbour reads
     float* fp;      // [N] Heun predictor
     float* red;     // [2 * 32] per-warp detector partials
-    float* misc;    // [0] x_mid, [1..2] omega noise pair
+    float* misc;    // [0] x_mid, [1..4] omega noise of the group in flight
 };
 
 __device__ __forceinline__ float block_max_pair(float& a, float& b, float* red) {
@@ -270,31 +295,67 @@ __device__ void substep(const ChainParams& p, Sites<SPT>& s, ChainScalars& c,
 }
 
 // `loops` micro-steps starting at counter step0; leaves a tripped chain frozen.
-template <int SPT, int ROUNDS>
+// Threefry: one evaluation per site and pair of micro-steps, an odd last step
+// taking the first output of its own evaluation.
+template <int SPT, class GEN>
 __device__ void run_frame(const ChainParams& p, Sites<SPT>& s, ChainScalars& c,
                           uint32_t step0, const Shared& sh) {
     const int N = p.n_sites, T = blockDim.x, tid = threadIdx.x;
     const uint32_t chain = p.chain0 + blockIdx.x;
     const uint32_t k1_field = (uint32_t)STREAM_FIELD ^ (chain << 8);
-    const uint32_t k1_om = (uint32_t)STREAM_COLLECTIVE ^ (chain << 8);
     const float noise_amp = p.c_amp * sqrtf(2.0f * c.dtau / p.dt);
     const float om_amp = p.zm_c * sqrtf(2.0f * c.dtau);
-    float e0[SPT], e1[SPT];
-    const int pairs = p.loops / 2;
-    for (int k = 0; k <= pairs; ++k) {
-        const bool tail = k == pairs;
-        if (c.unstable || (tail && p.loops % 2 == 0)) break;  // block-uniform
-        const uint32_t step = tail ? step0 + (uint32_t)(p.loops - 1) : step0 + 2u * (uint32_t)k;
-        if (p.has_zm && tid == 0) normal_pair<ROUNDS>(p.seed, k1_om, 0u, step, sh.misc[1], sh.misc[2]);
-        #pragma unroll
-        for (int j = 0; j < SPT; ++j) {
-            const int i = tid + j * T;
-            if (i < N) normal_pair<ROUNDS>(p.seed, k1_field, (uint32_t)i, step, e0[j], e1[j]);
-            else e0[j] = e1[j] = 0.0f;
+    if constexpr (!GEN::PHILOX) {
+        constexpr int ROUNDS = GEN::N_ROUNDS;
+        const uint32_t k1_om = (uint32_t)STREAM_COLLECTIVE ^ (chain << 8);
+        float e0[SPT], e1[SPT];
+        const int pairs = p.loops / 2;
+        for (int k = 0; k <= pairs; ++k) {
+            const bool tail = k == pairs;
+            if (c.unstable || (tail && p.loops % 2 == 0)) break;  // block-uniform
+            const uint32_t step = tail ? step0 + (uint32_t)(p.loops - 1) : step0 + 2u * (uint32_t)k;
+            if (p.has_zm && tid == 0) normal_pair<ROUNDS>(p.seed, k1_om, 0u, step, sh.misc[1], sh.misc[2]);
+            #pragma unroll
+            for (int j = 0; j < SPT; ++j) {
+                const int i = tid + j * T;
+                if (i < N) normal_pair<ROUNDS>(p.seed, k1_field, (uint32_t)i, step, e0[j], e1[j]);
+                else e0[j] = e1[j] = 0.0f;
+            }
+            substep<SPT>(p, s, c, e0, 0, noise_amp, om_amp, sh);
+            if (tail || c.unstable) continue;
+            substep<SPT>(p, s, c, e1, 1, noise_amp, om_amp, sh);
         }
-        substep<SPT>(p, s, c, e0, 0, noise_amp, om_amp, sh);
-        if (tail || c.unstable) continue;
-        substep<SPT>(p, s, c, e1, 1, noise_amp, om_amp, sh);
+    } else {
+        // Philox: groups of GEN::STEPS micro-steps from one evaluation per site,
+        // counted from step0; a short last group drops the rest.  omega draws
+        // site N of the chain's own stream.
+        constexpr int G = GEN::STEPS;
+        float e[G][SPT];
+        for (int s0 = 0; s0 < p.loops; s0 += G) {
+            if (c.unstable) break;  // block-uniform
+            const uint32_t step = step0 + (uint32_t)s0;
+            if (p.has_zm && tid == 0) {
+                float z[G];
+                GEN::draw(p.seed, k1_field, (uint32_t)N, step, z);
+                #pragma unroll
+                for (int g = 0; g < G; ++g) sh.misc[1 + g] = z[g];
+            }
+            #pragma unroll
+            for (int j = 0; j < SPT; ++j) {
+                const int i = tid + j * T;
+                float z[G];
+                #pragma unroll
+                for (int g = 0; g < G; ++g) z[g] = 0.0f;
+                if (i < N) GEN::draw(p.seed, k1_field, (uint32_t)i, step, z);
+                #pragma unroll
+                for (int g = 0; g < G; ++g) e[g][j] = z[g];
+            }
+            #pragma unroll
+            for (int g = 0; g < G; ++g) {
+                if (s0 + g < p.loops && !c.unstable)
+                    substep<SPT>(p, s, c, e[g], g, noise_amp, om_amp, sh);
+            }
+        }
     }
 }
 
@@ -303,15 +364,15 @@ __device__ __forceinline__ Shared carve_shared(int n_sites) {
     Shared sh;
     sh.red = smem;
     sh.misc = smem + 64;
-    sh.f = smem + 68;
+    sh.f = smem + 72;
     sh.fp = sh.f + n_sites;
     return sh;
 }
 
 // ---- kernel 1: one frame, frame sums out ----------------------------------
 
-template <int SPT, int ROUNDS>
-__global__ void __launch_bounds__(SQ_MAX_THREADS)
+template <int SPT, class GEN>
+__global__ void SQ_K1_BOUNDS(SPT, GEN)
 chain_frame_kernel(ChainParams p, const float* __restrict__ f_in,
                    const float* __restrict__ om_in, const float* __restrict__ lrg_in,
                    const float* __restrict__ dtau_in, float* __restrict__ f_out,
@@ -334,7 +395,7 @@ chain_frame_kernel(ChainParams p, const float* __restrict__ f_in,
     c.lrg = lrg_in[blockIdx.x];
     c.dtau = dtau_in[blockIdx.x];
     c.unstable = 0;
-    run_frame<SPT, ROUNDS>(p, s, c, p.step0, sh);
+    run_frame<SPT, GEN>(p, s, c, p.step0, sh);
     #pragma unroll
     for (int k = 0; k < SPT; ++k) {
         const int i = tid + k * T;
@@ -355,8 +416,8 @@ chain_frame_kernel(ChainParams p, const float* __restrict__ f_in,
 
 // ---- kernel 2: K frames, epilogue in-kernel --------------------------------
 
-template <int SPT, int ROUNDS>
-__global__ void __launch_bounds__(SQ_MAX_THREADS)
+template <int SPT, class GEN>
+__global__ void SQ_K2_BOUNDS(SPT, GEN)
 chain_frames_kernel(ChainParams p, const float* __restrict__ f_in,
                     const float* __restrict__ om_in, const float* __restrict__ lrg_in,
                     const float* __restrict__ dtau_in, const float* __restrict__ xm_in,
@@ -401,7 +462,7 @@ chain_frames_kernel(ChainParams p, const float* __restrict__ f_in,
         }
         const float om_snap = c.om, lrg_snap = c.lrg;
         c.unstable = 0;
-        run_frame<SPT, ROUNDS>(p, s, c, p.step0 + (uint32_t)j * loops_u, sh);
+        run_frame<SPT, GEN>(p, s, c, p.step0 + (uint32_t)j * loops_u, sh);
 
         // epilogue: stochquant_tpu/integrators/langevin.py frame epilogue and
         // accum.merge_frame_sum, expression for expression
@@ -462,30 +523,37 @@ chain_frames_kernel(ChainParams p, const float* __restrict__ f_in,
 // ---- C entry points (loaded with ctypes) ----------------------------------
 
 static size_t shared_bytes(const ChainParams& p) {
-    return (size_t)(68 + 2 * p.n_sites) * sizeof(float);
+    return (size_t)(72 + 2 * p.n_sites) * sizeof(float);
 }
 
 static bool valid_launch(const ChainParams& p) {
     return p.n_chains > 0 && p.threads > 0 && p.threads <= SQ_MAX_THREADS &&
            p.threads % 32 == 0 && (long)p.threads * p.sites_per_thread >= p.n_sites &&
-           (p.rounds == 20 || p.rounds == 13) && p.n_sites >= 2 && p.loops >= 1;
+           (p.rounds == 20 || p.rounds == 13) && (p.philox == 0 || p.philox == 1) &&
+           p.n_sites >= 2 && p.loops >= 1;
 }
 
+// The dispatch key: sites per thread, then the generator (Threefry's round
+// count, or 10 for Philox-4x32-10).
+#define SQ_CASE(KERNEL, SPT, TAG, GEN, ...)                                        \
+    case SPT * 100 + TAG:                                                          \
+        KERNEL<SPT, GEN><<<grid, block, smem, st>>>(*p, __VA_ARGS__);              \
+        break;
+#define SQ_CASES(KERNEL, SPT, ...)                                                 \
+    SQ_CASE(KERNEL, SPT, 20, Threefry20, __VA_ARGS__)                              \
+    SQ_CASE(KERNEL, SPT, 13, Threefry13, __VA_ARGS__)                              \
+    SQ_CASE(KERNEL, SPT, 10, PhiloxNoise, __VA_ARGS__)
 #define SQ_DISPATCH(KERNEL, ...)                                                   \
     do {                                                                           \
         const dim3 grid(p->n_chains), block(p->threads);                           \
         const size_t smem = shared_bytes(*p);                                      \
         cudaStream_t st = (cudaStream_t)stream;                                    \
-        const int key = p->sites_per_thread * 100 + p->rounds;                     \
+        const int key = p->sites_per_thread * 100 + (p->philox ? 10 : p->rounds);  \
         switch (key) {                                                             \
-            case 120: KERNEL<1, 20><<<grid, block, smem, st>>>(*p, __VA_ARGS__); break; \
-            case 113: KERNEL<1, 13><<<grid, block, smem, st>>>(*p, __VA_ARGS__); break; \
-            case 220: KERNEL<2, 20><<<grid, block, smem, st>>>(*p, __VA_ARGS__); break; \
-            case 213: KERNEL<2, 13><<<grid, block, smem, st>>>(*p, __VA_ARGS__); break; \
-            case 420: KERNEL<4, 20><<<grid, block, smem, st>>>(*p, __VA_ARGS__); break; \
-            case 413: KERNEL<4, 13><<<grid, block, smem, st>>>(*p, __VA_ARGS__); break; \
-            case 820: KERNEL<8, 20><<<grid, block, smem, st>>>(*p, __VA_ARGS__); break; \
-            case 813: KERNEL<8, 13><<<grid, block, smem, st>>>(*p, __VA_ARGS__); break; \
+            SQ_CASES(KERNEL, 1, __VA_ARGS__)                                       \
+            SQ_CASES(KERNEL, 2, __VA_ARGS__)                                       \
+            SQ_CASES(KERNEL, 4, __VA_ARGS__)                                       \
+            SQ_CASES(KERNEL, 8, __VA_ARGS__)                                       \
             default: return (int)cudaErrorInvalidValue;                            \
         }                                                                          \
     } while (0)

@@ -20,6 +20,7 @@ struct FieldParams {
     int32_t L0;           // lattice rows (slice axis of the correlator)
     int32_t L1;           // lattice columns
     int32_t rounds;       // Threefry rounds: 20 or 13
+    int32_t philox;       // 1: Philox-4x32-10 (rng_impl='hardware'; kernels 3 and 4 only)
     int32_t loops;        // micro-steps per frame (kernels 3, 4)
     int32_t n_frames;     // K (kernel 4)
     int32_t checkerboard; // 1: even half-sweep, then odd sites on fresh even values

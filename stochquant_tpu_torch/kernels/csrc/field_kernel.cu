@@ -9,7 +9,15 @@
 //             (lo, hi) sample-count carry and adaptive-dtau epilogue in-kernel)
 //
 // Per micro-step pair every site draws one Threefry pair keyed by (seed,
-// FIELD ^ chain << 8, row * L1 + col, step) and takes both Box-Muller outputs;
+// FIELD ^ chain << 8, row * L1 + col, step) and takes both Box-Muller outputs
+// (under rng_impl='hardware', the counterpart of the TPU kernels' on-core
+// generator branch: one Philox-4x32-10 evaluation per site and four
+// micro-steps, key (seed, FIELD ^ chain << 8), counter (row * L1 + col, s, 0,
+// 0) with s the counter of the first of the four steps, counted in fours from
+// the frame's first step; a short last group drops its unused normals, so the
+// stream depends only on (seed, chain, site, step): the same in kernels 3 and
+// 4 at any frames per launch, resumable at a frame boundary, fresh for a
+// rejected frame's retry);
 // each micro-step is the Euler-Maruyama update (synchronous, or an even then
 // an odd half-sweep) with clamp and non-finite rule; the observables (M, M^2,
 // M^4, |M|, phi^2, action density, slice correlator) sample the pre-update
@@ -31,8 +39,9 @@
 //
 // Site ownership: warp w of the block owns rows w, w + 32, ...; lane l owns
 // columns l, l + 32, ... of those rows.  A thread reads and writes only its
-// own sites of the destination buffer, so the second noise output of a pair
-// (kept in a per-site scratch buffer between the two micro-steps), the own-
+// own sites of the destination buffer, so the later noise outputs of a group
+// (kept in per-site scratch planes between the group's micro-steps: one
+// plane under Threefry, three under Philox), the own-
 // site copies and the row sums (the slice means, kept per chain in a scratch
 // row) need no barrier; lane 0 of the owning warp also owns the row's entry
 // of the slice correlator.
@@ -61,11 +70,14 @@ __device__ __forceinline__ void copy_own(const FieldParams& p, const float* __re
 // par < 0) take the EM update from `src`, the others copy `src`; all go to
 // `dst`.  With `observe` it also sums the pre-update observables and writes
 // the slice means; with `last` it takes max |phi_new|.
-template <int ROUNDS>
+// Noise: NOISE_DRAW evaluates the generator at (site, step) and takes its
+// first output; NOISE_DRAW_KEEP also stores outputs 1 .. STEPS-1 in the planes
+// zk[(g - 1) * zk_plane + site]; NOISE_KEPT reads output `slot` from its plane.
+template <class GEN>
 __device__ void sweep(const FieldParams& p, const float* __restrict__ src,
-                      float* __restrict__ dst, float* __restrict__ zk, int par, int noise,
-                      uint32_t k1, uint32_t step, const Frame& fr, bool observe, bool last,
-                      Acc& acc, float* __restrict__ slice) {
+                      float* __restrict__ dst, float* __restrict__ zk, size_t zk_plane, int par,
+                      int noise, int slot, uint32_t k1, uint32_t step, const Frame& fr,
+                      bool observe, bool last, Acc& acc, float* __restrict__ slice) {
     const int L0 = p.L0, L1 = p.L1;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
     for (int r = warp; r < L0; r += nw) {
@@ -80,12 +92,17 @@ __device__ void sweep(const FieldParams& p, const float* __restrict__ src,
             if (par < 0 || ((r + c) & 1) == par) {
                 float eta;
                 if (noise == NOISE_KEPT) {
-                    eta = zk[i];
+                    if constexpr (GEN::STEPS == 2) eta = zk[i];
+                    else eta = zk[(size_t)(slot - 1) * zk_plane + i];
                 } else {
-                    float z0, z1;
-                    normal_pair<ROUNDS>(p.seed, k1, (uint32_t)i, step, z0, z1);
-                    eta = z0;
-                    if (noise == NOISE_DRAW_KEEP) zk[i] = z1;
+                    float z[GEN::STEPS];
+                    GEN::draw(p.seed, k1, (uint32_t)i, step, z);
+                    eta = z[0];
+                    if (noise == NOISE_DRAW_KEEP) {
+                        #pragma unroll
+                        for (int g = 1; g < GEN::STEPS; ++g)
+                            zk[(size_t)(g - 1) * zk_plane + i] = z[g];
+                    }
                 }
                 const float lap = laplacian(p, f, src[rdn * L1 + c], up0, src[r * L1 + cdn], up1);
                 float absdet;
@@ -112,17 +129,21 @@ __device__ void sweep(const FieldParams& p, const float* __restrict__ src,
 
 // One micro-step of a chain that is not frozen (the caller checks).  `cur`
 // holds the field before and after; `oth` is the other work buffer.
-template <int ROUNDS>
-__device__ void substep(const FieldParams& p, float*& cur, float*& oth, float* zk, int noise,
-                        uint32_t k1, uint32_t step, Frame& fr, float* __restrict__ cs,
-                        float* __restrict__ slice, float* red) {
+template <class GEN>
+__device__ void substep(const FieldParams& p, float*& cur, float*& oth, float* zk,
+                        size_t zk_plane, int noise, int slot, uint32_t k1, uint32_t step,
+                        Frame& fr, float* __restrict__ cs, float* __restrict__ slice,
+                        float* red) {
     Acc acc = acc_zero();
     if (p.checkerboard) {
-        sweep<ROUNDS>(p, cur, oth, zk, 0, noise, k1, step, fr, true, false, acc, slice);
+        sweep<GEN>(p, cur, oth, zk, zk_plane, 0, noise, slot, k1, step, fr, true, false, acc,
+                   slice);
         __syncthreads();
-        sweep<ROUNDS>(p, oth, cur, zk, 1, noise, k1, step, fr, false, true, acc, slice);
+        sweep<GEN>(p, oth, cur, zk, zk_plane, 1, noise, slot, k1, step, fr, false, true, acc,
+                   slice);
     } else {
-        sweep<ROUNDS>(p, cur, oth, zk, -1, noise, k1, step, fr, true, true, acc, slice);
+        sweep<GEN>(p, cur, oth, zk, zk_plane, -1, noise, slot, k1, step, fr, true, true, acc,
+                   slice);
         float* t = cur;
         cur = oth;
         oth = t;
@@ -149,27 +170,42 @@ __device__ void substep(const FieldParams& p, float*& cur, float*& oth, float* z
     __syncthreads();  // red and slice are free for the next micro-step
 }
 
-// `loops` micro-steps from P0 starting at counter step0; the field ends in
-// P0.  A tripped chain stays frozen for the rest of the frame.
-template <int ROUNDS>
-__device__ void run_frame(const FieldParams& p, float* P0, float* P1, float* zk, float* cs,
-                          float* slice, float* red, Frame& fr, uint32_t step0, uint32_t k1) {
+// `loops` micro-steps from P0 starting at counter step0, in noise groups of
+// GEN::STEPS counted from step0 (a short last group drops the rest of its
+// evaluation); the field ends in P0.  A tripped chain stays frozen for the
+// rest of the frame.
+template <class GEN>
+__device__ void run_frame(const FieldParams& p, float* P0, float* P1, float* zk,
+                          size_t zk_plane, float* cs, float* slice, float* red, Frame& fr,
+                          uint32_t step0, uint32_t k1) {
     float* cur = P0;
     float* oth = P1;
     fr.namp = p.c_amp * sqrtf(2.0f * fr.dtau / p.measure);
     for (int k = 0; k < 6; ++k) fr.sums[k] = 0.0f;
     fr.unstable = 0;
-    const int pairs = p.loops / 2;
-    for (int k = 0; k < pairs; ++k) {  // block-uniform control flow
-        const uint32_t step = step0 + 2u * (uint32_t)k;
-        substep<ROUNDS>(p, cur, oth, zk, NOISE_DRAW_KEEP, k1, step, fr, cs, slice, red);
-        if (fr.unstable) break;
-        substep<ROUNDS>(p, cur, oth, zk, NOISE_KEPT, k1, step, fr, cs, slice, red);
-        if (fr.unstable) break;
+    if constexpr (GEN::STEPS == 2) {
+        const int pairs = p.loops / 2;
+        for (int k = 0; k < pairs; ++k) {  // block-uniform control flow
+            const uint32_t step = step0 + 2u * (uint32_t)k;
+            substep<GEN>(p, cur, oth, zk, zk_plane, NOISE_DRAW_KEEP, 0, k1, step, fr, cs, slice,
+                         red);
+            if (fr.unstable) break;
+            substep<GEN>(p, cur, oth, zk, zk_plane, NOISE_KEPT, 1, k1, step, fr, cs, slice, red);
+            if (fr.unstable) break;
+        }
+        if ((p.loops & 1) && !fr.unstable)
+            substep<GEN>(p, cur, oth, zk, zk_plane, NOISE_DRAW, 0, k1,
+                         step0 + (uint32_t)(p.loops - 1), fr, cs, slice, red);
+    } else {
+        for (int s0 = 0; s0 < p.loops && !fr.unstable; s0 += GEN::STEPS) {  // block-uniform
+            const uint32_t step = step0 + (uint32_t)s0;
+            const int n = min(GEN::STEPS, p.loops - s0);
+            for (int g = 0; g < n && !fr.unstable; ++g) {
+                const int noise = g ? NOISE_KEPT : (n > 1 ? NOISE_DRAW_KEEP : NOISE_DRAW);
+                substep<GEN>(p, cur, oth, zk, zk_plane, noise, g, k1, step, fr, cs, slice, red);
+            }
+        }
     }
-    if ((p.loops & 1) && !fr.unstable)
-        substep<ROUNDS>(p, cur, oth, zk, NOISE_DRAW, k1, step0 + (uint32_t)(p.loops - 1), fr,
-                        cs, slice, red);
     if (cur != P0) {
         copy_own(p, cur, P0);
         __syncthreads();
@@ -183,7 +219,7 @@ __device__ __forceinline__ void zero_owned_rows(const FieldParams& p, float* row
 
 // ---- kernel 3: one frame, frame sums out ----------------------------------
 
-template <int ROUNDS>
+template <class GEN>
 __global__ void __launch_bounds__(FK_THREADS)
 field_frame_kernel(FieldParams p, const float* __restrict__ phi_in,
                    const float* __restrict__ lrg_in, const float* __restrict__ dtau_in,
@@ -203,8 +239,8 @@ field_frame_kernel(FieldParams p, const float* __restrict__ phi_in,
     fr.lrg = lrg_in[ch];
     fr.dtau = dtau_in[ch];
     const uint32_t k1 = (uint32_t)STREAM_FIELD ^ ((p.chain0 + (uint32_t)ch) << 8);
-    run_frame<ROUNDS>(p, P0, work + ch * vol, zk + ch * vol, cs, slice + (size_t)ch * p.L0,
-                      red, fr, p.step0, k1);
+    run_frame<GEN>(p, P0, work + ch * vol, zk + ch * vol, (size_t)C * vol, cs,
+                   slice + (size_t)ch * p.L0, red, fr, p.step0, k1);
     if (threadIdx.x == 0) {
         for (int k = 0; k < 6; ++k) sums_out[(size_t)k * C + ch] = fr.sums[k];
         lrg_out[ch] = fr.lrg;
@@ -214,7 +250,7 @@ field_frame_kernel(FieldParams p, const float* __restrict__ phi_in,
 
 // ---- kernel 4: K frames, epilogue in-kernel --------------------------------
 
-template <int ROUNDS>
+template <class GEN>
 __global__ void __launch_bounds__(FK_THREADS)
 field_frames_kernel(FieldParams p, const float* __restrict__ phi_in,
                     const float* __restrict__ lrg_in, const float* __restrict__ dtau_in,
@@ -255,8 +291,8 @@ field_frames_kernel(FieldParams p, const float* __restrict__ phi_in,
         __syncthreads();
         const float lrg_snap = fr.lrg;
         fr.dtau = dtau;
-        run_frame<ROUNDS>(p, W0, W1, zk + ch * vol, cs, slice + (size_t)ch * p.L0, red, fr,
-                          p.step0 + (uint32_t)j * loops_u, k1);
+        run_frame<GEN>(p, W0, W1, zk + ch * vol, (size_t)C * vol, cs,
+                       slice + (size_t)ch * p.L0, red, fr, p.step0 + (uint32_t)j * loops_u, k1);
 
         // epilogue: integrators/field.py frame epilogue and accum.merge_frame_sum,
         // expression for expression
@@ -304,16 +340,19 @@ field_frames_kernel(FieldParams p, const float* __restrict__ phi_in,
 static bool valid_field_launch(const FieldParams& p) {
     return p.n_chains > 0 && p.n_chains <= 65535 && p.L0 >= 1 && p.L1 >= 1 &&
            (long long)p.L0 * p.L1 <= (1LL << 24) && (p.rounds == 20 || p.rounds == 13) &&
-           p.loops >= 1 && (p.action == ACTION_PHI4 || p.action == ACTION_FREE);
+           (p.philox == 0 || p.philox == 1) && p.loops >= 1 &&
+           (p.action == ACTION_PHI4 || p.action == ACTION_FREE);
 }
 
 #define SQ_FIELD_DISPATCH(KERNEL, ...)                                                    \
     do {                                                                                  \
         cudaStream_t st = (cudaStream_t)stream;                                           \
-        if (p->rounds == 20)                                                              \
-            KERNEL<20><<<p->n_chains, FK_THREADS, 0, st>>>(*p, __VA_ARGS__);              \
+        if (p->philox)                                                                    \
+            KERNEL<PhiloxNoise><<<p->n_chains, FK_THREADS, 0, st>>>(*p, __VA_ARGS__);     \
+        else if (p->rounds == 20)                                                         \
+            KERNEL<Threefry20><<<p->n_chains, FK_THREADS, 0, st>>>(*p, __VA_ARGS__);      \
         else                                                                              \
-            KERNEL<13><<<p->n_chains, FK_THREADS, 0, st>>>(*p, __VA_ARGS__);              \
+            KERNEL<Threefry13><<<p->n_chains, FK_THREADS, 0, st>>>(*p, __VA_ARGS__);      \
     } while (0)
 
 extern "C" int sq_field_frame(const FieldParams* p, const float* phi_in, const float* lrg_in,

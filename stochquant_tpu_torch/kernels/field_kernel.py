@@ -17,7 +17,14 @@ Both are CUDA C++ for ``sm_90a`` (``csrc/field_kernel.cu``), built by
 given CUDA tensors it launches its kernel on PyTorch's current stream, or
 raises — it never falls back.  Each wrapper counts its kernel launches in a
 plain integer attribute, ``field_frame.launches`` and
-``field_frames_multi.launches``.
+``field_frames_multi.launches``; launches of the Philox variant
+(``rng_impl='hardware'``) are counted on their own as well, in
+``field_frame.launches_hw`` and ``field_frames_multi.launches_hw``.
+
+``rng_impl='hardware'`` selects each kernel's Philox-4x32-10 variant — the
+counterpart of the Pallas kernels' on-core generator branch — and, on CPU
+tensors, the plain versions' Philox stream; see ``csrc/field_kernel.cu`` for
+the keying.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 
 from stochquant_tpu_torch import rng
 from stochquant_tpu_torch.actions.phi4 import FieldAction, FreeField, ScalarPhi4
-from stochquant_tpu_torch.config import FieldConfig, Sweep
+from stochquant_tpu_torch.config import FieldConfig, Scheme, Sweep
 from stochquant_tpu_torch.integrators import field as field_mod
 from stochquant_tpu_torch.integrators.field import FieldFrameSums, FieldState
 from stochquant_tpu_torch.integrators.langevin import host_step, stack_metrics
@@ -61,7 +68,11 @@ def _action_constants(action: FieldAction):
 def check_kernel_config(cfg: FieldConfig) -> None:
     """Raise for what the 2-D field kernels (and their plain versions, which
     keep the kernels' contract) do not take."""
-    field_mod.check_field_supported(cfg)
+    if cfg.scheme == Scheme.EXACT:
+        raise ValueError(
+            "Scheme.EXACT is a plain-path scheme by design (the rfftn-mode propagator): "
+            "no field kernel implements it; use field.run_field_frames (backend='torch')"
+        )
     if cfg.ndim != 2:
         raise ValueError(
             f"the whole-lattice and strip-tiled field kernels take 2-D lattices, not shape "
@@ -71,20 +82,33 @@ def check_kernel_config(cfg: FieldConfig) -> None:
         raise ValueError(f"the field kernels are float32-only, not {cfg.dtype}")
 
 
+def philox(cfg: FieldConfig) -> bool:
+    """True when kernels 3 and 4 (and their plain versions) draw Philox noise."""
+    return cfg.rng_impl == "hardware"
+
+
+def noise_planes(cfg: FieldConfig) -> int:
+    """Per-site scratch planes kernels 3 and 4 keep a noise group's later
+    outputs in: one under Threefry (pairs), three under Philox (fours)."""
+    return (rng.PHILOX_STEPS if philox(cfg) else 2) - 1
+
+
 def kernel_params(shape, action: FieldAction, cfg: FieldConfig, *, step0: int,
                   chain_offset: int = 0, n_frames: int = 1, tile_rows: int = 0,
-                  halo: int = 0) -> "_build.FieldParams":
+                  halo: int = 0, philox: bool = False) -> "_build.FieldParams":
     """The ``FieldParams`` struct of one launch on a (C, *lattice) field.
     ``L0``, ``L1`` and ``inv_l1`` are the 2-D kernels' and stay 0 for another
-    lattice rank (kernels 6 and 7 take their geometry in ``FieldNdParams``)."""
+    lattice rank (kernels 6 and 7 take their geometry in ``FieldNdParams``);
+    ``philox`` is kernels 3 and 4's."""
     C, *lattice = shape
     L0, L1 = lattice if len(lattice) == 2 else (0, 0)
     code, m2, hm2, l6, l24 = _action_constants(action)
     f32 = np.float32
     a = cfg.spacing
     return _build.FieldParams(
-        n_chains=C, L0=L0, L1=L1, rounds=rng.rounds_of(cfg.rng_impl), loops=cfg.loops,
-        n_frames=n_frames, checkerboard=int(cfg.sweep == Sweep.CHECKERBOARD), action=code,
+        n_chains=C, L0=L0, L1=L1, rounds=rng.rounds_of(cfg.rng_impl), philox=int(philox),
+        loops=cfg.loops, n_frames=n_frames, checkerboard=int(cfg.sweep == Sweep.CHECKERBOARD),
+        action=code,
         grow_after=min(cfg.grow_after, 2**31 - 1), has_dtau_max=int(cfg.dtau_max is not None),
         tile_rows=tile_rows, halo=halo, n_tiles=L0 // tile_rows if tile_rows else 0,
         seed=rng.u32(cfg.seed), step0=rng.u32(int(step0)), chain0=rng.u32(chain_offset),
@@ -127,7 +151,8 @@ def route(state: FieldState, cfg: FieldConfig) -> bool:
 def field_frame_ref(state: FieldState, action: FieldAction, cfg: FieldConfig,
                     chain_offset: int = 0) -> FieldFrameSums:
     """Plain PyTorch version of kernel 3."""
-    return field_mod.field_frame_sums(state, action, cfg, chain_offset)
+    check_kernel_config(cfg)
+    return field_mod.field_frame_sums(state, action, cfg, chain_offset, philox=philox(cfg))
 
 
 def field_frame(state: FieldState, action: FieldAction, cfg: FieldConfig,
@@ -138,20 +163,22 @@ def field_frame(state: FieldState, action: FieldAction, cfg: FieldConfig,
         return field_frame_ref(state, action, cfg, chain_offset)
     C, L0, L1 = state.phi.shape
     params = kernel_params((C, L0, L1), action, cfg, step0=int(state.step),
-                           chain_offset=chain_offset)
+                           chain_offset=chain_offset, philox=philox(cfg))
     dev = state.phi.device
     empty = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
     phi, sums, cs = empty((C, L0, L1)), empty((6, C)), empty((C, L0))
     lrg, unst = empty((C,)), empty((C,), torch.int32)
-    work, zk, slices = empty((C, L0, L1)), empty((C, L0, L1)), empty((C, L0))
+    work, zk, slices = empty((C, L0, L1)), empty((noise_planes(cfg), C, L0, L1)), empty((C, L0))
     _build.launch("sq_field_frame", params,
                   (state.phi, state.lrg_vl, state.dtau, phi, sums, cs, lrg, unst, work, zk,
                    slices), dev)
     field_frame.launches += 1
+    field_frame.launches_hw += philox(cfg)
     return FieldFrameSums(phi, *sums.unbind(0), cs, lrg, unst != 0)
 
 
 field_frame.launches = 0
+field_frame.launches_hw = 0
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +194,7 @@ def field_frames_multi_ref(state: FieldState, action: FieldAction, cfg: FieldCon
     per_frame = []
     for _ in range(K):
         state, m = field_mod.field_frame_epilogue(
-            state, field_mod.field_frame_sums(state, action, cfg, chain_offset), cfg
+            state, field_frame_ref(state, action, cfg, chain_offset), cfg
         )
         per_frame.append(m)
     return state, stack_metrics(per_frame)
@@ -185,14 +212,14 @@ def field_frames_multi(state: FieldState, action: FieldAction, cfg: FieldConfig,
         return field_frames_multi_ref(state, action, cfg, K, chain_offset)
     C, L0, L1 = state.phi.shape
     params = kernel_params((C, L0, L1), action, cfg, step0=int(state.step),
-                           chain_offset=chain_offset, n_frames=K)
+                           chain_offset=chain_offset, n_frames=K, philox=philox(cfg))
     dev = state.phi.device
     empty = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
     means_in = torch.stack([getattr(state, name) for name in _MEANS])
     phi, lrg, dtau, means = empty((C, L0, L1)), empty((C,)), empty((C,)), empty((6, C))
     cm, runs, stab = empty((C, L0)), empty((C, 2), torch.int64), empty((C,), torch.int32)
     hist_stable, hist_dtau, hist_lrg = empty((K, C), torch.int32), empty((K, C)), empty((K, C))
-    work, zk = empty((2, C, L0, L1)), empty((C, L0, L1))
+    work, zk = empty((2, C, L0, L1)), empty((noise_planes(cfg), C, L0, L1))
     slices, cs = empty((C, L0)), empty((C, L0))
     _build.launch(
         "sq_field_frames", params,
@@ -202,12 +229,14 @@ def field_frames_multi(state: FieldState, action: FieldAction, cfg: FieldConfig,
         dev,
     )
     field_frames_multi.launches += 1
+    field_frames_multi.launches_hw += philox(cfg)
     new = FieldState(phi, *means.unbind(0), cm, runs, dtau, stab, lrg,
                      host_step(int(state.step) + cfg.loops * K))
     return new, {"stable": hist_stable != 0, "dtau": hist_dtau, "max_phi": hist_lrg}
 
 
 field_frames_multi.launches = 0
+field_frames_multi.launches_hw = 0
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,7 @@ import torch
 from stochquant_tpu_torch import rng
 from stochquant_tpu_torch.actions.base import true_divide
 from stochquant_tpu_torch.actions.phi4 import FieldAction
-from stochquant_tpu_torch.config import FieldConfig, Sweep
+from stochquant_tpu_torch.config import FieldConfig, Scheme, Sweep
 from stochquant_tpu_torch.integrators import field as field_mod
 from stochquant_tpu_torch.integrators.field import FieldState
 from stochquant_tpu_torch.integrators.langevin import stack_metrics
@@ -214,7 +214,9 @@ def check_nd_config(cfg: FieldConfig) -> None:
             f"is a pure function of (site, step)), not rng_impl={cfg.rng_impl!r}: use "
             "rng_impl='threefry' or 'threefry13'"
         )
-    field_mod.check_field_supported(cfg)
+    if cfg.scheme == Scheme.EXACT:
+        raise ValueError("Scheme.EXACT is a plain-path scheme by design (the rfftn-mode "
+                         "propagator): no field kernel implements it; use backend='torch'")
     if cfg.dtype != "float32":
         raise ValueError(f"the field kernels are float32-only, not {cfg.dtype}")
     if not 2 <= cfg.ndim <= _build.ND_MAX_DIMS:

@@ -164,7 +164,8 @@ def resolve_backend(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, bac
                          "otherwise")
     if backend == "cuda_step" and not rng.counter_based(cfg.rng_impl):
         raise ValueError("the lattice-split kernel path requires rng_impl='threefry' or "
-                         "'threefry13' (the exact edge fixup re-derives counter noise)")
+                         "'threefry13' (the exact edge fixup re-derives counter noise), "
+                         f"not {cfg.rng_impl!r}")
     if backend == "cuda_nd":
         if cfg.loops % 2:
             raise ValueError("the composed chunk kernel needs an even cfg.loops")
@@ -191,7 +192,7 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
     versions)."""
     if cfg.mesh_axes is None:
         raise ValueError("cfg.mesh_axes required for the halo runner")
-    field_mod.check_field_supported(cfg)
+    field_mod.check_field_supported(cfg, action)
     backend = resolve_backend(action, cfg, mesh, backend)
     ndim, shape = cfg.ndim, tuple(cfg.shape)
     ca, lat_spec = cfg.mesh_chain_axis, tuple(cfg.mesh_axes)

@@ -34,6 +34,10 @@ __all__ = [
     "uniform_from_bits",
     "normal_pair",
     "normal",
+    "philox4x32",
+    "philox_normal_quad",
+    "philox_normal_quad_for_shape",
+    "PHILOX_STEPS",
     "global_site_index",
     "normal_for_shape",
     "normal_pair_for_shape",
@@ -58,13 +62,11 @@ _TWO_PI = 6.283185307179586
 
 
 def rounds_of(rng_impl: str) -> int:
-    """Threefry round count for a config's ``rng_impl`` string."""
-    if rng_impl == "hardware":
-        raise ValueError(
-            "rng_impl='hardware' (the TPU PRNG branch; its CUDA counterpart "
-            "is a Philox generator) is not ported yet: use 'threefry' or "
-            "'threefry13'"
-        )
+    """Threefry round count for a config's ``rng_impl`` string.  'hardware'
+    gives the default 20: only the kernel wrappers and their plain versions
+    draw its Philox stream (:func:`philox_normal_quad`); every other path
+    (cold starts, the plain runners, the halo runners) draws Threefry-20
+    under it, as the JAX package's XLA paths do."""
     return 13 if rng_impl == "threefry13" else _DEFAULT_ROUNDS
 
 
@@ -117,14 +119,69 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return top * 2.0**-24 + 2.0**-25
 
 
-def normal_pair(k0, k1, c0, c1, rounds: int = _DEFAULT_ROUNDS):
-    """Two independent N(0,1) float32 draws per counter (full Box–Muller)."""
-    b0, b1 = threefry2x32(k0, k1, c0, c1, rounds)
+def _box_muller(b0, b1):
+    """Both Box–Muller outputs of two uint32 words."""
     u1 = uniform_from_bits(b0)
     u2 = uniform_from_bits(b1)
     r = torch.sqrt(-2.0 * torch.log(u1))
     theta = _TWO_PI * u2  # the scalar rounds to float32, as jnp.float32(_TWO_PI)
     return r * torch.cos(theta), r * torch.sin(theta)
+
+
+def normal_pair(k0, k1, c0, c1, rounds: int = _DEFAULT_ROUNDS):
+    """Two independent N(0,1) float32 draws per counter (full Box–Muller)."""
+    return _box_muller(*threefry2x32(k0, k1, c0, c1, rounds))
+
+
+# ---------------------------------------------------------------------------
+# Philox-4x32-10: the fast-noise generator of rng_impl='hardware'
+# ---------------------------------------------------------------------------
+
+#: micro-steps served by one Philox evaluation (four words, two Box–Muller pairs)
+PHILOX_STEPS = 4
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+
+
+def _mulhilo(m: int, b):
+    """(high, low) 32-bit words of the 64-bit product ``m * b`` of a uint32
+    constant and a uint32 word held in int64.  The product can exceed 2⁶³
+    (0xD2511F53 × 0xFFFFFFFF does), so ``b`` is split into 16-bit halves:
+    no intermediate leaves [0, 2⁴⁹), nothing wraps and no shift sign-extends."""
+    t_lo = m * (b & 0xFFFF)   # < 2**48
+    t_hi = m * (b >> 16)      # < 2**48; m*b = t_hi * 2**16 + t_lo
+    hi = (t_hi + (t_lo >> 16)) >> 16
+    lo = u32((u32(t_hi) << 16) + t_lo)
+    return hi, lo
+
+
+def philox4x32(k0, k1, c0, c1, c2, c3, rounds: int = 10):
+    """Philox-4x32 on int64 tensors holding uint32 words (broadcastable):
+    four output words per (key, counter), bit-equal to Random123's
+    ``philox4x32`` at its default 10 rounds and to ``philox4x32`` in
+    ``kernels/csrc/sq_rng.cuh`` (which takes the high words with ``__umulhi``)."""
+    dev = next((t.device for t in (c0, c1, c2, c3, k0, k1)
+                if isinstance(t, torch.Tensor)), None)
+    k0, k1, c0, c1, c2, c3 = (_as_word(v, dev) for v in (k0, k1, c0, c1, c2, c3))
+    for i in range(rounds):
+        if i:
+            k0 = u32(k0 + _PHILOX_W0)
+            k1 = u32(k1 + _PHILOX_W1)
+        hi0, lo0 = _mulhilo(_PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox_normal_quad(seed, k1, site, step):
+    """Four independent N(0,1) float32 draws from one Philox evaluation at
+    key ``(seed, k1)`` and counter ``(site, step, 0, 0)``: words 0 and 1 give
+    the Box–Muller pair of micro-steps ``step`` and ``step + 1``, words 2 and
+    3 that of ``step + 2`` and ``step + 3``."""
+    w0, w1, w2, w3 = philox4x32(seed, k1, site, step, 0, 0)
+    z0, z1 = _box_muller(w0, w1)
+    z2, z3 = _box_muller(w2, w3)
+    return z0, z1, z2, z3
 
 
 def chain_key(stream, chain_ids: torch.Tensor) -> torch.Tensor:
@@ -190,3 +247,12 @@ def normal_pair_for_shape(
     return normal_pair(
         seed, chain_key(stream, chain_ids), site_ids, _as_word(step, device), rounds
     )
+
+
+def philox_normal_quad_for_shape(seed, stream, step, shape, chain_offset=0, *, device=None):
+    """The four Philox noise fields of micro-steps ``step … step + 3`` for
+    ``shape = (chains, *lattice)`` (see :func:`philox_normal_quad`); rows are
+    global chains ``chain_offset …``, sites the lattice's C-order indices."""
+    chain_ids, site_ids = _ids_for_shape(shape, None, chain_offset, None, device)
+    return philox_normal_quad(seed, chain_key(stream, chain_ids), site_ids,
+                              _as_word(step, device))

@@ -28,7 +28,7 @@ import torch
 
 from stochquant_tpu_torch import actions as actions_mod
 from stochquant_tpu_torch import metrics as metrics_mod
-from stochquant_tpu_torch.config import ChainConfig, FieldConfig
+from stochquant_tpu_torch.config import ChainConfig, FieldConfig, Scheme
 from stochquant_tpu_torch.integrators import field as field_mod
 from stochquant_tpu_torch.integrators import gauge as gauge_mod
 from stochquant_tpu_torch.integrators import langevin
@@ -89,16 +89,34 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def select_backend(backend: str, device: torch.device) -> str:
-    """'auto' → 'cuda' (the hand-written kernels) on a CUDA device, 'torch'
-    (the plain PyTorch integrator) on the CPU.  'cuda' on the CPU raises."""
+def select_backend(backend: str, device: torch.device, cfg: Optional[ChainConfig] = None):
+    """Resolve a chain run's path: ('cuda', None) for kernels 1 and 2, or
+    ('torch', reason) for the plain PyTorch integrator, with ``reason`` set
+    when 'auto' on a CUDA device gives way (the caller records it).
+
+    'auto' is 'cuda' on a CUDA device and 'torch' on the CPU.  The LM and
+    exact-OU schemes and the power-spectrum channel have no kernel in either
+    package: there 'auto' runs the plain integrator on the device and says
+    why, and 'cuda' raises, as the JAX package's 'pallas' does.  'cuda' on the
+    CPU raises.  ``rng_impl='hardware'`` runs the kernels' Philox variants on
+    'cuda' and is ignored by 'torch' (Threefry-20), as in the JAX package."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown chain backend {backend!r}; known: {BACKENDS}")
+    plain_only = langevin.plain_path_only(cfg) if cfg is not None else None
     if backend == "auto":
-        return "cuda" if device.type == "cuda" else "torch"
-    if backend == "cuda" and device.type != "cuda":
-        raise ValueError(f"backend='cuda' runs the CUDA kernels and needs a CUDA device, not {device}")
-    return backend
+        if device.type != "cuda":
+            return "torch", None
+        if plain_only:
+            return "torch", f"{plain_only}; the plain PyTorch integrator runs on the device"
+        return "cuda", None
+    if backend == "cuda":
+        if device.type != "cuda":
+            raise ValueError("backend='cuda' runs the CUDA kernels and needs a CUDA device, "
+                             f"not {device}")
+        if plain_only:
+            raise ValueError(f"backend='cuda' cannot run this config: {plain_only}; "
+                             "use backend='torch'")
+    return backend, None
 
 
 def _frames_already_done(state, cfg, checkpoint_in=None) -> int:
@@ -199,20 +217,23 @@ def run_chain(
 
     backend: 'cuda' (the hand-written kernels), 'torch' (the plain PyTorch
     integrator, on any device) or 'auto' (cuda on a CUDA device, torch on
-    the CPU).  stop: optional callable polled between frame groups (e.g. a
-    PreemptionGuard); when true the loop checkpoints and returns early.
+    the CPU), resolved by :func:`select_backend`.  stop: optional callable
+    polled between frame groups (e.g. a PreemptionGuard); when true the loop
+    checkpoints and returns early.
     resume_progress: with checkpoint_in, count the checkpoint's completed
     frames toward cfg.frames instead of running cfg.frames more.
     """
     device = resolve_device(device)
-    backend = select_backend(backend, device)
-    langevin.check_supported(cfg)
+    backend, reason = select_backend(backend, device, cfg)
+    act = actions_mod.get(cfg.action)
+    langevin.check_supported(cfg, act)
     if cfg.mesh_chain_axis is not None:
         raise ValueError("mesh_chain_axis (chains sharded over a device mesh) is not ported yet")
     if cfg.block_chains == 0:
         raise ValueError("block_chains=0 (autotune) is not ported yet")
-    act = actions_mod.get(cfg.action)
     sink = sink or metrics_mod.MetricsSink()
+    if reason:
+        sink.emit({"type": "backend_fallback", "backend": "torch", "reason": reason})
 
     if checkpoint_in:
         state, loaded_cfg = ckpt_mod.load(checkpoint_in, device)
@@ -296,6 +317,25 @@ def _select_halo_backend(cfg: FieldConfig, backend: str, mesh) -> str:
     return backend
 
 
+def _check_threefry(cfg: FieldConfig, what: str) -> None:
+    if cfg.rng_impl == "hardware":
+        raise ValueError(
+            f"{what} draws Threefry noise only (it recomputes halo sites, which a generator "
+            "keyed per launch could not replay), not rng_impl='hardware': use 'threefry' / "
+            "'threefry13', the whole-lattice kernels, or backend='torch' (the plain "
+            "integrator, which draws Threefry-20 under 'hardware')")
+
+
+def field_fallback_reason(cfg: FieldConfig, backend: str, device) -> Optional[str]:
+    """Why 'auto' on a CUDA device runs an unsplit field config on the plain
+    integrator (``run_field`` records it), or None: ``Scheme.EXACT`` has no
+    kernel in either package."""
+    if backend == "auto" and torch.device(device).type == "cuda" and cfg.scheme == Scheme.EXACT:
+        return ("no field kernel implements Scheme.EXACT (the rfftn-mode propagator); the "
+                "plain PyTorch integrator runs on the device")
+    return None
+
+
 def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> str:
     """Resolve a field run's path: 'cuda' (kernels 3 and 4), 'cuda_tiled'
     (kernel 5), 'cuda_nd' (kernels 6 and 7, D >= 3) or 'torch' (the plain
@@ -306,8 +346,12 @@ def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> s
     (``tile_rows=0`` autotune, an odd ``loops`` on the paths of pair
     launches: the tiled 2-D kernel and the D >= 3 kernels, a dtype other
     than float32); ``backend='torch'`` is the explicit way to run the plain
-    integrator there.  ``Scheme.EXACT`` and ``rng_impl='hardware'`` raise on
-    every route: they are not ported yet.
+    integrator there.  ``Scheme.EXACT`` has no kernel in either package: 'auto'
+    runs the plain integrator on the device (``run_field`` records why); 'cuda'
+    raises.  ``rng_impl='hardware'`` runs the
+    Philox variants of kernels 3 and 4 and is ignored by 'torch'
+    (Threefry-20); the strip-tiled and D >= 3 kernels are Threefry-only and
+    raise for it, naming ``backend='torch'``.
 
     With ``mesh`` (and ``cfg.mesh_axes``) the result is a backend of
     ``parallel.halo.make_halo_runner``: 'torch', 'cuda' (kernels 3 / 6 per
@@ -319,14 +363,18 @@ def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> s
     admit, a dtype other than float32); ``WHOLE_LATTICE_MAX_BYTES`` plays no
     part under a mesh.  'cuda_rdma', ``prefer_rdma`` (kernel 8) and
     ``exchange_steps=0`` (autotune) raise."""
-    field_mod.check_field_supported(cfg)
+    field_mod.check_field_supported(cfg, actions_mod.get_field(cfg.action))
     if _check_mesh_cfg(cfg, mesh):
         return _select_halo_backend(cfg, backend, mesh)
     device = torch.device(device)
     if backend not in BACKENDS:
         raise ValueError(f"unknown field backend {backend!r}; known: {BACKENDS}")
+    exact = cfg.scheme == Scheme.EXACT
+    if exact and backend == "cuda":
+        raise ValueError("Scheme.EXACT is a plain-path scheme by design (the rfftn-mode "
+                         "propagator): use backend='auto' or 'torch'")
     if backend == "auto":
-        backend = "cuda" if device.type == "cuda" else "torch"
+        backend = "cuda" if device.type == "cuda" and not exact else "torch"
     if backend == "torch":
         return "torch"
     if device.type != "cuda":
@@ -336,6 +384,7 @@ def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> s
     if cfg.dtype != "float32":
         raise ValueError(f"the field kernels are float32-only, not {cfg.dtype}; use backend='torch'")
     if cfg.ndim >= 3:
+        _check_threefry(cfg, "the D >= 3 field kernels")
         field_kernel_nd.check_nd_config(cfg)
         if cfg.loops % 2:
             raise ValueError(
@@ -346,6 +395,7 @@ def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> s
     lattice_bytes = math.prod(cfg.shape) * 4
     if cfg.tile_rows is None and lattice_bytes <= WHOLE_LATTICE_MAX_BYTES:
         return "cuda"
+    _check_threefry(cfg, "the strip-tiled field kernel")
     if cfg.loops % 2:
         raise ValueError(
             f"the tiled field kernel (lattice of {lattice_bytes} bytes, tile_rows="
@@ -384,6 +434,9 @@ def run_field(
             raise ValueError("run_field needs device= (or mesh= with cfg.mesh_axes)")
         device = resolve_device(device)
         route = select_field_backend(cfg, backend, device)
+        reason = field_fallback_reason(cfg, backend, device)
+        if reason:
+            sink.emit({"type": "backend_fallback", "backend": route, "reason": reason})
     else:
         route = select_field_backend(cfg, backend, device, mesh)
         device = _mesh_device(mesh, device)

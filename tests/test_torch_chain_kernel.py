@@ -114,8 +114,8 @@ def test_launch_geometry():
 
 
 def test_kernel_parameters_mirror_the_cuda_struct():
-    # 17 four-byte integer fields and 19 floats, in the order of csrc/chain_kernel.cu
-    assert ctypes.sizeof(_build.ChainParams) == 36 * 4
+    # 18 four-byte integer fields and 19 floats, in the order of csrc/chain_kernel.cu
+    assert ctypes.sizeof(_build.ChainParams) == 37 * 4
     src = (_build._CSRC / "chain_kernel.cu").read_text()
     body = src[src.index("struct ChainParams {"):src.index("};", src.index("struct ChainParams {"))]
     names = []
@@ -129,7 +129,9 @@ def test_kernel_parameters_mirror_the_cuda_struct():
     s0 = langevin.init_chain_state(CFG, act, device="cpu")
     p = ck._params(s0, act, CFG, chain_offset=2**32 + 3, n_frames=4)
     assert (p.n_chains, p.n_sites, p.threads, p.sites_per_thread) == (8, 128, 128, 1)
-    assert (p.rounds, p.loops, p.n_frames, p.step0, p.chain0) == (20, 10, 4, 2, 3)
+    assert (p.rounds, p.philox, p.loops, p.n_frames, p.step0, p.chain0) == (20, 0, 10, 4, 2, 3)
+    hw = ck._params(s0, act, dataclasses.replace(CFG, rng_impl="hardware"), 0, 1)
+    assert (hw.rounds, hw.philox) == (20, 1)
     assert (p.bc, p.background, p.has_zm, p.heun, p.action) == (1, 1, 1, 0, 1)
     assert p.dt == np.float32(0.05) and p.p1 == 24.0 and p.xcl_w == 2.5
     assert p.t_right == np.float32(128 * 0.05)
@@ -146,13 +148,21 @@ def test_unsupported_inputs_raise():
 
     with pytest.raises(ValueError, match="Custom"):
         ck._action_constants(Custom())
-    for change in (dict(scheme=Scheme.LM), dict(scheme=Scheme.EXACT),
-                   dict(accumulate_spectrum=True), dict(rng_impl="hardware")):
+    # the plain-path features stay refused by the kernels, as the Pallas ones refuse them
+    for change, match in ((dict(scheme=Scheme.LM), "LM"), (dict(scheme=Scheme.EXACT), "EXACT"),
+                          (dict(accumulate_spectrum=True), "spectrum")):
         bad = dataclasses.replace(CFG, **change)
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match=match):
             ck.chain_frame(s0, act, bad)
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match=match):
             ck.chain_frames_multi(s0, act, bad, 2)
+        with pytest.raises(ValueError, match=match):
+            ck.chain_frame_ref(s0, act, bad)
+        with pytest.raises(ValueError, match=match):
+            ck.run_frames_kernel(s0, act, bad, 1)
+    # rng_impl='hardware' is the kernels' Philox variant: it runs, on another stream
+    hw = dataclasses.replace(CFG, rng_impl="hardware")
+    assert not torch.equal(ck.chain_frame(s0, act, hw).f, ck.chain_frame(s0, act, CFG).f)
     meta = langevin.ChainState(*(t if n == "step" else t.to("meta")
                                  for n, t in zip(s0._fields, s0)))
     with pytest.raises(ValueError, match="cuda"):

@@ -118,6 +118,27 @@ def test_port_imports_without_jax_or_triton():
         "import stochquant_tpu_torch.kernels.field_halo_kernel\n"
         "import stochquant_tpu_torch.parallel, stochquant_tpu_torch.parallel.mesh\n"
         "import stochquant_tpu_torch.parallel.halo, stochquant_tpu_torch.parallel.gauge_halo\n"
+        # the Philox stream, the plain-path schemes and the spectrum run without them too
+        "import dataclasses\n"
+        "from stochquant_tpu_torch import rng, runtime, metrics\n"
+        "from stochquant_tpu_torch.config import ChainConfig, FieldConfig, Scheme\n"
+        "assert int(rng.philox4x32(0, 0, 0, 0, 0, 0)[0]) == 0x6627E8D5\n"
+        "quiet = lambda: metrics.MetricsSink(callback=lambda r: 0)\n"
+        "c = ChainConfig(action='harmonic', n_sites=8, n_chains=2, loops=4, frames=1)\n"
+        "for change in (dict(scheme=Scheme.LM), dict(scheme=Scheme.EXACT),\n"
+        "               dict(accumulate_spectrum=True), dict(rng_impl='hardware')):\n"
+        "    runtime.run_chain(dataclasses.replace(c, **change), device='cpu', sink=quiet())\n"
+        "from stochquant_tpu_torch.kernels import chain_kernel, field_kernel\n"
+        "from stochquant_tpu_torch import actions\n"
+        "from stochquant_tpu_torch.integrators import field, langevin\n"
+        "hw = dataclasses.replace(c, rng_impl='hardware')\n"
+        "act = actions.get(hw.action)\n"
+        "chain_kernel.run_frames_kernel(langevin.init_chain_state(hw, act, device='cpu'), act,\n"
+        "                               hw, 2, frames_per_launch=2)\n"
+        "f = FieldConfig(shape=(8, 8), n_chains=2, loops=4, frames=1, rng_impl='hardware')\n"
+        "fact = actions.get_field(f.action)\n"
+        "field_kernel.run_field_frames_kernel(field.init_field_state(f, device='cpu'), fact, f, 1)\n"
+        "runtime.run_field(dataclasses.replace(f, scheme=Scheme.EXACT), device='cpu', sink=quiet())\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'stochquant_tpu'))\n"
         "assert not bad, bad\n"

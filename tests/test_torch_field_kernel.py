@@ -108,9 +108,9 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
 
 
 def test_kernel_parameters_mirror_the_cuda_struct():
-    # 13 four-byte integer fields, 3 unsigned and 13 floats, in the order of
+    # 14 four-byte integer fields, 3 unsigned and 13 floats, in the order of
     # csrc/field_common.cuh
-    assert ctypes.sizeof(_build.FieldParams) == 29 * 4
+    assert ctypes.sizeof(_build.FieldParams) == 30 * 4
     src = (_build._CSRC / "field_common.cuh").read_text()
     start = src.index("struct FieldParams {")
     body = src[start:src.index("};", start)]
@@ -145,8 +145,12 @@ def test_unsupported_inputs_raise():
 
     with pytest.raises(ValueError, match="Custom"):
         fk.kernel_params((3, 8, 128), Custom(), CFG, step0=1)
+    # rng_impl='hardware' is the kernels' Philox variant: it runs, on another stream
+    hw = dataclasses.replace(CFG, rng_impl="hardware")
+    assert not torch.equal(fk.field_frame(s0, act, hw).phi, fk.field_frame(s0, act, CFG).phi)
+    assert fk.kernel_params((3, 8, 128), act, hw, step0=1, philox=fk.philox(hw)).philox == 1
+    assert (fk.noise_planes(CFG), fk.noise_planes(hw)) == (1, 3)
     for change, match in ((dict(scheme=Scheme.EXACT), "EXACT"),
-                          (dict(rng_impl="hardware"), "hardware"),
                           (dict(shape=(4, 4, 4)), "2-D"),
                           (dict(dtype="float64"), "float32")):
         bad = dataclasses.replace(CFG, **change)

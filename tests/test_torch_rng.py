@@ -1,4 +1,6 @@
-"""The port's Threefry noise is bit-equal to the JAX package's."""
+"""The port's Threefry noise is bit-equal to the JAX package's; its Philox
+generator (rng_impl='hardware' on the kernel routes) gives Random123's known
+answers."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -92,7 +94,64 @@ def test_normal_for_shape_offsets_match_jax_and_global_slice():
 
 
 def test_rounds_of_and_hardware_rng_raises():
-    assert trng.rounds_of("threefry") == 20
-    assert trng.rounds_of("threefry13") == 13
-    with pytest.raises(ValueError, match="hardware"):
-        trng.rounds_of("hardware")
+    # the name dates from when 'hardware' raised: it now gives 20, as in the JAX
+    # package, and stays off the counter-based list (the routing reads that)
+    for impl in ("threefry", "threefry13", "hardware"):
+        assert trng.rounds_of(impl) == jrng.rounds_of(impl)
+        assert trng.counter_based(impl) == jrng.counter_based(impl)
+    assert trng.rounds_of("hardware") == 20 and not trng.counter_based("hardware")
+
+
+def test_philox_known_answer_vectors():
+    # Random123's kat_vectors for philox4x32, 10 rounds
+    f = 0xFFFFFFFF
+    cases = [
+        ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+        ((f, f, f, f), (f, f), (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+        ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+         (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+    ]
+    for ctr, key, want in cases:
+        got = trng.philox4x32(*key, *(_t(c) for c in ctr))
+        assert tuple(int(w) for w in got) == want
+
+
+def test_philox_bits_match_a_numpy_uint64_version_and_broadcast():
+    rs = np.random.RandomState(7)
+    k0, k1, c0, c1, c2, c3 = (rs.randint(0, 2**32, size=2048, dtype=np.uint64)
+                              for _ in range(6))
+    # force the corners where a signed 64-bit product would wrap
+    c0[:4] = c2[:4] = 0xFFFFFFFF
+    got = trng.philox4x32(_t(k0), _t(k1), _t(c0), _t(c1), _t(c2), _t(c3))
+    m32 = np.uint64(0xFFFFFFFF)
+    a, b, c, d, ka, kb = c0.copy(), c1.copy(), c2.copy(), c3.copy(), k0.copy(), k1.copy()
+    for i in range(10):
+        if i:
+            ka, kb = (ka + np.uint64(0x9E3779B9)) & m32, (kb + np.uint64(0xBB67AE85)) & m32
+        p0, p1 = np.uint64(0xD2511F53) * a, np.uint64(0xCD9E8D57) * c
+        a, b, c, d = (p1 >> np.uint64(32)) ^ b ^ ka, p1 & m32, (p0 >> np.uint64(32)) ^ d ^ kb, p0 & m32
+    for g, w in zip(got, (a, b, c, d)):
+        np.testing.assert_array_equal(g.numpy().astype(np.uint64), w)
+    again = trng.philox4x32(_t(k0), _t(k1), _t(c0), _t(c1), _t(c2), _t(c3))
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    row = trng.philox4x32(3, _t(k1[:5])[:, None], _t(c0[:7])[None, :], 9, 0, 0)
+    assert row[0].shape == (5, 7)
+    one = trng.philox4x32(3, int(k1[2]), int(c0[4]), 9, 0, 0)
+    assert all(int(r[2, 4]) == int(o) for r, o in zip(row, one))
+
+
+def test_philox_normals_are_standard_and_uniforms_stay_in_range():
+    z = torch.stack(trng.philox_normal_quad_for_shape(5, trng.Stream.FIELD, 11, (8, 4096)))
+    assert torch.isfinite(z).all() and z.dtype == torch.float32
+    assert abs(float(z.mean())) < 0.01 and abs(float(z.var()) - 1.0) < 0.02
+    flat = z.reshape(4, -1).double()
+    corr = torch.corrcoef(flat)
+    assert float((corr - torch.eye(4, dtype=corr.dtype)).abs().max()) < 0.02
+    words = torch.stack(trng.philox4x32(5, 1, torch.arange(1 << 14), 0, 0, 0))
+    u = trng.uniform_from_bits(words)
+    assert float(u.min()) > 0.0 and float(u.max()) <= 1.0
+    assert float(trng.uniform_from_bits(torch.tensor([0, 0xFFFFFFFF]))[0]) == 2.0**-25
+    # rows are global chains, columns the chain's sites: any block is a slice
+    full = trng.philox_normal_quad_for_shape(5, trng.Stream.FIELD, 11, (6, 10))
+    part = trng.philox_normal_quad_for_shape(5, trng.Stream.FIELD, 11, (2, 10), chain_offset=3)
+    assert all(torch.equal(f[3:5], p) for f, p in zip(full, part))

@@ -15,7 +15,7 @@ from stochquant_tpu.config import ChainConfig as JChainConfig
 from stochquant_tpu.config import FieldConfig as JFieldConfig
 from stochquant_tpu.integrators.gauge import GaugeConfig as JGaugeConfig
 from stochquant_tpu_torch import cli, metrics, runtime
-from stochquant_tpu_torch.config import PRESETS, FieldConfig, Scheme, Sweep
+from stochquant_tpu_torch.config import PRESETS, ChainConfig, FieldConfig, Scheme, Sweep
 from stochquant_tpu_torch.integrators.gauge import GaugeConfig
 from stochquant_tpu_torch.io import checkpoint
 
@@ -112,17 +112,23 @@ def test_unported_paths_raise():
         runtime.run_chain(cfg, device="cpu", backend="cuda")
     with pytest.raises(ValueError, match="backend"):
         runtime.run_chain(cfg, device="cpu", backend="pallas")
-    for change, feature in ((dict(scheme=Scheme.LM), "LM"), (dict(scheme=Scheme.EXACT), "EXACT"),
-                            (dict(accumulate_spectrum=True), "accumulate_spectrum"),
-                            (dict(rng_impl="hardware"), "hardware"),
-                            (dict(block_chains=0), "autotune"),
-                            (dict(mesh_chain_axis="chains"), "mesh_chain_axis")):
+    for change, feature in ((dict(block_chains=0), "autotune"),
+                            (dict(mesh_chain_axis="chains"), "mesh_chain_axis"),
+                            (dict(scheme=Scheme.LM, loops=11), "even"),
+                            # harmosc's double-well sibling keeps a zero mode: EXACT needs it frozen
+                            (dict(scheme=Scheme.EXACT, action="double_well"), "EXACT")):
         with pytest.raises(ValueError, match=feature):
             runtime.run_chain(dataclasses.replace(cfg, **change), device="cpu")
-    with pytest.raises(ValueError, match="spectrum"):
-        cli.main(["run", "--preset", "quartic_large", "--device", "cpu", "--frames", "1"])
+    # what raised before this port had them: LM, EXACT, the power spectrum and
+    # rng_impl='hardware' run (tests of their values: test_torch_schemes.py)
+    for change in (dict(scheme=Scheme.LM), dict(scheme=Scheme.EXACT),
+                   dict(accumulate_spectrum=True), dict(rng_impl="hardware")):
+        res = runtime.run_chain(dataclasses.replace(cfg, frames=1, **change), device="cpu",
+                                sink=metrics.MetricsSink())
+        assert torch.isfinite(res.state.f).all() and int(res.state.step) == 2 + cfg.loops
     with pytest.raises(ValueError, match="EXACT"):
-        cli.main(["run", "--preset", "phi4_2d", "--device", "cpu", "--scheme", "exact"])
+        cli.main(["run", "--preset", "phi4_2d", "--device", "cpu", "--scheme", "exact",
+                  "--backend", "cuda"])
     with pytest.raises(SystemExit):
         cli.main(["run", "--preset", "no_such_preset", "--device", "cpu"])
 
@@ -211,6 +217,16 @@ BASE = FieldConfig(shape=(256, 256), loops=100)
     (dict(shape=(32, 32, 32, 32)), "torch", CUDA, "torch"),
     ({}, "auto", torch.device("cpu"), "torch"),
     (dict(shape=(32, 32, 32, 32)), "auto", torch.device("cpu"), "torch"),
+    # rng_impl='hardware': the Philox variants of kernels 3 and 4; ignored by 'torch'
+    (dict(rng_impl="hardware"), "auto", CUDA, "cuda"),
+    (dict(rng_impl="hardware", shape=(512, 512), loops=7), "cuda", CUDA, "cuda"),
+    (dict(rng_impl="hardware", shape=(1024, 1024)), "torch", CUDA, "torch"),
+    (dict(rng_impl="hardware", shape=(16, 16, 16)), "auto", torch.device("cpu"), "torch"),
+    # Scheme.EXACT runs the plain integrator on every device ('auto' and 'torch')
+    (dict(scheme=Scheme.EXACT, action="free_field"), "auto", CUDA, "torch"),
+    (dict(scheme=Scheme.EXACT), "auto", CUDA, "torch"),
+    (dict(scheme=Scheme.EXACT, shape=(8, 8, 8)), "torch", CUDA, "torch"),
+    (dict(scheme=Scheme.EXACT), "auto", torch.device("cpu"), "torch"),
     # D >= 3 lattices run kernels 6 and 7 on a CUDA device
     (dict(shape=(32, 32, 32, 32)), "auto", CUDA, "cuda_nd"),
     (dict(shape=(16, 16, 16)), "cuda", CUDA, "cuda_nd"),
@@ -237,10 +253,18 @@ def test_field_routing(change, backend, device, want):
     (dict(mesh_axes=("x", None)), "torch", torch.device("cpu"), "mesh_axes"),
     (dict(mesh_chain_axis="chains"), "auto", CUDA, "mesh_chain_axis"),
     (dict(tile_rows=0), "auto", CUDA, "autotune"),
-    (dict(rng_impl="hardware"), "auto", CUDA, "hardware"),
-    (dict(rng_impl="hardware"), "torch", torch.device("cpu"), "hardware"),
-    (dict(scheme=Scheme.EXACT, action="free_field"), "auto", CUDA, "EXACT"),
-    (dict(scheme=Scheme.EXACT), "torch", torch.device("cpu"), "EXACT"),
+    # rng_impl='hardware' is kernels 3 and 4's: the tiled and D >= 3 kernels refuse it
+    # on 'auto' as on 'cuda', and nothing gives way to the plain integrator unasked
+    (dict(rng_impl="hardware", tile_rows=64), "auto", CUDA, "hardware"),
+    (dict(rng_impl="hardware", shape=(1024, 1024)), "cuda", CUDA, "backend='torch'"),
+    (dict(rng_impl="hardware", shape=(16, 16, 16)), "auto", CUDA, "hardware"),
+    (dict(rng_impl="hardware", shape=(16, 16, 16)), "cuda", CUDA, "backend='torch'"),
+    # Scheme.EXACT is a plain-path scheme: 'cuda' refuses it; no path takes m² <= 0,
+    # a CHECKERBOARD sweep or a mesh under it
+    (dict(scheme=Scheme.EXACT, action="free_field"), "cuda", CUDA, "EXACT"),
+    (dict(scheme=Scheme.EXACT, sweep=Sweep.CHECKERBOARD), "torch", torch.device("cpu"), "SYNC"),
+    (dict(scheme=Scheme.EXACT, sweep=Sweep.CHECKERBOARD), "auto", CUDA, "EXACT"),
+    (dict(scheme=Scheme.EXACT, mesh_axes=("x", None)), "auto", CUDA, "single-program"),
     (dict(dtype="float64"), "cuda", CUDA, "float32"),
     (dict(tile_rows=64, loops=7), "auto", CUDA, "even loops"),
     (dict(tile_rows=64, loops=7), "cuda", CUDA, "even loops"),
@@ -502,6 +526,9 @@ CHAIN = dict(mesh_axes=(None, None), mesh_chain_axis="chain")
     (X2, _cpu_mesh(("x", 2)), "torch", "torch"),
     (X2, _cuda_mesh(("x", 2)), "auto", "cuda"),
     (X2, _cuda_mesh(("x", 2)), "torch", "torch"),
+    # the plain halo runner ignores rng_impl='hardware' (Threefry-20), as the JAX one does
+    (dict(X2, rng_impl="hardware"), _cpu_mesh(("x", 2)), "torch", "torch"),
+    (dict(X2, rng_impl="hardware"), _cuda_mesh(("x", 2)), "torch", "torch"),
     (X2, _cuda_mesh(("x", 2)), "cuda_step", "cuda_step"),
     (X2, _cuda_mesh(("x", 1)), "cuda_pair", "cuda_pair"),
     (dict(X2, loops=7), _cuda_mesh(("x", 2)), "auto", "cuda"),  # kernel 9, 128 KiB blocks
@@ -547,7 +574,10 @@ def test_auto_on_a_cuda_mesh_resolves_to_a_kernel_at_any_block_size(change, want
     (dict(mesh_chain_axis="chain"), _cuda_mesh(("chain", 2)), "auto", "needs cfg.mesh_axes"),
     (X2, DeviceMesh(("x",), (2,), (torch.device("cpu"), torch.device("cuda", 0))), "auto",
      "mixes device types"),
-    (dict(X2, rng_impl="hardware"), _cpu_mesh(("x", 2)), "torch", "hardware"),
+    # the split kernels draw Threefry only: rng_impl='hardware' is refused on 'auto' as on
+    # 'cuda_step' and nothing gives way to 'torch' unasked
+    (dict(X2, rng_impl="hardware"), _cuda_mesh(("x", 2)), "auto", "hardware"),
+    (dict(X2, rng_impl="hardware"), _cuda_mesh(("x", 2)), "cuda_step", "hardware"),
     # no kernel covers these on the card, and nothing gives way to 'torch' unasked
     (dict(shape=(32, 32, 32, 32), mesh_axes=("x", None, None, None), loops=7),
      _cuda_mesh(("x", 2)), "auto", "use backend='torch'"),
@@ -727,3 +757,142 @@ def test_run_gauge_chunk_backend_and_the_auto_record_under_a_mesh(monkeypatch):
                           sink=metrics.MetricsSink())
     with pytest.raises(ValueError, match="device="):
         runtime.run_gauge(dataclasses.replace(cfg, mesh_axes=None))
+
+
+# ---------------------------------------------------------------------------
+# chain routing, the plain-path schemes through the runtime and the CLI
+# ---------------------------------------------------------------------------
+
+CHAIN_BASE = ChainConfig(action="harmonic", n_sites=16, n_chains=2, loops=4, frames=1)
+
+
+@pytest.mark.parametrize("change,backend,device,want,reasoned", [
+    ({}, "auto", CUDA, "cuda", False),
+    ({}, "auto", torch.device("cpu"), "torch", False),
+    # rng_impl='hardware': the kernels' Philox variants; the plain path ignores it
+    (dict(rng_impl="hardware"), "auto", CUDA, "cuda", False),
+    (dict(rng_impl="hardware"), "cuda", CUDA, "cuda", False),
+    (dict(rng_impl="hardware"), "torch", CUDA, "torch", False),
+    (dict(rng_impl="hardware"), "auto", torch.device("cpu"), "torch", False),
+    # no kernel in either package: 'auto' on the card runs the plain path and says why
+    (dict(scheme=Scheme.LM), "auto", CUDA, "torch", True),
+    (dict(scheme=Scheme.EXACT), "auto", CUDA, "torch", True),
+    (dict(accumulate_spectrum=True), "auto", CUDA, "torch", True),
+    (dict(accumulate_spectrum=True, rng_impl="hardware"), "auto", CUDA, "torch", True),
+    (dict(scheme=Scheme.LM), "torch", CUDA, "torch", False),
+    (dict(scheme=Scheme.EXACT), "auto", torch.device("cpu"), "torch", False),
+])
+def test_chain_routing(change, backend, device, want, reasoned):
+    cfg = dataclasses.replace(CHAIN_BASE, **change)
+    route, reason = runtime.select_backend(backend, device, cfg)
+    assert route == want and bool(reason) == reasoned
+    if reasoned:
+        assert "plain PyTorch integrator" in reason
+
+
+@pytest.mark.parametrize("change,backend,device,match", [
+    (dict(scheme=Scheme.LM), "cuda", CUDA, "LM"),
+    (dict(scheme=Scheme.EXACT), "cuda", CUDA, "EXACT"),
+    (dict(accumulate_spectrum=True), "cuda", CUDA, "spectrum"),
+    ({}, "cuda", torch.device("cpu"), "CUDA device"),
+    ({}, "xla", CUDA, "unknown chain backend"),
+])
+def test_chain_routing_raises(change, backend, device, match):
+    with pytest.raises(ValueError, match=match):
+        runtime.select_backend(backend, device, dataclasses.replace(CHAIN_BASE, **change))
+
+
+@pytest.mark.parametrize("change", [dict(scheme=Scheme.LM), dict(scheme=Scheme.EXACT),
+                                    dict(accumulate_spectrum=True)], ids=["lm", "exact", "spectrum"])
+def test_run_chain_records_the_backend_fallback(change, monkeypatch):
+    # what 'auto' does on a CUDA device, run here on the CPU
+    real = runtime.select_backend
+    monkeypatch.setattr(runtime, "select_backend",
+                        lambda backend, device, cfg=None: real(backend, CUDA, cfg))
+    recs = []
+    cfg = dataclasses.replace(CHAIN_BASE, **change)
+    res = runtime.run_chain(cfg, device="cpu", sink=metrics.MetricsSink(callback=recs.append))
+    assert recs[0]["type"] == "backend_fallback" and recs[0]["backend"] == "torch"
+    assert [r["type"] for r in recs[1:]] == ["frame", "summary"]
+    assert torch.isfinite(res.state.f).all()
+
+
+def test_field_fallback_reason_and_the_record():
+    exact = FieldConfig(shape=(8, 8), n_chains=2, loops=2, frames=1, scheme=Scheme.EXACT)
+    assert "EXACT" in runtime.field_fallback_reason(exact, "auto", CUDA)
+    for cfg, backend, device in ((exact, "torch", CUDA), (exact, "auto", "cpu"),
+                                 (dataclasses.replace(exact, scheme=Scheme.EM), "auto", CUDA)):
+        assert runtime.field_fallback_reason(cfg, backend, device) is None
+    # the record is the run's first when the reason stands, and absent on the CPU
+    recs = []
+    runtime.run_field(exact, device="cpu", sink=metrics.MetricsSink(callback=recs.append))
+    assert [r["type"] for r in recs] == ["frame", "summary"]
+    recs.clear()
+    real = runtime.field_fallback_reason
+    try:
+        runtime.field_fallback_reason = lambda cfg, backend, device: real(cfg, backend, CUDA)
+        runtime.run_field(exact, device="cpu", sink=metrics.MetricsSink(callback=recs.append))
+    finally:
+        runtime.field_fallback_reason = real
+    assert recs[0]["type"] == "backend_fallback" and recs[0]["backend"] == "torch"
+
+
+def test_cli_run_quartic_large_cut_matches_jax_runtime(tmp_path):
+    """Preset quartic_large (config 2 with the power-spectrum channel) through
+    `cli run` on the CPU, cut in chains and depth: the state, the spectrum
+    among it, and the records against the JAX runner's."""
+    mpath, ck = tmp_path / "m.jsonl", tmp_path / "ck.npz"
+    cli.main(["run", "--preset", "quartic_large", "--device", "cpu", "--chains", "3", "--loops",
+              "6", "--frames", "2", "--burn", "1", "--metrics", str(mpath), "--out", str(ck)])
+    state, cfg = checkpoint.load(ck, "cpu")
+    assert cfg.accumulate_spectrum and cfg.n_sites == 1024 and int(state.step) == 2 + 3 * 6
+    assert tuple(state.spec_mean.shape) == (3, 513) and float(state.spec_mean.min()) >= 0
+    recs = _records(mpath)
+    _check_records(recs, 1024, 2)
+
+    jrecs = []
+    jres = jruntime.run_chain(JChainConfig.from_json(cfg.to_json()), backend="xla",
+                              sink=jmetrics.MetricsSink(callback=jrecs.append), burn_frames=1)
+    for got, want in zip([r for r in recs if r["type"] == "frame"],
+                         [r for r in jrecs if r["type"] == "frame"]):
+        assert got["stable_frac"] == want["stable_frac"] == 1.0 and got["dtau"] == want["dtau"]
+        # |corr| itself: its logarithm is ill-conditioned where the correlator crosses zero
+        np.testing.assert_allclose(np.exp(got["log_abs_corr"]), np.exp(want["log_abs_corr"]),
+                                   rtol=0, atol=2e-6)
+    for leaf, got, want in zip(state._fields, state, jres.state):
+        want = np.asarray(want)
+        if leaf in ("runs", "stab_cnt", "step"):
+            np.testing.assert_array_equal(got.numpy().astype(want.dtype), want, err_msg=leaf)
+        elif leaf == "spec_mean":  # pocketfft in both, the sums in another order
+            np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                       atol=2e-5 * np.abs(want).max(), err_msg=leaf)
+        else:
+            np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-6, err_msg=leaf)
+
+
+@pytest.mark.parametrize("args", [
+    ["--preset", "harmosc", "--scheme", "lm", "--dtau", "2e-3"],
+    ["--preset", "harmosc", "--scheme", "exact"],
+    ["--preset", "harmosc", "--rng", "hardware", "--dtau", "2e-3"],
+    ["--preset", "phi4_2d", "--scheme", "exact"],
+    ["--preset", "phi4_2d", "--rng", "hardware", "--frames-per-launch", "2"],
+], ids=["lm", "exact", "hardware", "field_exact", "field_hardware"])
+def test_cli_run_new_options_on_the_cpu_resume_bitwise(args, tmp_path):
+    common = ["run", *args, "--device", "cpu", "--chains", "2", "--loops", "4"]
+    a, b, c = (str(tmp_path / f"{n}.npz") for n in "abc")
+    quiet = ["--metrics", str(tmp_path / "m.jsonl")]
+    cli.main(common + ["--frames", "2", "--out", a] + quiet)
+    cli.main(common + ["--frames", "1", "--resume", a, "--out", b] + quiet)
+    cli.main(common + ["--frames", "3", "--out", c] + quiet)
+    resumed, cfg = checkpoint.load(b, "cpu")
+    straight, _ = checkpoint.load(c, "cpu")
+    for name, x, y in zip(resumed._fields, resumed, straight):
+        assert torch.equal(x, y), name
+    frames = [r for r in _records(tmp_path / "m.jsonl") if r["type"] == "frame"]
+    assert len(frames) == 3 and all(r["stable_frac"] == 1.0 for r in frames)
+    if "hardware" in args:  # the plain path draws Threefry-20 under it
+        t = str(tmp_path / "t.npz")
+        cli.main(["run", *[x for x in args if x not in ("--rng", "hardware")], "--device", "cpu",
+                  "--chains", "2", "--loops", "4", "--frames", "3", "--out", t] + quiet)
+        threefry, _ = checkpoint.load(t, "cpu")
+        assert all(torch.equal(x, y) for x, y in zip(straight, threefry))
