@@ -164,12 +164,39 @@ non-zero:
     (frames per launch 1 and 10); each Philox variant's CUDA-event ms beside
     its plain version's wall ms, held against each other.
 
-Every timing phase ([5], [9], [12], [15], [19], [22], [23]) ends with the
+24. kernel 8 (``field_chunk_rdma_nd``: kernel 7's W steps reading its dim-0
+    halo rows from the neighbour shards' slabs) vs its plain version and vs
+    kernel 7 on the block the runner would have extended, on every shard of
+    2-D and 4-D splits, both sweeps, a ring of one, x = 2, 3 and 4 on the
+    repeated card, a chain axis beside the ring and the timed 256² × 16
+    shape: φ bitwise, the rest as in 6, kernel 8 ≡ kernel 7 bitwise; the
+    one-step tail of an odd ``loops`` (kernel 6's code at one step) vs its
+    plain version, and odd-loops frames of the D ≥ 3 pair and chunk routes
+    and of the strip-tiled 2-D route vs their plain versions and the plain
+    integrator;
+25. kernel 8's main path at full width: ``runtime.run_field`` on bench.py's
+    halo cell (256² × 16, loops 50, W = 8) with a mesh of the one card at x =
+    2 and on the ring of one, ``backend='cuda_rdma'`` and ``auto`` with
+    ``prefer_rdma``: exact launch counts (kernel 8 chunks × shards × frames,
+    kernel 7 none), every leaf bitwise equal to the kernel 7 run and φ and
+    the decisions to the unsplit kernel 3, a bitwise resume, and the one
+    ``backend_fallback`` record of ``prefer_rdma`` on a dim-1 split (kernel 7
+    runs); the 4-D split 32⁴ × 8 loops 20 at x = 2 against kernel 7 and the
+    unsplit kernel 6; kernel 8 on the final state's shards against its plain
+    version; then ``cli run --preset phi4_4d --loops 21`` (10 pair launches
+    and one tail launch a frame, bitwise resume) against ``--backend torch``;
+26. ``cuda_rdma`` beside ``cuda`` (x = 2) and ``cuda_pair`` (ring of one) in
+    turns: MLUPS, idle share and each kernel's device time per launch under
+    torch.profiler; kernel 8 and kernel 7 alone on the (16, 128, 256) slab at
+    W = 8 (CUDA events, in turns) beside kernel 8's plain version; the
+    one-step tail beside the pair at 32⁴ × 1 (CUDA events, in turns).
+
+Every timing phase ([5], [9], [12], [15], [19], [22], [23], [26]) ends with the
 range of the card's SM clock, power draw and temperature sampled while it ran.
 
 ``python3 chip_smoke.py --log PATH`` also writes every printed line to PATH.
 
-Prints a JSON line with the numbers of the eleven kernels and the four
+Prints a JSON line with the numbers of the twelve kernels and the four
 Philox variants (name, route, source, the
 TPU kernel it replaces, main-path launches, max|Δ|, ms and plain ms at the
 timed shape, the bound: the least ms the card could take for that launch,
@@ -181,6 +208,7 @@ limit, and last ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import math
 import subprocess
@@ -205,6 +233,8 @@ KERNELS = {
     "field_pair": ("field_kernel_tiled.cu", "stochquant_tpu/kernels/field_kernel_tiled.py:189"),
     "field_pair_nd": ("field_kernel_nd.cu", "stochquant_tpu/kernels/field_kernel_nd.py:327"),
     "field_chunk_nd": ("field_kernel_nd.cu", "stochquant_tpu/kernels/field_kernel_nd.py:977"),
+    "field_chunk_rdma_nd": ("field_kernel_nd.cu",
+                            "stochquant_tpu/kernels/field_kernel_nd.py:977 (rdma=True)"),
     "field_halo_step": ("field_halo_kernel.cu", "stochquant_tpu/kernels/field_halo_kernel.py:190"),
     "gauge_frame": ("gauge_kernel.cu", "stochquant_tpu/kernels/gauge_kernel.py:434"),
     "gauge_frames_multi": ("gauge_kernel.cu", "stochquant_tpu/kernels/gauge_kernel.py:1144"),
@@ -309,6 +339,12 @@ def kernel_bounds() -> dict:
     out["field_pair_nd"] = bound(sites * 4 * 2, sites * 2 * field_ops(len(shape)))
     ext = sites // shape[0] * (shape[0] + 2 * 4)  # W = 4, synchronous: halo 4 on dim 0
     out["field_chunk_nd"] = bound((ext + sites) * 4, sites * 4 * field_ops(len(shape)))
+    # kernel 8 on one shard of the split 256^2 x 16 lattice (x = 2), W = H = 8:
+    # kernel 7's operations there; the slab and 2 H neighbour rows in, the slab out
+    loc0, W = f["shape"][0] // 2, 8
+    cols = f["n_chains"] * f["shape"][1]
+    out["field_chunk_rdma_nd"] = bound(cols * (2 * loc0 + 2 * W) * 4,
+                                       cols * loc0 * W * field_ops(2))
     # kernel 9 on one shard of the split 256^2 x 16 lattice (x = 2): phi in and
     # out; a launch is one step, so it draws a whole Threefry pair per site
     sites = f["n_chains"] * prod(f["shape"]) // 2
@@ -1698,6 +1734,44 @@ def phase_split_main_path(torch, mods, tmp: Path):
     return totals, err
 
 
+#: name prefixes of the split runners' own kernels in the profiler's rows
+RUNNER_KERNELS = ("void field_halo_step_kernel", "void gauge_chunk_kernel",
+                  "void field_chunk_nd", "void field_chunk_rdma_nd")
+
+
+def time_runner(torch, out: dict, card: str, key, label, runner, shards, frames, ups, profile):
+    """(Link-)MLUPS of a split runner into ``out[key]``: a warm-up frame, the
+    median of 3 reps of ``frames``, then (``profile``) the same frames under
+    torch.profiler for the device's idle share and the runner's own kernel's
+    device time per launch.  Returns the shards after the warm-up."""
+    shards, _ = runner(shards, 1)  # warm-up
+    reps = []
+    for _ in range(3):
+        holder = {}
+        reps.append(timed(torch, lambda: holder.update(r=runner(shards, frames))))
+    t = sorted(reps)[1]
+    stable = float(holder["r"][1]["stable"].float().mean())
+    out[key] = dict(mlups=ups * frames / t / 1e6, seconds=t, reps=reps)
+    msg = (f"  {label}: {out[key]['mlups']:.1f} MLUPS (median of 3 reps of {frames} frames, "
+           f"{t / frames * 1e3:.3f} ms per frame; reps {[round(r, 4) for r in reps]}; stable "
+           f"{stable:.4f})")
+    if profile:
+        wall, busy, rows = device_profile(torch, lambda: runner(shards, frames))
+        out[key]["idle"] = 1.0 - busy / wall
+        msg += (f"; {frames} more under torch.profiler: device busy {busy / frames * 1e3:.3f} "
+                f"of {wall / frames * 1e3:.3f} ms wall per frame, idle {out[key]['idle']:.1%}")
+    log(msg + f" [{card}]")
+    if profile:
+        for kname, sec, calls in rows[:4]:
+            log(f"      {sec / busy:6.1%} of device time  {kname[:90]}")
+        for kname, sec, calls in rows:  # the hand-written kernel alone, per launch
+            if kname.startswith(RUNNER_KERNELS):
+                out[key]["kernel_us"] = sec / calls * 1e6
+                log(f"      {kname[5:33]}: {sec / calls * 1e6:.2f} µs of device time per "
+                    f"launch over {calls} launches (profiler)")
+    return shards
+
+
 def phase_split_timings(torch, mods, card: str) -> dict:
     """(Link-)MLUPS of each split backend at the main paths' shapes through the
     runners (median of 3 reps after a warm-up), the device's idle share under
@@ -1713,34 +1787,7 @@ def phase_split_timings(torch, mods, card: str) -> dict:
               "x=1": parallel.make_mesh([("x", 1)], devices="cuda:0")}
     dev = meshes["x=2"].devices[0]
 
-    def time_runner(key, label, runner, shards, frames, ups, profile):
-        shards, _ = runner(shards, 1)  # warm-up
-        reps = []
-        for _ in range(3):
-            holder = {}
-            reps.append(timed(torch, lambda: holder.update(r=runner(shards, frames))))
-        t = sorted(reps)[1]
-        stable = float(holder["r"][1]["stable"].float().mean())
-        out[key] = dict(mlups=ups * frames / t / 1e6, seconds=t, reps=reps)
-        msg = (f"  {label}: {out[key]['mlups']:.1f} MLUPS (median of 3 reps of {frames} frames, "
-               f"{t / frames * 1e3:.3f} ms per frame; reps {[round(r, 4) for r in reps]}; stable "
-               f"{stable:.4f})")
-        if profile:
-            wall, busy, rows = device_profile(torch, lambda: runner(shards, frames))
-            out[key]["idle"] = 1.0 - busy / wall
-            msg += (f"; {frames} more under torch.profiler: device busy {busy / frames * 1e3:.3f} "
-                    f"of {wall / frames * 1e3:.3f} ms wall per frame, idle {out[key]['idle']:.1%}")
-        log(msg + f" [{card}]")
-        if profile:
-            for kname, sec, calls in rows[:4]:
-                log(f"      {sec / busy:6.1%} of device time  {kname[:90]}")
-            for kname, sec, calls in rows:  # the hand-written kernel alone, per launch
-                if kname.startswith("void field_halo_step_kernel") or kname.startswith(
-                        "void gauge_chunk_kernel") or kname.startswith("void field_chunk_nd"):
-                    out[key]["kernel_us"] = sec / calls * 1e6
-                    log(f"      {kname[5:28]}: {sec / calls * 1e6:.2f} µs of device time per "
-                        f"launch over {calls} launches (profiler)")
-        return shards
+    run_timed = functools.partial(time_runner, torch, out, card)
 
     # ---- field 256^2 x 16, loops 50 ---------------------------------------
     cfg = cfgmod.FieldConfig(**SPLIT_FIELD, mesh_axes=("x", None))
@@ -1752,18 +1799,18 @@ def phase_split_timings(torch, mods, card: str) -> dict:
                                    ("x=1", "cuda_step", 4), ("x=1", "cuda_pair", 8)):
         mesh = meshes[mname]
         runner = halo.make_halo_runner(act, cfg, mesh, backend=backend)
-        got = time_runner(f"split_field_{mname}_{backend}",
-                          f"field {cfg.shape} x {cfg.n_chains} loops {cfg.loops}, {mname}, {backend} ({runner.backend})",
-                          runner, parallel.shard_field_state(s0, mesh, cfg), frames, ups,
-                          profile=backend != "torch")
+        got = run_timed(f"split_field_{mname}_{backend}",
+                        f"field {cfg.shape} x {cfg.n_chains} loops {cfg.loops}, {mname}, {backend} ({runner.backend})",
+                        runner, parallel.shard_field_state(s0, mesh, cfg), frames, ups,
+                        profile=backend != "torch")
         if (mname, backend) == ("x=2", "cuda_step"):
             shards = got
     ccfg = dataclasses.replace(cfg, mesh_axes=(None, None), mesh_chain_axis="chain")
     cmesh = parallel.make_mesh([("chain", 2)], devices=dev)
-    time_runner("split_field_chain=2_cuda",
-                f"field {cfg.shape} x {cfg.n_chains} loops {cfg.loops}, chain=2, cuda (kernel 3)",
-                halo.make_halo_runner(act, ccfg, cmesh, backend="cuda"),
-                parallel.shard_field_state(s0, cmesh, ccfg), 8, ups, profile=True)
+    run_timed("split_field_chain=2_cuda",
+              f"field {cfg.shape} x {cfg.n_chains} loops {cfg.loops}, chain=2, cuda (kernel 3)",
+              halo.make_halo_runner(act, ccfg, cmesh, backend="cuda"),
+              parallel.shard_field_state(s0, cmesh, ccfg), 8, ups, profile=True)
 
     sh = shards[1]
     args = (sh.phi, sh.dtau, act, cfg, int(sh.step), 0, 0, (0, cfg.shape[0] // 2, 0),
@@ -1803,9 +1850,9 @@ def phase_split_timings(torch, mods, card: str) -> dict:
             mesh = meshes[mname]
             make = (gauge_halo.make_gauge_chunk_runner if kind == "chunk"
                     else gauge_halo.make_gauge_halo_runner)
-            got = time_runner(f"split_gauge_{group}_{mname}_{kind}", f"{where}, {mname}, {kind} runner",
-                              make(act, cfg, mesh), parallel.shard_gauge_state(s0, act, mesh, cfg),
-                              frames, ups, profile=kind == "chunk")
+            got = run_timed(f"split_gauge_{group}_{mname}_{kind}", f"{where}, {mname}, {kind} runner",
+                            make(act, cfg, mesh), parallel.shard_gauge_state(s0, act, mesh, cfg),
+                            frames, ups, profile=kind == "chunk")
             if (mname, kind) == ("x=2", "chunk"):
                 shards = got
         loc0 = cfg.shape[0] // 2
@@ -2204,6 +2251,340 @@ def phase_plain_schemes(torch, mods, tmp: Path, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# kernel 8 (cuda_rdma, prefer_rdma) and the one-step tail of an odd loops
+# ---------------------------------------------------------------------------
+
+TailStep = collections.namedtuple("TailStep", "phi slice_means strip_means strip_max")
+
+
+def tail_leaves(out) -> TailStep:
+    """The one-step tail's (phi, slice means, per-block stats) with the block
+    sums held as means."""
+    phi, sl, stats = out
+    sites = phi[0].numel() // stats.shape[1]
+    return TailStep(phi, sl, stats[..., :3] / sites, stats[..., 3:])
+
+
+def rdma_launch_args(parallel, cfg, mesh, shards, i, W, step):
+    """Kernel 8's arguments for shard ``i`` of a dim-0 split: its slab, its
+    dim-0 ring neighbours' slabs, and its offsets."""
+    ax = cfg.mesh_axes[0]
+    ring = mesh.axis_size(ax) > 1
+    left = mesh.neighbor(i, ax, -1) if ring else i
+    right = mesh.neighbor(i, ax, +1) if ring else i
+    _, _, _, ch_offs, lat_offs = parallel.mesh.split_geometry(cfg, mesh)
+    sh = shards[i]
+    return (sh.phi, shards[left].phi, shards[right].phi, sh.dtau), (W, step, lat_offs[i], ch_offs[i])
+
+
+def gate_rdma_shards(torch, nd, parallel, actions, label, cfg, mesh, shards, W, step) -> float:
+    """Kernel 8 on every shard against its plain version (φ bitwise, the rest
+    through the gate) and against kernel 7 on the block the runner would have
+    extended (every output bitwise).  Returns max|Δ| against the plain version."""
+    act = actions.get_field(cfg.action)
+    split = (True,) + (False,) * (cfg.ndim - 1)
+    worst = 0.0
+    for i in range(mesh.size):
+        (phi, left, right, dtau), (W_, step_, off, ch) = rdma_launch_args(
+            parallel, cfg, mesh, shards, i, W, step)
+        got = nd.field_chunk_rdma_nd(phi, left, right, dtau, act, cfg, W_, step_, off, ch)
+        want = nd.field_chunk_rdma_nd_ref(phi, left, right, dtau, act, cfg, W_, step_, off, ch)
+        H, L0 = nd.chunk_halos(cfg, W, split)[0], phi.shape[1]
+        ext = torch.cat([left[:, L0 - H:], phi, right[:, :H]], dim=1)
+        k7 = nd.field_chunk_nd(ext, dtau, act, cfg, W_, split, step_, off, ch)
+        worst = max(worst, gate(f"{label} shard {i} {tuple(phi.shape)} field_chunk_rdma_nd W={W}",
+                                got, want))
+        if not torch.equal(got[0], want[0]):
+            raise SystemExit(f"{label} shard {i}: kernel 8's phi is not bitwise its plain version's")
+        if not all(torch.equal(x, y) for x, y in zip(got, k7)):
+            raise SystemExit(f"{label} shard {i}: kernel 8 differs from kernel 7 on the extended "
+                             "block")
+    log(f"  {label}: kernel 8 bitwise equal to kernel 7 on the extended block on all "
+        f"{mesh.size} shards")
+    return worst
+
+
+def phase_rdma_gate(torch, nd, ft, field, actions, cfgmod, parallel, device) -> None:
+    """Kernel 8 against its plain version and against kernel 7 on small cases
+    and at the timed shape (2-D and 4-D, both sweeps, a ring of one, x = 2, 4
+    and 3 on the repeated card, a chain axis beside the ring), then the
+    one-step tail of kernel 6's code against its plain version and odd-loops
+    frames of the D >= 3 and strip-tiled routes against their plain versions."""
+    FieldConfig, Sweep = cfgmod.FieldConfig, cfgmod.Sweep
+    cb = dict(sweep=Sweep.CHECKERBOARD)
+    for name, shape, mesh_axes, W, kw in [
+        ("2d_sync_x2", (64, 128), [("x", 2)], 8, {}),
+        ("2d_checkerboard_ring_of_one", (48, 64), [("x", 1)], 4, cb),
+        ("4d_sync_x4", (16, 8, 4, 4), [("x", 4)], 2, {}),
+        ("4d_checkerboard_x2", (16, 8, 4, 4), [("x", 2)], 2, cb),
+        ("3d_threefry13_chain_axis", (24, 12, 40), [("chain", 2), ("x", 3)], 2,
+         dict(rng_impl="threefry13", mesh_chain_axis="chain")),
+        ("256^2_x16_x2_the_timed_shape", (256, 256), [("x", 2)], 8, dict(n_chains=16)),
+    ]:
+        kw = {"n_chains": 4, **kw}
+        cfg = FieldConfig(action="phi4", shape=shape, dtau=0.01, seed=21,
+                          mesh_axes=("x",) + (None,) * (len(shape) - 1), **kw)
+        mesh = parallel.make_mesh(mesh_axes, devices=device)
+        s0 = field.init_field_state(cfg, device=device)
+        shards = parallel.shard_field_state(s0, mesh, cfg)
+        gate_rdma_shards(torch, nd, parallel, actions, name, cfg, mesh, shards, W, 7)
+
+    for name, cfg, tile in [
+        ("2d_sync", FieldConfig(shape=(64, 96), n_chains=3, dtau=0.01, seed=5), None),
+        ("4d_checkerboard_threefry13", FieldConfig(shape=(8, 8, 4, 4), n_chains=3, dtau=0.01,
+                                                   seed=5, rng_impl="threefry13", **cb), 2),
+        ("3d_sync_long_last_dim", FieldConfig(shape=(8, 12, 40), n_chains=3, dtau=0.01, seed=5),
+         4),
+    ]:
+        act = actions.get_field(cfg.action)
+        s0 = field.init_field_state(cfg, device=device)
+        got = nd.field_step_nd(s0.phi, s0.dtau, act, cfg, 9, tile, 3)
+        want = nd.field_step_nd_ref(s0.phi, s0.dtau, act, cfg, 9, tile, 3)
+        gate(f"{name} one-step tail (kernel 6's code at n_steps 1)", tail_leaves(got),
+             tail_leaves(want))
+        if not torch.equal(got[0], want[0]):
+            raise SystemExit(f"{name}: the one-step tail's phi is not bitwise its plain version's")
+    for name, cfg, run in [
+        ("4d_sync_loops_5", FieldConfig(shape=(8, 8, 4, 4), n_chains=3, dtau=0.01, seed=5,
+                                        loops=5), "nd"),
+        ("3d_checkerboard_loops_7_chunk_W4", FieldConfig(shape=(16, 8, 6), n_chains=3, dtau=0.01,
+                                                         seed=5, loops=7, **cb), "chunk"),
+        ("2d_tiled_loops_7", FieldConfig(shape=(64, 96), n_chains=3, dtau=0.01, seed=5, loops=7,
+                                         tile_rows=16), "tiled"),
+    ]:
+        act = actions.get_field(cfg.action)
+        s0 = field.init_field_state(cfg, device=device)
+        if run == "nd":
+            got = nd.run_field_frames_nd(s0, act, cfg, 2)
+            want = nd.run_field_frames_nd(s0, act, cfg, 2, pair=nd.field_pair_nd_ref,
+                                          tail=nd.field_step_nd_ref)
+        elif run == "chunk":
+            got = nd.field_frame_nd_chunk(s0, act, cfg, 4)
+            want = nd.field_frame_nd_chunk(s0, act, cfg, 4, chunk=nd.field_chunk_nd_ref,
+                                           tail=nd.field_step_nd_ref)
+        else:
+            got = ft.run_field_frames_tiled(s0, act, cfg, 2)
+            want = ft.run_field_frames_tiled(s0, act, cfg, 2, pair=ft.field_pair_ref,
+                                             tail=nd.field_step_nd_ref)
+        gate(f"{name} frames, kernels vs plain", got, want)
+        whole = field.run_field_frames(s0, act, cfg, 2 if run != "chunk" else 1)
+        same_state(torch, f"{name} frames vs the plain integrator", got[0], whole[0], FIELD_EXACT)
+
+
+def phase_rdma_main_path(torch, mods, tmp: Path):
+    """Kernel 8's main path at full width through runtime.run_field with a
+    mesh of the one card: bench.py's halo cell (256^2 x 16, loops 50, W = 8)
+    at x = 2 and on the ring of one, backend 'cuda_rdma' and 'auto' with
+    prefer_rdma, bitwise against the kernel 7 runs and the unsplit kernels,
+    exact launch counts, a bitwise resume and the ineligible prefer_rdma
+    record; the 4-D split 32^4 x 8 loops 20 x = 2 W = 2; then `cli run
+    --preset phi4_4d --loops 21` (pairs and one tail launch a frame) against
+    --backend torch.  Returns (launch counts per kernel, max|Δ| per kernel)."""
+    import dataclasses
+
+    runtime, metrics, cfgmod, parallel = (mods[k] for k in ("runtime", "metrics", "cfgmod",
+                                                            "parallel"))
+    nd, actions, cli, checkpoint = mods["nd"], mods["actions"], mods["cli"], mods["checkpoint"]
+    counters = mods["counters"]
+    totals = {k: 0 for k in counters}
+
+    def run(cfg, label, want, **kw):
+        recs = []
+        res = counted(torch, counters, want, label, lambda: runtime.run_field(
+            cfg, sink=metrics.MetricsSink(callback=recs.append), **kw))
+        check_records(recs, label, ("mag", "phi2", "binder"))
+        for k, v in want.items():
+            totals[k] += v
+        return res.state, recs
+
+    def no_record(recs, label):
+        if any(r["type"] == "backend_fallback" for r in recs):
+            raise SystemExit(f"{label}: an unexpected backend_fallback record")
+
+    dev = "cuda:0"
+    x2 = parallel.make_mesh([("x", 2)], devices=dev)
+    x1 = parallel.make_mesh([("x", 1)], devices=dev)
+    xy = parallel.make_mesh([("x", 2), ("y", 2)], devices=dev)
+
+    # ---- bench.py's halo cell: 256^2 x 16, loops 50, W = 8 (six chunks and a W = 2 tail)
+    frames = 3
+    base = cfgmod.FieldConfig(**SPLIT_FIELD, frames=frames)
+    cfg = dataclasses.replace(base, mesh_axes=("x", None))
+    pref = dataclasses.replace(cfg, prefer_rdma=True)
+    chunks = -(-cfg.loops // 8)
+    where = f"field {cfg.shape} x {cfg.n_chains} loops {cfg.loops}"
+    k8 = "field_chunk_rdma_nd"
+    unsplit, _ = run(base, f"{where} unsplit, backend cuda", {"field_frame": frames},
+                     device=dev, backend="cuda")
+    k7_x2, _ = run(cfg, f"{where} x=2, backend cuda (kernel 7)",
+                   {"field_chunk_nd": chunks * frames * 2}, mesh=x2, backend="cuda")
+    k7_x1, _ = run(cfg, f"{where} ring of one, backend cuda_pair (kernel 7)",
+                   {"field_chunk_nd": chunks * frames}, mesh=x1, backend="cuda_pair")
+    rdma_x2, _ = run(cfg, f"{where} x=2, backend cuda_rdma", {k8: chunks * frames * 2}, mesh=x2,
+                     backend="cuda_rdma")
+    auto_x2, recs = run(pref, f"{where} x=2, auto with prefer_rdma", {k8: chunks * frames * 2},
+                        mesh=x2)
+    no_record(recs, "auto with prefer_rdma at x=2")
+    rdma_x1, _ = run(cfg, f"{where} ring of one, backend cuda_rdma", {k8: chunks * frames},
+                     mesh=x1, backend="cuda_rdma")
+    auto_x1, recs = run(pref, f"{where} ring of one, auto with prefer_rdma", {k8: chunks * frames},
+                        mesh=x1)
+    no_record(recs, "auto with prefer_rdma on the ring of one")
+    for label, got, k7 in (("x=2 cuda_rdma", rdma_x2, k7_x2), ("x=2 auto prefer_rdma", auto_x2, k7_x2),
+                           ("ring of one cuda_rdma", rdma_x1, k7_x1),
+                           ("ring of one auto prefer_rdma", auto_x1, k7_x1)):
+        same_state(torch, f"{where} {label} vs kernel 7's run", got, k7, "all")
+        same_state(torch, f"{where} {label} vs unsplit kernel 3", got, unsplit, FIELD_EXACT)
+    ck = str(tmp / "rdma.npz")
+    run(dataclasses.replace(cfg, frames=2), f"{where} x=2 cuda_rdma, 2 frames", {k8: chunks * 2 * 2},
+        mesh=x2, backend="cuda_rdma", checkpoint_out=ck)
+    got, _ = run(cfg, f"{where} x=2 cuda_rdma, resumed for the 3rd", {k8: chunks * 2}, mesh=x2,
+                 backend="cuda_rdma", checkpoint_in=ck, resume_progress=True)
+    same_state(torch, f"{where} x=2 cuda_rdma resumed vs uninterrupted", got, rdma_x2, "all")
+    # a dim-1 split: kernel 8 does not apply, prefer_rdma gives way to kernel 7 with a record
+    one = dataclasses.replace(base, frames=1)
+    unsplit1, _ = run(one, f"{where} unsplit, 1 frame", {"field_frame": 1}, device=dev,
+                      backend="cuda")
+    got, recs = run(dataclasses.replace(one, mesh_axes=("x", "y"), prefer_rdma=True),
+                    f"{where} x=2 y=2, auto with prefer_rdma", {"field_chunk_nd": chunks * 4},
+                    mesh=xy)
+    fallbacks = [r for r in recs if r["type"] == "backend_fallback"]
+    if (len(fallbacks) != 1 or fallbacks[0]["backend"] != "cuda"
+            or "dim-0-only" not in fallbacks[0]["reason"]):
+        raise SystemExit(f"prefer_rdma on a dim-1 split: records {fallbacks}")
+    log(f"  the ineligible prefer_rdma run's record: {fallbacks[0]}")
+    same_state(torch, f"{where} x=2 y=2 kernel 7 vs unsplit", got, unsplit1, FIELD_EXACT)
+
+    # kernel 8 at the shape the main path gives it: the final state's shards
+    err = {}
+    err[k8] = gate_rdma_shards(torch, nd, parallel, actions, "main path x=2", cfg, x2,
+                               parallel.shard_field_state(rdma_x2, x2, cfg), 8,
+                               int(rdma_x2.step))
+
+    # ---- the 4-D split: 32^4 x 8, loops 20, x = 2, W = 2
+    base4 = cfgmod.FieldConfig(**{**BENCH_ND, "n_chains": 8, "exchange_steps": 2, "frames": 2})
+    cfg4 = dataclasses.replace(base4, mesh_axes=("x", None, None, None))
+    where = f"field {cfg4.shape} x {cfg4.n_chains} loops {cfg4.loops}"
+    n4 = cfg4.loops // 2 * cfg4.frames
+    unsplit4, _ = run(base4, f"{where} unsplit, backend cuda (kernel 6)", {"field_pair_nd": n4},
+                      device=dev, backend="cuda")
+    k7_4, _ = run(cfg4, f"{where} x=2, backend cuda (kernel 7)", {"field_chunk_nd": n4 * 2},
+                  mesh=x2, backend="cuda")
+    rdma_4, _ = run(cfg4, f"{where} x=2, backend cuda_rdma", {k8: n4 * 2}, mesh=x2,
+                    backend="cuda_rdma")
+    same_state(torch, f"{where} x=2 cuda_rdma vs kernel 7's run", rdma_4, k7_4, "all")
+    same_state(torch, f"{where} x=2 cuda_rdma vs unsplit kernel 6", rdma_4, unsplit4, FIELD_EXACT)
+
+    # ---- phi4_4d with an odd loops through the CLI: pairs and one tail a frame
+    nd_counters = {k: counters[k] for k in ("field_pair_nd", "field_step_nd", "field_chunk_nd")}
+    odd = field_cli_runs(torch, cli, checkpoint, nd_counters, tmp, "o", ["--loops", "21"],
+                         preset="phi4_4d", chains=4)
+    frames_run = 1 + 3 + 1 + 1 + 4  # burn-in + 3, resume 1, burn-in + 4
+    if odd != {"field_pair_nd": 10 * frames_run, "field_step_nd": frames_run, "field_chunk_nd": 0}:
+        raise SystemExit(f"phi4_4d --loops 21 did not run 10 pairs and one tail a frame: {odd}")
+    plain = field_cli_runs(torch, cli, checkpoint, nd_counters, tmp, "q",
+                           ["--loops", "21", "--backend", "torch"], preset="phi4_4d", chains=4)
+    if any(plain.values()):
+        raise SystemExit(f"--backend torch launched a kernel: {plain}")
+    got, _ = checkpoint.load(tmp / "oc.npz", "cuda")
+    want, _ = checkpoint.load(tmp / "qc.npz", "cuda")
+    same_state(torch, "phi4_4d --loops 21: the kernels vs --backend torch", got, want, FIELD_EXACT)
+    state, cfgo = checkpoint.load(tmp / "oa.npz", "cuda")
+    act = actions.get_field(cfgo.action)
+    tail_step = int(state.step) + cfgo.loops - 1
+    err["field_step_nd"] = gate(
+        f"main path C={cfgo.n_chains} {cfgo.shape} one-step tail",
+        tail_leaves(nd.field_step_nd(state.phi, state.dtau, act, cfgo, tail_step)),
+        tail_leaves(nd.field_step_nd_ref(state.phi, state.dtau, act, cfgo, tail_step)))
+    for k in ("field_pair_nd", "field_step_nd"):
+        totals[k] += odd[k]
+    return totals, err
+
+
+def phase_rdma_timings(torch, mods, card: str) -> dict:
+    """cuda_rdma beside cuda (kernel 7) at x = 2 and beside cuda_pair on the
+    ring of one at 256^2 x 16 loops 50, in turns (kernel 7, kernel 8, kernel 8,
+    kernel 7): MLUPS, the device's idle share and each kernel's device time per
+    launch under torch.profiler; then kernel 8 and kernel 7 alone on shard 1's
+    (16, 128, 256) slab, W = 8 (CUDA events, in turns), and kernel 8's plain
+    version, held against each other; the one-step tail beside the pair at
+    32^4 x 1."""
+    parallel, halo, field, actions, cfgmod, nd = (mods[k] for k in (
+        "parallel", "halo", "field", "actions", "cfgmod", "nd"))
+    out = {}
+    run_timed = functools.partial(time_runner, torch, out, card)
+    meshes = {"x=2": parallel.make_mesh([("x", 2)], devices="cuda:0"),
+              "x=1": parallel.make_mesh([("x", 1)], devices="cuda:0")}
+    cfg = cfgmod.FieldConfig(**SPLIT_FIELD, mesh_axes=("x", None))
+    act = actions.get_field(cfg.action)
+    s0 = field.init_field_state(cfg, device="cuda:0")
+    ups = cfg.n_chains * math.prod(cfg.shape) * cfg.loops
+    where = f"field {cfg.shape} x {cfg.n_chains} loops {cfg.loops}"
+    shards = None
+    for turn, (mname, backend) in enumerate((("x=2", "cuda"), ("x=2", "cuda_rdma"),
+                                             ("x=1", "cuda_pair"), ("x=1", "cuda_rdma"),
+                                             ("x=1", "cuda_rdma"), ("x=1", "cuda_pair"),
+                                             ("x=2", "cuda_rdma"), ("x=2", "cuda"))):
+        mesh = meshes[mname]
+        key = f"rdma_field_{mname}_{backend}" + ("" if turn < 4 else "_again")
+        got = run_timed(key, f"{where}, {mname}, {backend}", halo.make_halo_runner(
+            act, cfg, mesh, backend=backend), parallel.shard_field_state(s0, mesh, cfg), 8, ups,
+            profile=turn < 4)
+        if (mname, backend) == ("x=2", "cuda_rdma"):
+            shards = got
+    for mname, k7 in (("x=2", "cuda"), ("x=1", "cuda_pair")):
+        a, b = out[f"rdma_field_{mname}_cuda_rdma"], out[f"rdma_field_{mname}_{k7}"]
+        log(f"  {mname}: cuda_rdma / {k7} {a['mlups'] / b['mlups']:.4f}x (first turn), "
+            f"{out[f'rdma_field_{mname}_cuda_rdma_again']['mlups'] / out[f'rdma_field_{mname}_{k7}_again']['mlups']:.4f}x "
+            f"(second); kernel 8 {a.get('kernel_us', float('nan')):.2f} µs against kernel 7 "
+            f"{b.get('kernel_us', float('nan')):.2f} µs of device time per launch (profiler) "
+            f"[{card}]")
+
+    # kernel 8 and kernel 7 alone on shard 1's slab at W = 8, in turns
+    mesh = meshes["x=2"]
+    (phi, left, right, dtau), (W, step, off, ch) = rdma_launch_args(parallel, cfg, mesh, shards,
+                                                                     1, 8, int(shards[1].step))
+    H = nd.chunk_halos(cfg, W, (True, False))[0]
+    ext = torch.cat([left[:, phi.shape[1] - H:], phi, right[:, :H]], dim=1)
+    k8 = lambda: nd.field_chunk_rdma_nd(phi, left, right, dtau, act, cfg, W, step, off, ch)  # noqa: E731
+    k7 = lambda: nd.field_chunk_nd(ext, dtau, act, cfg, W, (True, False), step, off, ch)  # noqa: E731
+    times = {"k7": [], "k8": []}
+    for name in ("k7", "k8", "k8", "k7"):
+        times[name].append(cuda_ms(torch, k8 if name == "k8" else k7, reps=20))
+    got = k8()
+    holder = {}
+    nd.field_chunk_rdma_nd_ref(phi, left, right, dtau, act, cfg, W, step, off, ch)  # warm-up
+    plain_ms = timed(torch, lambda: holder.update(
+        r=nd.field_chunk_rdma_nd_ref(phi, left, right, dtau, act, cfg, W, step, off, ch))) * 1e3
+    out["field_chunk_rdma_nd_err"] = gate(f"shard {tuple(phi.shape)} field_chunk_rdma_nd W=8",
+                                          got, holder["r"])
+    ms, ms7 = sum(times["k8"]) / 2, sum(times["k7"]) / 2
+    out["field_chunk_rdma_nd_ms"], out["field_chunk_rdma_nd_plain_ms"] = ms, plain_ms
+    out["field_chunk_nd_shard_ms"] = ms7
+    log(f"  field_chunk_rdma_nd kernel {ms:.4f} ms/launch ({', '.join(f'{t:.4f}' for t in times['k8'])}; "
+        f"CUDA events, mean of 20, in turns with kernel 7), kernel 7 on the extended block "
+        f"{ms7:.4f} ms ({', '.join(f'{t:.4f}' for t in times['k7'])}): {ms / ms7:.4f}x; plain "
+        f"version {plain_ms:.1f} ms (once), at the {tuple(phi.shape)} slab, W = 8 [{card}]")
+
+    # the one-step tail beside the pair it ends, at 32^4 x 1 (kernel 6's timed shape)
+    ncfg = cfgmod.FieldConfig(**BENCH_ND, n_chains=1)
+    s0 = field.init_field_state(ncfg, device="cuda:0")
+    nact = actions.get_field(ncfg.action)
+    calls = {"pair": lambda: nd.field_pair_nd(s0.phi, s0.dtau, nact, ncfg, 1),
+             "tail": lambda: nd.field_step_nd(s0.phi, s0.dtau, nact, ncfg, 1)}
+    times = {"pair": [], "tail": []}
+    for name in ("pair", "tail", "tail", "pair"):
+        times[name].append(cuda_ms(torch, calls[name], reps=20))
+    tail_ms, pair_ms = sum(times["tail"]) / 2, sum(times["pair"]) / 2
+    out["field_step_nd_ms"] = tail_ms
+    log(f"  one-step tail (kernel 6's code at n_steps 1) {tail_ms:.4f} ms/launch "
+        f"({', '.join(f'{t:.4f}' for t in times['tail'])}), the pair {pair_ms:.4f} ms "
+        f"({', '.join(f'{t:.4f}' for t in times['pair'])}): {tail_ms / pair_ms:.4f}x; CUDA events, "
+        f"mean of 20, in turns, at {ncfg.shape} x 1 [{card}]")
+    return out
+
+
 
 def main() -> int:
     global LOG_FILE
@@ -2341,9 +2722,12 @@ def main() -> int:
 
     mods = dict(runtime=runtime, metrics=metrics, cfgmod=cfgmod, gauge=gauge, field=field,
                 actions=actions, parallel=parallel, halo=halo, gauge_halo=gauge_halo, fh=fh, gk=gk,
+                nd=nd,
                 counters={"field_frame": fk.field_frame, "field_frames_multi": fk.field_frames_multi,
                           "field_pair": ft.field_pair, "field_pair_nd": nd.field_pair_nd,
-                          "field_chunk_nd": nd.field_chunk_nd, "field_halo_step": fh.field_halo_step,
+                          "field_step_nd": nd.field_step_nd, "field_chunk_nd": nd.field_chunk_nd,
+                          "field_chunk_rdma_nd": nd.field_chunk_rdma_nd,
+                          "field_halo_step": fh.field_halo_step,
                           "gauge_frame": gk.gauge_frame,
                           "gauge_frames_multi": gk.gauge_frames_multi,
                           "gauge_chunk": gk.gauge_chunk})
@@ -2389,6 +2773,30 @@ def main() -> int:
         t.update(phase_philox_timings(torch, device, ck, fk, langevin, field, actions, cfgmod,
                                       card))
 
+    # 24. kernel 8 and the one-step tail vs plain on the card
+    t_rdma = time.perf_counter()
+    log(f"[24] kernel 8 (field_chunk_rdma_nd) vs its plain version (φ bitwise; maxima within "
+        f"{GATE:g}; sums within rtol {FIELD_RTOL:g}, atol {FIELD_ATOL:g}) and vs kernel 7 on the "
+        f"extended block (bitwise); the one-step tail of kernel 6's code and odd-loops frames vs "
+        f"plain:")
+    phase_rdma_gate(torch, nd, ft, field, actions, cfgmod, parallel, device)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 25. kernel 8's main path, and phi4_4d with an odd loops
+        log("[25] kernel 8's main path: runtime.run_field with a mesh of the one card, "
+            "backend cuda_rdma and auto with prefer_rdma (field 256^2 x 16 loops 50 at x=2 and "
+            "on the ring of one; 32^4 x 8 loops 20 at x=2), then cli run --preset phi4_4d "
+            "--loops 21:")
+        rdma_launches, rdma_err = phase_rdma_main_path(torch, mods, Path(tmp))
+    for k, v in rdma_launches.items():
+        launches[k] = launches.get(k, 0) + v
+
+    # 26. kernel 8 beside kernel 7 in turns
+    log(f"[26] cuda_rdma (kernel 8) beside cuda / cuda_pair (kernel 7) [{card}]:")
+    with CardSampler("[26]"):
+        t.update(phase_rdma_timings(torch, mods, card))
+    log(f"  phases [24]-[26] took {time.perf_counter() - t_rdma:.1f} s")
+
     # max_abs_err: the comparisons at the main paths' shapes (chain: headline
     # K=1, main-path state K=2, config 2 K=16; field: 256^2 x 16 K=1 and K=10,
     # main-path states K=2 and one tiled pair, 1024^2 x 16 tiled; gauge: the
@@ -2400,8 +2808,11 @@ def main() -> int:
            "field_frames_multi": max(field_err["field_frames_multi"],
                                      t["field_frames_multi_err"]),
            "field_pair": max(field_err["field_pair"], t["field_pair_err"]),
-           "field_pair_nd": max(nd_main_err["field_pair_nd"], t["field_pair_nd_err"]),
+           "field_pair_nd": max(nd_main_err["field_pair_nd"], t["field_pair_nd_err"],
+                                rdma_err["field_step_nd"]),
            "field_chunk_nd": max(nd_main_err["field_chunk_nd"], t["field_chunk_nd_err"]),
+           "field_chunk_rdma_nd": max(rdma_err["field_chunk_rdma_nd"],
+                                      t["field_chunk_rdma_nd_err"]),
            "field_halo_step": max(split_err["field_halo_step"], t["field_halo_step_err"]),
            "gauge_chunk": max(split_err["gauge_chunk"], t["gauge_chunk_err"]),
            "gauge_frame": max(gauge_main_err["gauge_frame"], t["gauge_frame_err"]),
@@ -2423,9 +2834,17 @@ def main() -> int:
          "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1], "library_ms": None}
         for kname, (src, replaces) in KERNELS.items()
     ]
-    # kernel 9 also carries the profiler's device time per launch ("ms" is the host's pace)
+    # kernel 6's launches include the one-step tails of odd loops (its own code)
+    pair_k = next(k for k in kernels if k["name"] == "field_pair_nd")
+    pair_k["launches"] += launches["field_step_nd"]
+    pair_k["tail_launches"] = launches["field_step_nd"]
+    pair_k["tail_ms"] = t["field_step_nd_ms"]
+    # kernels 8 and 9 also carry the profiler's device time per launch ("ms" is
+    # CUDA events around the wrapper, as for every other kernel)
     halo_k = next(k for k in kernels if k["name"] == "field_halo_step")
     halo_k["device_us"] = t["field_halo_step_device_us"]
+    rdma_k = next(k for k in kernels if k["name"] == "field_chunk_rdma_nd")
+    rdma_k["device_us"] = t["rdma_field_x=2_cuda_rdma"].get("kernel_us")
     log(f"  field_halo_step: bound {halo_k['bound_ms'] * 1e3 / halo_k['device_us']:.2%} of the "
         f"kernel's device time of {halo_k['device_us']:.2f} µs (profiler) [{card}]")
     for k in kernels:

@@ -19,8 +19,8 @@ the JAX package) selects the Philox-4x32-10 variants of chain kernels 1, 2
 and field kernels 3, 4; every other path ignores it and draws Threefry-20, as
 the JAX package's XLA paths do.  Fields that belong to features not ported yet
 (``block_chains=0`` and ``tile_rows=0`` autotune, ``ChainConfig.mesh_chain_axis``,
-``exchange_steps=0`` autotune, ``prefer_rdma``) raise a ``ValueError`` naming
-the feature where the run starts.
+``exchange_steps=0`` autotune) raise a ``ValueError`` naming the feature
+where the run starts.
 """
 
 from __future__ import annotations
@@ -222,9 +222,13 @@ class FieldConfig:
     #: (kernels/autotune.best_exchange_steps — one compile per candidate).
     #: Must be even when set explicitly.
     exchange_steps: Optional[int] = None
-    #: Ask for the chunk kernel that fetches its own dim-0 halos from the
-    #: neighbour device's memory (kernel 8, the JAX package's
-    #: backend='pallas_rdma').  Not ported yet: True raises on every route.
+    #: Split runs on 'auto': take kernel 8 (backend='cuda_rdma', the chunk
+    #: kernel that reads its dim-0 halo rows from the neighbour shards'
+    #: slabs itself) where its rules admit the split: a dim-0-only split
+    #: with the ring axis named, even loops and W, counter-based noise,
+    #: float32, one hop, and every shard of a ring on one card.  Elsewhere
+    #: 'cuda' (kernel 7 or 9) runs and run_field records why.  Off by
+    #: default, as in the JAX package; ignored by every other route.
     prefer_rdma: bool = False
 
     @property

@@ -133,12 +133,12 @@ class FieldParams(ctypes.Structure):
     ]
 
 
-#: most lattice dimensions kernels 6 and 7 take (``SQ_ND_MAXD`` in the source)
+#: most lattice dimensions kernels 6, 7 and 8 take (``SQ_ND_MAXD`` in the source)
 ND_MAX_DIMS = 5
 
 
 class FieldNdParams(ctypes.Structure):
-    """Launch parameters of the D-dim field kernels 6 and 7, field for field
+    """Launch parameters of the D-dim field kernels 6, 7 and 8, field for field
     the ``FieldNdParams`` struct of ``csrc/field_kernel_nd.cu``: the 2-D
     kernels' ``FieldParams`` (action, noise and launch constants), then the
     geometry of the input array, the owned block and the blocks' tiles."""
@@ -206,7 +206,8 @@ def library() -> ctypes.CDLL:
         (lib.sq_chain_frame, chain, 12), (lib.sq_chain_frames, chain, 23),
         (lib.sq_field_frame, field, 11), (lib.sq_field_frames, field, 21),
         (lib.sq_field_pair, field, 7),
-        (lib.sq_field_pair_nd, field_nd, 8), (lib.sq_field_chunk_nd, field_nd, 8),
+        (lib.sq_field_pair_nd, field_nd, 8), (lib.sq_field_step_nd, field_nd, 8),
+        (lib.sq_field_chunk_nd, field_nd, 8), (lib.sq_field_chunk_rdma_nd, field_nd, 10),
         (lib.sq_field_halo_step, field_halo, 5),
         (lib.sq_gauge_frame, gauge, 9), (lib.sq_gauge_frames, gauge, 18),
         (lib.sq_gauge_chunk, gauge, 10),

@@ -12,6 +12,14 @@
 //             (W micro-steps, W even, on a block that carries a halo in every
 //             split dim; noise and parity from global coordinates; statistics
 //             over the owned sites of every step)
+//   kernel 8  sq_field_chunk_rdma_nd  <- _build_sharded_chunk_kernel(rdma=True) /
+//             _sharded_chunk_call / make_rdma_chunk_step
+//             (kernel 7's W steps on a dim-0 split, reading the H halo rows
+//             on each side straight from the dim-0 neighbours' unextended
+//             slabs instead of from a block the runner assembled)
+//   sq_field_step_nd  one launch of kernel 6's code at n_steps = 1: the last
+//             micro-step of an odd loops count (the first Box-Muller output
+//             of the pair drawn at that step's counter), D = 2 ... 5
 //
 // The TPU kernels hold a dim-0 strip of the lattice, several MiB, on chip.
 // Here one dim-0 slab of 32^4 is 128 KiB, so with its halo not even a one-row
@@ -28,9 +36,24 @@
 // for both sweeps the extended tile is staged in a per-block scratch in
 // device memory (two buffers, ping-ponged per stencil application, and the
 // kept second Box-Muller output), which stays in L1 / L2 while the block
-// works on it.  One design for kernels 6 and 7, both sweeps and any D: the
+// works on it.  One design for kernels 6, 7 and 8, both sweeps and any D: the
 // kernels differ in where the extended tile is loaded from and in nothing
 // else.
+//
+// Kernel 8.  The TPU kernel copies its halo rows from the ring neighbours
+// with remote DMAs into stage and receive buffers, under DMA and barrier
+// semaphores and in a rotated strip order, so that no chip overwrites rows a
+// neighbour has not read yet.  Here the shards of a dim-0 ring all lie on one
+// card (a mesh whose device repeats): they share one address space and one
+// stream, so the kernel takes three plain pointers (own slab, left and right
+// neighbour) and none of that machinery is needed: the runner launches every
+// shard's chunk on the same stream before any shard's phi is replaced, each
+// launch writes a fresh output tensor (the double buffering), and the stream
+// order does the barrier's job.  Shards on several cards would need peer
+// access and an event per shard; that variant is not written.  What bounds
+// it: kernel 7's operations at the same geometry; what it saves is the
+// runner's copy of the extended block (two slices, two shifts and a concat
+// per shard and chunk).
 //
 // What bounds it on the card: per site and pair one Threefry evaluation and
 // Box-Muller (135 integer and float operations at 20 rounds, a transcendental
@@ -62,13 +85,14 @@
 struct FieldNdParams {
     FieldParams f;
     int32_t nd;         // lattice dims D
-    int32_t n_steps;    // micro-steps per launch: 2 (kernel 6) or W (kernel 7)
+    int32_t n_steps;    // micro-steps per launch: 2 (kernel 6), 1 (its odd tail) or W (7, 8)
     int32_t depth;      // stencil applications per launch
     int32_t n_blocks;   // tiles per chain
     int32_t ext_sites;  // sites of one extended tile
     int32_t n_inner;    // tiles per chain that share one dim-0 tile index
     int32_t G[SQ_ND_MAXD];    // global lattice extents
-    int32_t A[SQ_ND_MAXD];    // extents of the input array (owned + 2 array halos)
+    int32_t A[SQ_ND_MAXD];    // extents of the input array (owned + 2 array halos; for
+                              // kernel 8 the array its three slabs stand for)
     int32_t loc[SQ_ND_MAXD];  // extents of the owned block (the output)
     int32_t ab[SQ_ND_MAXD];   // input index of extended-tile site e of a tile at o: (ab + o + e) mod A
     int32_t gb[SQ_ND_MAXD];   // its global coordinate: (gb + o + e) mod G
@@ -263,13 +287,51 @@ __device__ void nd_publish(NdAcc a, float* red, float* __restrict__ stats) {
     }
 }
 
-// The whole launch of one block: load the extended tile, n_steps micro-steps,
-// store the owned tile.
-template <int ROUNDS>
+// Kernel 8's load of the extended tile: the input array of kernel 7 (owned
+// rows plus H = (A[0] - loc[0]) / 2 halo rows a side in dim 0, dims >= 1
+// whole) stands for three unextended slabs of loc[0] rows: array rows 0 .. H-1
+// are the left slab's last H rows, rows H + loc[0] .. the right slab's first
+// H, the others the own slab's.  H <= loc[0] (one hop).
+__device__ void nd_load_slabs(const FieldNdParams& p, const NdTile& t, int ch,
+                              const float* __restrict__ own, const float* __restrict__ left,
+                              const float* __restrict__ right, float* X) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int D = p.nd, L = D - 1;
+    const int H = (p.A[0] - p.loc[0]) / 2;
+    size_t svol = (size_t)p.loc[0];
+#pragma unroll
+    for (int d = 1; d < SQ_ND_MAXD; ++d)
+        if (d < D) svol *= (size_t)p.A[d];
+    const int n_rows = nd_rows(p, t, 0);
+    for (int r = warp; r < n_rows; r += ND_WARPS) {
+        int e[SQ_ND_MAXD];
+        nd_row(p, t, 0, r, e);
+        const int q = (p.ab[0] + t.o[0] + e[0]) % p.A[0] - H;  // own-slab row, -H <= q < loc + H
+        const float* src = q < 0 ? left : (q >= p.loc[0] ? right : own);
+        size_t a = (size_t)(q < 0 ? q + p.loc[0] : (q >= p.loc[0] ? q - p.loc[0] : q));
+        int base = e[0] * t.es[0];
+#pragma unroll
+        for (int d = 1; d < SQ_ND_MAXD - 1; ++d) {
+            if (d < L) {
+                base += e[d] * t.es[d];
+                a = a * (size_t)p.A[d] + (size_t)((p.ab[d] + t.o[d] + e[d]) % p.A[d]);
+            }
+        }
+        src += (size_t)ch * svol;
+        for (int x = lane; x < t.ext[L]; x += 32)
+            X[base + x] = src[a * (size_t)p.A[L] + (size_t)((p.ab[L] + t.o[L] + x) % p.A[L])];
+    }
+}
+
+// The whole launch of one block: load the extended tile (from one array, or
+// with SLABS from kernel 8's three slabs), n_steps micro-steps, store the
+// owned tile.
+template <int ROUNDS, bool SLABS = false>
 __device__ void nd_block(const FieldNdParams& p, const float* __restrict__ in,
                          const float* __restrict__ dtau_in, float* __restrict__ out,
                          float* __restrict__ slp, float* __restrict__ stats_all, float* xbuf,
-                         float* ybuf, float* zbuf) {
+                         float* ybuf, float* zbuf, const float* __restrict__ left = nullptr,
+                         const float* __restrict__ right = nullptr) {
     extern __shared__ float smem[];
     float* red = smem;                 // 5 * ND_WARPS
     float* part = smem + 5 * ND_WARPS;  // T[0] * ND_WARPS
@@ -298,6 +360,9 @@ __device__ void nd_block(const FieldNdParams& p, const float* __restrict__ in,
     float* zk = zbuf + blk * (size_t)p.ext_sites;
 
     // load the extended tile, wrapping around the input array
+    if constexpr (SLABS)
+        nd_load_slabs(p, t, ch, in, left, right, X);
+    else
     {
         size_t avol = 1;
 #pragma unroll
@@ -408,63 +473,112 @@ field_chunk_nd_kernel(FieldNdParams p, const float* __restrict__ ext_in,
     nd_block<ROUNDS>(p, ext_in, dtau_in, phi_out, slp, stats, xbuf, ybuf, zbuf);
 }
 
+// Kernel 8: the input is three unextended dim-0 slabs, the block's own and
+// its dim-0 ring neighbours' (all three the same slab on a ring of one).
+template <int ROUNDS>
+__global__ void __launch_bounds__(ND_THREADS)
+field_chunk_rdma_nd_kernel(FieldNdParams p, const float* __restrict__ phi_in,
+                           const float* __restrict__ left, const float* __restrict__ right,
+                           const float* __restrict__ dtau_in, float* __restrict__ phi_out,
+                           float* __restrict__ slp, float* __restrict__ stats, float* xbuf,
+                           float* ybuf, float* zbuf) {
+    nd_block<ROUNDS, true>(p, phi_in, dtau_in, phi_out, slp, stats, xbuf, ybuf, zbuf, left, right);
+}
+
 // ---- C entry points (loaded with ctypes) -----------------------------------
 
-static bool nd_params_ok(const FieldNdParams* p, bool pair) {
+// What each entry takes: kernel 6's pair (D >= 3) and its one-step tail (D >= 2)
+// on the periodic lattice, kernel 7's W steps on an extended array, kernel
+// 8's on three slabs (one hop: 1 <= H <= loc[0], dims >= 1 whole).
+enum NdEntry { ND_PAIR, ND_STEP, ND_CHUNK, ND_SLABS };
+
+static bool nd_params_ok(const FieldNdParams* p, NdEntry entry) {
     const FieldParams& f = p->f;
+    const bool lattice = entry == ND_PAIR || entry == ND_STEP;
+    const bool steps_ok = entry == ND_PAIR   ? p->n_steps == 2 && p->nd >= 3
+                          : entry == ND_STEP ? p->n_steps == 1
+                                             : p->n_steps >= 2 && p->n_steps % 2 == 0;
     bool ok = f.n_chains > 0 && f.n_chains <= 65535 && p->nd >= 2 && p->nd <= SQ_ND_MAXD &&
               (f.rounds == 20 || f.rounds == 13) &&
-              (f.action == ACTION_PHI4 || f.action == ACTION_FREE) && p->n_steps >= 2 &&
-              p->n_steps % 2 == 0 && p->depth == p->n_steps * (f.checkerboard ? 2 : 1) &&
-              p->n_blocks >= 1 && p->n_inner >= 1 && (!pair || (p->n_steps == 2 && p->nd >= 3));
+              (f.action == ACTION_PHI4 || f.action == ACTION_FREE) && steps_ok &&
+              p->depth == p->n_steps * (f.checkerboard ? 2 : 1) && p->n_blocks >= 1 &&
+              p->n_inner >= 1;
     long long blocks = 1, ext = 1, sites = 1;
     for (int d = 0; ok && d < p->nd; ++d) {
         ok = p->G[d] >= 1 && p->loc[d] >= 1 && p->loc[d] <= p->G[d] && p->A[d] >= p->loc[d] &&
              p->T[d] >= 1 && p->loc[d] % p->T[d] == 0 && p->nt[d] == p->loc[d] / p->T[d] &&
              (p->th[d] == p->depth || (p->th[d] == 0 && p->T[d] == p->G[d] && p->A[d] == p->G[d])) &&
              p->ab[d] >= 0 && p->ab[d] < p->A[d] && p->gb[d] >= 0 && p->gb[d] < p->G[d] &&
-             (!pair || p->A[d] == p->G[d]);
+             (!lattice || p->A[d] == p->G[d]) &&
+             (entry != ND_SLABS || d == 0 || (p->A[d] == p->loc[d] && p->loc[d] == p->G[d]));
         blocks *= p->nt[d];
         ext *= p->T[d] + 2 * p->th[d];
         sites *= p->G[d];
+    }
+    if (ok && entry == ND_SLABS) {
+        const int H = (p->A[0] - p->loc[0]) / 2;
+        ok = p->A[0] == p->loc[0] + 2 * H && H >= 1 && H <= p->loc[0] && p->th[0] == H &&
+             p->ab[0] == 0;
     }
     return ok && blocks == p->n_blocks && ext == p->ext_sites && ext < (1LL << 31) &&
            sites <= (1LL << 32) && p->n_blocks % p->nt[0] == 0 &&
            p->n_inner == p->n_blocks / p->nt[0];
 }
 
-template <typename K>
-static int nd_launch(K kernel, const FieldNdParams* p, const float* in, const float* dtau_in,
-                     float* out, float* slp, float* stats, float* xbuf, float* ybuf, float* zbuf,
-                     void* stream) {
+template <typename K, typename... In>
+static int nd_launch(K kernel, const FieldNdParams* p, void* stream, In... in) {
     const size_t smem = (size_t)(5 + p->T[0]) * ND_WARPS * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(p->n_blocks, p->f.n_chains);
-    kernel<<<grid, ND_THREADS, smem, (cudaStream_t)stream>>>(*p, in, dtau_in, out, slp, stats,
-                                                             xbuf, ybuf, zbuf);
+    kernel<<<grid, ND_THREADS, smem, (cudaStream_t)stream>>>(*p, in...);
     return (int)cudaGetLastError();
 }
 
 extern "C" int sq_field_pair_nd(const FieldNdParams* p, const float* phi_in, const float* dtau_in,
                                 float* phi_out, float* slp, float* stats, float* xbuf,
                                 float* ybuf, float* zbuf, void* stream) {
-    if (!nd_params_ok(p, true)) return (int)cudaErrorInvalidValue;
+    if (!nd_params_ok(p, ND_PAIR)) return (int)cudaErrorInvalidValue;
     if (p->f.rounds == 20)
-        return nd_launch(field_pair_nd_kernel<20>, p, phi_in, dtau_in, phi_out, slp, stats, xbuf,
-                         ybuf, zbuf, stream);
-    return nd_launch(field_pair_nd_kernel<13>, p, phi_in, dtau_in, phi_out, slp, stats, xbuf,
-                     ybuf, zbuf, stream);
+        return nd_launch(field_pair_nd_kernel<20>, p, stream, phi_in, dtau_in, phi_out, slp, stats,
+                         xbuf, ybuf, zbuf);
+    return nd_launch(field_pair_nd_kernel<13>, p, stream, phi_in, dtau_in, phi_out, slp, stats,
+                     xbuf, ybuf, zbuf);
+}
+
+// The one-step tail: kernel 6's own code (the same __global__) at n_steps = 1.
+extern "C" int sq_field_step_nd(const FieldNdParams* p, const float* phi_in, const float* dtau_in,
+                                float* phi_out, float* slp, float* stats, float* xbuf,
+                                float* ybuf, float* zbuf, void* stream) {
+    if (!nd_params_ok(p, ND_STEP)) return (int)cudaErrorInvalidValue;
+    if (p->f.rounds == 20)
+        return nd_launch(field_pair_nd_kernel<20>, p, stream, phi_in, dtau_in, phi_out, slp, stats,
+                         xbuf, ybuf, zbuf);
+    return nd_launch(field_pair_nd_kernel<13>, p, stream, phi_in, dtau_in, phi_out, slp, stats,
+                     xbuf, ybuf, zbuf);
 }
 
 extern "C" int sq_field_chunk_nd(const FieldNdParams* p, const float* ext_in,
                                  const float* dtau_in, float* phi_out, float* slp, float* stats,
                                  float* xbuf, float* ybuf, float* zbuf, void* stream) {
-    if (!nd_params_ok(p, false)) return (int)cudaErrorInvalidValue;
+    if (!nd_params_ok(p, ND_CHUNK)) return (int)cudaErrorInvalidValue;
     if (p->f.rounds == 20)
-        return nd_launch(field_chunk_nd_kernel<20>, p, ext_in, dtau_in, phi_out, slp, stats, xbuf,
-                         ybuf, zbuf, stream);
-    return nd_launch(field_chunk_nd_kernel<13>, p, ext_in, dtau_in, phi_out, slp, stats, xbuf,
-                     ybuf, zbuf, stream);
+        return nd_launch(field_chunk_nd_kernel<20>, p, stream, ext_in, dtau_in, phi_out, slp,
+                         stats, xbuf, ybuf, zbuf);
+    return nd_launch(field_chunk_nd_kernel<13>, p, stream, ext_in, dtau_in, phi_out, slp, stats,
+                     xbuf, ybuf, zbuf);
+}
+
+extern "C" int sq_field_chunk_rdma_nd(const FieldNdParams* p, const float* phi_in,
+                                      const float* left, const float* right,
+                                      const float* dtau_in, float* phi_out, float* slp,
+                                      float* stats, float* xbuf, float* ybuf, float* zbuf,
+                                      void* stream) {
+    if (!nd_params_ok(p, ND_SLABS)) return (int)cudaErrorInvalidValue;
+    if (p->f.rounds == 20)
+        return nd_launch(field_chunk_rdma_nd_kernel<20>, p, stream, phi_in, left, right, dtau_in,
+                         phi_out, slp, stats, xbuf, ybuf, zbuf);
+    return nd_launch(field_chunk_rdma_nd_kernel<13>, p, stream, phi_in, left, right, dtau_in,
+                     phi_out, slp, stats, xbuf, ybuf, zbuf);
 }

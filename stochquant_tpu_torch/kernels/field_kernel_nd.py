@@ -8,7 +8,9 @@ Port of ``stochquant_tpu/kernels/field_kernel_nd.py``:
   of every chain of a periodic D-dim lattice.  Returns φ after the pair, the
   dim-0 slice **means** of the two pre-update fields and per-block statistics.
   Plain version: :func:`field_pair_nd_ref`.  :func:`field_frame_nd` scans the
-  pairs of a frame.
+  pairs of a frame; the last step of an odd ``loops`` is one launch of the
+  same code at one micro-step, :func:`field_step_nd` (plain version
+  :func:`field_step_nd_ref`), which also ends the strip-tiled 2-D frames.
 * kernel 7, :func:`field_chunk_nd` (``_build_sharded_chunk_kernel`` /
   ``make_sharded_chunk_step_md``): W micro-steps (W even) on a block that
   carries ``halos[d]`` extra sites per side in every split dim, with noise
@@ -18,8 +20,14 @@ Port of ``stochquant_tpu/kernels/field_kernel_nd.py``:
   owned sites and per-block statistics of the owned sites, for D ≥ 2.  Plain
   version: :func:`field_chunk_nd_ref`.  :func:`field_frame_nd_chunk` runs a
   frame of an unsplit lattice through it, extending dim 0 periodically.
+* kernel 8, :func:`field_chunk_rdma_nd` (``_sharded_chunk_call(rdma=True)``
+  / ``make_rdma_chunk_step``): kernel 7's W steps on a dim-0 split, given
+  the shard's unextended slab and its two dim-0 ring neighbours' slabs, from
+  which it reads its H halo rows itself (:func:`rdma_chunk_geometry`).  On
+  one card only: the three slabs must lie on one device.  Plain version:
+  :func:`field_chunk_rdma_nd_ref`.
 
-Both kernels are CUDA C++ for ``sm_90a`` (``csrc/field_kernel_nd.cu``).  One
+The kernels are CUDA C++ for ``sm_90a`` (``csrc/field_kernel_nd.cu``).  One
 block of threads owns a **tile** of the lattice and recomputes a halo of
 ``depth`` sites (the stencil applications of the launch: W for synchronous
 sweeps, 2W for checkerboard half-sweeps) around it in every dim the tile
@@ -37,8 +45,9 @@ plain versions cut the same blocks.  Like the JAX kernels, a chain that trips
 keeps evolving to the end of the frame; the rollback discards it.
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
-launches its kernel, or raises.  ``field_pair_nd.launches`` and
-``field_chunk_nd.launches`` count launches.
+launches its kernel, or raises.  ``field_pair_nd.launches``,
+``field_step_nd.launches``, ``field_chunk_nd.launches`` and
+``field_chunk_rdma_nd.launches`` count launches.
 """
 
 from __future__ import annotations
@@ -66,15 +75,21 @@ from stochquant_tpu_torch.kernels.field_kernel_tiled import (
 __all__ = [
     "field_pair_nd",
     "field_pair_nd_ref",
+    "field_step_nd",
+    "field_step_nd_ref",
     "field_chunk_nd",
     "field_chunk_nd_ref",
+    "field_chunk_rdma_nd",
+    "field_chunk_rdma_nd_ref",
     "field_frame_nd",
     "field_frame_nd_chunk",
+    "odd_tail",
     "run_field_frames_nd",
     "default_tile_rows",
     "resolve_tiles",
     "chunk_halos",
     "chunk_geometry",
+    "rdma_chunk_geometry",
     "default_exchange_steps",
     "Geometry",
 ]
@@ -84,7 +99,7 @@ __all__ = [
 TARGET_BLOCKS = 128
 #: smallest extent the default rule gives a tile in a dim it cuts
 MIN_TILE = 2
-#: threads per block of kernels 6 and 7 (``ND_THREADS`` in the source)
+#: threads per block of kernels 6, 7 and 8 (``ND_THREADS`` in the source)
 THREADS = 512
 #: dynamic shared memory a block may take for its slice partial sums
 SMEM_BUDGET = 200 * 1024
@@ -205,8 +220,8 @@ def _geometry(cfg: FieldConfig, loc, halos, offsets, n_steps, n_chains, tile_row
 
 
 def check_nd_config(cfg: FieldConfig) -> None:
-    """Raise for what kernels 6 and 7 (and their plain versions, which keep
-    the kernels' contract) do not take."""
+    """Raise for what kernels 6, 7 and 8 (and their plain versions, which
+    keep the kernels' contract) do not take."""
     if not rng.counter_based(cfg.rng_impl):
         raise ValueError(
             "the D-dim field kernels require counter-based noise (halo sites are "
@@ -236,16 +251,20 @@ def _block_stats(geo: Geometry, steps) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
-def _launch(entry: str, geo: Geometry, src, dtau, action, cfg, n_steps, step, chain_offset):
+def _launch(entry: str, geo: Geometry, srcs, dtau, action, cfg, n_steps, step, chain_offset):
     """Allocate the outputs and per-block scratch of one launch of ``entry``
-    and launch it.  Returns (owned block after ``n_steps`` micro-steps, slice
-    sums (C, n_steps, L0_loc), stats (C, n_blocks, 5·n_steps))."""
-    C, dev = src.shape[0], src.device
+    and launch it on ``srcs``: one (C, *geo.array) array, or kernel 8's three
+    (C, *geo.loc) slabs (own, left, right).  Returns (owned block after
+    ``n_steps`` micro-steps, slice sums (C, n_steps, L0_loc), stats (C,
+    n_blocks, 5·n_steps))."""
+    C, dev = srcs[0].shape[0], srcs[0].device
     if dev.type != "cuda":
         raise ValueError(f"the D-dim field kernels run on 'cuda' or 'cpu' tensors, not {dev}")
-    _build.check_leaves(SimpleNamespace(phi=src, dtau=dtau),
-                        {"phi": ((C,) + geo.array, torch.float32), "dtau": ((C,), torch.float32)},
-                        dev)
+    names = ("phi",) if len(srcs) == 1 else ("phi", "left", "right")
+    shape = (C,) + (geo.array if len(srcs) == 1 else geo.loc)
+    _build.check_leaves(SimpleNamespace(dtau=dtau, **dict(zip(names, srcs))),
+                        {**{n: (shape, torch.float32) for n in names},
+                         "dtau": ((C,), torch.float32)}, dev)
     ext_sites = math.prod(geo.ext)
     if ext_sites >= 1 << 31 or C > 65535:
         raise ValueError(f"a tile of {geo.ext} sites or {C} chains exceeds the kernel's ranges")
@@ -264,7 +283,7 @@ def _launch(entry: str, geo: Geometry, src, dtau, action, cfg, n_steps, step, ch
     out, slp = empty(C, *geo.loc), empty(C, n_steps, geo.loc[0], n_inner)
     stats = empty(C, geo.n_blocks, 5 * n_steps)
     scratch = empty(3, C * geo.n_blocks * ext_sites)
-    _build.launch(entry, params, (src, dtau, out, slp, stats, *scratch.unbind(0)), dev)
+    _build.launch(entry, params, (*srcs, dtau, out, slp, stats, *scratch.unbind(0)), dev)
     return out, slp.sum(-1), stats
 
 
@@ -273,13 +292,20 @@ def _launch(entry: str, geo: Geometry, src, dtau, action, cfg, n_steps, step, ch
 # ---------------------------------------------------------------------------
 
 
-def _pair_geometry(phi, cfg, tile_rows) -> Geometry:
+def _pair_geometry(phi, cfg, tile_rows, n_steps=2) -> Geometry:
     check_nd_config(cfg)
     shape = tuple(cfg.shape)
     if tuple(phi.shape[1:]) != shape:
         raise ValueError(f"phi has lattice {tuple(phi.shape[1:])}, cfg {cfg.shape}")
     zeros = (0,) * len(shape)
-    return _geometry(cfg, shape, zeros, zeros, 2, phi.shape[0], tile_rows)
+    return _geometry(cfg, shape, zeros, zeros, n_steps, phi.shape[0], tile_rows)
+
+
+def _slice_means(phi, x):
+    """(C, L0) dim-0 slice means of ``x``, as the kernel forms them: the sum
+    times the float32 reciprocal of a slice's sites."""
+    C, L0 = phi.shape[:2]
+    return x.reshape(C, L0, -1).sum(-1) * float(np.float32(1.0 / (phi[0, 0].numel())))
 
 
 def field_pair_nd_ref(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction,
@@ -290,10 +316,8 @@ def field_pair_nd_ref(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction
     pre-update fields (C, L0) each, stats (C, n_blocks, 10))."""
     geo = _pair_geometry(phi, cfg, tile_rows)
     steps = micro_steps(phi, dtau, action, cfg, step, 2, chain_offset=chain_offset)
-    C, L0 = phi.shape[:2]
-    inv_sl = float(np.float32(1.0 / (phi[0, 0].numel())))
-    means = lambda x: x.reshape(C, L0, -1).sum(-1) * inv_sl  # noqa: E731
-    return steps[1][1], means(phi), means(steps[0][1]), _block_stats(geo, steps)
+    return (steps[1][1], _slice_means(phi, phi), _slice_means(phi, steps[0][1]),
+            _block_stats(geo, steps))
 
 
 def field_pair_nd(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction, cfg: FieldConfig,
@@ -303,7 +327,7 @@ def field_pair_nd(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction, cf
     geo = _pair_geometry(phi, cfg, tile_rows)
     if phi.device.type == "cpu":
         return field_pair_nd_ref(phi, dtau, action, cfg, step, tile_rows, chain_offset)
-    out, sl, stats = _launch("sq_field_pair_nd", geo, phi, dtau, action, cfg, 2, step,
+    out, sl, stats = _launch("sq_field_pair_nd", geo, (phi,), dtau, action, cfg, 2, step,
                              chain_offset)
     field_pair_nd.launches += 1
     inv_sl = float(np.float32(1.0 / (phi[0, 0].numel())))
@@ -311,6 +335,34 @@ def field_pair_nd(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction, cf
 
 
 field_pair_nd.launches = 0
+
+
+def field_step_nd_ref(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction,
+                      cfg: FieldConfig, step: int, tile_rows=None, chain_offset: int = 0):
+    """Plain PyTorch version of the one-step tail: the micro-step at counter
+    ``step`` with the first Box–Muller output of the pair drawn there, on a
+    periodic lattice of any D ≥ 2.  Returns (phi after the step, dim-0 slice
+    means of the pre-update field (C, L0), stats (C, n_blocks, 5))."""
+    geo = _pair_geometry(phi, cfg, tile_rows, 1)
+    steps = micro_steps(phi, dtau, action, cfg, step, 1, chain_offset=chain_offset)
+    return steps[0][1], _slice_means(phi, phi), _block_stats(geo, steps)
+
+
+def field_step_nd(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction, cfg: FieldConfig,
+                  step: int, tile_rows=None, chain_offset: int = 0):
+    """The last micro-step of an odd ``loops``: one launch of kernel 6's code
+    at one micro-step (entry ``sq_field_step_nd``), for D = 2 … 5.  Returns
+    what :func:`field_step_nd_ref` returns."""
+    geo = _pair_geometry(phi, cfg, tile_rows, 1)
+    if phi.device.type == "cpu":
+        return field_step_nd_ref(phi, dtau, action, cfg, step, tile_rows, chain_offset)
+    out, sl, stats = _launch("sq_field_step_nd", geo, (phi,), dtau, action, cfg, 1, step,
+                             chain_offset)
+    field_step_nd.launches += 1
+    return out, sl[:, 0] * float(np.float32(1.0 / (phi[0, 0].numel()))), stats
+
+
+field_step_nd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -399,12 +451,87 @@ def field_chunk_nd(ext: torch.Tensor, dtau: torch.Tensor, action: FieldAction, c
     if ext.device.type == "cpu":
         return field_chunk_nd_ref(ext, dtau, action, cfg, W, split_dims, step_base, offsets,
                                   chain_offset, tile_rows)
-    out = _launch("sq_field_chunk_nd", geo, ext, dtau, action, cfg, W, step_base, chain_offset)
+    out = _launch("sq_field_chunk_nd", geo, (ext,), dtau, action, cfg, W, step_base,
+                  chain_offset)
     field_chunk_nd.launches += 1
     return out
 
 
 field_chunk_nd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: W micro-steps of a dim-0 slab, halo rows read from the neighbours
+# ---------------------------------------------------------------------------
+
+
+def rdma_chunk_geometry(cfg: FieldConfig, n_chains: int, loc, W: int, offsets=None,
+                        tile_rows=None) -> Geometry:
+    """The geometry of one kernel 8 launch on the dim-0 slab ``loc``: a
+    dim-0-only split, W even, counter-based noise, float32 (the rules of
+    :func:`chunk_geometry`), and one hop: the halo depth H must not exceed
+    the slab's rows.  Raises ``ValueError`` otherwise."""
+    split = (True,) + (False,) * (cfg.ndim - 1)
+    geo = chunk_geometry(cfg, n_chains, loc, W, split, offsets, tile_rows)
+    if geo.halos[0] > geo.loc[0]:
+        raise ValueError(f"kernel 8 reads its halo from the adjacent shards only (one hop): the "
+                         f"halo of {geo.halos[0]} rows exceeds the slab's {geo.loc[0]}; use "
+                         f"backend='cuda' (kernel 7, multi-hop) for thin slabs")
+    return geo
+
+
+def _rdma_geometry(phi, left, right, cfg, W, offsets, tile_rows) -> Geometry:
+    if phi.dim() != cfg.ndim + 1 or tuple(phi.shape[2:]) != tuple(cfg.shape[1:]):
+        raise ValueError(f"phi {tuple(phi.shape)} must be a (C, L0_loc, *{tuple(cfg.shape[1:])}) "
+                         f"slab of the dim-0 split lattice {cfg.shape}")
+    for name, x in (("left", left), ("right", right)):
+        if x.device != phi.device:
+            raise ValueError(
+                f"the {name} neighbour's slab is on {x.device}, this shard's on {phi.device}: "
+                "shards of a dim-0 ring on several devices are not ported (kernel 8 reads its "
+                "neighbours' slabs through plain pointers on one card; several cards would need "
+                "peer access, and no machine with two GPUs has proved it)")
+        if x.shape != phi.shape:
+            raise ValueError(f"the {name} neighbour's slab {tuple(x.shape)} differs from this "
+                             f"shard's {tuple(phi.shape)}")
+    return rdma_chunk_geometry(cfg, phi.shape[0], tuple(phi.shape[1:]), W, offsets, tile_rows)
+
+
+def field_chunk_rdma_nd_ref(phi: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
+                            dtau: torch.Tensor, action: FieldAction, cfg: FieldConfig, W: int,
+                            step_base: int, offsets=None, chain_offset: int = 0,
+                            tile_rows=None):
+    """Plain PyTorch version of kernel 8: the extended block ``[left[:, -H:],
+    phi, right[:, :H]]`` through :func:`field_chunk_nd_ref`.  ``left`` /
+    ``right`` are the unextended slabs of the dim-0 ring neighbours before
+    and after this shard.  Returns what :func:`field_chunk_nd_ref` returns."""
+    geo = _rdma_geometry(phi, left, right, cfg, W, offsets, tile_rows)
+    H, L0 = geo.halos[0], geo.loc[0]
+    ext = torch.cat([left[:, L0 - H:], phi, right[:, :H]], dim=1)
+    return field_chunk_nd_ref(ext, dtau, action, cfg, W, (True,) + (False,) * (cfg.ndim - 1),
+                              step_base, offsets, chain_offset, tile_rows)
+
+
+def field_chunk_rdma_nd(phi: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
+                        dtau: torch.Tensor, action: FieldAction, cfg: FieldConfig, W: int,
+                        step_base: int, offsets=None, chain_offset: int = 0, tile_rows=None):
+    """Kernel 8: W micro-steps in one launch on the dim-0 slab ``phi`` (C,
+    L0_loc, *rest) of a lattice split in dim 0 only, reading its H halo rows
+    a side from the neighbours' slabs ``left`` and ``right`` (each the same
+    shape, on the same device; on a ring of one all three are ``phi``).
+    ``offsets``, ``step_base`` and ``chain_offset`` as for
+    :func:`field_chunk_nd`.  Returns what :func:`field_chunk_nd_ref` returns."""
+    geo = _rdma_geometry(phi, left, right, cfg, W, offsets, tile_rows)
+    if phi.device.type == "cpu":
+        return field_chunk_rdma_nd_ref(phi, left, right, dtau, action, cfg, W, step_base,
+                                       offsets, chain_offset, tile_rows)
+    out = _launch("sq_field_chunk_rdma_nd", geo, (phi, left, right), dtau, action, cfg, W,
+                  step_base, chain_offset)
+    field_chunk_rdma_nd.launches += 1
+    return out
+
+
+field_chunk_rdma_nd.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -417,21 +544,30 @@ def _check_frame(state: FieldState, cfg: FieldConfig) -> None:
         raise ValueError("field_kernel_nd covers D >= 3 lattices (2-D has its own kernels), "
                          f"not shape {cfg.shape}")
     check_nd_config(cfg)
-    if cfg.loops % 2:
-        raise ValueError(f"the D-dim kernels need an even loops count (pair launches), "
-                         f"not {cfg.loops}")
     if tuple(state.phi.shape[1:]) != tuple(cfg.shape):
         raise ValueError(f"state.phi has lattice {tuple(state.phi.shape[1:])}, cfg {cfg.shape}")
 
 
+def odd_tail(phi, vals, state: FieldState, action: FieldAction, cfg: FieldConfig, tile_rows,
+             chain_offset: int = 0, tail=None):
+    """The last micro-step of an odd ``cfg.loops`` (counter ``state.step +
+    loops - 1``) and its statistics step: (phi, vals) after it.  ``tail`` is
+    the one-step function (default :func:`field_step_nd`)."""
+    tail = tail or field_step_nd
+    phi, sl, stats = tail(phi, state.dtau, action, cfg, int(state.step) + cfg.loops - 1,
+                          tile_rows, chain_offset)
+    return phi, obs_step(vals, sl, stats, float(math.prod(cfg.shape)))
+
+
 def field_frame_nd(state: FieldState, action: FieldAction, cfg: FieldConfig, *,
-                   tile_rows=None, chain_offset: int = 0, pair=None):
-    """One frame (``cfg.loops`` micro-steps, loops even) through the pair
-    kernel: a scan over micro-step pairs with the observable and detector
-    step in PyTorch, then the accept/reject and adaptive-Δτ epilogue of
-    ``integrators.field``.  ``pair`` is the pair function (default
-    :func:`field_pair_nd`; :func:`field_pair_nd_ref` forces the plain
-    version).  Returns (state, metrics)."""
+                   tile_rows=None, chain_offset: int = 0, pair=None, tail=None):
+    """One frame (``cfg.loops`` micro-steps) through the pair kernel: a scan
+    over micro-step pairs with the observable and detector step in PyTorch,
+    an odd count's last step through :func:`odd_tail`, then the
+    accept/reject and adaptive-Δτ epilogue of ``integrators.field``.
+    ``pair`` / ``tail`` are the pair and one-step functions (default
+    :func:`field_pair_nd` / :func:`field_step_nd`; the ``_ref`` functions
+    force the plain versions).  Returns (state, metrics)."""
     _check_frame(state, cfg)
     pair = pair or field_pair_nd
     volume = float(math.prod(cfg.shape))
@@ -443,18 +579,22 @@ def field_frame_nd(state: FieldState, action: FieldAction, cfg: FieldConfig, *,
                                     chain_offset)
         vals = obs_step(vals, sl0, stats[:, :, :5], volume)
         vals = obs_step(vals, sl1, stats[:, :, 5:], volume)
+    if cfg.loops % 2:
+        phi, vals = odd_tail(phi, vals, state, action, cfg, tile_rows, chain_offset, tail)
     return field_mod.field_frame_epilogue(state, obs_sums(phi, vals), cfg)
 
 
 def field_frame_nd_chunk(state: FieldState, action: FieldAction, cfg: FieldConfig, W: int, *,
-                         tile_rows=None, chain_offset: int = 0, chunk=None):
+                         tile_rows=None, chain_offset: int = 0, chunk=None, tail=None):
     """One frame of an unsplit D ≥ 3 lattice through the W-step chunk kernel:
     per chunk dim 0 is extended periodically (``[phi[-H:], phi, phi[:H]]``)
     and one launch advances ``min(W, loops)`` micro-steps; what is left of
-    ``loops`` runs as a shorter tail chunk.  The per-step statistics step and
-    the epilogue are :func:`field_frame_nd`'s, so the trajectory equals the
-    pair path's.  ``chunk`` is the chunk function (default
-    :func:`field_chunk_nd`).  Returns (state, metrics)."""
+    the even part of ``loops`` runs as a shorter tail chunk, and an odd
+    count's last step through :func:`odd_tail`.  The per-step statistics step
+    and the epilogue are :func:`field_frame_nd`'s, so the trajectory equals
+    the pair path's.  ``chunk`` / ``tail`` are the chunk and one-step
+    functions (default :func:`field_chunk_nd` / :func:`field_step_nd`).
+    Returns (state, metrics)."""
     _check_frame(state, cfg)
     if W % 2:
         raise ValueError(f"the chunk kernel needs an even exchange_steps, not W={W}")
@@ -463,9 +603,10 @@ def field_frame_nd_chunk(state: FieldState, action: FieldAction, cfg: FieldConfi
     volume = float(math.prod(cfg.shape))
     n_per_slice = volume / L0
     split = (True,) + (False,) * (cfg.ndim - 1)
-    W_main = min(W, cfg.loops)
-    n_chunks = cfg.loops // W_main
-    widths = [W_main] * n_chunks + [cfg.loops - n_chunks * W_main]
+    even = cfg.loops - cfg.loops % 2
+    W_main = min(W, even)
+    n_chunks = even // W_main if W_main else 0
+    widths = [W_main] * n_chunks + [even - n_chunks * W_main]
     vals = obs_init(state)
     phi = state.phi
     step = int(state.step)
@@ -483,24 +624,28 @@ def field_frame_nd_chunk(state: FieldState, action: FieldAction, cfg: FieldConfi
             vals = obs_step(vals, true_divide(sl[:, w], n_per_slice),
                             stats[:, :, 5 * w:5 * w + 5], volume)
         step += Wx
+    if cfg.loops % 2:
+        phi, vals = odd_tail(phi, vals, state, action, cfg, tile_rows, chain_offset, tail)
     return field_mod.field_frame_epilogue(state, obs_sums(phi, vals), cfg)
 
 
 def run_field_frames_nd(state: FieldState, action: FieldAction, cfg: FieldConfig, n_frames: int,
-                        *, tile_rows=None, chain_offset: int = 0, pair=None, chunk=None):
+                        *, tile_rows=None, chain_offset: int = 0, pair=None, chunk=None,
+                        tail=None):
     """``n_frames`` frames of a D ≥ 3 lattice — the counterpart of
     ``stochquant_tpu.kernels.field_kernel_nd.run_field_frames_nd``: with
     ``cfg.exchange_steps`` W > 2 (and even ``loops``) through the W-step chunk
-    kernel, else through the pair kernel.  Returns (state, metrics) with
-    metrics of shape (n_frames, C)."""
+    kernel, else through the pair kernel (an odd ``loops`` ends in the
+    one-step tail).  Returns (state, metrics) with metrics of shape
+    (n_frames, C)."""
     W = cfg.exchange_steps
     per_frame = []
     for _ in range(n_frames):
         if W and W > 2 and cfg.loops % 2 == 0:
             state, m = field_frame_nd_chunk(state, action, cfg, W, tile_rows=tile_rows,
-                                            chain_offset=chain_offset, chunk=chunk)
+                                            chain_offset=chain_offset, chunk=chunk, tail=tail)
         else:
             state, m = field_frame_nd(state, action, cfg, tile_rows=tile_rows,
-                                      chain_offset=chain_offset, pair=pair)
+                                      chain_offset=chain_offset, pair=pair, tail=tail)
         per_frame.append(m)
     return state, stack_metrics(per_frame)

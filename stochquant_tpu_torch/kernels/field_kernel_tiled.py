@@ -9,10 +9,11 @@ SYNC, 4 for CHECKERBOARD), and returns per-strip statistics and the slice
 means of the two pre-update fields.  Plain version: :func:`field_pair_ref`,
 which updates the whole lattice at once and cuts the same statistics per
 strip.  :func:`field_frame_tiled` scans the pairs of a frame, runs the
-per-pair statistics step in PyTorch and then the frame epilogue.  The
-micro-step arithmetic (:func:`micro_steps`) and the statistics step
-(:func:`obs_init`, :func:`obs_step`, :func:`obs_sums`) are written for any
-dimension: the D ≥ 3 kernels 6 and 7 (``field_kernel_nd``) share them.
+per-pair statistics step in PyTorch, the last step of an odd ``loops`` as
+one launch of kernel 6's code (``field_kernel_nd.field_step_nd``), and then
+the frame epilogue.  The micro-step arithmetic (:func:`micro_steps`) and the
+statistics step (:func:`obs_init`, :func:`obs_step`, :func:`obs_sums`) are
+written for any dimension: the kernels of ``field_kernel_nd`` share them.
 
 Like the JAX tiled path, a chain that trips keeps evolving until the frame
 ends: the rollback discards those values, so accepted trajectories and the
@@ -107,8 +108,6 @@ def check_tiled_config(cfg: FieldConfig) -> None:
             "rng_impl='threefry' or 'threefry13'"
         )
     check_kernel_config(cfg)
-    if cfg.loops % 2:
-        raise ValueError("the tiled kernel needs an even loops count (pair launches)")
 
 
 # ---------------------------------------------------------------------------
@@ -118,10 +117,11 @@ def check_tiled_config(cfg: FieldConfig) -> None:
 
 def micro_steps(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction, cfg: FieldConfig,
                 step: int, n_steps: int = 2, *, chain_offset: int = 0, site_ids=None, even=None):
-    """``n_steps`` (even) Euler–Maruyama micro-steps of a (C, *block) field of
-    any dimension from counter ``step``, periodic within the block, each pair
-    drawing both Box–Muller outputs of one Threefry evaluation: the arithmetic
-    that kernels 5, 6 and 7 share.
+    """``n_steps`` Euler–Maruyama micro-steps of a (C, *block) field of any
+    dimension from counter ``step``, periodic within the block, each pair
+    drawing both Box–Muller outputs of one Threefry evaluation (the last step
+    of an odd count draws the pair at its own counter and takes the first):
+    the arithmetic that kernels 5 to 8 share.
 
     ``site_ids`` (int64, broadcastable to the block) are the sites' global
     linear ids and ``even`` their global checkerboard parity; by default the
@@ -169,10 +169,11 @@ def micro_steps(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction, cfg:
         return p, newp, torch.maximum(absdet_e, absdet_o), act
 
     steps = []
-    for k in range(n_steps // 2):
-        e0, e1 = rng.normal_pair(cfg.seed, key, site_ids, rng.u32(int(step) + 2 * k), rounds)
+    for k in range(0, n_steps, 2):
+        e0, e1 = rng.normal_pair(cfg.seed, key, site_ids, rng.u32(int(step) + k), rounds)
         steps.append(micro(phi, namp * e0.to(dtype)))
-        steps.append(micro(steps[-1][1], namp * e1.to(dtype)))
+        if k + 1 < n_steps:
+            steps.append(micro(steps[-1][1], namp * e1.to(dtype)))
         phi = steps[-1][1]
     return steps
 
@@ -281,13 +282,18 @@ def obs_sums(phi: torch.Tensor, vals) -> FieldFrameSums:
 
 
 def field_frame_tiled(state: FieldState, action: FieldAction, cfg: FieldConfig, *,
-                      tile_rows=None, pair=None):
-    """One frame (``cfg.loops`` micro-steps, loops even) through the pair
-    kernel: a scan over micro-step pairs with the observable and detector
-    step in PyTorch, then the accept/reject and adaptive-Δτ epilogue of
-    ``integrators.field``.  ``pair`` is the pair function (default
-    :func:`field_pair`; :func:`field_pair_ref` forces the plain version).
-    Returns (state, metrics)."""
+                      tile_rows=None, pair=None, tail=None):
+    """One frame (``cfg.loops`` micro-steps) through the pair kernel: a scan
+    over micro-step pairs with the observable and detector step in PyTorch,
+    the last step of an odd count as one launch of kernel 6's code
+    (``field_kernel_nd.odd_tail``), then the accept/reject and adaptive-Δτ
+    epilogue of ``integrators.field``.  ``pair`` / ``tail`` are the pair and
+    one-step functions (default :func:`field_pair` /
+    ``field_kernel_nd.field_step_nd``; the ``_ref`` functions force the plain
+    versions).  Returns (state, metrics)."""
+    # kernel 6's module builds on this one's micro_steps and statistics step
+    from stochquant_tpu_torch.kernels.field_kernel_nd import odd_tail
+
     check_tiled_config(cfg)
     tile_rows = resolve_tile_rows(cfg, tile_rows)
     pair = pair or field_pair
@@ -299,16 +305,19 @@ def field_frame_tiled(state: FieldState, action: FieldAction, cfg: FieldConfig, 
         phi, sl0, sl1, stats = pair(phi, state.dtau, action, cfg, step0 + 2 * k, tile_rows)
         vals = obs_step(vals, sl0, stats[:, :, :5], volume)
         vals = obs_step(vals, sl1, stats[:, :, 5:], volume)
+    if cfg.loops % 2:
+        phi, vals = odd_tail(phi, vals, state, action, cfg, None, tail=tail)
     return field_mod.field_frame_epilogue(state, obs_sums(phi, vals), cfg)
 
 
 def run_field_frames_tiled(state: FieldState, action: FieldAction, cfg: FieldConfig,
-                           n_frames: int, *, tile_rows=None, pair=None):
+                           n_frames: int, *, tile_rows=None, pair=None, tail=None):
     """``n_frames`` tiled frames — the counterpart of
     ``stochquant_tpu.kernels.field_kernel_tiled.run_field_frames_tiled``.
     Returns (state, metrics) with metrics of shape (n_frames, C)."""
     per_frame = []
     for _ in range(n_frames):
-        state, m = field_frame_tiled(state, action, cfg, tile_rows=tile_rows, pair=pair)
+        state, m = field_frame_tiled(state, action, cfg, tile_rows=tile_rows, pair=pair,
+                                     tail=tail)
         per_frame.append(m)
     return state, stack_metrics(per_frame)

@@ -29,8 +29,13 @@ Backends of :func:`make_halo_runner`:
                counter-based noise.
 ``cuda_pair``  kernel 7 forced; a mesh axis of size 1 on dim 0 is allowed (a
                ring of one).
-``cuda_rdma``  not ported: kernel 8 (the chunk kernel that fetches its own
-               halos from the neighbour's memory) needs two GPUs.
+``cuda_rdma``  kernel 8 (``field_kernel_nd.field_chunk_rdma_nd``): kernel 7's W
+               steps on a dim-0-only split, each shard's launch given its own
+               slab and its two dim-0 ring neighbours' and reading its H halo
+               rows from them itself: no shift, no concat per chunk.  One hop
+               (H no deeper than a slab), a ring of one allowed, and every
+               shard of a dim-0 ring on one device (several cards are not
+               ported: :func:`rdma_refusal`).
 
 On CPU tensors the kernel wrappers run their plain versions, so every backend
 runs on a mesh of CPU devices; on CUDA tensors they launch or raise.
@@ -55,13 +60,10 @@ from stochquant_tpu_torch.kernels.field_kernel_tiled import obs_init, obs_step, 
 from stochquant_tpu_torch.parallel import mesh as mesh_mod
 from stochquant_tpu_torch.parallel.mesh import DeviceMesh
 
-__all__ = ["halo_shifted", "chunk_backend_available", "resolve_backend", "make_halo_runner",
-           "HALO_BACKENDS", "RDMA_NOT_PORTED"]
+__all__ = ["halo_shifted", "chunk_backend_available", "rdma_refusal", "rdma_backend_available",
+           "resolve_backend", "make_halo_runner", "HALO_BACKENDS"]
 
 HALO_BACKENDS = ("torch", "cuda", "cuda_step", "cuda_pair", "cuda_rdma")
-RDMA_NOT_PORTED = ("kernel 8 (the chunk kernel that fetches its own dim-0 halos from the "
-                   "neighbour GPU's memory: backend='cuda_rdma', prefer_rdma) is not ported "
-                   "yet; it needs a machine with two GPUs")
 
 
 def _shift(xs: list, mesh: DeviceMesh, axis, delta: int) -> list:
@@ -122,16 +124,62 @@ def chunk_backend_available(action: FieldAction, cfg: FieldConfig, mesh: DeviceM
     return True
 
 
+def rdma_refusal(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh):
+    """Why kernel 8 (``cuda_rdma``) does not admit this (cfg, mesh) split, or
+    ``None`` where it does: ``cfg.mesh_axes[0]`` names the dim-0 ring (a ring
+    of one is allowed), no dim ≥ 1 is split, the chunk guard's common rules
+    hold (float32, even loops and W, counter-based noise), the halo is one
+    hop deep, and every shard of a dim-0 ring lies on one device."""
+    lat = tuple(cfg.mesh_axes or (None,) * cfg.ndim)
+    if not lat[0]:
+        return "cfg.mesh_axes[0] must name the dim-0 ring axis (a ring of one is allowed)"
+    geo = _chunk_guard_geometry(cfg, mesh)
+    if geo is None:
+        return ("kernel 8 needs float32, an even cfg.loops and exchange_steps, and "
+                f"counter-based noise (rng_impl='threefry' or 'threefry13'), not dtype="
+                f"{cfg.dtype!r} loops={cfg.loops} exchange_steps={cfg.exchange_steps} "
+                f"rng_impl={cfg.rng_impl!r}")
+    local_shape, c_local, sharded_dims, W_probe = geo
+    if any(sharded_dims[1:]):
+        return f"kernel 8 takes dim-0-only splits, not mesh_axes {lat}"
+    if cfg.exchange_steps == 0:
+        return "exchange_steps=0 (autotune) is not ported yet: give an even W or None"
+    if mesh.axis_size(lat[0]) > 1:
+        for ring in mesh.groups((lat[0],)):
+            if len({mesh.devices[i] for i in ring}) > 1:
+                return ("the shards of a dim-0 ring lie on several devices: kernel 8 reads its "
+                        "neighbours' slabs on one card; several cards are not ported (no machine "
+                        "with two GPUs has proved peer access)")
+    try:
+        field_kernel._action_constants(action)
+        fknd.rdma_chunk_geometry(cfg, c_local, local_shape, W_probe)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def rdma_backend_available(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh) -> bool:
+    """True when kernel 8 admits this (cfg, mesh) split: the guard that
+    ``resolve_backend`` and ``runtime.select_field_backend``'s ``prefer_rdma``
+    routing share, so that the router and the runner cannot disagree."""
+    return rdma_refusal(action, cfg, mesh) is None
+
+
 def resolve_backend(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, backend: str) -> str:
     """The path a backend of :func:`make_halo_runner` takes for this (cfg,
     mesh), as the JAX package resolves 'pallas': 'torch', 'cuda_frame'
-    (kernels 3 / 6 per shard), 'cuda_nd' (kernel 7) or 'cuda_step' (kernel 9).
-    Raises for what the asked backend does not cover; the one copy the runner
-    and ``runtime.select_field_backend`` share."""
+    (kernels 3 / 6 per shard), 'cuda_nd' (kernel 7), 'cuda_step' (kernel 9)
+    or 'cuda_rdma' (kernel 8).  Raises for what the asked backend does not
+    cover; the one copy the runner and ``runtime.select_field_backend``
+    share.  ``cfg.prefer_rdma`` plays no part here: it steers only the
+    router's 'auto'."""
     if backend not in HALO_BACKENDS:
         raise ValueError(f"unknown halo backend {backend!r}; known: {HALO_BACKENDS}")
-    if backend == "cuda_rdma" or cfg.prefer_rdma:
-        raise ValueError(RDMA_NOT_PORTED)
+    if backend == "cuda_rdma":
+        reason = rdma_refusal(action, cfg, mesh)
+        if reason:
+            raise ValueError(f"backend='cuda_rdma' (kernel 8) cannot run this split: {reason}")
+        return backend
     ndim = cfg.ndim
     lat_spec = tuple(cfg.mesh_axes)
     sharded_dims = tuple(mesh.axis_size(ax) > 1 for ax in lat_spec)
@@ -303,21 +351,26 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
     if backend == "cuda_step":
         kstep = field_halo_kernel.make_local_step(action, cfg, local_shape, c_local,
                                                   sharded_dims, step=step)
-    elif backend == "cuda_nd":
+    elif backend in ("cuda_nd", "cuda_rdma"):
         W_cfg = cfg.exchange_steps or fknd.default_exchange_steps(cfg)
         if W_cfg % 2 or W_cfg < 2:
             raise ValueError("cfg.exchange_steps must be even and >= 2")
-        # an explicit cuda_pair on an unsplit dim 0 (a ring of one) keeps the
-        # dim-0 halo machinery live, so the chunk path itself can be timed
-        chunk_split = (sharded_dims if any(sharded_dims)
-                       else (bool(lat_spec[0]),) + (False,) * (ndim - 1))
         W_main = min(W_cfg, cfg.loops)
         n_chunks = cfg.loops // W_main
         W_tail = cfg.loops - n_chunks * W_main
-        for Wx in (W_main, W_tail):
-            if Wx:
-                fknd.chunk_geometry(cfg, c_local, local_shape, Wx, chunk_split)
-        chunk_fn = chunk or fknd.field_chunk_nd
+        if backend == "cuda_nd":
+            # an explicit cuda_pair on an unsplit dim 0 (a ring of one) keeps the
+            # dim-0 halo machinery live, so the chunk path itself can be timed
+            chunk_split = (sharded_dims if any(sharded_dims)
+                           else (bool(lat_spec[0]),) + (False,) * (ndim - 1))
+            for Wx in (W_main, W_tail):
+                if Wx:
+                    fknd.chunk_geometry(cfg, c_local, local_shape, Wx, chunk_split)
+            chunk_fn = chunk or fknd.field_chunk_nd
+        else:
+            # every shard reads the slabs of its dim-0 ring neighbours (its own on a ring of one)
+            left_of = [mesh.neighbor(i, ax0, -1) if ax0 else i for i in each]
+            right_of = [mesh.neighbor(i, ax0, +1) if ax0 else i for i in each]
     elif backend == "cuda_frame":
         local_cfg = dataclasses.replace(cfg, n_chains=c_local, mesh_axes=None,
                                         mesh_chain_axis=None)
@@ -525,7 +578,8 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
                                  [o[i][1] for i in each], [o[i][2] for i in each], act,
                                  [o[i][4] for i in each])
 
-    # ---------------- backend 'cuda_nd': kernel 7, one exchange per chunk ---
+    # ---- 'cuda_nd' (kernel 7, one exchange per chunk) and 'cuda_rdma' ------
+    # ---- (kernel 8, the halo rows read by the kernel) ----------------------
 
     def extend(xs, d, Hd):
         """Every block extended by Hd sites per side along lattice dim d via
@@ -547,13 +601,20 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
                 for u, x, dn in zip(up, xs, down)]
 
     def chunk_step(phis, vals, dtaus, Wx, step):
-        halos = fknd.chunk_halos(cfg, Wx, chunk_split)
-        exts = phis
-        for d in range(ndim):
-            if halos[d]:
-                exts = extend(exts, d, halos[d])
-        outs = [chunk_fn(exts[i], dtaus[i], action, cfg, Wx, chunk_split, step, lat_offs[i],
-                         ch_offs[i], None) for i in each]
+        if backend == "cuda_rdma":
+            # every launch is issued before any shard's phi is replaced, and
+            # each writes a fresh tensor: neighbours read the old slabs
+            outs = [fknd.field_chunk_rdma_nd(phis[i], phis[left_of[i]], phis[right_of[i]],
+                                             dtaus[i], action, cfg, Wx, step, lat_offs[i],
+                                             ch_offs[i]) for i in each]
+        else:
+            halos = fknd.chunk_halos(cfg, Wx, chunk_split)
+            exts = phis
+            for d in range(ndim):
+                if halos[d]:
+                    exts = extend(exts, d, halos[d])
+            outs = [chunk_fn(exts[i], dtaus[i], action, cfg, Wx, chunk_split, step, lat_offs[i],
+                             ch_offs[i], None) for i in each]
         for w in range(Wx):
             st = mesh_mod.pcat([o[2][:, :, 5 * w:5 * w + 5] for o in outs], mesh,
                                lat_mesh_axes, dim=1)
@@ -580,7 +641,7 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
         phis = [s.phi for s in states]
         vals = [obs_init(s) for s in states]
         dtaus = [s.dtau for s in states]
-        if backend == "cuda_nd":
+        if backend in ("cuda_nd", "cuda_rdma"):
             step = step0
             for Wx in [W_main] * n_chunks + [W_tail]:
                 if Wx:

@@ -303,6 +303,9 @@ def _select_halo_backend(cfg: FieldConfig, backend: str, mesh) -> str:
     on_cuda = _mesh_on_cuda(mesh)
     if backend == "auto":
         backend = "cuda" if on_cuda else "torch"
+        if on_cuda and cfg.prefer_rdma and halo_mod.rdma_backend_available(
+                actions_mod.get_field(cfg.action), cfg, mesh):
+            backend = "cuda_rdma"
     if backend == "torch":
         return "torch"
     if not on_cuda:
@@ -336,6 +339,20 @@ def field_fallback_reason(cfg: FieldConfig, backend: str, device) -> Optional[st
     return None
 
 
+def split_fallback_reason(cfg: FieldConfig, backend: str, mesh) -> Optional[str]:
+    """Why 'auto' on a CUDA mesh does not take kernel 8 although
+    ``cfg.prefer_rdma`` asks for it (``run_field`` records it), or None: its
+    rules do not admit the split, so ``backend='cuda'`` (kernel 7 or 9) runs
+    it, as the JAX package gives way to its chunk composition."""
+    if backend != "auto" or not cfg.prefer_rdma or not _mesh_on_cuda(mesh):
+        return None
+    reason = halo_mod.rdma_refusal(actions_mod.get_field(cfg.action), cfg, mesh)
+    if reason is None:
+        return None
+    return (f"prefer_rdma is set but kernel 8 (cuda_rdma) does not admit this split: {reason}; "
+            "backend 'cuda' (kernel 7 or 9) runs it")
+
+
 def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> str:
     """Resolve a field run's path: 'cuda' (kernels 3 and 4), 'cuda_tiled'
     (kernel 5), 'cuda_nd' (kernels 6 and 7, D >= 3) or 'torch' (the plain
@@ -343,13 +360,14 @@ def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> s
 
     'auto' takes the CUDA kernels on a CUDA device and 'torch' on the CPU.
     On the CUDA route every case the kernels do not cover raises, naming it
-    (``tile_rows=0`` autotune, an odd ``loops`` on the paths of pair
-    launches: the tiled 2-D kernel and the D >= 3 kernels, a dtype other
-    than float32); ``backend='torch'`` is the explicit way to run the plain
-    integrator there.  ``Scheme.EXACT`` has no kernel in either package: 'auto'
-    runs the plain integrator on the device (``run_field`` records why); 'cuda'
-    raises.  ``rng_impl='hardware'`` runs the
-    Philox variants of kernels 3 and 4 and is ignored by 'torch'
+    (``tile_rows=0`` autotune, a dtype other than float32); ``backend='torch'``
+    is the explicit way to run the plain integrator there.  An odd ``loops``
+    on the paths of pair launches (the tiled 2-D kernel and the D >= 3
+    kernels) ends each frame in one launch of kernel 6's code at one step.
+    ``Scheme.EXACT`` has no kernel in either package: 'auto' runs the plain
+    integrator on the device (``run_field`` records why); 'cuda' raises.
+    ``rng_impl='hardware'`` runs the Philox variants of kernels 3 and 4 and
+    is ignored by 'torch'
     (Threefry-20); the strip-tiled and D >= 3 kernels are Threefry-only and
     raise for it, naming ``backend='torch'``.
 
@@ -357,12 +375,14 @@ def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> s
     ``parallel.halo.make_halo_runner``: 'torch', 'cuda' (kernels 3 / 6 per
     shard on a chain-only mesh, the chunk kernel 7 on a cut lattice it
     admits, else in 2-D the per-step kernel 9), or an explicit 'cuda_step' /
-    'cuda_pair'; ``device`` is then ignored (the mesh names the devices).
-    'auto' on a CUDA mesh is 'cuda', and as on the unsplit route every case
+    'cuda_pair' / 'cuda_rdma' (kernel 8); ``device`` is then ignored (the mesh
+    names the devices).  'auto' on a CUDA mesh is 'cuda_rdma' with
+    ``cfg.prefer_rdma`` where kernel 8 admits the split, else 'cuda' (where
+    ``prefer_rdma`` was set, ``run_field`` records why:
+    :func:`split_fallback_reason`), and as on the unsplit route every case
     the kernels do not cover raises (a D >= 3 split the chunk kernel does not
     admit, a dtype other than float32); ``WHOLE_LATTICE_MAX_BYTES`` plays no
-    part under a mesh.  'cuda_rdma', ``prefer_rdma`` (kernel 8) and
-    ``exchange_steps=0`` (autotune) raise."""
+    part under a mesh.  ``exchange_steps=0`` (autotune) raises."""
     field_mod.check_field_supported(cfg, actions_mod.get_field(cfg.action))
     if _check_mesh_cfg(cfg, mesh):
         return _select_halo_backend(cfg, backend, mesh)
@@ -386,21 +406,11 @@ def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> s
     if cfg.ndim >= 3:
         _check_threefry(cfg, "the D >= 3 field kernels")
         field_kernel_nd.check_nd_config(cfg)
-        if cfg.loops % 2:
-            raise ValueError(
-                f"the D >= 3 field kernels need an even loops count (pair launches), not "
-                f"{cfg.loops}: give an even count, or run backend='torch' (the plain integrator)"
-            )
         return "cuda_nd"
     lattice_bytes = math.prod(cfg.shape) * 4
     if cfg.tile_rows is None and lattice_bytes <= WHOLE_LATTICE_MAX_BYTES:
         return "cuda"
     _check_threefry(cfg, "the strip-tiled field kernel")
-    if cfg.loops % 2:
-        raise ValueError(
-            f"the tiled field kernel (lattice of {lattice_bytes} bytes, tile_rows="
-            f"{cfg.tile_rows}) needs an even loops count, not {cfg.loops}"
-        )
     return "cuda_tiled"
 
 
@@ -423,9 +433,9 @@ def run_field(
     halo runner (``device`` then only says where whole states are assembled:
     default the mesh's first device); returns the final whole state.
 
-    backend: 'auto', 'cuda' or 'torch' (under a mesh also 'cuda_step' and
-    'cuda_pair'), resolved by :func:`select_field_backend`.  stop and
-    resume_progress as in :func:`run_chain`."""
+    backend: 'auto', 'cuda' or 'torch' (under a mesh also 'cuda_step',
+    'cuda_pair' and 'cuda_rdma'), resolved by :func:`select_field_backend`.
+    stop and resume_progress as in :func:`run_chain`."""
     sink = sink or metrics_mod.MetricsSink()
     act = actions_mod.get_field(cfg.action)
     split = None
@@ -435,15 +445,16 @@ def run_field(
         device = resolve_device(device)
         route = select_field_backend(cfg, backend, device)
         reason = field_fallback_reason(cfg, backend, device)
-        if reason:
-            sink.emit({"type": "backend_fallback", "backend": route, "reason": reason})
     else:
         route = select_field_backend(cfg, backend, device, mesh)
+        reason = split_fallback_reason(cfg, backend, mesh)
         device = _mesh_device(mesh, device)
         runner = halo_mod.make_halo_runner(act, cfg, mesh, backend=route)
         split = _SplitState(
             mesh_mod.field_state_spec(cfg), mesh, device,
             ("mag_mean", "mag2_mean", "mag4_mean", "absmag_mean", "phi2_mean"))
+    if reason:
+        sink.emit({"type": "backend_fallback", "backend": route, "reason": reason})
 
     if checkpoint_in:
         state, loaded_cfg = ckpt_mod.load(checkpoint_in, device)

@@ -184,7 +184,7 @@ def test_default_tiles(shape, chains, tile_rows, want):
 
 
 @pytest.mark.parametrize("change,kwargs,match", [
-    (dict(loops=3), {}, "even loops"),
+    (dict(exchange_steps=3), {}, "even exchange_steps"),
     (dict(rng_impl="hardware"), {}, "counter-based"),
     (dict(shape=(8, 8)), {}, "D >= 3"),
     (dict(), dict(tile_rows=3), "divide"),
@@ -199,6 +199,59 @@ def test_nd_validation_errors(change, kwargs, match):
                                 device="cpu")
     with pytest.raises(ValueError, match=match):
         nd.run_field_frames_nd(s0, act, _mk(**change), 1, **kwargs)
+
+
+@pytest.mark.parametrize("route", ["frames", "pair", "chunk"])
+@pytest.mark.parametrize("shape,loops,sweep", [
+    ((8, 8, 8), 5, Sweep.SYNC),
+    ((6, 4, 4, 4), 3, Sweep.CHECKERBOARD),
+])
+def test_odd_loops_end_in_the_one_step_tail_and_match_jax_xla(route, shape, loops, sweep):
+    """An odd ``loops`` on every D >= 3 route: pairs (or W = 4 chunks) and one
+    launch of kernel 6's code at one step, whose noise is the first output of
+    the pair drawn at counter step0 + loops - 1, as in the JAX XLA frame."""
+    cfg = _mk(shape=shape, loops=loops, sweep=sweep)
+    jcfg, jact, s0, port = jax_start(cfg)
+    act = actions.get_field(cfg.action)
+    tails = []
+
+    def tail(*a):
+        tails.append(a[4])
+        return nd.field_step_nd(*a)
+
+    if route == "frames":
+        got, gm = nd.run_field_frames_nd(port, act, cfg, 2, tile_rows=2, tail=tail)
+    else:
+        frames, state = [], port
+        for _ in range(2):
+            if route == "pair":
+                state, m = nd.field_frame_nd(state, act, cfg, tile_rows=2, tail=tail)
+            else:
+                state, m = nd.field_frame_nd_chunk(state, act, cfg, 4, tile_rows=2, tail=tail)
+            frames.append(m)
+        got, gm = state, {k: torch.stack([m[k] for m in frames]) for k in frames[0]}
+    assert tails == [1 + loops - 1, 1 + 2 * loops - 1]
+    want, wm = jfield.run_field_frames(s0, jact, jcfg, 2)
+    np.testing.assert_array_equal(gm["stable"].numpy(), np.asarray(wm["stable"]))
+    assert_state_close(got, want)
+    whole, _ = field.run_field_frames(port, act, cfg, 2)
+    for name in TRAJECTORY + EXACT:
+        assert torch.equal(getattr(got, name), getattr(whole, name)), name
+
+
+def test_step_ref_is_the_first_step_of_the_pair():
+    cfg = _mk(shape=(8, 6, 4), sweep=Sweep.CHECKERBOARD)
+    act = actions.get_field(cfg.action)
+    s0 = field.init_field_state(cfg, device="cpu")
+    before = nd.field_step_nd.launches
+    phi1, sl, stats = nd.field_step_nd(s0.phi, s0.dtau, act, cfg, 7, 4)
+    assert nd.field_step_nd.launches == before
+    pair = nd.field_pair_nd_ref(s0.phi, s0.dtau, act, cfg, 7, 4)
+    assert torch.equal(sl, pair[1]) and stats.shape == (2, pair[3].shape[1], 5)
+    # the pair's first step, taken alone: the first Box-Muller output at counter 7
+    first = nd.field_step_nd_ref(s0.phi, s0.dtau, act, cfg, 7, 4)[0]
+    assert torch.equal(phi1, first)
+    assert torch.equal(stats[..., 0], pair[3][..., 0]) and torch.equal(stats[..., 3], pair[3][..., 3])
 
 
 def test_nd_frame_refuses_a_state_of_another_lattice():

@@ -110,6 +110,26 @@ def test_cpu_pair_runs_the_plain_version_without_launching():
     torch.testing.assert_close(stats[:, :, 0].sum(1), s0.phi.sum((1, 2)), rtol=1e-5, atol=1e-6)
 
 
+def test_odd_loops_end_in_kernel_6_tail_and_match_jax_xla():
+    """2-D (64, 96) with tile_rows and loops 7: three pairs of kernel 5 and one
+    launch of kernel 6's code at one step per frame, against the JAX XLA
+    frame at the same odd loops and the port's plain integrator bit for bit."""
+    from stochquant_tpu_torch.kernels import field_kernel_nd as nd
+
+    cfg = _mk(shape=(64, 96), n_chains=2, loops=7, tile_rows=16, dtau=0.01)
+    jcfg, jact, s0, port = _jax_start(cfg)
+    act = actions.get_field(cfg.action)
+    pairs, tails = ft.field_pair.launches, nd.field_step_nd.launches
+    got, gm = ft.run_field_frames_tiled(port, act, cfg, 2)
+    assert (ft.field_pair.launches, nd.field_step_nd.launches) == (pairs, tails)  # CPU: plain
+    want, wm = jfield.run_field_frames(s0, jact, jcfg, 2)
+    np.testing.assert_array_equal(gm["stable"].numpy(), np.asarray(wm["stable"]))
+    _assert_close(got, want)
+    whole, _ = field.run_field_frames(port, act, cfg, 2)
+    for name in TRAJECTORY + EXACT:
+        assert torch.equal(getattr(got, name), getattr(whole, name)), name
+
+
 def test_default_tile_rows_fit_shared_memory():
     assert ft.resolve_tile_rows(_mk(shape=(1024, 1024))) == 16
     assert ft.resolve_tile_rows(_mk(Sweep.CHECKERBOARD, shape=(1024, 1024))) == 16
@@ -125,7 +145,7 @@ def test_tiled_validation_errors():
     act = actions.get_field("phi4")
     s0 = field.init_field_state(_mk(), device="cpu")
     for cfg, tile_rows, match in (
-        (_mk(loops=5), 8, "even loops"),
+        (_mk(dtype="float64"), 8, "float32"),
         (_mk(), 6, "divide"),
         (_mk(rng_impl="hardware"), 8, "counter-based"),
         (_mk(shape=(16, 8192)), 16, "shared memory"),

@@ -207,8 +207,9 @@ def test_halo_runner_matches_jax_xla_halo_runner(mesh_axes, mesh_shape, chain_ax
 
 
 @pytest.mark.parametrize("cfg_kw,mesh_shape,backend,match", [
-    (dict(mesh_axes=("x", None)), [("x", 2)], "cuda_rdma", "kernel 8"),
-    (dict(mesh_axes=("x", None), prefer_rdma=True), [("x", 2)], "torch", "kernel 8"),
+    # kernel 8 runs dim-0-only splits, one hop deep (tests/test_torch_rdma.py runs it)
+    (dict(mesh_axes=("x", "y")), [("x", 2), ("y", 2)], "cuda_rdma", "dim-0-only"),
+    (dict(mesh_axes=("x", None)), [("x", 4)], "cuda_rdma", "one hop"),
     (dict(mesh_axes=None), [("x", 2)], "torch", "mesh_axes required"),
     (dict(mesh_axes=("x", None)), [("x", 2)], "pallas", "unknown halo backend"),
     (dict(mesh_axes=("x",)), [("x", 2)], "torch", "one entry per lattice dim"),

@@ -18,6 +18,7 @@ from stochquant_tpu_torch import cli, metrics, runtime
 from stochquant_tpu_torch.config import PRESETS, ChainConfig, FieldConfig, Scheme, Sweep
 from stochquant_tpu_torch.integrators.gauge import GaugeConfig
 from stochquant_tpu_torch.io import checkpoint
+from stochquant_tpu_torch.kernels import field_kernel_nd
 
 torch.set_num_threads(1)
 
@@ -233,6 +234,15 @@ BASE = FieldConfig(shape=(256, 256), loops=100)
     (dict(shape=(32, 32, 32, 32), exchange_steps=4, tile_rows=8), "auto", CUDA, "cuda_nd"),
     (dict(shape=(8, 8, 4, 4, 2), sweep=Sweep.CHECKERBOARD, rng_impl="threefry13"), "cuda", CUDA,
      "cuda_nd"),
+    # an odd loops on a path of pair launches ends each frame in one launch of
+    # kernel 6's code at one micro-step: nothing gives way to the plain integrator
+    (dict(shape=(32, 32, 32, 32), loops=7), "cuda", CUDA, "cuda_nd"),
+    (dict(shape=(32, 32, 32, 32), loops=7), "auto", CUDA, "cuda_nd"),
+    (dict(shape=(16, 16, 16), loops=1, exchange_steps=4), "auto", CUDA, "cuda_nd"),
+    (dict(shape=(2048, 2048), loops=5), "auto", CUDA, "cuda_tiled"),
+    (dict(tile_rows=64, loops=7), "auto", CUDA, "cuda_tiled"),
+    (dict(tile_rows=64, loops=7), "cuda", CUDA, "cuda_tiled"),
+    (dict(shape=(2048, 2048), loops=5), "cuda", CUDA, "cuda_tiled"),
 ])
 def test_field_routing(change, backend, device, want):
     cfg = dataclasses.replace(BASE, **change)
@@ -240,12 +250,6 @@ def test_field_routing(change, backend, device, want):
 
 
 @pytest.mark.parametrize("change,backend,device,match", [
-    # an odd loops on a path of pair launches raises on 'auto' as on 'cuda':
-    # no route gives way to the plain integrator on a CUDA device unasked
-    (dict(shape=(32, 32, 32, 32), loops=7), "cuda", CUDA, "D >= 3"),
-    (dict(shape=(32, 32, 32, 32), loops=7), "auto", CUDA, "backend='torch'"),
-    (dict(shape=(16, 16, 16), loops=1, exchange_steps=4), "auto", CUDA, "even loops"),
-    (dict(shape=(2048, 2048), loops=5), "auto", CUDA, "even loops"),
     (dict(shape=(4, 4, 2, 2, 2, 2)), "auto", CUDA, "lattice dims"),
     (dict(shape=(16, 16, 16), tile_rows=0), "auto", CUDA, "autotune"),
     (dict(shape=(16, 16, 16), dtype="float64"), "auto", CUDA, "float32"),
@@ -266,9 +270,6 @@ def test_field_routing(change, backend, device, want):
     (dict(scheme=Scheme.EXACT, sweep=Sweep.CHECKERBOARD), "auto", CUDA, "EXACT"),
     (dict(scheme=Scheme.EXACT, mesh_axes=("x", None)), "auto", CUDA, "single-program"),
     (dict(dtype="float64"), "cuda", CUDA, "float32"),
-    (dict(tile_rows=64, loops=7), "auto", CUDA, "even loops"),
-    (dict(tile_rows=64, loops=7), "cuda", CUDA, "even loops"),
-    (dict(shape=(2048, 2048), loops=5), "cuda", CUDA, "even loops"),
     ({}, "cuda", torch.device("cpu"), "CUDA device"),
     ({}, "pallas", CUDA, "backend"),
 ])
@@ -279,19 +280,24 @@ def test_field_routing_raises_for_what_is_not_ported(change, backend, device, ma
 
 
 def test_run_field_raises_for_an_odd_loops_on_the_nd_route(monkeypatch):
-    # what 'auto' does on a CUDA device for an odd loops in 4-D, run here on the CPU:
-    # it raises before any frame runs; backend='torch' is the explicit plain path
+    # what 'auto' does on a CUDA device for an odd loops in 4-D, run here on the CPU
+    # (the kernel wrappers run their plain versions): it no longer raises; each frame
+    # is one pair and the one-step tail, and equals backend='torch' bit for bit
     real = runtime.select_field_backend
     monkeypatch.setattr(runtime, "select_field_backend",
                         lambda cfg, backend, device: real(cfg, backend, CUDA))
-    cfg = dataclasses.replace(PRESETS["phi4_4d"], shape=(4, 4, 4, 4), n_chains=1, loops=3, frames=1)
+    tails = []
+    real_tail = field_kernel_nd.field_step_nd
+    monkeypatch.setattr(field_kernel_nd, "field_step_nd",
+                        lambda *a: tails.append(a[4]) or real_tail(*a))
+    cfg = dataclasses.replace(PRESETS["phi4_4d"], shape=(4, 4, 4, 4), n_chains=1, loops=3, frames=2)
     recs = []
-    with pytest.raises(ValueError, match="even loops"):
-        runtime.run_field(cfg, device="cpu", sink=metrics.MetricsSink(callback=recs.append))
-    assert recs == []
-    runtime.run_field(cfg, device="cpu", backend="torch",
-                      sink=metrics.MetricsSink(callback=recs.append))
-    assert [r["type"] for r in recs] == ["frame", "summary"]
+    got = runtime.run_field(cfg, device="cpu", sink=metrics.MetricsSink(callback=recs.append))
+    assert [r["type"] for r in recs] == ["frame", "frame", "summary"]
+    assert tails == [1 + 2, 1 + 3 + 2]  # counter step0 + loops - 1 of each frame
+    want = runtime.run_field(cfg, device="cpu", backend="torch", sink=metrics.MetricsSink())
+    for name in ("phi", "dtau", "lrg_vl", "runs", "stab_cnt", "step"):
+        assert torch.equal(getattr(got.state, name), getattr(want.state, name)), name
 
 
 CUT_4D = dataclasses.replace(PRESETS["phi4_4d"], shape=(8, 8, 4, 4), n_chains=2, loops=4)
@@ -541,6 +547,14 @@ CHAIN = dict(mesh_axes=(None, None), mesh_chain_axis="chain")
     (dict(X2, shape=(2048, 512), loops=7), _cuda_mesh(("x", 2)), "cuda", "cuda"),
     (dict(shape=(32, 32, 32, 32), mesh_axes=("x", None, None, None)), _cuda_mesh(("x", 2)),
      "auto", "cuda"),
+    # kernel 8: asked for, or preferred on 'auto' where its rules admit the split
+    (X2, _cuda_mesh(("x", 2)), "cuda_rdma", "cuda_rdma"),
+    (dict(X2, prefer_rdma=True), _cuda_mesh(("x", 2)), "auto", "cuda_rdma"),
+    (dict(X2, prefer_rdma=True), _cuda_mesh(("x", 1)), "auto", "cuda_rdma"),   # a ring of one
+    (dict(X2, prefer_rdma=True, mesh_axes=("x", "y")), _cuda_mesh(("x", 2), ("y", 2)), "auto",
+     "cuda"),
+    (dict(X2, prefer_rdma=True), _cuda_mesh(("x", 2)), "cuda", "cuda"),
+    (dict(X2, prefer_rdma=True), _cpu_mesh(("x", 2)), "auto", "torch"),
 ])
 def test_field_routing_under_a_mesh(change, mesh, backend, want):
     cfg = dataclasses.replace(BASE, **change)
@@ -562,8 +576,9 @@ def test_auto_on_a_cuda_mesh_resolves_to_a_kernel_at_any_block_size(change, want
 
 
 @pytest.mark.parametrize("change,mesh,backend,match", [
-    (X2, _cuda_mesh(("x", 2)), "cuda_rdma", "kernel 8"),
-    (dict(X2, prefer_rdma=True), _cuda_mesh(("x", 2)), "auto", "kernel 8"),
+    (dict(X2, mesh_axes=("x", "y")), _cuda_mesh(("x", 2), ("y", 2)), "cuda_rdma", "dim-0-only"),
+    (dict(X2, loops=7), _cuda_mesh(("x", 2)), "cuda_rdma", "even cfg.loops"),
+    (X2, _cpu_mesh(("x", 2)), "cuda_rdma", "mesh of CUDA devices"),
     (dict(X2, exchange_steps=0), _cuda_mesh(("x", 2)), "auto", "autotune"),
     (dict(X2, exchange_steps=0), _cuda_mesh(("x", 2)), "cuda_pair", "autotune"),
     (dict(X2, dtype="float64"), _cuda_mesh(("x", 2)), "auto", "float32"),
