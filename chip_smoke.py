@@ -13,9 +13,14 @@ non-zero:
    register, shared-memory and spill report for every kernel;
 3. chain kernels vs plain: each chain kernel's wrapper against its plain
    PyTorch version on the card, for both Threefry variants, every boundary
-   condition, Heun, an odd ``loops`` and a case with rejected frames: max|Δ|
-   of every float leaf (state and per-frame metrics) ≤ 2e-6, ``stable``,
-   ``runs``, ``stab_cnt`` and ``step`` exact;
+   condition, Heun, an odd ``loops`` and a case with rejected frames, then
+   the edges of the kernels' layout (``layout_gate_cases``: fewer sites than
+   a warp with a part-filled last block, N no multiple of 32 S, the periodic
+   wrap and Heun across warps, one chain tripping in a block whose others go
+   on beside one starting with ``lrg_vl`` NaN), each under both Threefry
+   variants with kernel 1 + epilogue ≡ kernel 2 bitwise: max|Δ| of every
+   float leaf (state and per-frame metrics) ≤ 2e-6, ``stable``, ``runs``,
+   ``stab_cnt`` and ``step`` exact;
 4. chain main path: the port's ``cli run`` on preset ``double_well`` at
    65,536 chains and dτ = 2e-4 (one burn-in frame, then 3 frames, then
    ``--resume`` for one more), with kernel launch counts taken over that
@@ -139,9 +144,10 @@ non-zero:
     held against each other.
 
 20. ``rng_impl='hardware'``: the Philox-4x32-10 variants of kernels 1-4 vs
-    their plain versions on every case of 3 and of 6 (kernel 5 apart, which
-    draws Threefry only), limits as there; kernel 1 + the PyTorch epilogue and
-    kernel 2, kernel 3 + epilogue and kernel 4, bitwise equal;
+    their plain versions on every case of 3 (the layout's edges too) and of 6
+    (kernel 5 apart, which draws Threefry only), limits as there; kernel 1 +
+    the PyTorch epilogue and kernel 2, kernel 3 + epilogue and kernel 4,
+    bitwise equal;
 21. the ``--rng hardware`` main paths at full width: ``cli run --preset
     double_well --chains 65536 --dtau 2e-4 --rng hardware`` as in 4,
     ``runtime.run_chain`` on config 2 (anharmonic, N = 1024, 256 chains,
@@ -464,6 +470,86 @@ def gate_cases(ChainConfig, BoundaryCondition, Formulation, Scheme):
     ]
 
 
+def layout_gate_cases(ChainConfig, BoundaryCondition, Formulation, Scheme):
+    """(name, config, n_frames, tripped chain, NaN chain): the edges of kernels
+    1 and 2's layout (G warps a chain, S sites a lane, several one-warp chains
+    a block): fewer sites than a warp in blocks of 4 chains with the last
+    block part-filled; N no multiple of 32 S; chains over several warps under
+    PERIODIC (the wrap across warps) and under Heun; and a block of 4 chains
+    in which one chain (lrg_vl 1e-6) trips while the others go on, beside one
+    that starts with lrg_vl NaN (the max must carry the NaN)."""
+    dw = dict(action="double_well", dt=0.05, dtau=1e-3, loops=20, seed=21, grow_after=10**9)
+    anh = dict(action="anharmonic", dt=0.25, dtau=0.01, loops=20, seed=22,
+               bc=BoundaryCondition.PERIODIC, formulation=Formulation.DIRECT)
+    return [
+        ("layout_n20_part_filled_block", ChainConfig(**dw, n_sites=20, n_chains=530), 2, None,
+         None),
+        ("layout_n230_periodic", ChainConfig(**anh, n_sites=230, n_chains=16), 2, None, None),
+        ("layout_n1500_periodic_warps", ChainConfig(**anh, n_sites=1500, n_chains=8), 2, None,
+         None),
+        ("layout_n700_heun_warps", ChainConfig(**dw, n_sites=700, n_chains=8,
+                                               scheme=Scheme.HEUN), 2, None, None),
+        ("layout_trip_and_nan_lrg_in_block", ChainConfig(**dw, n_sites=40, n_chains=600), 2, 3,
+         5),
+    ]
+
+
+def chain_gate(ck, langevin, actions, cfgmod, device, label, cfg, n, tripped=None, nan=None):
+    """Kernel 1 + epilogue and kernel 2 against the plain version, and against
+    each other bitwise, from a start with DIRICHLET edges at 0, chain
+    ``tripped`` at lrg_vl 1e-6 and chain ``nan`` at lrg_vl NaN.  Returns the
+    plain version's (state, metrics)."""
+    act = actions.get(cfg.action)
+    s0 = langevin.init_chain_state(cfg, act, device=device)
+    if cfg.bc == cfgmod.BoundaryCondition.DIRICHLET:
+        s0.f[:, 0] = 0.0
+        s0.f[:, -1] = 0.0
+    if tripped is not None:
+        s0.lrg_vl[tripped] = 1e-6
+    if nan is not None:
+        s0.lrg_vl[nan] = float("nan")
+    plain = ck.chain_frames_multi_ref(s0, act, cfg, n)
+    check_layout_case(label, plain, tripped, nan)
+    one = ck.run_frames_kernel(s0, act, cfg, n, frames_per_launch=1)
+    gate(f"{label} {ck.launch_geometry(cfg.n_sites, cfg.n_chains)} chain_frame x{n} + epilogue",
+         one, plain)
+    multi = ck.chain_frames_multi(s0, act, cfg, n)
+    gate(f"{label} chain_frames_multi K={n}", multi, plain)
+    same_leaves(label, one, multi)
+    return plain
+
+
+def check_layout_case(name, plain, tripped, nan) -> None:
+    """The trip case must have rejected its tripped chain's frames and kept
+    the others', and carried the NaN chain's lrg_vl."""
+    import torch
+
+    if tripped is None:
+        return
+    stable = plain[1]["stable"]
+    if bool(stable[:, tripped].any()) or bool(stable.all(dim=0).sum() < 2):
+        raise SystemExit(f"{name}: chain {tripped} should trip while the others go on: "
+                         f"{stable.cpu().tolist()}")
+    if not bool(torch.isnan(plain[0].lrg_vl[nan])):
+        raise SystemExit(f"{name}: chain {nan}'s lrg_vl should stay NaN")
+
+
+def same_leaves(label: str, one, multi) -> None:
+    """Kernel 1 + the PyTorch epilogue and kernel 2 must agree bit for bit
+    (NaN where the other has NaN)."""
+    import torch
+
+    for (leaf, x), (_, y) in zip(leaves(one), leaves(multi)):
+        x, y = x.cpu(), y.cpu()
+        if x.is_floating_point():
+            nan = torch.isnan(x)
+            same = torch.equal(nan, torch.isnan(y)) and torch.equal(x[~nan], y[~nan])
+        else:
+            same = torch.equal(x, y)
+        if not same:
+            raise SystemExit(f"{label}: kernel 1 + epilogue and kernel 2 differ in {leaf}")
+
+
 EXACT = ("runs", "stab_cnt", "step", "unstable", "stable", "n_bad", "bad", "capped")
 
 
@@ -566,6 +652,13 @@ def phase_gate(ck, langevin, actions, cfgmod, device) -> None:
              langevin.run_frames(s0, act, cfg, n))
         gate(f"{name} chain_frames_multi K={n}",
              ck.chain_frames_multi(s0, act, cfg, n), ck.chain_frames_multi_ref(s0, act, cfg, n))
+    import dataclasses
+
+    for name, cfg, n, tripped, nan in layout_gate_cases(
+            cfgmod.ChainConfig, cfgmod.BoundaryCondition, cfgmod.Formulation, cfgmod.Scheme):
+        for rng in ("threefry", "threefry13"):
+            chain_gate(ck, langevin, actions, cfgmod, device, f"{name} {rng}",
+                       dataclasses.replace(cfg, rng_impl=rng), n, tripped, nan)
 
 
 def phase_main_path(torch, ck, cli, checkpoint, actions, tmp: Path,
@@ -1885,22 +1978,13 @@ def phase_philox_gate(torch, ck, fk, langevin, field, actions, cfgmod, device) -
     import dataclasses
 
     hw = lambda cfg: dataclasses.replace(cfg, rng_impl="hardware")  # noqa: E731
-    for name, cfg, n in gate_cases(cfgmod.ChainConfig, cfgmod.BoundaryCondition,
-                                   cfgmod.Formulation, cfgmod.Scheme):
-        cfg = hw(cfg)
-        act = actions.get(cfg.action)
-        s0 = langevin.init_chain_state(cfg, act, device=device)
-        if cfg.bc == cfgmod.BoundaryCondition.DIRICHLET:
-            s0.f[:, 0] = 0.0
-            s0.f[:, -1] = 0.0
-        plain = ck.chain_frames_multi_ref(s0, act, cfg, n)
-        one = ck.run_frames_kernel(s0, act, cfg, n, frames_per_launch=1)
-        gate(f"hw {name} chain_frame x{n} + epilogue", one, plain)
-        multi = ck.chain_frames_multi(s0, act, cfg, n)
-        gate(f"hw {name} chain_frames_multi K={n}", multi, plain)
-        for (leaf, x), (_, y) in zip(leaves(one), leaves(multi)):
-            if not torch.equal(x.cpu(), y.cpu()):
-                raise SystemExit(f"hw {name}: kernel 1 + epilogue and kernel 2 differ in {leaf}")
+    cases = [(name, cfg, n, None, None) for name, cfg, n in gate_cases(
+        cfgmod.ChainConfig, cfgmod.BoundaryCondition, cfgmod.Formulation, cfgmod.Scheme)]
+    cases += layout_gate_cases(cfgmod.ChainConfig, cfgmod.BoundaryCondition,
+                               cfgmod.Formulation, cfgmod.Scheme)
+    for name, cfg, n, tripped, nan in cases:
+        plain = chain_gate(ck, langevin, actions, cfgmod, device, f"hw {name}", hw(cfg), n,
+                           tripped, nan)
         if name == "rejections_double_well" and bool(plain[1]["stable"].all()):
             raise SystemExit("hw gate case 'rejections_double_well' rejected no frame")
     for name, cfg, n, stab in field_gate_cases(cfgmod.FieldConfig, cfgmod.Sweep):

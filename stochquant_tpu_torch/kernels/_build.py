@@ -1,11 +1,12 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
 The sources under ``kernels/csrc/`` are compiled at first use into one
-shared library with a plain C interface: one ``nvcc -c`` per source, all
+shared library with a plain C interface: one ``nvcc -c`` per source (three
+for ``chain_kernel.cu``, each instantiating its share of the kernels), all
 started together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         -Xcompiler -fPIC --fmad=false --resource-usage -c <source>.cu
+         -Xcompiler -fPIC --fmad=false --resource-usage [-D...] -c <source>.cu
     nvcc -shared <objects> -o libsq_kernels.so
 
 The output goes to ``build/stochquant_tpu_torch/<hash of sources + flags>/``
@@ -32,6 +33,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("chain_kernel.cu", "field_kernel.cu", "field_kernel_tiled.cu",
             "field_kernel_nd.cu", "field_halo_kernel.cu", "gauge_kernel.cu")
 _HEADERS = ("sq_rng.cuh", "field_common.cuh")
+# sources compiled more than once, with these defines (one object each)
+_PARTS = {"chain_kernel.cu": ((), ("-DSQ_CHAIN_PART=1",), ("-DSQ_CHAIN_PART=2",))}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--fmad=false", "--resource-usage",
@@ -57,6 +60,7 @@ def build_dir() -> Path:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(_PARTS.items())).encode())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
@@ -68,11 +72,12 @@ def _compile(out: Path) -> None:
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         jobs = []
         for src in _SOURCES:
-            obj = os.path.join(tmp, src.replace(".cu", ".o"))
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(_CSRC / src), "-o", obj]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                    text=True)
-            jobs.append((cmd, obj, proc))
+            for part, defines in enumerate(_PARTS.get(src, ((),))):
+                obj = os.path.join(tmp, src.replace(".cu", f"_{part}.o"))
+                cmd = [nvcc, *NVCC_FLAGS, *defines, "-c", str(_CSRC / src), "-o", obj]
+                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True)
+                jobs.append((cmd, obj, proc))
         log, failed = [], []
         for cmd, _, proc in jobs:
             text, _ = proc.communicate()
@@ -99,8 +104,8 @@ class ChainParams(ctypes.Structure):
 
     _fields_ = [
         (name, ctypes.c_int32) for name in (
-            "n_chains", "n_sites", "threads", "sites_per_thread", "rounds",
-            "philox", "loops", "n_frames",
+            "n_chains", "n_sites", "warps_per_chain", "sites_per_lane",
+            "chains_per_block", "rounds", "philox", "loops", "n_frames",
         )
     ] + [(name, ctypes.c_uint32) for name in ("seed", "step0", "chain0")] + [
         (name, ctypes.c_int32) for name in (

@@ -56,23 +56,57 @@ __all__ = [
     "launch_geometry",
 ]
 
-MAX_THREADS = 512  # SQ_MAX_THREADS in csrc/chain_kernel.cu
-_SITES_PER_THREAD = (1, 2, 4, 8)
+MAX_SITES = 4096     # the largest chain the kernels take
+MAX_WARPS = 32       # SQ_MAX_WARPS in csrc/chain_kernel.cu: G warps a chain
+MAX_SITES_PER_LANE = 7  # SQ_MAX_SPL: the instantiated S are 1 .. 7
+SMS = 132            # streaming multiprocessors of an H100 SXM
 
 
-def launch_geometry(n_sites: int):
-    """(threads per block, sites per thread) for a chain of ``n_sites``:
-    one block per chain, one thread per site up to 512 threads, then each
-    thread walks 2, 4 or 8 sites."""
-    threads = min(-(-n_sites // 32) * 32, MAX_THREADS)
-    need = -(-n_sites // threads)
-    for spt in _SITES_PER_THREAD:
-        if spt >= need:
-            return threads, spt
-    raise ValueError(
-        f"n_sites={n_sites} exceeds the CUDA chain kernel's limit of "
-        f"{MAX_THREADS * _SITES_PER_THREAD[-1]} sites"
-    )
+def max_threads(spl: int) -> int:
+    """Threads a block may hold at ``spl`` sites a lane (SQ_MAX_THREADS): the
+    kernels' register budget, 65,536 / threads, grows with S."""
+    return 1024 if spl <= 2 else 768 if spl <= 4 else 640
+
+
+def _registers(spl: int) -> int:
+    """Registers a thread takes at ``spl`` sites a lane: the whole budget of
+    ``max_threads`` (ptxas fills it at every S > 1), in units of 8."""
+    return 65536 // max_threads(spl) // 8 * 8
+
+
+def _layout(n_sites: int, n_chains: int, spl: int):
+    """((waves x S), (G, S, chains per block)) of a layout at S sites a lane,
+    or None where a block cannot hold the chain."""
+    warps = -(-(n_sites + 1) // (32 * spl))
+    if warps > MAX_WARPS or 32 * warps > max_threads(spl) or (spl == 1 and warps > 1):
+        return None
+    cpb = min(4, max(1, n_chains // SMS)) if warps == 1 else 1
+    threads = 32 * warps * cpb
+    per_sm = min(32, 64 // (warps * cpb), 65536 // (threads * _registers(spl)))
+    waves = -(-n_chains // (SMS * per_sm * cpb))
+    return waves * spl, (warps, spl, cpb)
+
+
+def launch_geometry(n_sites: int, n_chains: int = 1):
+    """(G, S, chains per block) for ``n_chains`` chains of ``n_sites``.
+
+    A chain lives in G warps and each lane holds S contiguous sites, with room
+    for one slot more than the chain's sites (32 G S >= N + 1): slot N draws
+    the collective coordinate's noise.  G = 1 puts up to 4 chains in a block
+    (fewer when there are too few chains to give every SM a block), G > 1 one
+    chain.  S is the one that needs the fewest waves of resident blocks times
+    S, the serial site-updates a lane makes per micro-step (ties: the smaller
+    S); residency follows from the registers each S is given (``_registers``).
+    Timed on an H100 (PERF.md §6): at the headline (200 sites, 65,536
+    chains) S = 2 in G = 4 warps beat one warp of S = 7; at config 2 (1024
+    sites, 256 chains) S = 3 in 11 warps beat 17 warps of S = 2, which leave
+    half the chains for a second wave."""
+    if not 2 <= n_sites <= MAX_SITES:
+        raise ValueError(f"n_sites={n_sites} is outside the CUDA chain kernels' limit of "
+                         f"2 .. {MAX_SITES} sites")
+    fits = [f for f in (_layout(n_sites, max(n_chains, 1), spl)
+                        for spl in range(1, MAX_SITES_PER_LANE + 1)) if f]
+    return min(fits, key=lambda f: (f[0], f[1][1]))[1]
 
 
 def _action_constants(action: QMAction):
@@ -101,12 +135,13 @@ def _action_constants(action: QMAction):
 def _params(state: ChainState, action: QMAction, cfg: ChainConfig,
             chain_offset: int, n_frames: int):
     C, N = state.f.shape
-    threads, spt = launch_geometry(N)
+    warps, spl, cpb = launch_geometry(N, C)
     k = langevin.frame_constants(action, cfg)
     code, (p0, p1, p2, p3), w, eta = _action_constants(action)
     f32 = np.float32
     return _build.ChainParams(
-        n_chains=C, n_sites=N, threads=threads, sites_per_thread=spt,
+        n_chains=C, n_sites=N, warps_per_chain=warps, sites_per_lane=spl,
+        chains_per_block=cpb,
         rounds=rng.rounds_of(cfg.rng_impl), philox=int(_philox(cfg)), loops=cfg.loops,
         n_frames=n_frames,
         seed=rng.u32(cfg.seed), step0=rng.u32(int(state.step)),
@@ -281,7 +316,7 @@ def run_frames_kernel(state: ChainState, action: QMAction, cfg: ChainConfig,
     (epilogue in-kernel) and the remainder through kernel 1; per-frame
     results are the same either way.  ``block_chains`` (the Pallas kernels'
     chains per VMEM block) is accepted and ignored: one launch covers every
-    chain, one CUDA thread block per chain, and noise is keyed by global
+    chain (``launch_geometry`` lays them out), and noise is keyed by global
     chain id, so no blocking could change the results.  Only its autotune
     value 0 raises, as not ported.  Returns (state, metrics) with metrics of
     shape (n_frames, C).

@@ -104,18 +104,99 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     _assert_states_equal(multi, single, "multi vs single")
 
 
-def test_launch_geometry():
-    assert ck.launch_geometry(200) == (224, 1)
-    assert ck.launch_geometry(1024) == (512, 2)
-    assert ck.launch_geometry(2000) == (512, 4)
-    assert ck.launch_geometry(4096) == (512, 8)
-    with pytest.raises(ValueError, match="limit"):
-        ck.launch_geometry(4097)
+@pytest.mark.parametrize("n_sites,n_chains,want", [
+    (2, 1, (1, 1, 1)), (20, 530, (1, 1, 4)), (32, 8, (1, 2, 1)), (40, 600, (1, 2, 4)),
+    (96, 65536, (2, 2, 1)), (100, 300, (2, 2, 1)),
+    (200, 65536, (4, 2, 1)), (200, 256, (4, 2, 1)), (200, 16, (4, 2, 1)),
+    (1024, 256, (11, 3, 1)), (1024, 8, (17, 2, 1)), (2000, 8, (32, 2, 1)),
+    (4096, 1, (19, 7, 1)), (4096, 65536, (19, 7, 1)), (4097, 1, None), (1, 8, None),
+])
+def test_launch_geometry(n_sites, n_chains, want):
+    """(G warps a chain, S sites a lane, chains a block); 32 G S >= N + 1 leaves
+    slot N (the collective coordinate's noise) to a lane without a full share."""
+    if want is None:
+        with pytest.raises(ValueError, match="limit"):
+            ck.launch_geometry(n_sites, n_chains)
+        return
+    G, S, cpb = ck.launch_geometry(n_sites, n_chains)
+    assert (G, S, cpb) == want
+    assert 32 * G * S >= n_sites + 1 and 32 * (G - 1) * S < n_sites + 1
+    assert 1 <= S <= ck.MAX_SITES_PER_LANE and 1 <= G <= ck.MAX_WARPS
+    assert G == 1 or cpb == 1
+    assert 32 * G * cpb <= ck.max_threads(S)  # the kernel's register budget
+
+
+def _kernel_partners(N, G, S, periodic):
+    """Python mirror of ``partners`` + ``drift`` in csrc/chain_kernel.cu: for
+    every site, the (site or ghost, route) the kernel reads as its lower and
+    upper neighbour.  Routes: 'lane' (the same thread's registers),
+    'shuffle' (another lane of the warp), 'shared' (the exchange buffer,
+    G > 1 only), 'ghost'."""
+    out = {}
+    for i in range(N):
+        t, k = divmod(i, S)
+        lane, w = t % 32, t // 32
+        if k > 0:
+            down = (i - 1, "lane")
+        elif t == 0:
+            down = (N - 1, "shuffle" if G == 1 else "shared") if periodic else ("gl", "ghost")
+        elif lane > 0:  # __shfl_up_sync of v[S - 1]
+            down = ((t - 1) * S + S - 1, "shuffle")
+        else:  # hi[w - 1]: lane 31 of warp w - 1, slot S - 1
+            down = ((32 * w - 1) * S + S - 1, "shared")
+        if i == N - 1:  # right_end
+            up = (0, "shuffle" if G == 1 else "shared") if periodic else ("gr", "ghost")
+        elif k < S - 1:
+            up = (i + 1, "lane")
+        elif lane < 31:  # __shfl_down_sync of v[0]
+            up = ((t + 1) * S, "shuffle")
+        elif w + 1 < G:  # lo[w + 1]
+            up = (32 * (w + 1) * S, "shared")
+        else:
+            up = (None, "none")
+        out[i] = (down, up)
+    return out
+
+
+@pytest.mark.parametrize("bc", list(BoundaryCondition))
+def test_layout_reaches_every_site_and_neighbour(bc):
+    """For every N the kernels take: each site is held by exactly one
+    (warp, lane, slot), contiguous per lane; every neighbour pair is read
+    through a route the kernel has (the same lane, a shuffle within the warp,
+    shared memory only at G > 1); the collective coordinate's noise (slot N)
+    falls to a lane with fewer than S sites, inside the chain's threads."""
+    periodic = bc == BoundaryCondition.PERIODIC
+    detailed = set(range(2, 300)) | {511, 512, 1023, 1024, 1025, 1500, 2047, 2048, 4095, 4096}
+    for N in range(2, ck.MAX_SITES + 1):
+        G, S, cpb = ck.launch_geometry(N, 1)
+        threads = 32 * G
+        sites = np.arange(N)
+        owner = sites // S
+        assert owner.max() < threads
+        assert np.all(np.bincount(owner, minlength=threads)[: owner.max()] == S)  # full lanes
+        assert np.all(np.diff(owner) >= 0)  # contiguous per lane, in order
+        t_om, j_om = divmod(N, S)
+        assert t_om < threads and np.count_nonzero(owner == t_om) == j_om < S
+        if N not in detailed and N % 97:
+            continue
+        for i, (down, up) in _kernel_partners(N, G, S, periodic).items():
+            want_down = i - 1 if i else (N - 1 if periodic else "gl")
+            want_up = i + 1 if i < N - 1 else (0 if periodic else "gr")
+            for (got, route), want in ((down, want_down), (up, want_up)):
+                assert got == want, (N, i, got, want)
+                if route == "lane":
+                    assert owner[got] == owner[i]
+                elif route == "shuffle":
+                    assert owner[got] // 32 == owner[i] // 32 and owner[got] != owner[i]
+                elif route == "shared":
+                    assert G > 1
+                else:
+                    assert route == "ghost" and not periodic
 
 
 def test_kernel_parameters_mirror_the_cuda_struct():
-    # 18 four-byte integer fields and 19 floats, in the order of csrc/chain_kernel.cu
-    assert ctypes.sizeof(_build.ChainParams) == 37 * 4
+    # 19 four-byte integer fields and 19 floats, in the order of csrc/chain_kernel.cu
+    assert ctypes.sizeof(_build.ChainParams) == 38 * 4
     src = (_build._CSRC / "chain_kernel.cu").read_text()
     body = src[src.index("struct ChainParams {"):src.index("};", src.index("struct ChainParams {"))]
     names = []
@@ -128,7 +209,8 @@ def test_kernel_parameters_mirror_the_cuda_struct():
     act = actions.get("double_well")
     s0 = langevin.init_chain_state(CFG, act, device="cpu")
     p = ck._params(s0, act, CFG, chain_offset=2**32 + 3, n_frames=4)
-    assert (p.n_chains, p.n_sites, p.threads, p.sites_per_thread) == (8, 128, 128, 1)
+    assert (p.n_chains, p.n_sites, p.warps_per_chain, p.sites_per_lane,
+            p.chains_per_block) == (8, 128, 3, 2, 1)
     assert (p.rounds, p.philox, p.loops, p.n_frames, p.step0, p.chain0) == (20, 0, 10, 4, 2, 3)
     hw = ck._params(s0, act, dataclasses.replace(CFG, rng_impl="hardware"), 0, 1)
     assert (hw.rounds, hw.philox) == (20, 1)
@@ -169,31 +251,62 @@ def test_unsupported_inputs_raise():
         ck.chain_frame(meta, act, CFG)
 
 
+_DW = dict(action="double_well", dt=0.05, dtau=1e-3, loops=20, seed=21)
+_ANH = dict(action="anharmonic", dt=0.25, dtau=0.01, loops=20, seed=22,
+            bc=BoundaryCondition.PERIODIC, formulation=Formulation.DIRECT)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,cfg", [
-    ("double_well_fixed_bg", dataclasses.replace(CFG, n_chains=32, loops=40)),
+@pytest.mark.parametrize("name,cfg,tripped,nan", [
+    ("double_well_fixed_bg", dataclasses.replace(CFG, n_chains=32, loops=40), None, None),
     ("anharmonic_periodic_tf13", ChainConfig(
         action="anharmonic", n_sites=1024, dt=0.25, dtau=0.01, n_chains=8, loops=20, seed=3,
         bc=BoundaryCondition.PERIODIC, formulation=Formulation.DIRECT,
-        rng_impl="threefry13")),
+        rng_impl="threefry13"), None, None),
     ("harmonic_dirichlet_heun", ChainConfig(
         action="harmonic", n_sites=96, dt=0.2, dtau=0.005, n_chains=8, loops=11, seed=4,
-        bc=BoundaryCondition.DIRICHLET, formulation=Formulation.DIRECT, scheme=Scheme.HEUN)),
+        bc=BoundaryCondition.DIRICHLET, formulation=Formulation.DIRECT, scheme=Scheme.HEUN),
+     None, None),
+    # the layout's edges: fewer sites than a warp, blocks of 4 one-warp chains with the
+    # last part-filled; N no multiple of 32 S; the periodic wrap across warps; Heun
+    # across warps; one chain tripping in a block whose others go on, one starting
+    # with lrg_vl NaN
+    ("layout_n20_part_filled_block", ChainConfig(**_DW, n_sites=20, n_chains=530), None, None),
+    ("layout_n230_periodic", ChainConfig(**_ANH, n_sites=230, n_chains=16), None, None),
+    ("layout_n1500_periodic_warps", ChainConfig(**_ANH, n_sites=1500, n_chains=8), None, None),
+    ("layout_n700_heun_warps", ChainConfig(**_DW, n_sites=700, n_chains=8, scheme=Scheme.HEUN),
+     None, None),
+    ("layout_trip_and_nan_lrg_in_block", ChainConfig(**_DW, n_sites=40, n_chains=600), 3, 5),
 ])
-def test_cuda_kernels_match_plain_versions(cuda_device, name, cfg):
-    act = actions.get(cfg.action)
-    s0 = langevin.init_chain_state(cfg, act, device=cuda_device)
-    plain, pm = langevin.run_frames(s0, act, cfg, 2)
-    before = (ck.chain_frame.launches, ck.chain_frames_multi.launches)
-    k1, m1 = ck.run_frames_kernel(s0, act, cfg, 2)
-    k2, m2 = ck.chain_frames_multi(s0, act, cfg, 2)
-    torch.cuda.synchronize()
-    assert ck.chain_frame.launches == before[0] + 2
-    assert ck.chain_frames_multi.launches == before[1] + 1
-    for got, gm in ((k1, m1), (k2, m2)):
-        leaves = [*zip(got._fields, got, plain), *((k, gm[k], pm[k]) for k in pm)]
-        for leaf, x, y in leaves:
-            if leaf in ("runs", "stab_cnt", "step", "stable"):
-                assert torch.equal(x.cpu(), y.cpu()), leaf
-            else:
-                torch.testing.assert_close(x, y, rtol=0, atol=2e-6, msg=leaf)
+def test_cuda_kernels_match_plain_versions(cuda_device, name, cfg, tripped, nan):
+    """Kernel 1 + the PyTorch epilogue and kernel 2 against the plain version,
+    with its own generator, the other Threefry variant and Philox."""
+    others = {"threefry": "threefry13", "threefry13": "threefry"}
+    for rng in (cfg.rng_impl, others[cfg.rng_impl], "hardware"):
+        c = dataclasses.replace(cfg, rng_impl=rng)
+        act = actions.get(c.action)
+        s0 = langevin.init_chain_state(c, act, device=cuda_device)
+        if tripped is not None:
+            s0.lrg_vl[tripped] = 1e-6
+            s0.lrg_vl[nan] = float("nan")
+        plain, pm = ck.chain_frames_multi_ref(s0, act, c, 2)
+        if tripped is not None:
+            assert not pm["stable"][:, tripped].any() and pm["stable"].all(dim=0).sum() > 1
+            assert torch.isnan(plain.lrg_vl[nan])
+        before = (ck.chain_frame.launches, ck.chain_frames_multi.launches)
+        k1, m1 = ck.run_frames_kernel(s0, act, c, 2)
+        k2, m2 = ck.chain_frames_multi(s0, act, c, 2)
+        torch.cuda.synchronize()
+        assert ck.chain_frame.launches == before[0] + 2
+        assert ck.chain_frames_multi.launches == before[1] + 1
+        for got, gm in ((k1, m1), (k2, m2)):
+            leaves = [*zip(got._fields, got, plain), *((k, gm[k], pm[k]) for k in pm)]
+            for leaf, x, y in leaves:
+                if leaf in ("runs", "stab_cnt", "step", "stable"):
+                    assert torch.equal(x.cpu(), y.cpu()), (rng, leaf)
+                elif x is not None:
+                    torch.testing.assert_close(x, y, rtol=0, atol=2e-6, equal_nan=True,
+                                               msg=f"{rng}:{leaf}")
+        for x, y in zip((*k1, *m1.values()), (*k2, *m2.values())):  # bitwise
+            if torch.is_tensor(x):
+                torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True)
