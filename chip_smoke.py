@@ -37,10 +37,15 @@ non-zero:
    (``field_frames_multi``) and 5 (``field_pair``) against their plain
    versions on small cases that reach every branch — SYNC and CHECKERBOARD,
    threefry and threefry13, odd ``loops``, rejected frames, Δτ growth capped
-   by ``dtau_max`` and shrinking, ``free_field``, kernel 5 at two
+   by ``dtau_max`` and shrinking, ``free_field``, strips of unequal rows
+   (45 and 29 rows), a chain holding a NaN site that trips beside chains that
+   go on and one starting at ``lrg_vl`` NaN, kernel 5 at two
    ``tile_rows`` (which must agree with each other) and with a rejected
-   frame.  Limits: ``stable``, ``runs``, ``stab_cnt``, ``step`` exact; φ,
-   ``lrg_vl``, Δτ and the maxima within 2e-6; the site-reduced sums and
+   frame; kernels 3 and 4 at every cluster size the geometry rule can pick
+   for the case (B = 1 forced among them), each B > 1 bit for bit equal to
+   B = 1 but for the site sums.  Limits: ``stable``, ``runs``, ``stab_cnt``,
+   ``step`` exact; φ, ``lrg_vl``, Δτ and the maxima within 2e-6; the
+   site-reduced sums and
    means (M, φ², s, slice means and correlator) within rtol 3e-5, atol 3e-6,
    since the kernels sum in another order than ``torch.mean``;
 7. field main path: ``cli run --preset phi4_2d --chains 16 --frames-per-launch
@@ -64,9 +69,12 @@ non-zero:
     and SU(3) on 8×16 and 16×128 (``bench.py``'s gate shapes): a hot start
     with odd ``loops`` and one chain holding a NaN link (its frames
     rejected, Δτ shrinking), and an active drift cap with Δτ growing into
-    ``dtau_max``; K = 1 (kernel 10 + the PyTorch epilogue) and K = 3.
-    Limits: ``stable``, ``runs``, ``stab_cnt``, ``step`` exact; links, Δτ
-    and ``drift_max`` within 2e-6 (NaN where the plain version has NaN);
+    ``dtau_max``; a 13-row lattice (ragged strips); K = 1 (kernel 10 + the
+    PyTorch epilogue) and K = 3, each at every cluster size the geometry rule
+    can pick (B = 1 forced among them), B > 1 bit for bit equal to B = 1 but
+    for ``plaq_mean``.  Limits: ``stable``, ``runs``, ``stab_cnt``, ``step``
+    exact; links, Δτ and ``drift_max`` within 2e-6 (NaN where the plain
+    version has NaN);
     ``plaq_mean`` within rtol 3e-5, atol 3e-6;
 11. gauge main path: ``cli run --preset u1_2d --chains 256
     --frames-per-launch 2`` (two burn-in frames, one launch of kernel 11;
@@ -128,9 +136,10 @@ non-zero:
     × 16, loops 50 (``bench.py:544-553``) on ``cuda_step`` (kernel 9),
     ``cuda`` and ``auto`` (the chunk path: kernel 7) and ``torch``, φ and
     every decision bitwise equal to the unsplit run (kernel 3) and the means
-    within the gate; a chain-only mesh (kernel 3 per shard) bitwise equal in
-    every leaf; gauge u1 256² × 32 loops 100 (``bench.py:397-400``) and su3
-    64² × 8 loops 50 on ``cuda`` (the chunk runner: kernel 12) against the
+    within the gate; a chain-only mesh (kernel 3 per shard: 8 chains a
+    launch, whose cluster size may differ from 16 chains') likewise; gauge
+    u1 256² × 32 loops 100 (``bench.py:397-400``) and su3 64² × 8 loops 50
+    on ``cuda`` (the chunk runner: kernel 12) against the
     per-step halo runner (``auto``, which records its choice) and the unsplit
     kernel 10, links bitwise with the cap quiescent.  Every run's launch
     counters are set to 0 before and must afterwards show exactly the
@@ -145,9 +154,9 @@ non-zero:
 
 20. ``rng_impl='hardware'``: the Philox-4x32-10 variants of kernels 1-4 vs
     their plain versions on every case of 3 (the layout's edges too) and of 6
-    (kernel 5 apart, which draws Threefry only), limits as there; kernel 1 +
-    the PyTorch epilogue and kernel 2, kernel 3 + epilogue and kernel 4,
-    bitwise equal;
+    (kernel 5 apart, which draws Threefry only; kernels 3 and 4 at every
+    cluster size), limits as there; kernel 1 + the PyTorch epilogue and
+    kernel 2, kernel 3 + epilogue and kernel 4 (at every B), bitwise equal;
 21. the ``--rng hardware`` main paths at full width: ``cli run --preset
     double_well --chains 65536 --dtau 2e-4 --rng hardware`` as in 4,
     ``runtime.run_chain`` on config 2 (anharmonic, N = 1024, 256 chains,
@@ -203,7 +212,8 @@ range of the card's SM clock, power draw and temperature sampled while it ran.
 ``python3 chip_smoke.py --log PATH`` also writes every printed line to PATH.
 
 Prints a JSON line with the numbers of the twelve kernels and the four
-Philox variants (name, route, source, the
+Philox variants (name, route, source, the cluster size B and where the state
+lives for kernels 3, 4, 10 and 11, the
 TPU kernel it replaces, main-path launches, max|Δ|, ms and plain ms at the
 timed shape, the bound: the least ms the card could take for that launch,
 the resource that binds it, and the ms of one PyTorch call computing the
@@ -535,8 +545,8 @@ def check_layout_case(name, plain, tripped, nan) -> None:
 
 
 def same_leaves(label: str, one, multi) -> None:
-    """Kernel 1 + the PyTorch epilogue and kernel 2 must agree bit for bit
-    (NaN where the other has NaN)."""
+    """Kernel 1 (3) + the PyTorch epilogue and kernel 2 (4) must agree bit for
+    bit (NaN where the other has NaN)."""
     import torch
 
     for (leaf, x), (_, y) in zip(leaves(one), leaves(multi)):
@@ -547,7 +557,8 @@ def same_leaves(label: str, one, multi) -> None:
         else:
             same = torch.equal(x, y)
         if not same:
-            raise SystemExit(f"{label}: kernel 1 + epilogue and kernel 2 differ in {leaf}")
+            raise SystemExit(f"{label}: the one-frame kernel + epilogue and the multi-frame "
+                             f"kernel differ in {leaf}")
 
 
 EXACT = ("runs", "stab_cnt", "step", "unstable", "stable", "n_bad", "bad", "capped")
@@ -840,23 +851,98 @@ def field_gate_cases(FieldConfig, Sweep):
         ("free_field_checkerboard", FieldConfig(
             action="free_field", shape=(48, 80), dtau=0.02, n_chains=3, loops=8, seed=8,
             sweep=Sweep.CHECKERBOARD), 2, None),
+        # strips of unequal rows at every cluster size (45 and 29 rows)
+        ("ragged_sync_odd_loops", FieldConfig(shape=(45, 72), dtau=0.01, n_chains=3, loops=7,
+                                              seed=5), 2, None),
+        ("ragged_checkerboard_odd_loops", FieldConfig(
+            shape=(29, 40), dtau=0.01, n_chains=3, loops=9, seed=4, sweep=Sweep.CHECKERBOARD),
+         2, None),
+        # chain 1 holds a NaN site (it trips, every frame) beside chains that go on;
+        # chain 2 starts at lrg_vl NaN (its detector cannot trip; the frame's max
+        # |phi_new| replaces it)
+        ("trip_beside_nan_lrg", FieldConfig(shape=(64, 128), dtau=0.01, n_chains=4, loops=10,
+                                            seed=3), 2, None),
     ]
 
 
+def field_gate_state(torch, field, name, cfg, stab, device):
+    """The initial state of a field gate case."""
+    s0 = field.init_field_state(cfg, device=device)
+    if stab is not None:
+        s0 = s0._replace(stab_cnt=torch.tensor(stab, dtype=torch.int32, device=device))
+    if name == "trip_beside_nan_lrg":
+        phi, lrg = s0.phi.clone(), s0.lrg_vl.clone()
+        phi[1, 3, 5] = float("nan")
+        lrg[2] = float("nan")
+        s0 = s0._replace(phi=phi, lrg_vl=lrg)
+    return s0
+
+
+def same_bits(label: str, got, ref) -> None:
+    """A kernel at B > 1 blocks a chain against the same kernel at B = 1:
+    every leaf but the site-reduced sums bit for bit (NaN where the other has
+    NaN), those within FIELD_RTOL / FIELD_ATOL (another summation order)."""
+    import torch
+
+    for (name, x), (_, y) in zip(leaves(got), leaves(ref)):
+        x, y = x.cpu(), y.cpu()
+        if x.is_complex():
+            x, y = torch.view_as_real(x), torch.view_as_real(y)
+        if name in SITE_REDUCED:
+            same = torch.allclose(x.double(), y.double(), rtol=FIELD_RTOL, atol=FIELD_ATOL,
+                                  equal_nan=True)
+        elif x.is_floating_point():
+            nan = torch.isnan(x)
+            same = torch.equal(nan, torch.isnan(y)) and torch.equal(x[~nan], y[~nan])
+        else:
+            same = torch.equal(x, y)
+        if not same:
+            raise SystemExit(f"{label}: the cluster kernel differs from B = 1 in {name}")
+
+
+def at_every_cluster_size(label: str, sizes, run, plain) -> None:
+    """``run()`` (a kernel path) at every cluster size in ``sizes`` (B = 1
+    first) held against ``plain`` (gate) and, at B > 1, against B = 1 bit
+    for bit."""
+    from stochquant_tpu_torch.kernels import _cluster
+
+    ref = None
+    for B in sizes:
+        with _cluster.forced(B):
+            got = run()
+        gate(f"{label} B={B}", got, plain)
+        if ref is None:
+            ref = got
+        else:
+            same_bits(f"{label} B={B}", got, ref)
+
+
+def field_sizes(fk, cfg) -> list:
+    """Every cluster size the rule can pick for this lattice, B = 1 first."""
+    return [g.B for g in fk.cluster_candidates(cfg.shape, fk.noise_planes(cfg))]
+
+
 def phase_field_gate(torch, fk, ft, field, actions, cfgmod, device) -> None:
-    """Kernels 3, 4 and 5 against their plain versions on the card."""
+    """Kernels 3, 4 and 5 against their plain versions on the card; kernels
+    3 and 4 at every cluster size the rule can pick for the case's lattice."""
     for name, cfg, n, stab in field_gate_cases(cfgmod.FieldConfig, cfgmod.Sweep):
         act = actions.get_field(cfg.action)
-        s0 = field.init_field_state(cfg, device=device)
-        if stab is not None:
-            s0 = s0._replace(stab_cnt=torch.tensor(stab, dtype=torch.int32, device=device))
+        s0 = field_gate_state(torch, field, name, cfg, stab, device)
         plain = field.run_field_frames(s0, act, cfg, n)
-        gate(f"{name} field_frame x{n} + epilogue",
-                   fk.run_field_frames_kernel(s0, act, cfg, n), plain)
-        gate(f"{name} field_frames_multi K={n}",
-                   fk.field_frames_multi(s0, act, cfg, n), fk.field_frames_multi_ref(s0, act, cfg, n))
+        sizes = field_sizes(fk, cfg)
+        at_every_cluster_size(f"{name} field_frame x{n} + epilogue", sizes,
+                              lambda: fk.run_field_frames_kernel(s0, act, cfg, n), plain)
+        at_every_cluster_size(f"{name} field_frames_multi K={n}", sizes,
+                              lambda: fk.field_frames_multi(s0, act, cfg, n),
+                              fk.field_frames_multi_ref(s0, act, cfg, n))
         if name == "rejections" and bool(plain[1]["stable"].all()):
             raise SystemExit("gate case 'rejections' rejected no frame")
+        if name == "trip_beside_nan_lrg":
+            stable = plain[1]["stable"]
+            if bool(stable[:, 1].any()) or not bool(stable[:, [0, 2, 3]].all()):
+                raise SystemExit(f"gate case {name}: chain 1 alone must be rejected: {stable}")
+        if name.startswith(("ragged", "trip")):
+            continue  # kernel 5 keeps its own cases
         if name == "grow_shrink_dtau_max":
             d = plain[1]["dtau"]
             if not (bool((d == cfg.dtau_max).any()) and bool((d < cfg.dtau).any())):
@@ -1052,19 +1138,23 @@ def phase_field_timings(torch, device, fk, ft, field, actions, cfgmod, large, ca
 
     got = fk.field_frame(state, act, cfg)
     out["field_frame_ms"] = cuda_ms(torch, lambda: fk.field_frame(state, act, cfg))
+    out["field_frame_geometry"] = fk.field_frame.geometry
     holder = {}
     out["field_frame_plain_ms"] = timed(torch, lambda: holder.update(
         r=fk.field_frame_ref(state, act, cfg))) * 1e3
     out["field_frame_err"] = gate("256^2 x 16 loops=100 field_frame", got, holder["r"])
     got = fk.field_frames_multi(state, act, cfg, 10)
     out["field_frames_multi_ms"] = cuda_ms(torch, lambda: fk.field_frames_multi(state, act, cfg, 10))
+    out["field_frames_multi_geometry"] = fk.field_frames_multi.geometry
     out["field_frames_multi_plain_ms"] = timed(torch, lambda: holder.update(
         r=fk.field_frames_multi_ref(state, act, cfg, 10))) * 1e3
     out["field_frames_multi_err"] = gate("256^2 x 16 loops=100 field_frames_multi K=10",
                                                got, holder["r"])
     for k in ("field_frame", "field_frames_multi"):
-        log(f"  {k:19s} kernel {out[k + '_ms']:.3f} ms/launch (CUDA events, mean of 3), plain "
-            f"version {out[k + '_plain_ms']:.1f} ms (once) at 256^2 x 16, loops 100 [{card}]")
+        g = out[k + "_geometry"]
+        log(f"  {k:19s} kernel {out[k + '_ms']:.3f} ms/launch (CUDA events, mean of 3; B = {g.B}, "
+            f"{g.placement}), plain version {out[k + '_plain_ms']:.1f} ms (once) at 256^2 x 16, "
+            f"loops 100 [{card}]")
 
     state, err, _, plain_frame_s, plain_loops = large
     cfg = FieldConfig(**TILED_FIELD)
@@ -1116,6 +1206,10 @@ def gauge_gate_cases(GaugeConfig):
             cases.append((f"{group}_{shape[0]}x{shape[1]}_cap_grow_dtau_max",
                           GaugeConfig(**base, loops=6, seed=37, hot_start=True, drift_cap=0.5,
                                       grow_after=1, dtau_max=dtau * 1.03), None))
+        # strips of unequal rows at every cluster size (13 rows)
+        cases.append((f"{group}_13x64_ragged_hot_odd_rejected",
+                      GaugeConfig(group=group, beta=beta, shape=(13, 64), n_chains=3, dtau=dtau,
+                                  loops=5, seed=41, hot_start=True), 1))
     return cases
 
 
@@ -1125,18 +1219,27 @@ def with_nan_link(state, chain):
     return state._replace(links=links)
 
 
+def gauge_sizes(gk, act, cfg) -> list:
+    """Every cluster size the rule can pick for this lattice, B = 1 first."""
+    group = gk.kernel_params(act, cfg, step0=0).group
+    return [g.B for g in gk.cluster_candidates(cfg.shape, group)]
+
+
 def phase_gauge_gate(torch, gk, gauge, device) -> None:
     """Kernels 10 and 11 against their plain versions on the card, K = 1
-    (three launches of kernel 10 + the PyTorch epilogue) and K = 3."""
+    (three launches of kernel 10 + the PyTorch epilogue) and K = 3, at every
+    cluster size the rule can pick for the case's lattice."""
     for name, cfg, nan_chain in gauge_gate_cases(gauge.GaugeConfig):
         act = gauge.resolve_gauge_action(cfg)
         s0 = gauge.init_gauge_state(cfg, act, device=device)
         if nan_chain is not None:
             s0 = with_nan_link(s0, nan_chain)
         plain = gk.gauge_frames_multi_ref(s0, act, cfg, 3)
-        gate(f"{name} gauge_frame x3 + epilogue", gk.run_gauge_frames_kernel(s0, act, cfg, 3),
-             plain)
-        gate(f"{name} gauge_frames_multi K=3", gk.gauge_frames_multi(s0, act, cfg, 3), plain)
+        sizes = gauge_sizes(gk, act, cfg)
+        at_every_cluster_size(f"{name} gauge_frame x3 + epilogue", sizes,
+                              lambda: gk.run_gauge_frames_kernel(s0, act, cfg, 3), plain)
+        at_every_cluster_size(f"{name} gauge_frames_multi K=3", sizes,
+                              lambda: gk.gauge_frames_multi(s0, act, cfg, 3), plain)
         stable, dtau = plain[1]["stable"], plain[1]["dtau"]
         if nan_chain is not None and not (bool(stable.all(dim=0).sum() == 2)
                                           and bool((dtau[:, nan_chain] < cfg.dtau).all())):
@@ -1266,6 +1369,7 @@ def phase_gauge_timings(torch, device, gk, gauge, card: str) -> dict:
             f"{[round(r, 4) for r in reps]}; stable {stable:.4f}) [{card}]")
         ms = cuda_ms(torch, lambda: gk.gauge_frame(state, act, cfg))
         got = gk.gauge_frame(state, act, cfg)
+        out[name + "_geometry"] = geom = gk.gauge_frame.geometry
         loops = cfg.loops
         probe = timed(torch, lambda: gk.gauge_frame_ref(state, act, dataclasses.replace(cfg,
                                                                                        loops=2)))
@@ -1283,7 +1387,8 @@ def phase_gauge_timings(torch, device, gk, gauge, card: str) -> dict:
                  holder["r"])
         err10 = max(err10, e)
         out[name + "_ms"], out[name + "_plain_ms"] = ms, plain_s * 1e3 * cfg.loops / loops
-        log(f"  {group} gauge_frame kernel {ms:.3f} ms/launch (CUDA events, mean of 3), plain "
+        log(f"  {group} gauge_frame kernel {ms:.3f} ms/launch (CUDA events, mean of 3; B = "
+            f"{geom.B}, {geom.placement}), plain "
             f"version {plain_s * 1e3:.1f} ms (once, loops {loops}): plain path "
             f"{out[name + '_plain_mlups']:.2f} MLUPS [{card}]")
     out["gauge_frame_ms"], out["gauge_frame_plain_ms"] = out["gauge_u1_ms"], out["gauge_u1_plain_ms"]
@@ -1302,6 +1407,7 @@ def phase_gauge_timings(torch, device, gk, gauge, card: str) -> dict:
             out[f"gauge_{group}_multi_K{K}"] = dict(mlups=mlups[K], seconds=t, reps=reps)
         ms = cuda_ms(torch, lambda: gk.gauge_frames_multi(state, act, cfg, 8))
         got = gk.gauge_frames_multi(state, act, cfg, 8)
+        out[f"gauge_{group}_multi_geometry"] = geom = gk.gauge_frames_multi.geometry
         holder = {}
         plain_s = timed(torch, lambda: holder.update(r=gk.gauge_frames_multi_ref(state, act,
                                                                                  cfg, 8)))
@@ -1310,7 +1416,8 @@ def phase_gauge_timings(torch, device, gk, gauge, card: str) -> dict:
         out[f"gauge_{group}_multi_ms"], out[f"gauge_{group}_multi_plain_ms"] = ms, plain_s * 1e3
         log(f"  {group} {cfg.shape} x 256 loops 10: K=1 {mlups[1]:.1f}, K=8 {mlups[8]:.1f} "
             f"MLUPS (x{mlups[8] / mlups[1]:.2f}, medians of 3 reps of 8 frames); "
-            f"gauge_frames_multi K=8 {ms:.3f} ms/launch, plain version {plain_s * 1e3:.1f} ms "
+            f"gauge_frames_multi K=8 {ms:.3f} ms/launch (B = {geom.B}), plain version "
+            f"{plain_s * 1e3:.1f} ms "
             f"(once) [{card}]")
     out["gauge_frames_multi_ms"] = out["gauge_u1_multi_ms"]
     out["gauge_frames_multi_plain_ms"] = out["gauge_u1_multi_plain_ms"]
@@ -1756,7 +1863,9 @@ def phase_split_main_path(torch, mods, tmp: Path):
     ccfg = dataclasses.replace(base, mesh_axes=(None, None), mesh_chain_axis="chain")
     got, _ = run("field", ccfg, f"{where} chain=2, backend cuda (kernel 3 per shard)",
                  {"field_frame": frames * 2}, fkeys, mesh=c2, backend="cuda")
-    same_state(torch, f"{where} chain=2 vs unsplit kernel 3", got, unsplit, "all")
+    # 8 chains a launch may take another cluster size than 16: the site sums'
+    # order moves with it, so they are held to the gate, the rest bit for bit
+    same_state(torch, f"{where} chain=2 vs unsplit kernel 3", got, unsplit, FIELD_EXACT)
     got, _ = run("field", cfg, f"{where} ring of one, backend cuda_step",
                  {"field_halo_step": loops * frames}, fkeys, mesh=x1, backend="cuda_step")
     same_state(torch, f"{where} ring of one cuda_step vs unsplit", got, unsplit, FIELD_EXACT)
@@ -1987,20 +2096,23 @@ def phase_philox_gate(torch, ck, fk, langevin, field, actions, cfgmod, device) -
                            tripped, nan)
         if name == "rejections_double_well" and bool(plain[1]["stable"].all()):
             raise SystemExit("hw gate case 'rejections_double_well' rejected no frame")
+    from stochquant_tpu_torch.kernels import _cluster
+
     for name, cfg, n, stab in field_gate_cases(cfgmod.FieldConfig, cfgmod.Sweep):
         cfg = hw(cfg)
         act = actions.get_field(cfg.action)
-        s0 = field.init_field_state(cfg, device=device)
-        if stab is not None:
-            s0 = s0._replace(stab_cnt=torch.tensor(stab, dtype=torch.int32, device=device))
+        s0 = field_gate_state(torch, field, name, cfg, stab, device)
         plain = fk.field_frames_multi_ref(s0, act, cfg, n)
-        one = fk.run_field_frames_kernel(s0, act, cfg, n)
-        gate(f"hw {name} field_frame x{n} + epilogue", one, plain)
-        multi = fk.field_frames_multi(s0, act, cfg, n)
-        gate(f"hw {name} field_frames_multi K={n}", multi, plain)
-        for (leaf, x), (_, y) in zip(leaves(one), leaves(multi)):
-            if not torch.equal(x.cpu(), y.cpu()):
-                raise SystemExit(f"hw {name}: kernel 3 + epilogue and kernel 4 differ in {leaf}")
+        sizes = field_sizes(fk, cfg)
+        at_every_cluster_size(f"hw {name} field_frame x{n} + epilogue", sizes,
+                              lambda: fk.run_field_frames_kernel(s0, act, cfg, n), plain)
+        at_every_cluster_size(f"hw {name} field_frames_multi K={n}", sizes,
+                              lambda: fk.field_frames_multi(s0, act, cfg, n), plain)
+        for B in sizes:
+            with _cluster.forced(B):
+                one = fk.run_field_frames_kernel(s0, act, cfg, n)
+                multi = fk.field_frames_multi(s0, act, cfg, n)
+            same_leaves(f"hw {name} B={B}", one, multi)
         if name == "rejections" and bool(plain[1]["stable"].all()):
             raise SystemExit("hw gate case 'rejections' rejected no frame")
 
@@ -2086,8 +2198,10 @@ def phase_philox_timings(torch, device, ck, fk, langevin, field, actions, cfgmod
     cfgf, actf, statef = warm[("field_256_fpl1", "hardware")]
     alone("field_frame_hw", lambda: fk.field_frame(statef, actf, cfgf),
           lambda: fk.field_frame_ref(statef, actf, cfgf), "256^2 x 16 loops=100")
+    out["field_frame_hw_geometry"] = fk.field_frame.geometry
     alone("field_frames_multi_hw", lambda: fk.field_frames_multi(statef, actf, cfgf, 10),
           lambda: fk.field_frames_multi_ref(statef, actf, cfgf, 10), "256^2 x 16 loops=100 K=10")
+    out["field_frames_multi_hw_geometry"] = fk.field_frames_multi.geometry
     return out
 
 
@@ -2918,6 +3032,15 @@ def main() -> int:
          "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1], "library_ms": None}
         for kname, (src, replaces) in KERNELS.items()
     ]
+    # kernels 3, 4, 10 and 11: the cluster geometry of the timed launch (10: u1;
+    # 11: u1 at 256 chains)
+    for kname, key in (("field_frame", "field_frame"), ("field_frames_multi", "field_frames_multi"),
+                       ("field_frame_hw", "field_frame_hw"),
+                       ("field_frames_multi_hw", "field_frames_multi_hw"),
+                       ("gauge_frame", "gauge_u1"), ("gauge_frames_multi", "gauge_u1_multi")):
+        k = next(k for k in kernels if k["name"] == kname)
+        g = t[key + "_geometry"]
+        k["cluster_B"], k["placement"] = g.B, g.placement
     # kernel 6's launches include the one-step tails of odd loops (its own code)
     pair_k = next(k for k in kernels if k["name"] == "field_pair_nd")
     pair_k["launches"] += launches["field_step_nd"]

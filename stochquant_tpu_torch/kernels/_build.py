@@ -32,7 +32,7 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("chain_kernel.cu", "field_kernel.cu", "field_kernel_tiled.cu",
             "field_kernel_nd.cu", "field_halo_kernel.cu", "gauge_kernel.cu")
-_HEADERS = ("sq_rng.cuh", "field_common.cuh")
+_HEADERS = ("sq_rng.cuh", "field_common.cuh", "cluster.cuh")
 # sources compiled more than once, with these defines (one object each)
 _PARTS = {"chain_kernel.cu": ((), ("-DSQ_CHAIN_PART=1",), ("-DSQ_CHAIN_PART=2",))}
 NVCC_FLAGS = (
@@ -123,7 +123,8 @@ class ChainParams(ctypes.Structure):
 
 class FieldParams(ctypes.Structure):
     """Launch parameters of the field kernels 3, 4 and 5, field for field the
-    ``FieldParams`` struct of ``csrc/field_common.cuh`` (all 4-byte fields)."""
+    ``FieldParams`` struct of ``csrc/field_common.cuh`` (all 4-byte fields).
+    The last four are kernels 3 and 4's cluster geometry (``_cluster``)."""
 
     _fields_ = [
         (name, ctypes.c_int32) for name in (
@@ -135,7 +136,7 @@ class FieldParams(ctypes.Structure):
             "m2", "hm2", "l6", "l24", "inv_a2", "measure", "c_amp", "clamp",
             "shrink", "dtau_max", "inv_loops", "loops_f", "inv_l1",
         )
-    ]
+    ] + [(name, ctypes.c_int32) for name in ("cl_B", "cl_rows", "cl_scratch", "cl_empty")]
 
 
 #: most lattice dimensions kernels 6, 7 and 8 take (``SQ_ND_MAXD`` in the source)
@@ -177,8 +178,9 @@ class FieldHaloParams(ctypes.Structure):
 class GaugeParams(ctypes.Structure):
     """Launch parameters of the gauge kernels 10, 11 and 12, field for field
     the ``GaugeParams`` struct of ``csrc/gauge_kernel.cu`` (all 4-byte
-    fields).  The last six are the chunk kernel's (kernel 12): there ``L0`` is
-    the extended block's rows, ``L0g`` the global lattice's."""
+    fields).  ``chain_off`` … ``L0g`` are the chunk kernel's (kernel 12): there
+    ``L0`` is the extended block's rows, ``L0g`` the global lattice's; the last
+    four are kernels 10 and 11's cluster geometry (``_cluster``)."""
 
     _fields_ = [
         (name, ctypes.c_int32) for name in (
@@ -189,7 +191,9 @@ class GaugeParams(ctypes.Structure):
             "coef", "cap", "clip_hi", "inv_vol", "shrink", "dtau_max", "inv_loops", "loops_f",
         )
     ] + [(name, ctypes.c_uint32) for name in ("chain_off", "row_off")] + [
-        (name, ctypes.c_int32) for name in ("loc0", "H", "W", "L0g")
+        (name, ctypes.c_int32) for name in (
+            "loc0", "H", "W", "L0g", "cl_B", "cl_rows", "cl_scratch", "cl_empty",
+        )
     ]
 
 
@@ -219,6 +223,9 @@ def library() -> ctypes.CDLL:
     ):
         fn.argtypes = [params] + [ptr] * n_ptr + [ptr]  # tensors, then the stream
         fn.restype = ctypes.c_int
+    for fn, params in ((lib.sq_field_resident, field), (lib.sq_gauge_resident, gauge)):
+        fn.argtypes = [params, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
     lib.sq_error_string.argtypes = [ctypes.c_int]
     lib.sq_error_string.restype = ctypes.c_char_p
     return lib
@@ -238,6 +245,21 @@ def check_leaves(state, want: dict, device) -> None:
             )
         if not t.is_contiguous():
             raise ValueError(f"state.{name} must be contiguous")
+
+
+def resident(entry: str, params, multi: bool, device) -> int:
+    """Chains the card runs at once in the cluster geometry of ``params``
+    (``sq_field_resident`` / ``sq_gauge_resident``: resident clusters of
+    ``cl_B`` blocks, or resident blocks at ``cl_B`` = 1); raises if the card
+    refuses the geometry."""
+    lib = library()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = getattr(lib, entry)(ctypes.byref(params), int(multi), ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"{entry} refused cluster B={params.cl_B}: "
+                           f"{lib.sq_error_string(rc).decode()} ({rc})")
+    return out.value
 
 
 def launch(entry: str, params, tensors, device) -> None:

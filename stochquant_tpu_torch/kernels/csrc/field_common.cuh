@@ -37,6 +37,11 @@ struct FieldParams {
     float inv_a2, measure, c_amp, clamp;
     float shrink, dtau_max, inv_loops, loops_f;
     float inv_l1;         // float32(1 / L1): kernel 5's slice means multiply by it
+    // kernels 3 and 4 (cluster.cuh): the geometry of field_kernel.cluster_geometry
+    int32_t cl_B;         // blocks of the thread-block cluster a chain runs on (1: one block)
+    int32_t cl_rows;      // rows of the largest strip, ceil(L0 / cl_B)
+    int32_t cl_scratch;   // 1: the kept noise in shared memory; 0: in global memory
+    int32_t cl_empty;     // 1: barriers, halos' publication and reductions only (timing)
 };
 
 enum { ACTION_PHI4 = 0, ACTION_FREE = 1 };
@@ -83,6 +88,12 @@ __device__ __forceinline__ float em_update(const FieldParams& p, float f, float 
     if (!finite) newf = p.clamp;
     absdet = finite ? fabsf(det) : INFINITY;
     return newf;
+}
+
+// torch.maximum / jnp.maximum of two floats: NaN when either is NaN (a chain
+// whose lrg_vl is NaN keeps it, as in the plain version); fmaxf would drop it.
+__device__ __forceinline__ float max_keep_nan(float a, float b) {
+    return (a > b || isnan(a)) ? a : b;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -31,20 +31,37 @@
 // two agree bit for bit; only the plaquette's site sum is taken in another
 // order than torch.mean.
 //
-// What bounds it on the card, and the design: the drift cap rescales every
-// link of a chain by the chain's global max |F|, so no link may move before
-// the whole lattice's drift is known.  One block per chain runs each
-// micro-step in two passes: pass 1 computes F (stored in a scratch buffer),
-// the drift norm and the plaquette; a fixed-order block reduction (warp
-// xor-shuffle, then warps in order; NaN-propagating max) makes them
-// block-uniform; pass 2 reads F, draws the noise and updates the thread's own
-// links in place.  Pass 1 reads neighbours' links, pass 2 only its own, so
-// two barriers per micro-step suffice.  A lattice does not fit one block's
-// shared memory (u1 256^2: 512 KiB; su3 64^2: 576 KiB), so links, F and the
-// kept noise live in global buffers that stay in L2.  su3 is arithmetic
-// bound (~5,000 flops per site and micro-step, 256 threads a block for the
-// registers); with one block per chain only n_chains SMs work.
+// What bounds it on the card, and the design: operations (su3 ~5,000 flops per
+// site and micro-step; PERF.md's kernel table has each group's bound).  The
+// drift cap rescales every link of a chain by the chain's global max |F|, so no
+// link may move before the whole lattice's drift is known: each micro-step runs
+// in two passes, pass 1 computing F (kept for pass 2), the drift norm and the
+// plaquette, a fixed-order reduction (NaN-propagating max) making them uniform,
+// pass 2 drawing the noise and updating the thread's own links in place.  Pass 1
+// reads neighbours' links, pass 2 only its own, so two barriers per micro-step
+// suffice.  Two geometries, chosen per launch by gauge_kernel.cluster_geometry
+// (GaugeParams.cl_B):
+//
+//   B > 1, a chain on a thread-block cluster of B blocks (cluster.cuh): block
+//   rank b holds its strip of rows of every link plane, with one halo row a side
+//   (the staples and the plaquette read rows r - 1 .. r + 1), in shared memory
+//   for the whole frame; F and the kept noise live in shared memory where the
+//   budget allows (su2 128^2 at B = 8, su3 64^2 at B = 8 or 16), else in global
+//   memory, each thread reading back in pass 2 what it wrote in pass 1.  The
+//   strip is a lattice of S + 2 rows to pass1 / pass2<G, true> (the chunk
+//   kernel's noise counters with H = 1 give the global counters).  Pass 2 pushes
+//   a strip's new edge rows into the neighbours' halo rows through distributed
+//   shared memory; one cluster barrier after pass 1 (the reduction) and one
+//   after pass 2 (the halos).  The reduction goes warps, then ranks, in order:
+//   links and every decision are bitwise those of B = 1; only the plaquette's
+//   site sum is taken in another order.  u1 256^2 x 32 runs on 128 SMs at B = 4.
+//
+//   B = 1, one block per chain (the geometry at many chains): links, F and the
+//   kept noise in global buffers that stay in L2 (a lattice does not fit one
+//   block's shared memory: u1 256^2 512 KiB, su3 64^2 576 KiB); 256 threads a
+//   block for su3's registers.
 
+#include "cluster.cuh"
 #include "sq_rng.cuh"
 
 // Mirrors GaugeParams in stochquant_tpu_torch/kernels/_build.py: every field
@@ -72,6 +89,11 @@ struct GaugeParams {
     int32_t H;            // halo rows above and below
     int32_t W;            // micro-steps of the launch
     int32_t L0g;          // rows of the global lattice
+    // kernels 10 and 11 (cluster.cuh): the geometry of gauge_kernel.cluster_geometry
+    int32_t cl_B;         // blocks of the thread-block cluster a chain runs on (1: one block)
+    int32_t cl_rows;      // rows of the largest strip, ceil(L0 / cl_B)
+    int32_t cl_scratch;   // 1: F and the kept noise in shared memory; 0: in global memory
+    int32_t cl_empty;     // 1: barriers, halos' publication and reductions only (timing)
 };
 
 enum { GROUP_U1 = 0, GROUP_SU2 = 1, GROUP_SU3 = 2 };
@@ -733,12 +755,260 @@ gauge_chunk_kernel(GaugeParams p, const float* __restrict__ ext_in,
     }
 }
 
+// ---- kernels 10 and 11 on a thread-block cluster (B > 1) ------------------
+
+// A block's share of a chain at B > 1.  `lp` is the strip as pass1 and
+// pass2<G, true> see it: a lattice of S + 2 rows whose row 1 is global row r0
+// (H = 1, row_off = r0, L0g = L0); owned rows 1 .. n never reach its wrap.
+struct ClGauge {
+    Strip s;
+    GaugeParams lp;
+    float* L;    // link planes, (S + 2) x L1 each
+    float* F;    // force planes, as L (rows 1 .. n used)
+    float* zk;   // kept-noise planes, as L
+    float* red;  // 3 partials a warp
+    float* slot; // this block's partials
+    float* gath; // 3 a rank: the cluster's partials
+};
+
+// Shared memory of a cluster block, in floats (kernels/_cluster.py mirrors it).
+template <int G>
+__host__ __device__ __forceinline__ size_t gauge_cl_floats(const GaugeParams& p) {
+    const size_t strip = (size_t)(p.cl_rows + 2) * p.L1;
+    const size_t scratch = p.cl_scratch ? (size_t)(Layout<G>::FP + Layout<G>::NP) * strip : 0;
+    return Layout<G>::P * strip + scratch + 3 * 32 + 4 + 3 * SQ_MAX_CLUSTER;
+}
+
+template <int G>
+__device__ __forceinline__ ClGauge cl_gauge_layout(const GaugeParams& p, int rank, int ch,
+                                                   float* force, float* zk) {
+    extern __shared__ float sm[];
+    ClGauge w;
+    w.s = make_strip(rank, p.cl_B, p.L0);
+    w.lp = p;
+    w.lp.L0 = p.cl_rows + 2;
+    w.lp.H = 1;
+    w.lp.row_off = (uint32_t)w.s.r0;
+    w.lp.L0g = p.L0;
+    const size_t strip = (size_t)(p.cl_rows + 2) * p.L1;
+    float* q = sm;
+    w.L = q;
+    q += Layout<G>::P * strip;
+    if (p.cl_scratch) {
+        w.F = q;
+        w.zk = q + Layout<G>::FP * strip;
+        q += (Layout<G>::FP + Layout<G>::NP) * strip;
+    } else {  // (C, B, planes, S + 2, L1) in global memory
+        const size_t blk = (size_t)ch * p.cl_B + rank;
+        w.F = force + blk * Layout<G>::FP * strip;
+        w.zk = zk + blk * Layout<G>::NP * strip;
+    }
+    w.red = q;
+    w.slot = q + 3 * 32;
+    w.gath = w.slot + 4;
+    return w;
+}
+
+// Local rows 0 .. n + 1 of every plane from a chain's (P, L0, L1) links.
+template <int G>
+__device__ __forceinline__ void cl_gauge_load(const GaugeParams& p, const ClGauge& w,
+                                              const float* __restrict__ src) {
+    const size_t V = (size_t)p.L0 * p.L1, strip = (size_t)(p.cl_rows + 2) * p.L1;
+    const int rows = (w.s.n + 2) * p.L1;
+    for (int q = 0; q < Layout<G>::P; ++q)
+        for (int j = threadIdx.x; j < rows; j += Layout<G>::T) {
+            const int lr = j / p.L1, c = j - lr * p.L1;
+            w.L[q * strip + j] = src[q * V + (size_t)strip_row(w.s, lr, p.L0) * p.L1 + c];
+        }
+}
+
+// The own rows of every plane into a chain's (P, L0, L1) links; thread t
+// stores the sites it updated in pass 2.
+template <int G>
+__device__ __forceinline__ void cl_gauge_store(const GaugeParams& p, const ClGauge& w,
+                                               float* __restrict__ dst) {
+    const size_t V = (size_t)p.L0 * p.L1, strip = (size_t)(p.cl_rows + 2) * p.L1;
+    const size_t at = (size_t)w.s.r0 * p.L1;
+    const int own = w.s.n * p.L1;
+    for (int q = 0; q < Layout<G>::P; ++q)
+        for (int j = threadIdx.x; j < own; j += Layout<G>::T)
+            dst[q * V + at + j] = w.L[q * strip + p.L1 + j];
+}
+
+// block_reduce, then the blocks' totals combined in rank order: the same in
+// every thread of the cluster.  Its cluster barrier orders pass 1 before pass 2.
+template <int T>
+__device__ __forceinline__ Tot cl_reduce(float pl, float dn, int bad, ClGauge& w,
+                                         cg::cluster_group& cl) {
+    const Tot b = block_reduce<T>(pl, dn, bad, w.red);
+    const float mine[3] = {b.plaq, b.dnorm, (float)b.bad};
+    cluster_gather<3>(cl, mine, w.slot, w.gath, w.s.B);
+    Tot t{w.gath[0], w.gath[1], w.gath[2] != 0.0f};
+    for (int r = 1; r < w.s.B; ++r) {
+        t.plaq = t.plaq + w.gath[3 * r];
+        t.dnorm = nan_max(t.dnorm, w.gath[3 * r + 1]);
+        t.bad |= w.gath[3 * r + 2] != 0.0f;
+    }
+    return t;
+}
+
+// run_frame() on the cluster: the strip's links in place, in shared memory.
+template <int G>
+__device__ FrameOut cl_run_frame(const GaugeParams& p, ClGauge& w, cg::cluster_group& cl,
+                                 uint32_t step0, uint32_t k1, float dtau, float dmax) {
+    constexpr int T = Layout<G>::T;
+    const int L1 = p.L1, n = w.s.n, own = n * L1;
+    const size_t strip = (size_t)(p.cl_rows + 2) * L1;
+    float* up_halo = cl.map_shared_rank(w.L, w.s.up) + (size_t)(w.s.n_up + 1) * L1;
+    float* dn_halo = cl.map_shared_rank(w.L, w.s.dn);
+    FrameOut out{0.0f, dmax, 0};
+    int bad = 0;
+    for (int k = 0; k < p.loops; ++k) {  // cluster-uniform control flow
+        float pl = 0.0f, dn = 0.0f;
+        if (!p.cl_empty)
+            for (int j = threadIdx.x; j < own; j += T) pass1<G>(w.lp, w.L, w.F, L1 + j, pl, dn);
+        const Tot t = cl_reduce<T>(pl, dn, bad, w, cl);
+        if (t.bad) {  // the previous micro-step tripped the chain
+            out.unstable = 1;
+            return out;
+        }
+        out.ps = out.ps + t.plaq * p.inv_vol;
+        out.dmax = nan_max(out.dmax, t.dnorm);
+        const float scale = nan_min(1.0f, p.cap / nan_max(t.dnorm, 1e-30f));
+        const float de = dtau * scale;
+        const float na = sqrtf(2.0f * de);
+        const int mode = (k & 1) ? NOISE_KEPT : (k + 1 < p.loops ? NOISE_DRAW_KEEP : NOISE_DRAW);
+        const uint32_t step = step0 + (uint32_t)(k & ~1);
+        if (!p.cl_empty)
+            for (int j = threadIdx.x; j < own; j += T) {
+                const int i = L1 + j, lr = i / L1;
+                pass2<G, true>(w.lp, w.L, w.F, w.zk, i, mode, k1, step, de, na, bad);
+                if (lr == 1 || lr == n) {  // an edge row: into the neighbours' halo rows
+                    const int c = i - lr * L1;
+                    for (int q = 0; q < Layout<G>::P; ++q) {
+                        const float v = w.L[q * strip + i];
+                        if (lr == 1) up_halo[q * strip + c] = v;
+                        if (lr == n) dn_halo[q * strip + c] = v;
+                    }
+                }
+            }
+        cl.sync();  // new links and halo rows are read as neighbours next
+    }
+    out.unstable = cl_reduce<T>(0.0f, 0.0f, bad, w, cl).bad;
+    return out;
+}
+
+// Kernel 10 at B > 1: gauge_frame_kernel's arguments; force and zk are used
+// only where the geometry keeps F and the noise in global memory.
+template <int G>
+__global__ void __launch_bounds__(Layout<G>::T)
+gauge_frame_cl_kernel(GaugeParams p, const float* __restrict__ links_in,
+                      const float* __restrict__ dmax_in, const float* __restrict__ dtau_in,
+                      float* __restrict__ links_out, float* __restrict__ ps_out,
+                      float* __restrict__ dmax_out, int32_t* __restrict__ unst_out,
+                      float* __restrict__ force, float* __restrict__ zk) {
+    cg::cluster_group cl = cg::this_cluster();
+    const int ch = blockIdx.x / p.cl_B;
+    const size_t V = (size_t)p.L0 * p.L1;
+    ClGauge w = cl_gauge_layout<G>(p, (int)cl.block_rank(), ch, force, zk);
+    cl_gauge_load<G>(p, w, links_in + ch * Layout<G>::P * V);
+    __syncthreads();
+    const uint32_t k1 = (uint32_t)STREAM_FIELD ^ ((uint32_t)ch << 8);
+    const FrameOut fr = cl_run_frame<G>(p, w, cl, p.step0, k1, dtau_in[ch], dmax_in[ch]);
+    cl_gauge_store<G>(p, w, links_out + ch * Layout<G>::P * V);
+    if (w.s.rank == 0 && threadIdx.x == 0) {
+        ps_out[ch] = fr.ps;
+        dmax_out[ch] = fr.dmax;
+        unst_out[ch] = fr.unstable;
+    }
+    cl.sync();  // no block leaves while a peer may still read its slot
+}
+
+// Kernel 11 at B > 1: the accepted links stay in links_out (global), each
+// frame starts from them; gauge_frames_kernel's arguments but the work buffer.
+template <int G>
+__global__ void __launch_bounds__(Layout<G>::T)
+gauge_frames_cl_kernel(GaugeParams p, const float* __restrict__ links_in,
+                       const float* __restrict__ dmax_in, const float* __restrict__ dtau_in,
+                       const float* __restrict__ pm_in, const int64_t* __restrict__ runs_in,
+                       const int32_t* __restrict__ stab_in, float* __restrict__ links_out,
+                       float* __restrict__ dmax_out, float* __restrict__ dtau_out,
+                       float* __restrict__ pm_out, int64_t* __restrict__ runs_out,
+                       int32_t* __restrict__ stab_out, int32_t* __restrict__ hist_stable,
+                       float* __restrict__ hist_dtau, float* __restrict__ hist_dmax,
+                       float* __restrict__ force, float* __restrict__ zk) {
+    cg::cluster_group cl = cg::this_cluster();
+    const int ch = blockIdx.x / p.cl_B, C = p.n_chains;
+    const size_t V = (size_t)p.L0 * p.L1;
+    ClGauge w = cl_gauge_layout<G>(p, (int)cl.block_rank(), ch, force, zk);
+    const bool lead = w.s.rank == 0 && threadIdx.x == 0;
+    float* A = links_out + ch * Layout<G>::P * V;  // the accepted links
+    {
+        const float* src = links_in + ch * Layout<G>::P * V;
+        const size_t at = (size_t)w.s.r0 * p.L1;
+        const int own = w.s.n * p.L1;
+        for (int q = 0; q < Layout<G>::P; ++q)
+            for (int j = threadIdx.x; j < own; j += Layout<G>::T)
+                A[q * V + at + j] = src[q * V + at + j];
+    }
+    float dmax = dmax_in[ch], dtau = dtau_in[ch], pm = pm_in[ch];
+    uint32_t lo = (uint32_t)runs_in[2 * ch], hi = (uint32_t)runs_in[2 * ch + 1];
+    int32_t stab = stab_in[ch];
+    const uint32_t loops_u = (uint32_t)p.loops;
+    const uint32_t k1 = (uint32_t)STREAM_FIELD ^ ((uint32_t)ch << 8);
+
+    for (int j = 0; j < p.n_frames; ++j) {
+        __threadfence();
+        cl.sync();  // every rank's accepted rows are in links_out; no peer reads our strip
+        cl_gauge_load<G>(p, w, A);
+        __syncthreads();
+        const FrameOut fr = cl_run_frame<G>(p, w, cl, p.step0 + (uint32_t)j * loops_u, k1,
+                                            dtau, dmax);
+        // epilogue: gauge_frames_kernel's, expression for expression
+        const bool accept = !fr.unstable;
+        const uint32_t lo_n = lo + loops_u;
+        const uint32_t hi_n = hi + (lo_n < lo ? 1u : 0u);
+        const float n_new = __uint2float_rn(hi_n) * 4294967296.0f + __uint2float_rn(lo_n);
+        const float wgt = p.loops_f / n_new;
+        if (accept) {
+            pm = pm + (fr.ps * p.inv_loops - pm) * wgt;
+            dmax = fr.dmax;
+            cl_gauge_store<G>(p, w, A);
+            lo = lo_n;
+            hi = hi_n;
+        }
+        const bool grow = accept && stab >= p.grow_after;
+        float dt = grow ? dtau / p.shrink : (accept ? dtau : dtau * p.shrink);
+        if (p.has_dtau_max) dt = fminf(dt, p.dtau_max);
+        dtau = dt;
+        stab = accept ? (stab >= p.grow_after ? 0 : stab + 1) : 0;
+        if (lead) {
+            hist_stable[(size_t)j * C + ch] = accept ? 1 : 0;
+            hist_dtau[(size_t)j * C + ch] = dtau;
+            hist_dmax[(size_t)j * C + ch] = fr.dmax;
+        }
+    }
+    if (lead) {
+        dmax_out[ch] = dmax;
+        dtau_out[ch] = dtau;
+        pm_out[ch] = pm;
+        runs_out[2 * ch] = (int64_t)lo;
+        runs_out[2 * ch + 1] = (int64_t)hi;
+        stab_out[ch] = stab;
+    }
+    cl.sync();  // no block leaves while a peer may still read its slot
+}
+
 // ---- C entry points (loaded with ctypes) ----------------------------------
 
 static bool valid_gauge_launch(const GaugeParams& p) {
+    const int B = p.cl_B;
+    const bool cluster = B == 1 || ((B == 2 || B == 4 || B == 8 || B == 16) && B <= p.L0 &&
+                                    p.cl_rows == (p.L0 + B - 1) / B &&
+                                    (p.cl_scratch == 0 || p.cl_scratch == 1));
     return p.n_chains > 0 && p.n_chains <= 65535 && p.L0 >= 1 && p.L1 >= 1 &&
            (long long)p.L0 * p.L1 <= (1LL << 24) && p.loops >= 1 && p.group >= GROUP_U1 &&
-           p.group <= GROUP_SU3;
+           p.group <= GROUP_SU3 && cluster;
 }
 
 #define SQ_GAUGE_DISPATCH(KERNEL, ...)                                                     \
@@ -752,11 +1022,26 @@ static bool valid_gauge_launch(const GaugeParams& p) {
             KERNEL<GROUP_SU3><<<p->n_chains, Layout<GROUP_SU3>::T, 0, st>>>(*p, __VA_ARGS__); \
     } while (0)
 
+// B > 1: n_chains clusters of B blocks; returns the launch's error.
+#define SQ_GAUGE_CL_LAUNCH(KERNEL, G, ...)                                                 \
+    return (int)launch_cluster(KERNEL<G>, p->n_chains, Layout<G>::T,                       \
+                               gauge_cl_floats<G>(*p) * sizeof(float), p->cl_B,            \
+                               (cudaStream_t)stream, *p, __VA_ARGS__)
+#define SQ_GAUGE_CL_DISPATCH(KERNEL, ...)                                                  \
+    do {                                                                                   \
+        if (p->group == GROUP_U1) SQ_GAUGE_CL_LAUNCH(KERNEL, GROUP_U1, __VA_ARGS__);       \
+        if (p->group == GROUP_SU2) SQ_GAUGE_CL_LAUNCH(KERNEL, GROUP_SU2, __VA_ARGS__);     \
+        SQ_GAUGE_CL_LAUNCH(KERNEL, GROUP_SU3, __VA_ARGS__);                                \
+    } while (0)
+
 extern "C" int sq_gauge_frame(const GaugeParams* p, const float* links_in, const float* dmax_in,
                               const float* dtau_in, float* links_out, float* ps_out,
                               float* dmax_out, int32_t* unst_out, float* force, float* zk,
                               void* stream) {
     if (!valid_gauge_launch(*p)) return (int)cudaErrorInvalidValue;
+    if (p->cl_B > 1)
+        SQ_GAUGE_CL_DISPATCH(gauge_frame_cl_kernel, links_in, dmax_in, dtau_in, links_out, ps_out,
+                             dmax_out, unst_out, force, zk);
     SQ_GAUGE_DISPATCH(gauge_frame_kernel, links_in, dmax_in, dtau_in, links_out, ps_out,
                       dmax_out, unst_out, force, zk);
     return (int)cudaGetLastError();
@@ -770,6 +1055,10 @@ extern "C" int sq_gauge_frames(const GaugeParams* p, const float* links_in,
                                int32_t* hist_stable, float* hist_dtau, float* hist_dmax,
                                float* work, float* force, float* zk, void* stream) {
     if (!valid_gauge_launch(*p) || p->n_frames < 1) return (int)cudaErrorInvalidValue;
+    if (p->cl_B > 1)
+        SQ_GAUGE_CL_DISPATCH(gauge_frames_cl_kernel, links_in, dmax_in, dtau_in, pm_in, runs_in,
+                             stab_in, links_out, dmax_out, dtau_out, pm_out, runs_out, stab_out,
+                             hist_stable, hist_dtau, hist_dmax, force, zk);
     SQ_GAUGE_DISPATCH(gauge_frames_kernel, links_in, dmax_in, dtau_in, pm_in, runs_in, stab_in,
                       links_out, dmax_out, dtau_out, pm_out, runs_out, stab_out, hist_stable,
                       hist_dtau, hist_dmax, work, force, zk);
@@ -783,8 +1072,30 @@ extern "C" int sq_gauge_chunk(const GaugeParams* p, const float* ext_in, const f
     const bool ok = valid_gauge_launch(*p) && p->W >= 2 && p->W % 2 == 0 && p->H >= 0 &&
                     p->loc0 >= 1 && p->L0 == p->loc0 + 2 * p->H && p->L0g >= 1 &&
                     (long long)p->L0g * p->L1 <= (1LL << 24);
-    if (!ok) return (int)cudaErrorInvalidValue;
+    if (!ok || p->cl_B != 1) return (int)cudaErrorInvalidValue;
     SQ_GAUGE_DISPATCH(gauge_chunk_kernel, ext_in, dtau_in, work, owned_out, ps_out, dmax_out,
                       bad_out, cap_out, force, zk);
     return (int)cudaGetLastError();
+}
+
+// Chains of kernel 10 (multi = 0) or 11 (multi = 1) the card runs at once in
+// the geometry of p (cl_B, cl_rows, cl_scratch): resident clusters of cl_B
+// blocks, or at cl_B = 1 resident blocks.  The geometry rule's occupancy answer.
+template <int G>
+static cudaError_t gauge_resident(const GaugeParams& p, int multi, int* out) {
+    constexpr int T = Layout<G>::T;
+    if (p.cl_B == 1)
+        return multi ? resident_blocks(gauge_frames_kernel<G>, T, out)
+                     : resident_blocks(gauge_frame_kernel<G>, T, out);
+    const size_t smem = gauge_cl_floats<G>(p) * sizeof(float);
+    return multi ? resident_clusters(gauge_frames_cl_kernel<G>, T, smem, p.cl_B, out)
+                 : resident_clusters(gauge_frame_cl_kernel<G>, T, smem, p.cl_B, out);
+}
+
+extern "C" int sq_gauge_resident(const GaugeParams* p, int multi, int* out) {
+    *out = 0;
+    if (!valid_gauge_launch(*p)) return (int)cudaErrorInvalidValue;
+    if (p->group == GROUP_U1) return (int)gauge_resident<GROUP_U1>(*p, multi, out);
+    if (p->group == GROUP_SU2) return (int)gauge_resident<GROUP_SU2>(*p, multi, out);
+    return (int)gauge_resident<GROUP_SU3>(*p, multi, out);
 }

@@ -21,6 +21,12 @@ plain integer attribute, ``field_frame.launches`` and
 (``rng_impl='hardware'``) are counted on their own as well, in
 ``field_frame.launches_hw`` and ``field_frames_multi.launches_hw``.
 
+Each launch runs a chain on a thread-block cluster of B blocks, each holding
+a strip of rows in shared memory, or at B = 1 on one block with the field in
+global memory: :func:`cluster_geometry` picks B (``_cluster`` has the rule);
+the wrappers keep the last launch's geometry in ``field_frame.geometry`` and
+``field_frames_multi.geometry``.
+
 ``rng_impl='hardware'`` selects each kernel's Philox-4x32-10 variant — the
 counterpart of the Pallas kernels' on-core generator branch — and, on CPU
 tensors, the plain versions' Philox stream; see ``csrc/field_kernel.cu`` for
@@ -38,9 +44,11 @@ from stochquant_tpu_torch.config import FieldConfig, Scheme, Sweep
 from stochquant_tpu_torch.integrators import field as field_mod
 from stochquant_tpu_torch.integrators.field import FieldFrameSums, FieldState
 from stochquant_tpu_torch.integrators.langevin import host_step, stack_metrics
-from stochquant_tpu_torch.kernels import _build
+from stochquant_tpu_torch.kernels import _build, _cluster
 
 __all__ = [
+    "cluster_candidates",
+    "cluster_geometry",
     "field_frame",
     "field_frame_ref",
     "field_frames_multi",
@@ -117,7 +125,44 @@ def kernel_params(shape, action: FieldAction, cfg: FieldConfig, *, step0: int,
         c_amp=f32(cfg.noise_amp), clamp=f32(cfg.clamp), shrink=f32(cfg.shrink),
         dtau_max=f32(cfg.dtau_max if cfg.dtau_max is not None else 0.0),
         inv_loops=f32(1.0 / cfg.loops), loops_f=f32(cfg.loops), inv_l1=f32(1.0 / L1 if L1 else 0.0),
+        cl_B=1, cl_rows=L0,
     )
+
+
+def cluster_candidates(shape, noise_planes: int) -> list:
+    """B = 1 and every B ≤ L0 whose two strips of a (L0, L1) lattice fit one
+    block, the kept noise (``noise_planes`` planes, :func:`noise_planes`) in
+    shared memory where it fits too (``_cluster.candidates``)."""
+    L0, L1 = shape
+    return _cluster.candidates(
+        L0, lambda rows, scratch: _cluster.field_smem_floats(rows, L1, noise_planes, scratch))
+
+
+#: counted operations of one site update of kernels 3 and 4 (the 2-D stencil,
+#: update, detector and observables, half a Threefry-20 pair and its
+#: Box-Muller: chip_smoke.py's bound)
+SITE_OPS = 116
+
+
+def cluster_geometry(n_chains: int, shape, noise_planes: int, resident) -> _cluster.Geometry:
+    """The geometry of kernels 3 and 4 for ``n_chains`` chains of a (L0, L1)
+    lattice: ``_cluster.choose``'s least cost among :func:`cluster_candidates`.
+    ``resident(g)`` is how many chains the card runs at once in geometry g
+    (on the card: ``cudaOccupancyMaxActiveClusters``)."""
+    return _cluster.choose(n_chains, cluster_candidates(shape, noise_planes), resident,
+                           _cluster.overhead_rows(SITE_OPS, shape[1]))
+
+
+def _geometry(params, cfg: FieldConfig, multi: bool, dev) -> _cluster.Geometry:
+    """This launch's geometry (the one ``_cluster.forced`` pins, else the
+    rule's), written into ``params``."""
+    shape, npl = (params.L0, params.L1), noise_planes(cfg)
+    key = (shape, params.philox, params.rounds)
+    g = _cluster.forced_geometry(cluster_candidates(shape, npl)) or cluster_geometry(
+        params.n_chains, shape, npl,
+        lambda g: _cluster.resident_on_card("sq_field_resident", params, g, multi, dev, key))
+    _cluster.apply(params, g)
+    return g
 
 
 def check_cuda_state(state: FieldState) -> None:
@@ -165,20 +210,35 @@ def field_frame(state: FieldState, action: FieldAction, cfg: FieldConfig,
     params = kernel_params((C, L0, L1), action, cfg, step0=int(state.step),
                            chain_offset=chain_offset, philox=philox(cfg))
     dev = state.phi.device
+    g = _geometry(params, cfg, False, dev)
     empty = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
     phi, sums, cs = empty((C, L0, L1)), empty((6, C)), empty((C, L0))
     lrg, unst = empty((C,)), empty((C,), torch.int32)
-    work, zk, slices = empty((C, L0, L1)), empty((noise_planes(cfg), C, L0, L1)), empty((C, L0))
+    work, zk, slices = _scratch(empty, g, cfg, (C, L0, L1), 1)
     _build.launch("sq_field_frame", params,
                   (state.phi, state.lrg_vl, state.dtau, phi, sums, cs, lrg, unst, work, zk,
                    slices), dev)
     field_frame.launches += 1
     field_frame.launches_hw += philox(cfg)
+    field_frame.geometry = g
     return FieldFrameSums(phi, *sums.unbind(0), cs, lrg, unst != 0)
 
 
 field_frame.launches = 0
 field_frame.launches_hw = 0
+field_frame.geometry = None
+
+
+def _scratch(empty, g: _cluster.Geometry, cfg: FieldConfig, shape, n_work: int):
+    """(work, kept noise, slice means) scratch of a launch: at B = 1 the global
+    buffers of the one-block body; at B > 1 shared memory holds the field and
+    the slice means, and the kept noise unless it lives in global memory."""
+    C, L0, L1 = shape
+    noise = (noise_planes(cfg), C, L0, L1)
+    if g.B == 1:
+        return empty((n_work, C, L0, L1)), empty(noise), empty((C, L0))
+    one = empty((1,))
+    return one, one if g.scratch_in_smem else empty(noise), one
 
 
 # ---------------------------------------------------------------------------
@@ -219,8 +279,9 @@ def field_frames_multi(state: FieldState, action: FieldAction, cfg: FieldConfig,
     phi, lrg, dtau, means = empty((C, L0, L1)), empty((C,)), empty((C,)), empty((6, C))
     cm, runs, stab = empty((C, L0)), empty((C, 2), torch.int64), empty((C,), torch.int32)
     hist_stable, hist_dtau, hist_lrg = empty((K, C), torch.int32), empty((K, C)), empty((K, C))
-    work, zk = empty((2, C, L0, L1)), empty((noise_planes(cfg), C, L0, L1))
-    slices, cs = empty((C, L0)), empty((C, L0))
+    g = _geometry(params, cfg, True, dev)
+    work, zk, slices = _scratch(empty, g, cfg, (C, L0, L1), 2)
+    cs = empty((C, L0))
     _build.launch(
         "sq_field_frames", params,
         (state.phi, state.lrg_vl, state.dtau, means_in, state.corr_mean, state.runs,
@@ -230,6 +291,7 @@ def field_frames_multi(state: FieldState, action: FieldAction, cfg: FieldConfig,
     )
     field_frames_multi.launches += 1
     field_frames_multi.launches_hw += philox(cfg)
+    field_frames_multi.geometry = g
     new = FieldState(phi, *means.unbind(0), cm, runs, dtau, stab, lrg,
                      host_step(int(state.step) + cfg.loops * K))
     return new, {"stable": hist_stable != 0, "dtau": hist_dtau, "max_phi": hist_lrg}
@@ -237,6 +299,7 @@ def field_frames_multi(state: FieldState, action: FieldAction, cfg: FieldConfig,
 
 field_frames_multi.launches = 0
 field_frames_multi.launches_hw = 0
+field_frames_multi.geometry = None
 
 
 # ---------------------------------------------------------------------------

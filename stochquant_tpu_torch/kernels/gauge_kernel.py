@@ -23,6 +23,13 @@ U(1) (direction μ), 8 for SU(2) (plane 2c + μ for quaternion component c)
 and 36 for SU(3) (plane 18μ + 2(3r + c) + {re, im}), the state layout of the
 first two and a transposition of SU(3)'s complex64 matrices.
 
+Kernels 10 and 11 run a chain on a thread-block cluster of B blocks, each
+holding a strip of rows of every link plane in shared memory, or at B = 1 on
+one block with the links in global memory: :func:`cluster_geometry` picks B
+(``_cluster`` has the rule); the wrappers keep the last launch's geometry in
+``gauge_frame.geometry`` and ``gauge_frames_multi.geometry``.  Kernel 12 runs
+one block per chain.
+
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel on PyTorch's current stream, or raises — it never falls
 back.  Each wrapper counts its kernel launches in a plain integer
@@ -47,9 +54,11 @@ from stochquant_tpu_torch.actions.gauge import SU2Wilson, SU3Wilson, U1Wilson
 from stochquant_tpu_torch.integrators import gauge as gauge_mod
 from stochquant_tpu_torch.integrators.gauge import GaugeConfig, GaugeFrameSums, GaugeState
 from stochquant_tpu_torch.integrators.langevin import host_step
-from stochquant_tpu_torch.kernels import _build
+from stochquant_tpu_torch.kernels import _build, _cluster
 
 __all__ = [
+    "cluster_candidates",
+    "cluster_geometry",
     "supports",
     "unsupported_reason",
     "gauge_frame",
@@ -150,8 +159,55 @@ def kernel_params(action, cfg: GaugeConfig, *, step0: int,
         coef=f32(coef), cap=f32(cfg.drift_cap), clip_hi=f32(1.0 - 1e-6),
         inv_vol=f32(1.0 / (L0 * L1)), shrink=f32(cfg.shrink),
         dtau_max=f32(cfg.dtau_max if cfg.dtau_max is not None else 0.0),
-        inv_loops=f32(1.0 / cfg.loops), loops_f=f32(cfg.loops),
+        inv_loops=f32(1.0 / cfg.loops), loops_f=f32(cfg.loops), cl_B=1, cl_rows=L0,
     )
+
+
+def cluster_candidates(shape, group: int) -> list:
+    """B = 1 and every B ≤ L0 whose strip of link planes of a (L0, L1) lattice
+    of ``group`` (0 u1, 1 su2, 2 su3) fits one block, F and the kept noise in
+    shared memory where they fit too (``_cluster.candidates``)."""
+    L0, L1 = shape
+    _, P, NP, FP = next(v for v in _GROUPS.values() if v[0] == group)
+    return _cluster.candidates(
+        L0, lambda rows, scratch: _cluster.gauge_smem_floats(rows, L1, P, FP, NP, scratch))
+
+
+#: counted operations of one site's update (both links) of kernels 10 and 11
+#: per group, noise included (chip_smoke.py's bound)
+SITE_OPS = (181, 934, 7274)
+
+
+def cluster_geometry(n_chains: int, shape, group: int, resident) -> _cluster.Geometry:
+    """The geometry of kernels 10 and 11 for ``n_chains`` chains of a (L0, L1)
+    lattice of ``group``: ``_cluster.choose``'s least cost among
+    :func:`cluster_candidates`.  ``resident(g)`` is how many chains the card
+    runs at once in geometry g (on the card: ``cudaOccupancyMaxActiveClusters``)."""
+    return _cluster.choose(n_chains, cluster_candidates(shape, group), resident,
+                           _cluster.overhead_rows(SITE_OPS[group], shape[1]))
+
+
+def _geometry(params, multi: bool, dev) -> _cluster.Geometry:
+    """This launch's geometry (the one ``_cluster.forced`` pins, else the
+    rule's), written into ``params``."""
+    shape, group = (params.L0, params.L1), params.group
+    g = _cluster.forced_geometry(cluster_candidates(shape, group)) or cluster_geometry(
+        params.n_chains, shape, group,
+        lambda g: _cluster.resident_on_card("sq_gauge_resident", params, g, multi, dev,
+                                            (shape, group)))
+    _cluster.apply(params, g)
+    return g
+
+
+def _scratch(empty, g: _cluster.Geometry, C: int, FP: int, NP: int, L0: int, L1: int):
+    """(force, kept noise) buffers of a launch: at B = 1 (C, planes, L0, L1);
+    at B > 1 a strip's planes of rows + 2 rows a block, (C, B, planes, rows +
+    2, L1), unless shared memory holds them."""
+    if g.B == 1:
+        return empty((C, FP, L0, L1)), empty((C, NP, L0, L1))
+    if g.scratch_in_smem:
+        return empty((1,)), empty((1,))
+    return empty((C, g.B, FP, g.rows + 2, L1)), empty((C, g.B, NP, g.rows + 2, L1))
 
 
 def check_cuda_state(state: GaugeState, action, cfg: GaugeConfig) -> None:
@@ -201,11 +257,14 @@ def gauge_frame_sums(state: GaugeState, action, cfg: GaugeConfig) -> GaugeFrameS
     L0, L1 = cfg.shape
     empty = _empty(state.links.device)
     links, ps, dmax, unst = empty((C, P, L0, L1)), empty((C,)), empty((C,)), empty((C,), torch.int32)
-    force, zk = empty((C, FP, L0, L1)), empty((C, NP, L0, L1))
-    _build.launch("sq_gauge_frame", kernel_params(action, cfg, step0=int(state.step)),
+    params = kernel_params(action, cfg, step0=int(state.step))
+    g = _geometry(params, False, state.links.device)
+    force, zk = _scratch(empty, g, C, FP, NP, L0, L1)
+    _build.launch("sq_gauge_frame", params,
                   (links_to_planes(state.links, action), state.drift_max, state.dtau, links, ps,
                    dmax, unst, force, zk), state.links.device)
     gauge_frame.launches += 1
+    gauge_frame.geometry = g
     return GaugeFrameSums(planes_to_links(links, action), ps, dmax, unst != 0)
 
 
@@ -216,6 +275,7 @@ def gauge_frame(state: GaugeState, action, cfg: GaugeConfig):
 
 
 gauge_frame.launches = 0
+gauge_frame.geometry = None
 
 
 # ---------------------------------------------------------------------------
@@ -246,15 +306,19 @@ def gauge_frames_multi(state: GaugeState, action, cfg: GaugeConfig, K: int):
     links, dmax, dtau, pm = empty((C, P, L0, L1)), empty((C,)), empty((C,)), empty((C,))
     runs, stab = empty((C, 2), torch.int64), empty((C,), torch.int32)
     h_stable, h_dtau, h_dmax = empty((K, C), torch.int32), empty((K, C)), empty((K, C))
-    work, force, zk = empty((C, P, L0, L1)), empty((C, FP, L0, L1)), empty((C, NP, L0, L1))
+    params = kernel_params(action, cfg, step0=int(state.step), n_frames=K)
+    g = _geometry(params, True, state.links.device)
+    work = empty((C, P, L0, L1)) if g.B == 1 else empty((1,))
+    force, zk = _scratch(empty, g, C, FP, NP, L0, L1)
     _build.launch(
-        "sq_gauge_frames", kernel_params(action, cfg, step0=int(state.step), n_frames=K),
+        "sq_gauge_frames", params,
         (links_to_planes(state.links, action), state.drift_max, state.dtau, state.plaq_mean,
          state.runs, state.stab_cnt, links, dmax, dtau, pm, runs, stab, h_stable, h_dtau, h_dmax,
          work, force, zk),
         state.links.device,
     )
     gauge_frames_multi.launches += 1
+    gauge_frames_multi.geometry = g
     new = GaugeState(planes_to_links(links, action), pm, dmax, runs, dtau, stab,
                      host_step(int(state.step) + cfg.loops * K))
     return new, {"stable": h_stable != 0, "dtau": h_dtau, "drift_max": h_dmax,
@@ -262,6 +326,7 @@ def gauge_frames_multi(state: GaugeState, action, cfg: GaugeConfig, K: int):
 
 
 gauge_frames_multi.launches = 0
+gauge_frames_multi.geometry = None
 
 
 # ---------------------------------------------------------------------------

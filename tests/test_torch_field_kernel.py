@@ -108,9 +108,9 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
 
 
 def test_kernel_parameters_mirror_the_cuda_struct():
-    # 14 four-byte integer fields, 3 unsigned and 13 floats, in the order of
-    # csrc/field_common.cuh
-    assert ctypes.sizeof(_build.FieldParams) == 30 * 4
+    # 14 four-byte integer fields, 3 unsigned, 13 floats and kernels 3 and 4's
+    # 4 cluster-geometry integers, in the order of csrc/field_common.cuh
+    assert ctypes.sizeof(_build.FieldParams) == 34 * 4
     src = (_build._CSRC / "field_common.cuh").read_text()
     start = src.index("struct FieldParams {")
     body = src[start:src.index("};", start)]
@@ -130,6 +130,8 @@ def test_kernel_parameters_mirror_the_cuda_struct():
     assert (p.step0, p.chain0, p.seed, p.tile_rows, p.n_tiles) == (7, 4, 7, 0, 0)
     assert p.m2 == -0.5 and p.hm2 == -0.25 and p.l6 == 0.5 and p.l24 == np.float32(0.125)
     assert p.inv_a2 == 4.0 and p.measure == 0.25 and p.inv_l1 == np.float32(1 / 128)
+    # one block per chain until a launch writes its cluster geometry
+    assert (p.cl_B, p.cl_rows, p.cl_scratch, p.cl_empty) == (1, 8, 0, 0)
     free = fk.kernel_params((1, 4, 4), actions.get_field("free_field", m2=2.0), CFG, step0=1)
     assert (free.action, free.hm2, free.has_dtau_max) == (1, 1.0, 0)
 

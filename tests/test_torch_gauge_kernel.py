@@ -149,8 +149,9 @@ def test_su3_plane_layout():
 
 def test_kernel_parameters_mirror_the_cuda_struct():
     # 8 integer fields, 2 unsigned and 8 floats, then the chunk kernel's 2 unsigned and
-    # 4 integers, in the order of csrc/gauge_kernel.cu
-    assert ctypes.sizeof(_build.GaugeParams) == 24 * 4
+    # 4 integers and kernels 10 and 11's 4 cluster-geometry integers, in the order of
+    # csrc/gauge_kernel.cu
+    assert ctypes.sizeof(_build.GaugeParams) == 28 * 4
     src = (_build._CSRC / "gauge_kernel.cu").read_text()
     start = src.index("struct GaugeParams {")
     body = src[start:src.index("};", start)]
@@ -172,6 +173,7 @@ def test_kernel_parameters_mirror_the_cuda_struct():
         assert p.coef == coef and p.cap == 20.0 and p.inv_vol == np.float32(1 / 128)
         assert p.clip_hi == np.float32(1.0 - 1e-6) and p.dtau_max == 0.5
         assert p.inv_loops == np.float32(0.2) and p.loops_f == 5.0 and p.shrink == np.float32(0.95)
+        assert (p.cl_B, p.cl_rows, p.cl_scratch, p.cl_empty) == (1, 8, 0, 0)
 
 
 def test_unsupported_inputs_raise():
