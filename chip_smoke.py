@@ -10,7 +10,8 @@ non-zero:
    name and ``nvidia-smi``'s name and power limit;
 2. build: compiles the CUDA kernels from ``stochquant_tpu_torch/kernels/csrc``
    (one nvcc per source, in parallel) and prints the build time and nvcc's
-   register, shared-memory and spill report for every kernel;
+   register, shared-memory and spill report for every kernel, then one line
+   each for the entries of kernels 5-8 (registers, stack frame, spills);
 3. chain kernels vs plain: each chain kernel's wrapper against its plain
    PyTorch version on the card, for both Threefry variants, every boundary
    condition, Heun, an odd ``loops`` and a case with rejected frames, then
@@ -39,7 +40,7 @@ non-zero:
    threefry and threefry13, odd ``loops``, rejected frames, Δτ growth capped
    by ``dtau_max`` and shrinking, ``free_field``, strips of unequal rows
    (45 and 29 rows), a chain holding a NaN site that trips beside chains that
-   go on and one starting at ``lrg_vl`` NaN, kernel 5 at two
+   go on and one starting at ``lrg_vl`` NaN, kernel 5 at three
    ``tile_rows`` (which must agree with each other) and with a rejected
    frame; kernels 3 and 4 at every cluster size the geometry rule can pick
    for the case (B = 1 forced among them), each B > 1 bit for bit equal to
@@ -101,8 +102,13 @@ non-zero:
     warp, a chain holding a NaN site and a chain that trips (both rejected),
     W = 2, W = 4 and a W = 4 chunk with a W = 2 tail, the chunk path's
     trajectory equal to the pair path's, and kernel 7 on blocks split in one
-    and in two dims away from the origin (2-D, 3-D and 4-D).  Limits as in
-    6, the per-block sums and the slice sums held as means;
+    and in two dims away from the origin (2-D, 3-D and 4-D); then the edges of
+    the cooperative work split: 300 chains of 8^4 (more work items than the
+    card holds blocks, a part-filled last round), W = 8 synchronous on a 4-D
+    block, W = 4 and 8 checkerboard on 4-D and 2-D blocks, a split in the last
+    dim, a NaN site beside chains that go on, each block equal to the whole
+    lattice there bit for bit.  Limits as in 6, the per-block sums and the
+    slice sums held as means;
 14. D-dim main path: ``cli run --preset phi4_4d --chains 4 --loops 20`` at
     the preset's 32⁴ (one burn-in frame, 3 frames, ``--resume`` for one
     more, and an uninterrupted 4-frame run: bitwise equal; finite
@@ -393,6 +399,23 @@ def log(msg: str) -> None:
     if LOG_FILE is not None:
         LOG_FILE.write(msg + "\n")
         LOG_FILE.flush()
+
+
+def resource_summary(nvcc_log: str, names) -> list:
+    """One line per compiled entry whose name holds one of ``names``: its
+    registers, stack frame and spills, from nvcc's --resource-usage report."""
+    out, entry, frame = [], None, ""
+    for line in nvcc_log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else None
+            entry = entry if entry and any(n in entry for n in names) else None
+            frame = ""
+        elif entry and "spill" in line:
+            frame = line.split(":", 1)[-1].strip()
+        elif entry and "Used" in line:
+            out.append(f"{entry}: {line.split(':', 1)[-1].strip()}; {frame}")
+            entry = None
+    return out
 
 
 def card_line() -> str:
@@ -951,12 +974,14 @@ def phase_field_gate(torch, fk, ft, field, actions, cfgmod, device) -> None:
             continue
         t = min(8, cfg.shape[0] // 2)
         runs = {}
-        for tile_rows in (t, 2 * t):
+        heights = [h for h in (t // 2, t, 2 * t) if h and cfg.shape[0] % h == 0]
+        for tile_rows in heights:
             runs[tile_rows] = ft.run_field_frames_tiled(s0, act, cfg, n, tile_rows=tile_rows)
             gate(f"{name} field_pair tile_rows={tile_rows} x{n} frames", runs[tile_rows],
                        ft.run_field_frames_tiled(s0, act, cfg, n, tile_rows=tile_rows,
                                                  pair=ft.field_pair_ref))
-        gate(f"{name} field_pair tile_rows={t} vs {2 * t}", runs[t], runs[2 * t])
+        for h in heights[1:]:
+            gate(f"{name} field_pair tile_rows={heights[0]} vs {h}", runs[heights[0]], runs[h])
 
 
 def check_field_records(tmp: Path, part: str) -> None:
@@ -1529,6 +1554,75 @@ def phase_nd_gate(torch, nd, ft, field, actions, cfgmod, device) -> None:
         index = (slice(None),) + tuple(slice(o, o + n) for o, n in zip(off, loc))
         if not torch.equal(got[0], whole[index]):
             raise SystemExit(f"gate case {name}: the block differs from the whole lattice")
+    phase_nd_edges(torch, nd, ft, field, actions, cfgmod, device)
+
+
+def nd_edge_cases(FieldConfig, Sweep):
+    """(name, config, W, split dims, owned block, offsets, chain given a NaN
+    site or None): the edges of the cooperative design of kernels 6-8 --
+    more work items than the card holds blocks (a part-filled last round),
+    W = 2, 4 and 8 under both sweeps, a NaN site beside chains that go on."""
+    cb = dict(sweep=Sweep.CHECKERBOARD)
+    return [
+        ("4d_300_chains_pair", FieldConfig(shape=(8, 8, 8, 8), n_chains=300, seed=3), 2,
+         None, None, None, None),
+        ("4d_split_0_W8_sync", FieldConfig(shape=(32, 8, 8, 8), n_chains=5, seed=3), 8,
+         (True, False, False, False), (16, 8, 8, 8), (16, 0, 0, 0), 2),
+        ("4d_split_01_W4_checkerboard", FieldConfig(shape=(24, 20, 4, 8), n_chains=3, seed=3,
+                                                    **cb), 4,
+         (True, True, False, False), (12, 10, 4, 8), (12, 10, 0, 0), None),
+        ("3d_split_2_W2_checkerboard", FieldConfig(shape=(6, 8, 40), n_chains=4, seed=3, **cb),
+         2, (False, False, True), (6, 8, 20), (0, 0, 20), 1),
+        ("2d_split_0_W8_checkerboard", FieldConfig(shape=(96, 256), n_chains=16, seed=3, **cb),
+         8, (True, False), (48, 256), (48, 0), 7),
+    ]
+
+
+def phase_nd_edges(torch, nd, ft, field, actions, cfgmod, device) -> None:
+    """Kernels 6 and 7 at the edges of their work split (nd_edge_cases):
+    against their plain versions, kernel 7 against the whole lattice, bit
+    for bit in phi; the NaN chain's block NaN, the others' finite.  Then
+    kernel 7 at 32^4 x 8, W = 4, at the rule's tiles and at tile_rows 4."""
+    for name, cfg, W, split, loc, off, nan_chain in nd_edge_cases(cfgmod.FieldConfig,
+                                                                   cfgmod.Sweep):
+        act = actions.get_field(cfg.action)
+        s0 = field.init_field_state(cfg, device=device)
+        phi = s0.phi
+        if nan_chain is not None:
+            phi = phi.clone()
+            phi.view(phi.shape[0], -1)[nan_chain, 7] = float("nan")
+        if split is None:
+            got = nd.field_pair_nd(phi, s0.dtau, act, cfg, 5)
+            gate(f"{name} field_pair_nd ({cfg.n_chains} x {nd._pair_geometry(phi, cfg, None).n_items}"
+                 f" work items)", got, nd.field_pair_nd_ref(phi, s0.dtau, act, cfg, 5))
+            continue
+        ext = extended_block(torch, phi, nd.chunk_halos(cfg, W, split), off, loc)
+        got = nd.field_chunk_nd(ext, s0.dtau, act, cfg, W, split, 5, off, 2)
+        gate(f"{name} field_chunk_nd W={W} block {loc} at {off}", got,
+             nd.field_chunk_nd_ref(ext, s0.dtau, act, cfg, W, split, 5, off, 2))
+        whole = ft.micro_steps(phi, s0.dtau, act, cfg, 5, W, chain_offset=2)[-1][1]
+        index = (slice(None),) + tuple(slice(o, o + n) for o, n in zip(off, loc))
+        if not torch.equal(got[0], whole[index]):
+            raise SystemExit(f"edge case {name}: the block differs from the whole lattice")
+        if nan_chain is not None:
+            bad = torch.isnan(got[0]).flatten(1).any(1)
+            if bool(bad[[c for c in range(cfg.n_chains) if c != nan_chain]].any()):
+                raise SystemExit(f"edge case {name}: a NaN reached a chain that had none")
+    # kernel 7 at its timed 32^4 x 8, W = 4 shape (dim 0 extended periodically;
+    # more work items than resident blocks) at the rule's tiles and at 4-row tiles
+    cfg = cfgmod.FieldConfig(**BENCH_ND, n_chains=8)
+    act = actions.get_field(cfg.action)
+    s0 = field.init_field_state(cfg, device=device)
+    split = (True, False, False, False)
+    halos = nd.chunk_halos(cfg, 4, split)
+    ext = extended_block(torch, s0.phi, halos, (0,) * 4, cfg.shape)
+    for tile in (None, 4):
+        got = nd.field_chunk_nd(ext, s0.dtau, act, cfg, 4, split, 3, tile_rows=tile)
+        want = nd.field_chunk_nd_ref(ext, s0.dtau, act, cfg, 4, split, 3, tile_rows=tile)
+        tiles = nd.resolve_tiles(cfg, cfg.shape, cfg.n_chains, tile, halos)
+        gate(f"32^4x8 field_chunk_nd W=4 tiles {tiles}", got, want)
+        if not torch.equal(got[0], want[0]):
+            raise SystemExit(f"32^4x8 field_chunk_nd W=4 tiles {tiles}: phi not bit for bit")
 
 
 def phase_nd_main_path(torch, nd, cli, checkpoint, actions, tmp: Path):
@@ -1938,7 +2032,7 @@ def phase_split_main_path(torch, mods, tmp: Path):
 
 #: name prefixes of the split runners' own kernels in the profiler's rows
 RUNNER_KERNELS = ("void field_halo_step_kernel", "void gauge_chunk_kernel",
-                  "void field_chunk_nd", "void field_chunk_rdma_nd")
+                  "void field_nd_kernel")  # kernels 7 and 8 share field_nd_kernel
 
 
 def time_runner(torch, out: dict, card: str, key, label, runner, shards, frames, ups, profile):
@@ -2830,7 +2924,10 @@ def main() -> int:
     t0 = time.time()
     _build.library()
     log(f"[2] build: {time.time() - t0:.1f}s into {_build.build_dir()}")
-    log((_build.build_dir() / "nvcc.log").read_text().strip())
+    nvcc_log = (_build.build_dir() / "nvcc.log").read_text().strip()
+    log(nvcc_log)
+    for line in resource_summary(nvcc_log, ("field_pair_kernel", "field_nd_kernel")):
+        log("  " + line)
 
     # 3. chain kernels vs plain on the card
     log("[3] chain kernels vs plain PyTorch version on the card (every float leaf within "

@@ -147,17 +147,18 @@ class FieldNdParams(ctypes.Structure):
     """Launch parameters of the D-dim field kernels 6, 7 and 8, field for field
     the ``FieldNdParams`` struct of ``csrc/field_kernel_nd.cu``: the 2-D
     kernels' ``FieldParams`` (action, noise and launch constants), then the
-    geometry of the input array, the owned block and the blocks' tiles."""
+    geometry of the launch's domain, the owned block and the tiles
+    (``field_kernel_nd.Geometry`` computes every value)."""
 
     _fields_ = [("f", FieldParams)] + [
         (name, ctypes.c_int32) for name in (
-            "nd", "n_steps", "depth", "n_blocks", "ext_sites", "n_inner",
+            "nd", "n_steps", "depth", "n_blocks", "n_inner", "n_items", "box", "avol", "lvol",
         )
     ] + [
         (name, ctypes.c_int32 * ND_MAX_DIMS) for name in (
-            "G", "A", "loc", "ab", "gb", "T", "th", "nt",
+            "G", "A", "loc", "h", "gb", "T", "nl", "ndt", "wrap", "as_", "ls",
         )
-    ]
+    ] + [("gs", ctypes.c_uint32 * ND_MAX_DIMS)]
 
 
 class FieldHaloParams(ctypes.Structure):

@@ -1,8 +1,9 @@
 // What the scalar-field kernels share (field_kernel.cu: kernels 3 and 4;
-// field_kernel_tiled.cu: kernel 5; field_kernel_nd.cu: kernels 6 and 7): the
-// launch parameters, the phi^4 / free field potential, the Euler-Maruyama
-// site update and, for the 2-D kernels, the stencil and a deterministic
-// block reduction (the D-dim kernels have their own of both).
+// field_kernel_tiled.cu: kernel 5; field_kernel_nd.cu: kernels 6, 7 and 8 and
+// the one-step tail; field_halo_kernel.cu: kernel 9): the launch parameters,
+// the phi^4 / free field potential, the Euler-Maruyama site update and, for
+// the 2-D kernels, the stencil and a deterministic block reduction (the D-dim
+// kernels have their own of both).
 //
 // Numerics: every expression keeps the operand order of the JAX integrator
 // (stochquant_tpu/integrators/field.py, actions/phi4.py) and of the plain

@@ -27,16 +27,19 @@ Port of ``stochquant_tpu/kernels/field_kernel_nd.py``:
   one card only: the three slabs must lie on one device.  Plain version:
   :func:`field_chunk_rdma_nd_ref`.
 
-The kernels are CUDA C++ for ``sm_90a`` (``csrc/field_kernel_nd.cu``).  One
-block of threads owns a **tile** of the lattice and recomputes a halo of
-``depth`` sites (the stencil applications of the launch: W for synchronous
-sweeps, 2W for checkerboard half-sweeps) around it in every dim the tile
-does not span, so nothing is exchanged between blocks.  ``cfg.tile_rows``
-keeps its meaning, the dim-0 rows a block owns; the dim-1 extent of a tile is
-this module's own rule (:func:`resolve_tiles`: halve the larger of the two
-until the launch has ``TARGET_BLOCKS`` blocks), and dims ≥ 2 stay whole.  The
-trajectory does not depend on the tiles: noise is keyed by global (chain,
-site, step).
+The kernels are CUDA C++ for ``sm_90a`` (``csrc/field_kernel_nd.cu``): one
+persistent cooperative launch whose blocks stride over work items, a grid
+barrier between two stencil applications (W for synchronous sweeps, 2W for
+checkerboard half-sweeps).  A work item is one chain's tile of the launch's
+**domain** (the lattice, or the block with its array halos); application s
+updates the domain shrunk by s sites in every dim with an array halo, so no
+site is recomputed beyond the exchange halo itself.  ``cfg.tile_rows`` keeps
+its meaning, the dim-0 rows a block owns; the other extents of a tile are
+this module's own rule (:func:`resolve_tiles`).  :class:`Geometry` computes
+every index map the launch parameters carry (tiles of the domain, where an
+item's sites lie at each application, kernel 8's slab rows); the CPU tests
+check them.  The trajectory does not depend on the tiles: noise is keyed by
+global (chain, site, step).
 
 The statistics come per block, ``stats[c, b, 5·w : 5·w + 5]`` = [Σφ, Σφ²,
 Σs, max|det|, max|φ_new|] of micro-step ``w`` over the owned sites of block
@@ -53,6 +56,7 @@ launches its kernel, or raises.  ``field_pair_nd.launches``,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from types import SimpleNamespace
 
@@ -94,15 +98,20 @@ __all__ = [
     "Geometry",
 ]
 
-#: blocks a launch should have before the default tiles stop shrinking (an
-#: H100 has 132 multiprocessors)
-TARGET_BLOCKS = 128
+#: owned tiles a launch should have before the default tiles stop shrinking
+#: (an H100 has 132 multiprocessors and holds a few blocks on each)
+TARGET_BLOCKS = 512
 #: smallest extent the default rule gives a tile in a dim it cuts
 MIN_TILE = 2
 #: threads per block of kernels 6, 7 and 8 (``ND_THREADS`` in the source)
-THREADS = 512
-#: dynamic shared memory a block may take for its slice partial sums
-SMEM_BUDGET = 200 * 1024
+THREADS = 256
+#: rows a 2-D tile keeps while the rule cuts it for more blocks: one per warp
+MIN_ROWS = THREADS // 32
+#: shared memory a block of kernels 6, 7 and 8 may take for its staged box
+#: (a tile and its one-site neighbour layer; the default rule keeps to
+#: ``BOX_BUDGET``, a block may use 227 KB)
+SMEM_BUDGET = 224 * 1024
+BOX_BUDGET = 96 * 1024
 
 
 def stencil_depth(cfg: FieldConfig, n_steps: int) -> int:
@@ -118,15 +127,29 @@ def chunk_halos(cfg: FieldConfig, W: int, split_dims) -> tuple:
     return tuple(depth if s else 0 for s in split_dims)
 
 
-def resolve_tiles(cfg: FieldConfig, loc, n_chains: int, tile_rows=None) -> tuple:
-    """The extents of one block's tile of the owned block ``loc``.
+def box_sites(tiles, shape, halos) -> int:
+    """Sites of the box a block stages for a tile: the tile and one
+    neighbour layer a side, except in a dim the tile spans periodically
+    (no array halo, the whole lattice), where the box wraps."""
+    return math.prod(t if (h == 0 and t == n) else t + 2
+                     for t, n, h in zip(tiles, shape, halos))
 
-    Dim 0: ``tile_rows``, else ``cfg.tile_rows``, else this rule; dim 1: this
-    rule; dims ≥ 2: whole.  The rule starts from the whole extents and halves
-    the larger free one (dim 0 on a tie) while the launch has fewer than
-    ``TARGET_BLOCKS`` blocks and the extent stays even and above
-    ``MIN_TILE``."""
+
+def resolve_tiles(cfg: FieldConfig, loc, n_chains: int, tile_rows=None, halos=None) -> tuple:
+    """The extents of one tile of the owned block ``loc`` (``halos`` per side
+    in the split dims, none by default).
+
+    Dim 0: ``tile_rows``, else ``cfg.tile_rows``, else this rule; the other
+    dims: this rule.  It starts from the whole extents and halves the largest
+    free extent (the lowest dim on a tie) while the launch has fewer than
+    ``TARGET_BLOCKS`` owned tiles or the staged box exceeds ``BOX_BUDGET``,
+    and the extent stays even and above ``MIN_TILE``.  At D = 2 the kernel
+    gives a tile's rows to the warps, the lanes along them: there the last
+    dim stays whole unless the box does not fit otherwise, and a tile keeps
+    at least ``MIN_ROWS`` rows where the launch wants more blocks."""
     loc = tuple(loc)
+    shape = tuple(cfg.shape)
+    halos = tuple(halos) if halos is not None else (0,) * len(loc)
     tiles = list(loc)
     t0 = tile_rows if tile_rows is not None else cfg.tile_rows
     if t0 == 0:
@@ -135,9 +158,19 @@ def resolve_tiles(cfg: FieldConfig, loc, n_chains: int, tile_rows=None) -> tuple
         if t0 < 0 or loc[0] % t0:
             raise ValueError(f"tile_rows={t0} must divide the dim-0 extent {loc[0]}")
         tiles[0] = t0
-    free = [d for d in (0, 1) if d < len(loc) and not (d == 0 and t0)]
-    while n_chains * (loc[0] // tiles[0]) * (loc[1] // tiles[1]) < TARGET_BLOCKS:
+    last = len(loc) - 1
+    rows = len(loc) == 2  # the warps take the tile's rows (the kernel's mapping at D = 2)
+    free = [d for d in range(len(loc)) if not (d == 0 and t0)]
+    while True:
         cand = [d for d in free if tiles[d] % 2 == 0 and tiles[d] > MIN_TILE]
+        lead = [d for d in cand if d < last]
+        if box_sites(tiles, shape, halos) * 4 > BOX_BUDGET:
+            cand = (lead or cand) if rows else cand
+        elif n_chains * math.prod(n // t for n, t in zip(loc, tiles)) < TARGET_BLOCKS:
+            if rows:
+                cand = [d for d in lead if math.prod(tiles[:last]) // 2 >= MIN_ROWS]
+        else:
+            break
         if not cand:
             break
         d = max(cand, key=lambda d: (tiles[d], -d))
@@ -152,10 +185,15 @@ def default_tile_rows(cfg: FieldConfig, n_chains=None) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """Where one launch's blocks sit: the global lattice ``shape``, the owned
-    block ``loc`` whose origin has global coordinates ``offsets``, the
-    ``halos`` the input array carries per side, the ``tiles`` and the
-    stencil ``depth`` of the launch."""
+    """Where one launch's work items sit: the global lattice ``shape``, the
+    owned block ``loc`` whose origin has global coordinates ``offsets``, the
+    ``halos`` the input array (the launch's domain, :attr:`array`) carries
+    per side, the ``tiles`` and the stencil ``depth`` of the launch.
+
+    The domain is cut into tiles aligned to the owned block's origin, so a
+    tile lies wholly in the owned block (a statistics block) or wholly in a
+    halo; per dim ``lead_tiles`` of them precede the owned block and as many
+    follow it.  These are the index maps of ``csrc/field_kernel_nd.cu``."""
 
     shape: tuple
     loc: tuple
@@ -166,13 +204,14 @@ class Geometry:
 
     @property
     def tile_halos(self) -> tuple:
-        """Per dim 0 where a tile spans an unsplit dim (periodic inside the
-        tile), else ``depth`` sites recomputed per side."""
-        return tuple(0 if (h == 0 and t == n) else self.depth
-                     for h, t, n in zip(self.halos, self.tiles, self.loc))
+        """The neighbour layer per side of a staged tile: 0 where the tile
+        spans a dim that carries no halo (the box wraps), else 1."""
+        return tuple(0 if (h == 0 and t == n) else 1
+                     for h, t, n in zip(self.halos, self.tiles, self.shape))
 
     @property
     def ext(self) -> tuple:
+        """Extents of the largest staged box."""
         return tuple(t + 2 * h for t, h in zip(self.tiles, self.tile_halos))
 
     @property
@@ -186,6 +225,47 @@ class Geometry:
     @property
     def n_blocks(self) -> int:
         return math.prod(self.n_tiles)
+
+    @property
+    def lead_tiles(self) -> tuple:
+        """Domain tiles per dim before (and after) the owned block: ceil(h / T)."""
+        return tuple(-(-h // t) for h, t in zip(self.halos, self.tiles))
+
+    @property
+    def item_tiles(self) -> tuple:
+        """Domain tiles per dim: the owned block's and the halos'."""
+        return tuple(n + 2 * m for n, m in zip(self.n_tiles, self.lead_tiles))
+
+    @property
+    def n_items(self) -> int:
+        """Work items per chain."""
+        return math.prod(self.item_tiles)
+
+    def item_box(self, j, s: int):
+        """Per dim (lo, hi) of the domain sites that domain tile ``j`` (per-dim
+        tile indices) updates at stencil application ``s`` (1 … depth): its
+        extent clipped to the domain shrunk by s in every dim with a halo;
+        None when nothing is left."""
+        out = []
+        for jd, m, t, h, a in zip(j, self.lead_tiles, self.tiles, self.halos, self.array):
+            shr = s if h else 0
+            lo = max(h + (jd - m) * t, shr)
+            hi = min(h + (jd - m + 1) * t, a - shr)
+            if hi <= lo:
+                return None
+            out.append((lo, hi))
+        return tuple(out)
+
+    def item_owned(self, j) -> bool:
+        """Whether domain tile ``j`` lies in the owned block."""
+        return all(0 <= jd - m < n for jd, m, n in zip(j, self.lead_tiles, self.n_tiles))
+
+    def slab_row(self, x0: int) -> tuple:
+        """Kernel 8: (slab, row) of domain row ``x0``: slab -1 (the left
+        neighbour's), 0 (its own) or 1 (the right neighbour's)."""
+        H, L0 = self.halos[0], self.loc[0]
+        q = x0 - H
+        return (-1, q + L0) if q < 0 else ((1, q - L0) if q >= L0 else (0, q))
 
     def blocks(self, x: torch.Tensor) -> torch.Tensor:
         """(C, *loc) → (C, n_blocks, sites per tile), blocks in C order."""
@@ -203,6 +283,15 @@ class Geometry:
 
 
 def _geometry(cfg: FieldConfig, loc, halos, offsets, n_steps, n_chains, tile_rows) -> Geometry:
+    return _cached_geometry(cfg, tuple(loc), tuple(halos), tuple(int(o) for o in offsets),
+                            n_steps, n_chains, tile_rows, TARGET_BLOCKS, BOX_BUDGET)
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_geometry(cfg, loc, halos, offsets, n_steps, n_chains, tile_rows, _target,
+                     _budget) -> Geometry:
+    """:func:`_geometry`, once per launch shape (the rule's constants are part
+    of the key, so a changed rule computes anew)."""
     shape = tuple(cfg.shape)
     for d, (n, h, g) in enumerate(zip(loc, halos, shape)):
         if h == 0 and n != g:
@@ -210,12 +299,12 @@ def _geometry(cfg: FieldConfig, loc, halos, offsets, n_steps, n_chains, tile_row
                              f"extent {g}, not {n}")
         if n > g:
             raise ValueError(f"the owned block spans {n} sites of dim {d}, the lattice {g}")
-    tiles = resolve_tiles(cfg, loc, n_chains, tile_rows)
+    tiles = resolve_tiles(cfg, loc, n_chains, tile_rows, halos)
     geo = Geometry(shape, tuple(loc), tuple(halos), tuple(int(o) for o in offsets), tiles,
                    stencil_depth(cfg, n_steps))
-    if geo.tiles[0] * (THREADS // 32) * 4 > SMEM_BUDGET:
-        raise ValueError(f"tile_rows={geo.tiles[0]}: the slice partial sums of so many dim-0 "
-                         f"rows do not fit a block's shared memory; give a smaller tile_rows")
+    if math.prod(geo.ext) * 4 > SMEM_BUDGET:
+        raise ValueError(f"tiles {geo.tiles}: the staged box of {geo.ext} sites does not fit a "
+                         f"block's shared memory; give a smaller tile_rows")
     return geo
 
 
@@ -225,7 +314,7 @@ def check_nd_config(cfg: FieldConfig) -> None:
     if not rng.counter_based(cfg.rng_impl):
         raise ValueError(
             "the D-dim field kernels require counter-based noise (halo sites are "
-            "recomputed redundantly in neighbouring blocks, which only agrees when noise "
+            "recomputed redundantly by neighbouring shards, which only agrees when noise "
             f"is a pure function of (site, step)), not rng_impl={cfg.rng_impl!r}: use "
             "rng_impl='threefry' or 'threefry13'"
         )
@@ -252,7 +341,7 @@ def _block_stats(geo: Geometry, steps) -> torch.Tensor:
 
 
 def _launch(entry: str, geo: Geometry, srcs, dtau, action, cfg, n_steps, step, chain_offset):
-    """Allocate the outputs and per-block scratch of one launch of ``entry``
+    """Allocate the outputs and the domain buffers of one launch of ``entry``
     and launch it on ``srcs``: one (C, *geo.array) array, or kernel 8's three
     (C, *geo.loc) slabs (own, left, right).  Returns (owned block after
     ``n_steps`` micro-steps, slice sums (C, n_steps, L0_loc), stats (C,
@@ -265,26 +354,42 @@ def _launch(entry: str, geo: Geometry, srcs, dtau, action, cfg, n_steps, step, c
     _build.check_leaves(SimpleNamespace(dtau=dtau, **dict(zip(names, srcs))),
                         {**{n: (shape, torch.float32) for n in names},
                          "dtau": ((C,), torch.float32)}, dev)
-    ext_sites = math.prod(geo.ext)
-    if ext_sites >= 1 << 31 or C > 65535:
-        raise ValueError(f"a tile of {geo.ext} sites or {C} chains exceeds the kernel's ranges")
-    params = _build.FieldNdParams()
-    params.f = kernel_params((C,) + geo.shape, action, cfg, step0=step,
-                             chain_offset=chain_offset)
-    n_inner = geo.n_blocks // geo.n_tiles[0]
-    params.nd, params.n_steps, params.depth = len(geo.shape), n_steps, geo.depth
-    params.n_blocks, params.ext_sites, params.n_inner = geo.n_blocks, ext_sites, n_inner
-    for d, th in enumerate(geo.tile_halos):
-        params.G[d], params.A[d], params.loc[d] = geo.shape[d], geo.array[d], geo.loc[d]
-        params.ab[d] = (geo.halos[d] - th) % geo.array[d]
-        params.gb[d] = (geo.offsets[d] - th) % geo.shape[d]
-        params.T[d], params.th[d], params.nt[d] = geo.tiles[d], th, geo.n_tiles[d]
+    params = _build.FieldNdParams.from_buffer_copy(_launch_params(geo, C, action, cfg, n_steps))
+    params.f.step0, params.f.chain0 = rng.u32(int(step)), rng.u32(chain_offset)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
-    out, slp = empty(C, *geo.loc), empty(C, n_steps, geo.loc[0], n_inner)
+    out, slp = empty(C, *geo.loc), empty(C, n_steps, geo.loc[0], params.n_inner)
     stats = empty(C, geo.n_blocks, 5 * n_steps)
-    scratch = empty(3, C * geo.n_blocks * ext_sites)
+    scratch = empty(3, C * params.avol)  # two ping-pong buffers of the domain, the kept noise
     _build.launch(entry, params, (*srcs, dtau, out, slp, stats, *scratch.unbind(0)), dev)
     return out, slp.sum(-1), stats
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_params(geo: Geometry, C: int, action, cfg: FieldConfig,
+                   n_steps: int) -> "_build.FieldNdParams":
+    """The launch parameters of one geometry, counter and chain offset 0
+    (:func:`_launch` sets both on a copy)."""
+    avol = math.prod(geo.array)
+    if avol >= 1 << 31 or C * geo.n_items >= 1 << 31:
+        raise ValueError(f"a domain of {geo.array} sites or {C} x {geo.n_items} work items "
+                         "exceeds the kernel's 32-bit ranges")
+    params = _build.FieldNdParams()
+    params.f = kernel_params((C,) + geo.shape, action, cfg, step0=0)
+    D = len(geo.shape)
+    params.nd, params.n_steps, params.depth = D, n_steps, geo.depth
+    params.n_blocks, params.n_inner = geo.n_blocks, geo.n_blocks // geo.n_tiles[0]
+    params.n_items, params.box = geo.n_items, math.prod(geo.ext)
+    params.avol, params.lvol = avol, math.prod(geo.loc)
+    for d in range(D):
+        params.G[d], params.A[d], params.loc[d] = geo.shape[d], geo.array[d], geo.loc[d]
+        params.h[d], params.T[d] = geo.halos[d], geo.tiles[d]
+        params.gb[d] = (geo.offsets[d] - geo.halos[d]) % geo.shape[d]
+        params.nl[d], params.ndt[d] = geo.lead_tiles[d], geo.item_tiles[d]
+        params.wrap[d] = 1 - geo.tile_halos[d]
+        params.as_[d] = math.prod(geo.array[d + 1:])
+        params.ls[d] = math.prod(geo.loc[d + 1:])
+        params.gs[d] = math.prod(geo.shape[d + 1:])
+    return params
 
 
 # ---------------------------------------------------------------------------

@@ -56,10 +56,16 @@ __all__ = [
 ]
 
 #: dynamic shared memory one block of kernel 5 may take for its two strip
-#: buffers (an H100 block may use 227 KB in all; the rest is the reduction's)
+#: buffers and its slice partials (an H100 block may use 227 KB in all; the
+#: rest is the reduction's)
 SMEM_BUDGET = 224 * 1024
-#: the default strip height is the largest divisor of L0 up to this that fits
+#: the default strip height is a divisor of L0 up to this
 MAX_DEFAULT_TILE_ROWS = 256
+#: warps of a kernel 5 block (``FT_WARPS``)
+WARPS = 32
+#: SMs of the H100 SXM, each running one kernel 5 block at a time (1024
+#: threads at 60 registers fill its register file)
+SMS = 132
 
 
 def halo_depth(cfg: FieldConfig) -> int:
@@ -68,15 +74,49 @@ def halo_depth(cfg: FieldConfig) -> int:
 
 
 def strip_bytes(tile_rows: int, cfg: FieldConfig) -> int:
-    """Shared memory of kernel 5's two extended-strip buffers."""
-    return 2 * (tile_rows + 2 * halo_depth(cfg)) * cfg.shape[1] * 4
+    """Shared memory of kernel 5's two extended-strip buffers and its slice
+    partials (a float per owned row and 32 columns)."""
+    L1 = cfg.shape[1]
+    E = tile_rows + 2 * halo_depth(cfg)
+    return (2 * E * L1 + tile_rows * (-(-L1 // 32))) * 4
+
+
+def strip_cost(tile_rows: int, cfg: FieldConfig) -> int:
+    """The default strip height's figure of merit: waves of blocks (C · L0 /
+    T0 blocks, one an SM at a time) times the sites a thread of a block
+    takes per pass, ceil(E · L1 / 1024).  Taller strips recompute less of
+    their halo; shorter ones give more blocks, and at least one a thread's
+    worth of work."""
+    L0, L1 = cfg.shape
+    blocks = cfg.n_chains * (L0 // tile_rows)
+    E = tile_rows + 2 * halo_depth(cfg)
+    return -(-blocks // SMS) * -(-E * L1 // (32 * WARPS))
+
+
+def strip_units(rows: int, L1: int) -> tuple:
+    """Kernel 5's work split of ``rows`` rows of ``L1`` columns (a pass: the
+    load of the E extended rows, stencil application a's E - 2a rows, the
+    store of the T0 owned rows): (nch, cw, units per warp).  A row is cut into
+    the fewest chunks that give every warp a unit, nch = ceil(32 / rows), at
+    most one per 64 columns, of cw columns (a multiple of 64); unit u = (row u
+    // nch, chunk u % nch) goes to warp u mod 32, whose lane l takes columns
+    chunk·cw + l + 64 k and + 32 below min(L1, (chunk + 1)·cw)."""
+    npair = -(-L1 // 64)
+    nch = min(-(-WARPS // rows), npair)
+    cw = 64 * -(-npair // nch)
+    units = [[] for _ in range(WARPS)]
+    for u in range(rows * nch):
+        units[u % WARPS].append(divmod(u, nch))
+    return nch, cw, units
 
 
 def resolve_tile_rows(cfg: FieldConfig, tile_rows=None) -> int:
     """The strip height: ``tile_rows``, else ``cfg.tile_rows``, else the
-    largest divisor of L0 (up to 256) whose two extended-strip buffers fit
-    ``SMEM_BUDGET``.  Raises if the height does not divide L0, or if no
-    height fits."""
+    divisor of L0 (up to 256) whose two extended-strip buffers fit
+    ``SMEM_BUDGET`` with the least :func:`strip_cost`, the tallest of equal
+    cost (on the H100 at 16 chains: 16 rows at 1024², 32 at 256², the
+    fastest of tools/lattice_kernel_timing.py's sweep under both sweeps).
+    Raises if the height does not divide L0, or if no height fits."""
     L0, L1 = cfg.shape
     t0 = tile_rows or cfg.tile_rows
     if t0:
@@ -89,9 +129,10 @@ def resolve_tile_rows(cfg: FieldConfig, tile_rows=None) -> int:
                 f"a block has {SMEM_BUDGET}"
             )
         return t0
-    for t0 in range(min(L0, MAX_DEFAULT_TILE_ROWS), 0, -1):
-        if L0 % t0 == 0 and strip_bytes(t0, cfg) <= SMEM_BUDGET:
-            return t0
+    fits = [t for t in range(min(L0, MAX_DEFAULT_TILE_ROWS), 0, -1)
+            if L0 % t == 0 and strip_bytes(t, cfg) <= SMEM_BUDGET]
+    if fits:
+        return min(fits, key=lambda t: strip_cost(t, cfg))  # the first of a tie: the tallest
     raise ValueError(
         f"no tile_rows fits: even one row plus its 2x{halo_depth(cfg)}-row halo of {L1} "
         f"floats, twice, exceeds the {SMEM_BUDGET} bytes of shared memory a block has"
@@ -223,7 +264,8 @@ def field_pair(phi: torch.Tensor, dtau: torch.Tensor, action: FieldAction, cfg: 
     params = kernel_params((C, L0, L1), action, cfg, step0=step, tile_rows=tile_rows, halo=H)
     empty = lambda shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
     out, sl0, sl1 = empty((C, L0, L1)), empty((C, L0)), empty((C, L0))
-    stats, zk = empty((C, nt, 10)), empty((C, nt, tile_rows + 2 * H, L1))
+    stats = empty((C, nt, 10))
+    zk = empty((C, nt, tile_rows + 2 * H, L1))  # the kept noise (csrc/field_kernel_tiled.cu)
     _build.launch("sq_field_pair", params, (phi, dtau, out, sl0, sl1, stats, zk), dev)
     field_pair.launches += 1
     return out, sl0, sl1, stats

@@ -154,7 +154,7 @@ def test_cpu_pair_runs_the_plain_version_without_launching():
         assert torch.equal(x, y)
     phi2, sl0, sl1, stats = got
     tiles = nd.resolve_tiles(cfg, cfg.shape, 2, 4)
-    assert tiles == (4, 2, 4, 4) and stats.shape == (2, 2 * 4, 10)
+    assert tiles == (4, 2, 2, 2) and stats.shape == (2, 2 * 4 * 2 * 2, 10)
     assert phi2.shape == (2, 8, 8, 4, 4) and sl0.shape == sl1.shape == (2, 8)
     # per-block Σφ of the first micro-step adds up to the lattice's
     torch.testing.assert_close(stats[:, :, 0].sum(1), s0.phi.sum((1, 2, 3, 4)),
@@ -163,19 +163,20 @@ def test_cpu_pair_runs_the_plain_version_without_launching():
 
 
 @pytest.mark.parametrize("shape,chains,tile_rows,want", [
-    ((32, 32, 32, 32), 1, None, (2, 4, 32, 32)),    # halved until 128 blocks
-    ((32, 32, 32, 32), 8, None, (8, 8, 32, 32)),
-    ((32, 32, 32, 32), 256, None, (32, 32, 32, 32)),  # enough chains: whole lattices
-    ((32, 32, 32, 32), 1, 8, (8, 2, 32, 32)),        # tile_rows fixes dim 0
-    ((8, 8, 4, 4), 2, None, (2, 2, 4, 4)),           # never below 2
-    ((6, 10, 4), 1, None, (3, 5, 4)),                # an odd extent is not halved
+    ((32, 32, 32, 32), 1, None, (4, 8, 8, 8)),      # halved until 512 blocks
+    ((32, 32, 32, 32), 8, None, (8, 8, 8, 16)),
+    ((32, 32, 32, 32), 256, None, (8, 8, 8, 16)),   # enough chains: the box must fit
+    ((32, 32, 32, 32), 1, 8, (8, 4, 8, 8)),         # tile_rows fixes dim 0
+    ((8, 8, 4, 4), 2, None, (2, 2, 2, 2)),          # never below 2
+    ((6, 10, 4), 1, None, (3, 5, 2)),               # an odd extent is not halved
+    ((16, 256), 16, None, (8, 256)),                # a long last dim stays whole, a row a warp
 ])
 def test_default_tiles(shape, chains, tile_rows, want):
     cfg = _mk(shape=shape, n_chains=chains)
     assert nd.resolve_tiles(cfg, shape, chains, tile_rows) == want
     assert nd.default_tile_rows(dataclasses.replace(cfg, tile_rows=tile_rows)) == want[0]
     geo = nd.Geometry(shape, shape, (0,) * len(shape), (0,) * len(shape), want, 2)
-    assert geo.tile_halos == tuple(0 if t == n else 2 for t, n in zip(want, shape))
+    assert geo.tile_halos == tuple(0 if t == n else 1 for t, n in zip(want, shape))
     x = torch.arange(int(np.prod(shape)), dtype=torch.float32).reshape((1,) + shape)
     blocks = geo.blocks(x)
     assert blocks.shape == (1, geo.n_blocks, int(np.prod(want)))

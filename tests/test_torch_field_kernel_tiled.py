@@ -131,9 +131,9 @@ def test_odd_loops_end_in_kernel_6_tail_and_match_jax_xla():
 
 
 def test_default_tile_rows_fit_shared_memory():
-    assert ft.resolve_tile_rows(_mk(shape=(1024, 1024))) == 16
+    assert ft.resolve_tile_rows(_mk(shape=(1024, 1024))) == 8
     assert ft.resolve_tile_rows(_mk(Sweep.CHECKERBOARD, shape=(1024, 1024))) == 16
-    assert ft.resolve_tile_rows(_mk(shape=(256, 256))) == 64
+    assert ft.resolve_tile_rows(_mk(shape=(256, 256))) == 8
     assert ft.resolve_tile_rows(_mk(shape=(16, 16))) == 16
     assert ft.resolve_tile_rows(_mk(shape=(16, 16), tile_rows=4)) == 4
     assert ft.resolve_tile_rows(_mk(shape=(16, 16), tile_rows=4), 8) == 8
