@@ -125,17 +125,23 @@ non-zero:
     of each kernel path, and kernel 6 over several ``tile_rows``.
 
 16. kernel 9 (``field_halo_step``) vs its plain version on small cases that
-    reach every branch: SYNC and both CHECKERBOARD half-sweeps, every set of
-    split dims, non-zero chain, row and column offsets, both Box-Muller
-    outputs, both Threefry variants, extents that are no multiple of the
-    block, strips of several rows, a NaN on an interior site and one on an
-    edge slice.  New φ and the interior maxima within 2e-6, the interior
-    count of non-finite updates exactly, the sums (held as means) as in 6;
+    reach every branch, without halo inputs (the JAX kernel's mode) and with
+    the halo slices of the split dims (the runner's, as strided views of the
+    lattice): SYNC and both CHECKERBOARD half-sweeps, every set of split dims,
+    non-zero chain, row and column offsets, both Box-Muller outputs, both
+    Threefry variants, extents that are no multiple of the block, strips of
+    several rows, a NaN on an interior site, on an edge slice, on a block's
+    last row and in a halo row and column.  New φ and the detector's maxima
+    within 2e-6, its count of non-finite updates exactly, the sums (held as
+    means) as in 6;
 17. kernel 12 (``gauge_chunk``) vs its plain version for U(1), SU(2) and
-    SU(3): W = 2, 4 and 8, a block away from the origin, one whose halo wraps
-    the global lattice, a cap event, and a NaN link in an owned and in a halo
-    row.  The ``bad`` and ``capped`` flags exactly; links and drift max within
-    2e-6; the plaquette sum (held as a mean) as in 6;
+    SU(3) at every cluster size its rule can pick (B = 1 forced among them):
+    W = 2, 4 and 8, a block away from the origin, one whose halo wraps the
+    global lattice, a cap event, a NaN link in an owned and in a halo row,
+    and a chain whose NaN drift in one block meets a cap event in another at
+    the same step (the chain's max is NaN: not capped).  Links and drift max
+    bit for bit the plain version's and B = 1's; the ``bad`` and ``capped``
+    flags exactly; the plaquette sum (held as a mean) as in 6;
 18. the lattice-split main paths at full width through ``runtime.run_field``
     and ``runtime.run_gauge`` with a mesh on the one card (the device twice:
     a lattice that is really cut; and ``bench.py``'s ring of one): field 256²
@@ -155,8 +161,9 @@ non-zero:
 19. lattice-split timings at those shapes: (link-)MLUPS of every backend
     through the runners (median of 3 reps after a warm-up), the device's idle
     share and the kernels' own time per launch under ``torch.profiler``, and
-    kernels 9 and 12 alone (CUDA events) beside their plain versions' wall ms,
-    held against each other.
+    kernels 9 (with its halo rows, as the runner calls it) and 12 (its
+    cluster size printed) alone (CUDA events, each beside the card's SM
+    clock) beside their plain versions' wall ms, held against each other.
 
 20. ``rng_impl='hardware'``: the Philox-4x32-10 variants of kernels 1-4 vs
     their plain versions on every case of 3 (the layout's edges too) and of 6
@@ -219,7 +226,8 @@ range of the card's SM clock, power draw and temperature sampled while it ran.
 
 Prints a JSON line with the numbers of the twelve kernels and the four
 Philox variants (name, route, source, the cluster size B and where the state
-lives for kernels 3, 4, 10 and 11, the
+lives for kernels 3, 4, 10, 11 and 12, the device time per launch of kernels
+8, 9 and 12, the
 TPU kernel it replaces, main-path launches, max|Δ|, ms and plain ms at the
 timed shape, the bound: the least ms the card could take for that launch,
 the resource that binds it, and the ms of one PyTorch call computing the
@@ -467,8 +475,15 @@ class CardSampler:
             log(f"  card during {self.label}: SM clock {mhz[0]:.0f}-{mhz[-1]:.0f} MHz (median "
                 f"{mhz[len(mhz) // 2]:.0f}), power {watts[0]:.1f}-{watts[-1]:.1f} W, "
                 f"{temp[0]:.0f}-{temp[-1]:.0f} C over {len(rows)} samples")
-        else:
-            log(f"  card during {self.label}: no samples")
+        else:  # shorter than a sampling period: one reading just after it
+            try:
+                now = subprocess.run(self.QUERY[:3], capture_output=True, text=True,
+                                     timeout=30).stdout.strip()
+                mhz, watts, temp = (v.strip() for v in now.split(","))
+                log(f"  card just after {self.label} (too short to sample): SM clock {mhz} MHz, "
+                    f"power {watts} W, {temp} C")
+            except (OSError, ValueError, subprocess.TimeoutExpired):
+                log(f"  card during {self.label}: no samples")
         return False
 
 
@@ -1776,51 +1791,84 @@ def halo_step_leaves(out) -> HaloStep:
 
 def halo_step_cases(FieldConfig, Sweep):
     """(name, global config, block shape, (chain, row, column) offsets, split
-    dims, Box-Muller parity, half-sweep, (chain, row, column) of a NaN site or
-    None): small cases for every branch of kernel 9."""
+    dims, Box-Muller parity, half-sweep, [(chain, row, column)] of NaN sites
+    in the global lattice, halo inputs): small cases for every branch of
+    kernel 9, without halo inputs (the JAX kernel's mode) and with the halo
+    slices of every split dim (the runner's)."""
     kw = dict(action="phi4", dtau=0.01, seed=21)
     cb = dict(sweep=Sweep.CHECKERBOARD)
-    return [
-        ("sync_split_0", FieldConfig(shape=(48, 40), n_chains=3, **kw), (24, 40), (3, 24, 0),
-         (True, False), 0, 0, None),
-        ("sync_split_1_threefry13", FieldConfig(shape=(16, 96), n_chains=2,
-                                                rng_impl="threefry13", **kw),
-         (16, 48), (0, 0, 48), (False, True), 1, 0, None),
-        ("sync_split_01_ragged", FieldConfig(shape=(50, 70), n_chains=3, **kw), (25, 35),
-         (7, 25, 35), (True, True), 1, 0, None),
+    cases = []
+    for halos in (False, True):
+        tag = "halos_" if halos else ""
+        cases += [
+            (tag + "sync_split_0", FieldConfig(shape=(48, 40), n_chains=3, **kw), (24, 40),
+             (3, 24, 0), (True, False), 0, 0, [], halos),
+            (tag + "sync_split_1_threefry13", FieldConfig(shape=(16, 96), n_chains=2,
+                                                          rng_impl="threefry13", **kw),
+             (16, 48), (0, 0, 48), (False, True), 1, 0, [], halos),
+            (tag + "sync_split_01_ragged", FieldConfig(shape=(50, 70), n_chains=3, **kw),
+             (25, 35), (7, 25, 35), (True, True), 1, 0, [], halos),
+            (tag + "checkerboard_even_half", FieldConfig(shape=(50, 70), n_chains=3, **cb, **kw),
+             (25, 35), (1, 25, 35), (True, True), 0, 0, [], halos),
+            (tag + "checkerboard_odd_half", FieldConfig(shape=(50, 70), n_chains=3, **cb, **kw),
+             (25, 35), (1, 25, 35), (True, True), 1, 1, [], halos),
+            (tag + "strips_of_4_rows", FieldConfig(shape=(40, 64), n_chains=64, **kw), (20, 64),
+             (64, 20, 0), (True, False), 0, 0, [], halos),
+        ]
+    return cases + [
         ("sync_unsplit_free_field", FieldConfig(**{**kw, "action": "free_field"}, shape=(20, 33),
                                                 n_chains=2), (20, 33), (0, 0, 0),
-         (False, False), 0, 0, None),
-        ("checkerboard_even_half", FieldConfig(shape=(50, 70), n_chains=3, **cb, **kw), (25, 35),
-         (1, 25, 35), (True, True), 0, 0, None),
-        ("checkerboard_odd_half", FieldConfig(shape=(50, 70), n_chains=3, **cb, **kw), (25, 35),
-         (1, 25, 35), (True, True), 1, 1, None),
-        ("strips_of_4_rows", FieldConfig(shape=(40, 64), n_chains=64, **kw), (20, 64),
-         (64, 20, 0), (True, False), 0, 0, None),
+         (False, False), 0, 0, [], False),
         ("nan_interior_site", FieldConfig(shape=(48, 40), n_chains=3, **kw), (24, 40), (0, 24, 0),
-         (True, False), 0, 0, (1, 5, 7)),
+         (True, False), 0, 0, [(1, 29, 7)], False),
         ("nan_edge_slice", FieldConfig(shape=(48, 40), n_chains=3, **kw), (24, 40), (0, 0, 0),
-         (True, False), 1, 0, (2, 0, 9)),
+         (True, False), 1, 0, [(2, 0, 9)], False),
+        # chain 1: a NaN on the block's last row; chain 2: one in the halo row below it
+        ("halos_nan_edge_site_and_halo_row", FieldConfig(shape=(48, 40), n_chains=3, **kw),
+         (24, 40), (0, 24, 0), (True, False), 1, 0, [(1, 47, 3), (2, 23, 9)], True),
+        ("halos_nan_edge_column", FieldConfig(shape=(50, 70), n_chains=3, **cb, **kw), (25, 35),
+         (1, 25, 35), (True, True), 0, 0, [(0, 31, 34), (1, 40, 69)], True),
     ]
 
 
+def block_halos(lattice, offs, loc, split) -> dict:
+    """The halo slices {dim: (below / left, above / right)} of the block at
+    offs of a periodic lattice (C, L0, L1), for the split dims: strided views,
+    as the runner's narrowed slices of its neighbours' blocks are."""
+    _, L0, L1 = lattice.shape
+    r, c = offs[1], offs[2]
+    out = {}
+    if split[0]:
+        out[0] = tuple(lattice[:, x:x + 1, c:c + loc[1]] for x in ((r - 1) % L0, (r + loc[0]) % L0))
+    if split[1]:
+        out[1] = tuple(lattice[:, r:r + loc[0], x:x + 1] for x in ((c - 1) % L1, (c + loc[1]) % L1))
+    return out
+
+
 def phase_halo_step_gate(torch, fh, field, actions, cfgmod, device) -> None:
-    """Kernel 9 against its plain version on the card."""
-    for name, cfg, loc, offs, split, parity, half, nan in halo_step_cases(cfgmod.FieldConfig,
-                                                                          cfgmod.Sweep):
+    """Kernel 9 against its plain version on the card, without and with the
+    halo inputs."""
+    for name, cfg, loc, offs, split, parity, half, nans, with_halos in halo_step_cases(
+            cfgmod.FieldConfig, cfgmod.Sweep):
         act = actions.get_field(cfg.action)
-        s0 = field.init_field_state(cfg, device=device)
-        phi = s0.phi[:, offs[1]:offs[1] + loc[0], offs[2]:offs[2] + loc[1]].contiguous()
-        if nan is not None:
-            phi[nan] = float("nan")
-        args = (phi, s0.dtau, act, cfg, 6, parity, half, offs, split)
-        got, want = fh.field_halo_step(*args), fh.field_halo_step_ref(*args)
+        lattice = field.init_field_state(cfg, device=device).phi.clone()
+        dtau = torch.full((cfg.n_chains,), cfg.dtau, device=device) * (
+            1.0 + 0.1 * torch.arange(cfg.n_chains, device=device))
+        for at in nans:
+            lattice[at] = float("nan")
+        phi = lattice[:, offs[1]:offs[1] + loc[0], offs[2]:offs[2] + loc[1]].contiguous()
+        halos = block_halos(lattice, offs, loc, split) if with_halos else None
+        args = (phi, dtau, act, cfg, 6, parity, half, offs, split)
+        got, want = fh.field_halo_step(*args, halos), fh.field_halo_step_ref(*args, halos)
         gate(f"{name} field_halo_step block {loc} at {offs}", halo_step_leaves(got),
              halo_step_leaves(want))
-        n_bad = want[6]
-        if nan is not None and name == "nan_interior_site" and not (
-                float(n_bad[nan[0]]) >= 1 and float(n_bad.sum()) == float(n_bad[nan[0]])):
-            raise SystemExit(f"gate case {name}: the NaN site was not counted in its chain alone")
+        n_bad = [int(x) for x in want[6].tolist()]
+        expect = {"nan_interior_site": [0, 5, 0], "halos_nan_edge_site_and_halo_row": [0, 4, 1]}
+        if name in expect and n_bad != expect[name]:
+            raise SystemExit(f"gate case {name}: non-finite counts {n_bad}, expected "
+                             f"{expect[name]}")
+        if name == "halos_nan_edge_column" and not (n_bad[0] >= 1 and n_bad[1] >= 1):
+            raise SystemExit(f"gate case {name}: non-finite counts {n_bad}")
 
 
 def gauge_chunk_leaves(out, W: int) -> GaugeChunk:
@@ -1834,10 +1882,43 @@ def extended_planes(torch, planes, row_off: int, loc0: int, H: int):
     return planes.index_select(2, idx).contiguous()
 
 
+def gauge_chunk_at_every_size(torch, gk, label: str, args, W: int):
+    """Kernel 12 at every cluster size its rule can pick for this block (B = 1
+    forced among them): the links and the drift max bit for bit the plain
+    version's (NaN where it has NaN) and the flags exact at each, the
+    plaquette as a mean within the gate; at B > 1 against B = 1 likewise.
+    Returns (the sizes, the plain version's result)."""
+    from stochquant_tpu_torch.kernels import _cluster
+
+    ext, act, cfg = args[0], args[2], args[3]
+    group = gk.kernel_params(act, cfg, step0=0).group
+    sizes = [g.B for g in gk.chunk_candidates(ext.shape[2], ext.shape[3], group, W)]
+    want = gk.gauge_chunk_ref(*args)
+    ref = None
+    for B in sizes:
+        with _cluster.forced(B):
+            got = gk.gauge_chunk(*args)
+        g = gk.gauge_chunk.geometry  # None where no launch ran (CPU tensors)
+        split = f" split={int(gk.chunk_split(g, ext.shape[3], group))}" if g else ""
+        gate(f"{label} B={B}{split}", gauge_chunk_leaves(got, W), gauge_chunk_leaves(want, W))
+        for name, x, y in (("links", got[0], want[0]), ("drift max", got[2], want[2])):
+            nan = torch.isnan(y)
+            if not (torch.equal(torch.isnan(x), nan) and torch.equal(x[~nan], y[~nan])):
+                raise SystemExit(f"{label} B={B}: {name} not bit for bit the plain version's")
+        if ref is None:
+            ref = got
+        else:
+            same_bits(f"{label} B={B}", gauge_chunk_leaves(got, W), gauge_chunk_leaves(ref, W))
+    return sizes, want
+
+
 def phase_gauge_chunk_gate(torch, gk, gauge, device) -> None:
-    """Kernel 12 against its plain version on the card: per group W = 2, 4
-    and 8, a block away from the origin, one whose halo wraps the global
-    lattice, a cap event, and a NaN link in an owned and in a halo row."""
+    """Kernel 12 against its plain version on the card at every cluster size
+    its rule can pick: per group W = 2, 4 and 8, a block away from the
+    origin, one whose halo wraps the global lattice, a cap event, a NaN link
+    in an owned and in a halo row, and a chain whose NaN drift in one block
+    meets a cap event in another at the same step (not capped: the chain's
+    max is NaN)."""
     import dataclasses
 
     for group, beta, dtau in (("u1", 1.0, 5e-3), ("su2", 2.0, 2e-3), ("su3", 5.0, 1e-3)):
@@ -1859,14 +1940,32 @@ def phase_gauge_chunk_gate(torch, gk, gauge, device) -> None:
                 ext[0, 0, W - 1, 3] = float("nan")
                 ext[1, 1, W + 2, 5] = float("nan")
             args = (ext, s0.dtau, act, cfg, loc0, W, 11, 5, row_off)
-            got, want = gk.gauge_chunk(*args), gk.gauge_chunk_ref(*args)
-            gate(f"{group} {name} gauge_chunk rows {row_off}..{row_off + loc0}",
-                 gauge_chunk_leaves(got, W), gauge_chunk_leaves(want, W))
+            sizes, want = gauge_chunk_at_every_size(
+                torch, gk, f"{group} {name} gauge_chunk rows {row_off}..{row_off + loc0}", args, W)
             bad, capped = want[3].tolist(), want[4].tolist()
             if nan and bad != [True, True, False]:
                 raise SystemExit(f"gate case {group} {name}: bad flags {bad}")
             if not nan and (any(bad) or capped != [cap < 1.0] * 3):
                 raise SystemExit(f"gate case {group} {name}: flags bad {bad} capped {capped}")
+        # a cold start: chain 0 a NaN link in the first owned row and a kicked link
+        # in the last, chain 1 the kick alone, chain 2 neither; the owned rows 4 ..
+        # 12 of the 16-row extended block lie in two blocks from B = 2 on
+        cold = dataclasses.replace(base, hot_start=False, drift_cap=0.05)
+        planes0 = gk.links_to_planes(gauge.init_gauge_state(cold, act, device=device).links, act)
+        W, loc0 = 4, 8
+        ext = extended_planes(torch, planes0, 4, loc0, W)
+        kick = {"u1": (0, 1.5), "su2": (2, 0.6), "su3": (1, 0.6)}[group]
+        for ch in (0, 1):
+            ext[ch, kick[0], W + loc0 - 1, 7] += kick[1]
+        ext[0, 0, W, 20] = float("nan")
+        # a tiny step: the noise leaves the drift far below the cap, the kick far above
+        args = (ext, torch.full_like(s0.dtau, 1e-8), act, cold, loc0, W, 3, 0, 4)
+        sizes, want = gauge_chunk_at_every_size(
+            torch, gk, f"{group} nan_in_one_block_cap_in_another gauge_chunk", args, W)
+        if want[3].tolist() != [True, False, False] or want[4].tolist() != [False, True, False]:
+            raise SystemExit(f"gate case {group} nan_in_one_block_cap_in_another: bad "
+                             f"{want[3].tolist()}, capped {want[4].tolist()}")
+        log(f"  {group}: kernel 12 held at cluster sizes {sizes}")
 
 
 def counted(torch, counters: dict, want: dict, label: str, fn):
@@ -1978,9 +2077,9 @@ def phase_split_main_path(torch, mods, tmp: Path):
     # kernel 9 at the shape the main path gives it: shard 1 of the final state
     err = {}
     act = actions.get_field(cfg.action)
-    shard = parallel.shard_field_state(step, x2, cfg)[1]
+    other, shard = parallel.shard_field_state(step, x2, cfg)
     args = (shard.phi, shard.dtau, act, cfg, int(step.step), 1, 0,
-            (0, cfg.shape[0] // 2, 0), (True, False))
+            (0, cfg.shape[0] // 2, 0), (True, False), {0: (other.phi[:, -1:], other.phi[:, :1])})
     err["field_halo_step"] = gate(
         f"main path shard {tuple(shard.phi.shape)} field_halo_step",
         halo_step_leaves(fh.field_halo_step(*args)),
@@ -2023,10 +2122,11 @@ def phase_split_main_path(torch, mods, tmp: Path):
         loc0 = cfg.shape[0] // 2
         ext = extended_planes(torch, gk.links_to_planes(chunk.links, act), loc0, loc0, 8)
         args = (ext, chunk.dtau, act, cfg, loc0, 8, int(chunk.step), 0, loc0)
+        got = gk.gauge_chunk(*args)
+        g = gk.gauge_chunk.geometry
         err["gauge_chunk"] = max(err.get("gauge_chunk", 0.0), gate(
-            f"main path {group} block {tuple(ext.shape)} gauge_chunk W=8",
-            gauge_chunk_leaves(gk.gauge_chunk(*args), 8),
-            gauge_chunk_leaves(gk.gauge_chunk_ref(*args), 8)))
+            f"main path {group} block {tuple(ext.shape)} gauge_chunk W=8 B={g.B}",
+            gauge_chunk_leaves(got, 8), gauge_chunk_leaves(gk.gauge_chunk_ref(*args), 8)))
     return totals, err
 
 
@@ -2108,15 +2208,18 @@ def phase_split_timings(torch, mods, card: str) -> dict:
               halo.make_halo_runner(act, ccfg, cmesh, backend="cuda"),
               parallel.shard_field_state(s0, cmesh, ccfg), 8, ups, profile=True)
 
-    sh = shards[1]
+    # kernel 9 as the cuda_step runner calls it: shard 1 with its halo rows,
+    # narrowed views of shard 0's block
+    sh, nb = shards[1], shards[0]
     args = (sh.phi, sh.dtau, act, cfg, int(sh.step), 0, 0, (0, cfg.shape[0] // 2, 0),
-            (True, False))
+            (True, False), {0: (nb.phi[:, -1:], nb.phi[:, :1])})
     got = fh.field_halo_step(*args)
-    call_ms = cuda_ms(torch, lambda: fh.field_halo_step(*args), reps=50)
+    with CardSampler("[19] kernel 9"):
+        call_ms = cuda_ms(torch, lambda: fh.field_halo_step(*args), reps=50)
     fh.field_halo_step_ref(*args)
     holder = {}
     plain_ms = timed(torch, lambda: holder.update(r=fh.field_halo_step_ref(*args))) * 1e3
-    out["field_halo_step_err"] = gate(f"shard {tuple(sh.phi.shape)} field_halo_step",
+    out["field_halo_step_err"] = gate(f"shard {tuple(sh.phi.shape)} field_halo_step with halos",
                                       halo_step_leaves(got), halo_step_leaves(holder["r"]))
     # "ms" is CUDA events around the wrapper, as for every other kernel; a launch
     # here is shorter than the host takes to issue it, so that is the host's
@@ -2128,10 +2231,10 @@ def phase_split_timings(torch, mods, card: str) -> dict:
                          "cuda_step run: the kernel's device time was not measured")
     out["field_halo_step_ms"], out["field_halo_step_plain_ms"] = call_ms, plain_ms
     out["field_halo_step_device_us"] = kernel_us
-    log(f"  field_halo_step {call_ms:.4f} ms per call of the wrapper with its allocations and "
-        f"the two reductions of the per-strip partials (CUDA events, mean of 50: the host's "
-        f"pace); the kernel alone {kernel_us:.2f} µs of device time per launch (profiler); plain "
-        f"version {plain_ms:.2f} ms (once) at {tuple(sh.phi.shape)} [{card}]")
+    log(f"  field_halo_step {call_ms:.4f} ms per call of the wrapper with the halo rows, its "
+        f"allocations and the two reductions of the per-strip partials (CUDA events, mean of "
+        f"50: the host's pace); the kernel alone {kernel_us:.2f} µs of device time per launch "
+        f"(profiler); plain version {plain_ms:.2f} ms (once) at {tuple(sh.phi.shape)} [{card}]")
 
     # ---- gauge u1 256^2 x 32 loops 100, su3 64^2 x 8 loops 50 ---------------
     for group in ("u1", "su3"):
@@ -2156,17 +2259,25 @@ def phase_split_timings(torch, mods, card: str) -> dict:
         ext = extended_planes(torch, gk.links_to_planes(whole.links, act), loc0, loc0, 8)
         args = (ext, whole.dtau, act, cfg, loc0, 8, int(whole.step), 0, loc0)
         got = gk.gauge_chunk(*args)
-        ms = cuda_ms(torch, lambda: gk.gauge_chunk(*args), reps=5)
+        g, params_group = gk.gauge_chunk.geometry, ("u1", "su2", "su3").index(group)
+        with CardSampler(f"[19] kernel 12 {group}"):
+            ms = cuda_ms(torch, lambda: gk.gauge_chunk(*args), reps=20)
         holder = {}
         plain_ms = timed(torch, lambda: holder.update(r=gk.gauge_chunk_ref(*args))) * 1e3
         e = gate(f"{group} block {tuple(ext.shape)} gauge_chunk W=8", gauge_chunk_leaves(got, 8),
                  gauge_chunk_leaves(holder["r"], 8))
         out["gauge_chunk_err"] = max(out.get("gauge_chunk_err", 0.0), e)
         out[f"gauge_chunk_{group}_ms"], out[f"gauge_chunk_{group}_plain_ms"] = ms, plain_ms
-        log(f"  {group} gauge_chunk kernel {ms:.3f} ms/launch (CUDA events, mean of 5), plain "
-            f"version {plain_ms:.1f} ms (once) at {tuple(ext.shape)}, W = 8 [{card}]")
-    out["gauge_chunk_ms"], out["gauge_chunk_plain_ms"] = (out["gauge_chunk_u1_ms"],
-                                                          out["gauge_chunk_u1_plain_ms"])
+        out[f"gauge_chunk_{group}_geometry"] = g
+        kernel_us = out[f"split_gauge_{group}_x=2_chunk"].get("kernel_us")
+        out[f"gauge_chunk_{group}_device_us"] = kernel_us
+        log(f"  {group} gauge_chunk kernel {ms:.4f} ms/launch (CUDA events, mean of 20), "
+            f"{kernel_us:.2f} µs of device time per launch (profiler, the x=2 chunk run), B = "
+            f"{g.B} ({g.placement}, a thread per "
+            f"{'link direction' if gk.chunk_split(g, ext.shape[3], params_group) else 'site'}"
+            f"), plain version {plain_ms:.1f} ms (once) at {tuple(ext.shape)}, W = 8 [{card}]")
+    for k in ("ms", "plain_ms", "geometry", "device_us"):
+        out[f"gauge_chunk_{k}"] = out[f"gauge_chunk_u1_{k}"]
     return out
 
 
@@ -3143,10 +3254,15 @@ def main() -> int:
     pair_k["launches"] += launches["field_step_nd"]
     pair_k["tail_launches"] = launches["field_step_nd"]
     pair_k["tail_ms"] = t["field_step_nd_ms"]
-    # kernels 8 and 9 also carry the profiler's device time per launch ("ms" is
-    # CUDA events around the wrapper, as for every other kernel)
+    # kernels 8, 9 and 12 also carry the profiler's device time per launch ("ms"
+    # is CUDA events around the wrapper, as for every other kernel); 12 its
+    # cluster geometry at the u1 shard
     halo_k = next(k for k in kernels if k["name"] == "field_halo_step")
     halo_k["device_us"] = t["field_halo_step_device_us"]
+    chunk_k = next(k for k in kernels if k["name"] == "gauge_chunk")
+    chunk_k["device_us"] = t["gauge_chunk_device_us"]
+    chunk_k["cluster_B"] = t["gauge_chunk_geometry"].B
+    chunk_k["placement"] = t["gauge_chunk_geometry"].placement
     rdma_k = next(k for k in kernels if k["name"] == "field_chunk_rdma_nd")
     rdma_k["device_us"] = t["rdma_field_x=2_cuda_rdma"].get("kernel_us")
     log(f"  field_halo_step: bound {halo_k['bound_ms'] * 1e3 / halo_k['device_us']:.2%} of the "

@@ -166,12 +166,13 @@ class FieldHaloParams(ctypes.Structure):
     the ``FieldHaloParams`` struct of ``csrc/field_halo_kernel.cu``: the 2-D
     kernels' ``FieldParams`` of the local block, then where the block sits in
     the global lattice, which Box-Muller output and half-sweep this launch is,
-    which dims are split, and the strips the chain's block is cut into."""
+    which dims are split, the strips the chain's block is cut into, and whether
+    the split dims' halo slices are inputs."""
 
     _fields_ = [("f", FieldParams)] + [
         (name, ctypes.c_int32) for name in (
             "gL1", "row_off", "col_off", "parity", "half", "sh0", "sh1", "rows_per_block",
-            "n_strips",
+            "n_strips", "halos",
         )
     ]
 
@@ -180,8 +181,9 @@ class GaugeParams(ctypes.Structure):
     """Launch parameters of the gauge kernels 10, 11 and 12, field for field
     the ``GaugeParams`` struct of ``csrc/gauge_kernel.cu`` (all 4-byte
     fields).  ``chain_off`` … ``L0g`` are the chunk kernel's (kernel 12): there
-    ``L0`` is the extended block's rows, ``L0g`` the global lattice's; the last
-    four are kernels 10 and 11's cluster geometry (``_cluster``)."""
+    ``L0`` is the extended block's rows, ``L0g`` the global lattice's; then
+    the cluster geometry of kernels 10, 11 and 12 (``_cluster``) and kernel
+    12's work item (``cl_split``: a link direction of a site, or a site)."""
 
     _fields_ = [
         (name, ctypes.c_int32) for name in (
@@ -193,7 +195,7 @@ class GaugeParams(ctypes.Structure):
         )
     ] + [(name, ctypes.c_uint32) for name in ("chain_off", "row_off")] + [
         (name, ctypes.c_int32) for name in (
-            "loc0", "H", "W", "L0g", "cl_B", "cl_rows", "cl_scratch", "cl_empty",
+            "loc0", "H", "W", "L0g", "cl_B", "cl_rows", "cl_scratch", "cl_empty", "cl_split",
         )
     ]
 
@@ -218,13 +220,14 @@ def library() -> ctypes.CDLL:
         (lib.sq_field_pair, field, 7),
         (lib.sq_field_pair_nd, field_nd, 8), (lib.sq_field_step_nd, field_nd, 8),
         (lib.sq_field_chunk_nd, field_nd, 8), (lib.sq_field_chunk_rdma_nd, field_nd, 10),
-        (lib.sq_field_halo_step, field_halo, 5),
+        (lib.sq_field_halo_step, field_halo, 9),
         (lib.sq_gauge_frame, gauge, 9), (lib.sq_gauge_frames, gauge, 18),
-        (lib.sq_gauge_chunk, gauge, 10),
+        (lib.sq_gauge_chunk, gauge, 9),
     ):
         fn.argtypes = [params] + [ptr] * n_ptr + [ptr]  # tensors, then the stream
         fn.restype = ctypes.c_int
-    for fn, params in ((lib.sq_field_resident, field), (lib.sq_gauge_resident, gauge)):
+    for fn, params in ((lib.sq_field_resident, field), (lib.sq_gauge_resident, gauge),
+                       (lib.sq_gauge_chunk_resident, gauge)):
         fn.argtypes = [params, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     lib.sq_error_string.argtypes = [ctypes.c_int]
@@ -250,9 +253,9 @@ def check_leaves(state, want: dict, device) -> None:
 
 def resident(entry: str, params, multi: bool, device) -> int:
     """Chains the card runs at once in the cluster geometry of ``params``
-    (``sq_field_resident`` / ``sq_gauge_resident``: resident clusters of
-    ``cl_B`` blocks, or resident blocks at ``cl_B`` = 1); raises if the card
-    refuses the geometry."""
+    (``sq_field_resident``, ``sq_gauge_resident``, ``sq_gauge_chunk_resident``:
+    resident clusters of ``cl_B`` blocks, or resident blocks at ``cl_B`` = 1);
+    raises if the card refuses the geometry."""
     lib = library()
     out = ctypes.c_int(0)
     with torch.cuda.device(device):

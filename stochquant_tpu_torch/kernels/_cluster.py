@@ -1,5 +1,5 @@
 """The thread-block-cluster geometry of kernels 3, 4 (``field_kernel``) and 10,
-11 (``gauge_kernel``): pure Python, mirrored by ``csrc/cluster.cuh``.
+11, 12 (``gauge_kernel``): pure Python, mirrored by ``csrc/cluster.cuh``.
 
 A chain runs on a cluster of B blocks, B in :data:`SIZES`. Block rank b owns
 the rows ``[b L0 // B, (b + 1) L0 // B)`` (:func:`strips`) and keeps them,
@@ -18,7 +18,9 @@ holds 30 clusters of 4, 15 of 8 and 7 of 16 (GPCs of 14 to 18 SMs), so 32
 chains of u1 256^2 would run one wave of whole lattices at B = 1 (21 ms) where
 two waves of quarter strips take half that; the cost counts the rows one SM
 works through and a micro-step's fixed cluster cost (:data:`STEP_OPS`,
-measured).
+measured).  Kernel 12 cuts the rows of its halo-extended block the same way,
+with no ring (its first rank has nothing above, its last nothing below) and
+two buffers of its strip a block (:func:`gauge_chunk_smem_floats`).
 
 :func:`forced` pins B for the launches inside it (the card's tests and the
 timing tool hold every B against the others); a geometry that does not fit
@@ -71,6 +73,16 @@ def gauge_smem_floats(rows: int, L1: int, P: int, FP: int, NP: int, scratch: boo
     partials, the slot and the gathered slots."""
     strip = (rows + 2) * L1
     return P * strip + ((FP + NP) * strip if scratch else 0) + 3 * 32 + 4 + 3 * MAX_CLUSTER
+
+
+def gauge_chunk_smem_floats(rows: int, L1: int, P: int, NP: int, W: int, scratch: bool) -> int:
+    """``gauge_chunk_floats`` of csrc/gauge_kernel.cu (kernel 12 at B > 1): two
+    buffers of the link planes' strips with halo rows, the kept noise of the
+    strip's rows if in shared memory, then the partials of W micro-steps (a
+    drift max a step and warp, the warps' sums, the slot, the gathered slots,
+    the chain's drift max a step)."""
+    kept = NP * rows * L1 if scratch else 0
+    return 2 * P * (rows + 2) * L1 + kept + 32 * (W + 1) + (1 + MAX_CLUSTER) * (W + 2) + W
 
 
 def candidates(L0: int, smem_floats: Callable[[int, bool], int]) -> list:
@@ -129,7 +141,7 @@ _EMPTY = False
 
 @contextlib.contextmanager
 def forced(B: int, empty: bool = False):
-    """Launch kernels 3, 4, 10 and 11 at B blocks a chain inside this block.
+    """Launch kernels 3, 4, 10, 11 and 12 at B blocks a chain inside this block.
     ``empty`` (B > 1 only; for timing) skips the site work of every
     micro-step and keeps its barriers and reductions: the results are not
     the frame's."""

@@ -1,5 +1,5 @@
 // What the cluster kernels share (field_kernel.cu: kernels 3 and 4 at B > 1;
-// gauge_kernel.cu: kernels 10 and 11 at B > 1): one chain on a thread-block
+// gauge_kernel.cu: kernels 10 and 11 at B > 1, kernel 12): one chain on a thread-block
 // cluster of B blocks, block rank b owning a contiguous strip of lattice rows,
 // launched with cudaLaunchKernelEx and a cluster-dimension attribute.
 //
@@ -107,14 +107,20 @@ static cudaError_t resident_clusters(void (*kern)(KArgs...), int threads, size_t
     return cudaOccupancyMaxActiveClusters(out, (const void*)kern, &cfg);
 }
 
-// Blocks of a one-block-per-chain kernel the card holds at once.
+// Blocks of a one-block-per-chain kernel the card holds at once, with `smem`
+// bytes of dynamic shared memory a block.
 template <typename... KArgs>
-static cudaError_t resident_blocks(void (*kern)(KArgs...), int threads, int* out) {
+static cudaError_t resident_blocks(void (*kern)(KArgs...), int threads, int* out,
+                                   size_t smem = 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess && smem > 48 * 1024)
+        e = cudaFuncSetAttribute((const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
     if (e == cudaSuccess)
-        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)kern, threads, 0);
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, (const void*)kern, threads,
+                                                          smem);
     *out = sms * per_sm;
     return e;
 }

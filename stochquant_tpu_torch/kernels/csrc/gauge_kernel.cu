@@ -12,7 +12,7 @@
 //   kernel 12  sq_gauge_chunk  <- _chunk_call_g / _build_gauge_chunk_kernel /
 //              make_gauge_chunk_step (W micro-steps, W even, of a shard's block
 //              of a lattice split along dim 0, extended by H = W halo rows a
-//              side; see "the chunk kernel" below)
+//              side, on a thread-block cluster; see "kernel 12" below)
 //
 // Per micro-step and chain: the drift F of every link; the drift norm, max
 // over the chain's lattice; dtau_eff = dtau * min(1, cap / max(dnorm, 1e-30));
@@ -94,6 +94,7 @@ struct GaugeParams {
     int32_t cl_rows;      // rows of the largest strip, ceil(L0 / cl_B)
     int32_t cl_scratch;   // 1: F and the kept noise in shared memory; 0: in global memory
     int32_t cl_empty;     // 1: barriers, halos' publication and reductions only (timing)
+    int32_t cl_split;     // kernel 12: 1 a work item is one link direction of a site, 0 a site
 };
 
 enum { GROUP_U1 = 0, GROUP_SU2 = 1, GROUP_SU3 = 2 };
@@ -417,8 +418,9 @@ __device__ __forceinline__ void pass1(const GaugeParams& p, const float* __restr
 }
 
 // Noise of plane q at site i for this micro-step.  The counter is the C-order
-// index over (noise plane, L0, L1) of the *global* lattice: in a chunk launch
-// row r of the extended block is global row (row_off + r - H) mod L0g.
+// index over (noise plane, L0, L1) of the *global* lattice: with CHUNK, row r
+// of the block `p` describes is global row (row_off + r - H) mod L0g (a
+// cluster strip: H = 1, row_off its first row).
 template <int NP, bool CHUNK>
 __device__ __forceinline__ float noise(const GaugeParams& p, float* __restrict__ zk, int q,
                                        int i, int mode, uint32_t k1, uint32_t step) {
@@ -673,88 +675,6 @@ gauge_frames_kernel(GaugeParams p, const float* __restrict__ links_in,
     }
 }
 
-// ---- kernel 12: the chunk kernel ---------------------------------------------
-//
-// W micro-steps on the links of a shard's block of a lattice split along dim
-// 0, extended by H = W rows of its ring neighbours above and below: (C, P,
-// loc0 + 2 H, L1).  Dim 1 spans the whole lattice and wraps; dim 0 wraps
-// inside the extended block, and what that gets wrong moves inward one row per
-// step and stops at the owned rows after W = H steps.  The halo rows are
-// recomputed, not exchanged: their noise comes from the global counters, so
-// they take the values their owner computes.  Chunk mode has no drift-cap
-// rescale (it would need the lattice-wide drift max of every step: a
-// collective per micro-step); a step whose owned drift norm exceeds the cap
-// sets `capped` and the runner rejects the frame.  Nor does it freeze a chain
-// whose links turn non-finite: `bad` rejects the frame as well.  Out: the owned
-// rows after W steps, sum over steps of the owned sites' plaquette (a sum: the
-// runner completes it across shards and normalises), the owned drift-norm max
-// (NaN propagates), and the two flags.  While the cap is quiescent the scale
-// of kernels 10 and 11 is exactly 1, and the links agree bit for bit.
-//
-// Design: as kernel 10, one block per chain with pass 1, a block reduction and
-// pass 2 per micro-step; the statistics take the owned rows only.  Nothing is
-// chain-global per step here, so a chain could be cut over several blocks with
-// a recomputed halo, as field kernel 7 is: left for the PR that makes it fast.
-
-template <int G>
-__global__ void __launch_bounds__(Layout<G>::T)
-gauge_chunk_kernel(GaugeParams p, const float* __restrict__ ext_in,
-                   const float* __restrict__ dtau_in, float* __restrict__ work,
-                   float* __restrict__ owned_out, float* __restrict__ ps_out,
-                   float* __restrict__ dmax_out, int32_t* __restrict__ bad_out,
-                   int32_t* __restrict__ cap_out, float* __restrict__ force,
-                   float* __restrict__ zk_all) {
-    constexpr int T = Layout<G>::T;
-    __shared__ float red[3 * (T / 32)];
-    const int ch = blockIdx.x;
-    const int V = p.L0 * p.L1;  // the extended block
-    float* L = work + (size_t)ch * Layout<G>::P * V;
-    float* F = force + (size_t)ch * Layout<G>::FP * V;
-    float* zk = zk_all + (size_t)ch * Layout<G>::NP * V;
-    copy_own<G>(p, ext_in + (size_t)ch * Layout<G>::P * V, L);
-    __syncthreads();
-    const uint32_t k1 = (uint32_t)STREAM_FIELD ^ ((p.chain_off + (uint32_t)ch) << 8);
-    const float dtau = dtau_in[ch];
-    const float na = sqrtf(2.0f * dtau);
-    const int own_lo = p.H * p.L1, own_hi = (p.H + p.loc0) * p.L1;
-    float ps = 0.0f, dmax = 0.0f;
-    int bad = 0, capped = 0;
-    for (int k = 0; k < p.W; ++k) {  // block-uniform control flow
-        float pl = 0.0f, dn = 0.0f;
-        for (int i = threadIdx.x; i < V; i += T) {
-            float pl_site = 0.0f, dn_site = 0.0f;
-            pass1<G>(p, L, F, i, pl_site, dn_site);
-            if (i >= own_lo && i < own_hi) {
-                pl += pl_site;
-                dn = nan_max(dn, dn_site);
-            }
-        }
-        const Tot t = block_reduce<T>(pl, dn, 0, red);
-        ps = ps + t.plaq;
-        dmax = nan_max(dmax, t.dnorm);
-        capped |= t.dnorm > p.cap;
-        const int mode = (k & 1) ? NOISE_KEPT : NOISE_DRAW_KEEP;
-        const uint32_t step = p.step0 + (uint32_t)(k & ~1);
-        for (int i = threadIdx.x; i < V; i += T) {
-            int bad_site = 0;
-            pass2<G, true>(p, L, F, zk, i, mode, k1, step, dtau, na, bad_site);
-            if (i >= own_lo && i < own_hi) bad |= bad_site;
-        }
-        __syncthreads();  // new links are read as neighbours next; red is free again
-    }
-    bad = block_reduce<T>(0.0f, 0.0f, bad, red).bad;
-    const size_t own = (size_t)p.loc0 * p.L1;
-    for (int q = 0; q < Layout<G>::P; ++q)
-        for (size_t i = threadIdx.x; i < own; i += T)
-            owned_out[((size_t)ch * Layout<G>::P + q) * own + i] = L[(size_t)q * V + own_lo + i];
-    if (threadIdx.x == 0) {
-        ps_out[ch] = ps;
-        dmax_out[ch] = dmax;
-        bad_out[ch] = bad;
-        cap_out[ch] = capped;
-    }
-}
-
 // ---- kernels 10 and 11 on a thread-block cluster (B > 1) ------------------
 
 // A block's share of a chain at B > 1.  `lp` is the strip as pass1 and
@@ -999,6 +919,380 @@ gauge_frames_cl_kernel(GaugeParams p, const float* __restrict__ links_in,
     cl.sync();  // no block leaves while a peer may still read its slot
 }
 
+// ---- kernel 12: the chunk kernel on a thread-block cluster --------------------
+//
+// W micro-steps (W even) on the links of a shard's block of a lattice split
+// along dim 0, extended by H = W rows of its ring neighbours above and below:
+// (C, P, E0 = loc0 + 2 H, L1).  Dim 1 spans the whole lattice and wraps.  The
+// halo rows are recomputed, not exchanged: their noise comes from the global
+// counters, so they take the values their owner computes.  Chunk mode has no
+// drift-cap rescale (it would need the lattice-wide drift max of every step: a
+// collective per micro-step): while the cap is quiescent the scale of kernels
+// 10 and 11 is exactly 1, so the links agree with theirs bit for bit.  A step
+// whose drift norm (max over the chain's owned sites) exceeds the cap sets
+// `capped`, a non-finite owned link sets `bad`, and the runner rejects the
+// frame for either.  Out: the owned rows after W steps, the sum over steps of
+// the owned sites' plaquette (a sum: the runner completes it across shards and
+// normalises), the owned drift-norm max (NaN propagates) and the two flags.
+//
+// Design.  Step k (0-based) updates only the rows [k + 1, E0 - 1 - k): they
+// alone reach the owned rows [H, H + loc0) by step W - 1, and they read only
+// the rows [k, E0 - k) that step k - 1 updated (the input at k = 0), so nothing
+// wraps in dim 0.  A chain runs on a cluster of B blocks (GaugeParams.cl_B,
+// gauge_kernel.chunk_geometry): rank b owns the rows [b E0 / B, (b + 1) E0 / B)
+// of the extended block (no ring: rank 0 has no rank above it, rank B - 1 none
+// below) and holds them, with a halo row a side, in two buffers: step k reads
+// one and writes the other, so a link is updated in one pass from its own
+// drift (the scale is 1; pass1's and pass2's expressions, operand for operand)
+// and no F goes to memory.  A block pushes its new first and last rows into
+// its neighbours' halo rows of the buffer it wrote, through distributed shared
+// memory: one cluster barrier a step, no reduction.  The kept odd-step noise
+// (one Threefry pair serves two steps) stays per site of the strip, in shared
+// memory where the budget allows (GaugeParams.cl_scratch), else in device
+// memory.  Each block keeps its owned plaquette sum, its owned drift-norm max
+// of every step (a warp's a step, in shared memory) and its `bad` flag; after
+// the last step rank 0 combines the ranks' partials once, in rank order,
+// through DSMEM, with no atomics.  `capped` compares each step's chain max
+// (NaN-propagating over the ranks) with the cap, so a NaN drift in one block
+// and a cap event in another at the same step give the chain's answer, NaN
+// (not capped), as gauge_chunk_ref does.  Work items are the strip's sites of
+// the step, or (GaugeParams.cl_split) a site's two link directions, over the
+// block's threads.  At B = 1 the two buffers and the kept noise live in device
+// memory (a whole extended block fits no block's shared memory at the timed
+// shapes: u1 (144, 256) 584 KiB).
+
+// Shared memory of a chunk block, in floats (kernels/_cluster.py mirrors it):
+// the two link buffers of the strip (B > 1), the kept noise of the strip's rows
+// if in shared memory, then the partials: a drift max a step and warp, the
+// warps' plaquette sums, the block's slot (plaquette, bad, W step maxima), the
+// gathered slots and the chain's drift max a step.
+template <int G>
+__host__ __device__ __forceinline__ size_t gauge_chunk_floats(const GaugeParams& p) {
+    const size_t strip = p.cl_B > 1 ? (size_t)(p.cl_rows + 2) * p.L1 : 0;
+    const size_t kept = p.cl_scratch ? (size_t)Layout<G>::NP * p.cl_rows * p.L1 : 0;
+    const size_t W = (size_t)p.W;
+    return 2 * Layout<G>::P * strip + kept + 32 * (W + 1) + (1 + SQ_MAX_CLUSTER) * (W + 2) + W;
+}
+
+// The planes of link direction mu: u1 plane mu; su2 2 c + mu; su3 18 mu + j.
+template <int G>
+__device__ __forceinline__ int dir_plane(int mu, int j) {
+    if constexpr (G == GROUP_U1) return mu;
+    else if constexpr (G == GROUP_SU2) return 2 * j + mu;
+    else return 18 * mu + j;
+}
+
+// A site's noise in a chunk launch: the counter is noise<NP, true>'s (C-order
+// over (noise plane, L0g, L1) of the global lattice); the second Box-Muller
+// output is kept at zk[q * kv + j] for the next micro-step.
+struct ChunkNoise {
+    float* zk;
+    size_t kv;       // floats of a kept-noise plane: cl_rows * L1
+    int j;           // the site in a kept plane: (row - first strip row) * L1 + column
+    uint32_t gsite;  // global row * L1 + column
+};
+
+__device__ __forceinline__ float chunk_noise(const GaugeParams& p, const ChunkNoise& z, int q,
+                                             int mode, uint32_t k1, uint32_t step) {
+    float* at = z.zk + q * z.kv + z.j;
+    if (mode == NOISE_KEPT) return *at;
+    float z0, z1;
+    normal_pair<20>(p.seed, k1, (uint32_t)q * (uint32_t)(p.L0g * p.L1) + z.gsite, step, z0, z1);
+    *at = z1;
+    return z0;
+}
+
+// One link of a chunk micro-step: direction mu at row r, column c of the strip
+// as pass1 sees it (`lp`: a lattice of cl_rows + 2 rows), its drift from the
+// links A and its update into O.  `own`: an owned row, whose plaquette (with
+// mu = 0), drift norm and finiteness count.
+template <int G>
+__device__ __forceinline__ void chunk_link(const GaugeParams& lp, const float* __restrict__ A,
+                                           float* __restrict__ O, const ChunkNoise& z, int r,
+                                           int c, int mu, int mode, uint32_t k1, uint32_t step,
+                                           float de, float na, bool own, float& pl, float& dn,
+                                           int& bad) {
+    const size_t V = (size_t)lp.L0 * lp.L1;
+    const Nbr n{lp.L0, lp.L1};
+    const int i = r * lp.L1 + c;
+    if constexpr (G == GROUP_U1) {
+        const float* t0 = A;
+        const float* t1 = A + V;
+        float a;
+        if (mu == 0) {
+            const float p01 = u1_p01(t0, t1, n, r, c);
+            a = (0.0f + sinf(p01)) - sinf(u1_p01(t0, t1, n, r, c - 1));
+            if (own) pl += cosf(p01);
+        } else {
+            a = (0.0f + sinf(u1_p10(t0, t1, n, r, c))) - sinf(u1_p10(t0, t1, n, r - 1, c));
+        }
+        const float f = lp.coef * a;
+        const float eta = chunk_noise(lp, z, mu, mode, k1, step);
+        const float t = A[mu * V + i] + (de * f + na * eta);
+        const float two_pi = 6.2831854820251465f;  // float32(2 pi)
+        const float nt = t - two_pi * rintf(t / two_pi);
+        O[mu * V + i] = nt;
+        if (own) {
+            dn = nan_max(dn, fabsf(f));
+            bad |= !isfinite(nt);
+        }
+    } else if constexpr (G == GROUP_SU2) {
+        const int nu = 1 - mu;
+        const int mr = mu == 0, mc = mu == 1, nr = nu == 0, nc = nu == 1;
+        const Quat fwd = qmul(qmul(qload(A, V, nu, n.at(r, c, mr, mc)),
+                                   qconj(qload(A, V, mu, n.at(r, c, nr, nc)))),
+                              qconj(qload(A, V, nu, i)));
+        const Quat bwd = qmul(qmul(qconj(qload(A, V, nu, n.at(r, c, mr - nr, mc - nc))),
+                                   qconj(qload(A, V, mu, n.at(r, c, -nr, -nc)))),
+                              qload(A, V, nu, n.at(r, c, -nr, -nc)));
+        const Quat link = qload(A, V, mu, i);
+        const Quat w = qmul(link, qadd(fwd, bwd));
+        const float f[3] = {lp.coef * w.x, lp.coef * w.y, lp.coef * w.z};
+        if (own && mu == 0) {
+            const Quat pq = qmul(qmul(link, qload(A, V, 1, n.at(r, c, 1, 0))),
+                                 qmul(qconj(qload(A, V, 0, n.at(r, c, 0, 1))),
+                                      qconj(qload(A, V, 1, i))));
+            pl += pq.w;
+        }
+        float om[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+            om[a] = de * f[a] + na * chunk_noise(lp, z, 2 * a + mu, mode, k1, step);
+        const Quat q = qnormalize(qmul(qexp_su2(om[0], om[1], om[2]), link));
+        O[(0 + mu) * V + i] = q.w;
+        O[(2 + mu) * V + i] = q.x;
+        O[(4 + mu) * V + i] = q.y;
+        O[(6 + mu) * V + i] = q.z;
+        if (own) {
+            dn = nan_max(dn, sqrtf(f[0] * f[0] + f[1] * f[1] + f[2] * f[2]));
+            bad |= !(isfinite(q.w) && isfinite(q.x) && isfinite(q.y) && isfinite(q.z));
+        }
+    } else {
+        const int nu = 1 - mu;
+        const int mr = mu == 0, mc = mu == 1, nr = nu == 0, nc = nu == 1;
+        const M3 fwd = mmul(mmul(mload(A, V, nu, n.at(r, c, mr, mc)),
+                                 mdag(mload(A, V, mu, n.at(r, c, nr, nc)))),
+                            mdag(mload(A, V, nu, i)));
+        const M3 bwd = mmul(mmul(mdag(mload(A, V, nu, n.at(r, c, mr - nr, mc - nc))),
+                                 mdag(mload(A, V, mu, n.at(r, c, -nr, -nc)))),
+                            mload(A, V, nu, n.at(r, c, -nr, -nc)));
+        M3 staple;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int b = 0; b < 3; ++b) staple.a[a][b] = cadd(fwd.a[a][b], bwd.a[a][b]);
+        const M3 m = mmul(mload(A, V, mu, i), staple);
+        M3 g;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+                g.a[a][b] = {-(m.a[a][b].im + m.a[b][a].im), m.a[a][b].re - m.a[b][a].re};
+        const Cx tr = cadd(cadd(g.a[0][0], g.a[1][1]), g.a[2][2]);
+        const Cx trn = {tr.re / 3.0f, tr.im / 3.0f};
+        M3 h;
+        float frob = 0.0f;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int b = 0; b < 3; ++b) {
+                const Cx x = a == b ? csub(g.a[a][b], trn) : g.a[a][b];
+                h.a[a][b] = {lp.coef * x.re, lp.coef * x.im};
+                const float v = h.a[a][b].re * h.a[a][b].re + h.a[a][b].im * h.a[a][b].im;
+                frob = (a == 0 && b == 0) ? v : frob + v;
+            }
+        if (own && mu == 0) {
+            const M3 pm = mmul(mmul(mload(A, V, 0, i), mload(A, V, 1, n.at(r, c, 1, 0))),
+                               mmul(mdag(mload(A, V, 0, n.at(r, c, 0, 1))),
+                                    mdag(mload(A, V, 1, i))));
+            pl += mretr(pm) / 3.0f;
+        }
+        float e[8];
+#pragma unroll
+        for (int a = 0; a < 8; ++a) e[a] = chunk_noise(lp, z, 2 * a + mu, mode, k1, step);
+        const M3 nt = noise_h(e);
+        M3 om;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int b = 0; b < 3; ++b)
+                om.a[a][b] = {de * h.a[a][b].re + na * nt.a[a][b].re,
+                              de * h.a[a][b].im + na * nt.a[a][b].im};
+        const M3 u = project_su3(mmul(expi_su3(om, lp.clip_hi), mload(A, V, mu, i)));
+        mstore(O, V, mu, i, u);
+        if (own) {
+            bool fin = true;
+#pragma unroll
+            for (int a = 0; a < 3; ++a)
+#pragma unroll
+                for (int b = 0; b < 3; ++b)
+                    fin = fin && isfinite(u.a[a][b].re) && isfinite(u.a[a][b].im);
+            dn = nan_max(dn, sqrtf(2.0f * frob));
+            bad |= !fin;
+        }
+    }
+}
+
+// Kernel 12 on C clusters of B blocks (B = 1: one block a chain, SMEM false:
+// the link buffers in `links`, (C, 2, P, E0 + 2, L1)).  `zk`: the kept noise,
+// (C, B, NP, cl_rows, L1), where shared memory does not hold it.
+template <int G, bool SMEM>
+__global__ void __launch_bounds__(Layout<G>::T)
+gauge_chunk_kernel(GaugeParams p, const float* __restrict__ ext_in,
+                   const float* __restrict__ dtau_in, float* __restrict__ owned_out,
+                   float* __restrict__ ps_out, float* __restrict__ dmax_out,
+                   int32_t* __restrict__ bad_out, int32_t* __restrict__ cap_out,
+                   float* __restrict__ links, float* __restrict__ zk_g) {
+    constexpr int T = Layout<G>::T, P = Layout<G>::P, NP = Layout<G>::NP, NW = T / 32;
+    extern __shared__ float sm[];
+    cg::cluster_group cl = cg::this_cluster();
+    const int B = p.cl_B, rank = (int)cl.block_rank(), ch = blockIdx.x / B;
+    const int E0 = p.L0, L1 = p.L1, W = p.W;
+    const int r0 = strip_first(rank, E0, B), n = strip_first(rank + 1, E0, B) - r0;
+    const size_t strip = (size_t)(p.cl_rows + 2) * L1, kv = (size_t)p.cl_rows * L1;
+    const size_t blk = (size_t)ch * B + rank;
+    float* q = sm;
+    float* buf = SMEM ? q : links + blk * 2 * P * strip;  // buffer b at buf + b P strip
+    if (SMEM) q += 2 * P * strip;
+    float* zk = q;
+    if (p.cl_scratch) q += NP * kv;
+    else zk = zk_g + blk * NP * kv;
+    float* dnw = q;                               // W x 32: a warp's owned drift max a step
+    float* red = dnw + 32 * W;                    // 32: the warps' plaquette sums
+    float* slot = red + 32;                       // W + 2: plaquette, bad, the step maxima
+    float* gath = slot + W + 2;                   // SQ_MAX_CLUSTER x (W + 2): rank 0's copy
+    float* cdn = gath + SQ_MAX_CLUSTER * (W + 2);  // W: the chain's drift max a step
+
+    // rows r0 - 1 .. r0 + n of the extended block, those that exist, into buffer 0
+    const float* src = ext_in + (size_t)ch * P * E0 * L1;
+    for (int qp = 0; qp < P; ++qp)
+        for (int j = threadIdx.x; j < (n + 2) * L1; j += T) {
+            const int lr = j / L1, r = r0 + lr - 1;
+            if (r >= 0 && r < E0)
+                buf[qp * strip + j] = src[((size_t)qp * E0 + r) * L1 + (j - lr * L1)];
+        }
+    // the neighbours' halo rows of each buffer: rank - 1's row n_up + 1, rank + 1's row 0
+    float* up_halo[2] = {nullptr, nullptr};
+    float* dn_halo[2] = {nullptr, nullptr};
+    if constexpr (SMEM) {
+        const int n_up = r0 - strip_first(rank - 1, E0, B);
+        for (int b = 0; b < 2; ++b) {
+            if (rank > 0)
+                up_halo[b] = cl.map_shared_rank(buf + b * P * strip, rank - 1) +
+                             (size_t)(n_up + 1) * L1;
+            if (rank + 1 < B) dn_halo[b] = cl.map_shared_rank(buf + b * P * strip, rank + 1);
+        }
+    }
+    cl.sync();  // every strip loaded and every block of the cluster running (DSMEM below)
+
+    GaugeParams lp = p;
+    lp.L0 = p.cl_rows + 2;
+    const int g0 = (int)(p.row_off % (uint32_t)p.L0g) - p.H;  // global row of extended row 0
+    const uint32_t k1 = (uint32_t)STREAM_FIELD ^ ((p.chain_off + (uint32_t)ch) << 8);
+    const float dtau = dtau_in[ch];
+    const float na = sqrtf(2.0f * dtau);
+    const int own_lo = p.H, own_hi = p.H + p.loc0;
+    const int per = p.cl_split ? 1 : 2;  // link directions an item
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    float pl = 0.0f;
+    int bad = 0;
+    for (int k = 0; k < W; ++k) {  // cluster-uniform control flow
+        const float* A = buf + (k & 1) * P * strip;
+        float* O = buf + ((k & 1) ^ 1) * P * strip;
+        const int lo = max(r0, k + 1), hi = min(r0 + n, E0 - 1 - k);
+        const int sites = hi > lo ? (hi - lo) * L1 : 0;
+        const int items = per == 1 ? 2 * sites : sites;
+        const int mode = (k & 1) ? NOISE_KEPT : NOISE_DRAW_KEEP;
+        const uint32_t step = p.step0 + (uint32_t)(k & ~1);
+        float dn = 0.0f;
+        for (int it = threadIdx.x; it < items; it += T) {
+            const int mu0 = it >= sites ? 1 : 0;
+            const int s = it - mu0 * sites, rr = s / L1, c = s - rr * L1;
+            const int r = lo + rr, lr = r - r0 + 1;  // extended and local row
+            int rg = (g0 + r) % p.L0g;
+            if (rg < 0) rg += p.L0g;
+            const ChunkNoise z{zk, kv, (r - r0) * L1 + c, (uint32_t)rg * (uint32_t)L1 + (uint32_t)c};
+            const bool own = r >= own_lo && r < own_hi;
+#pragma unroll 1
+            for (int mu = mu0; mu < mu0 + per; ++mu) {
+                chunk_link<G>(lp, A, O, z, lr, c, mu, mode, k1, step, dtau, na, own, pl, dn, bad);
+                if constexpr (SMEM) {  // an edge row: into the neighbour's halo row
+                    float* to = lr == 1 ? up_halo[(k & 1) ^ 1] : nullptr;
+                    float* to2 = lr == n ? dn_halo[(k & 1) ^ 1] : nullptr;
+                    if (to || to2)
+                        for (int j = 0; j < P / 2; ++j) {
+                            const size_t at = (size_t)dir_plane<G>(mu, j) * strip;
+                            const float v = O[at + (size_t)lr * L1 + c];
+                            if (to) to[at + c] = v;
+                            if (to2) to2[at + c] = v;
+                        }
+                }
+            }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            dn = nan_max(dn, __shfl_xor_sync(0xffffffffu, dn, off));
+        if (lane == 0) dnw[k * 32 + warp] = dn;
+        cl.sync();  // the new rows and halo rows are read as neighbours next
+    }
+
+    // W is even: the last step wrote buffer 0.  The owned rows of this strip out.
+    const int olo = max(r0, own_lo), ohi = min(r0 + n, own_hi);
+    const size_t own = (size_t)p.loc0 * L1;
+    for (int qp = 0; qp < P; ++qp)
+        for (int j = threadIdx.x; j < (ohi - olo) * L1; j += T)
+            owned_out[((size_t)ch * P + qp) * own + (size_t)(olo - own_lo) * L1 + j] =
+                buf[qp * strip + (size_t)(olo - r0 + 1) * L1 + j];
+
+    // the block's slot: its plaquette sum (warps in order), bad, each step's max
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) pl += __shfl_xor_sync(0xffffffffu, pl, off);
+    if (lane == 0) red[warp] = pl;
+    const int bad_blk = __syncthreads_or(bad);
+    if (threadIdx.x == 0) {
+        float s = red[0];
+        for (int w = 1; w < NW; ++w) s = s + red[w];
+        slot[0] = s;
+        slot[1] = (float)bad_blk;
+    }
+    for (int k = threadIdx.x; k < W; k += T) {
+        float m = dnw[k * 32];
+        for (int w = 1; w < NW; ++w) m = nan_max(m, dnw[k * 32 + w]);
+        slot[2 + k] = m;
+    }
+    cl.sync();  // every rank's slot is written
+    if (rank == 0) {  // the ranks in order, once
+        const int nv = W + 2;
+        for (int j = threadIdx.x; j < B * nv; j += T) gath[j] = cl.map_shared_rank(slot, j / nv)[j % nv];
+        __syncthreads();
+        for (int k = threadIdx.x; k < W; k += T) {
+            float m = gath[2 + k];
+            for (int r = 1; r < B; ++r) m = nan_max(m, gath[r * nv + 2 + k]);
+            cdn[k] = m;
+        }
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            float ps = gath[0];
+            int bd = gath[1] != 0.0f;
+            for (int r = 1; r < B; ++r) {
+                ps = ps + gath[r * nv];
+                bd |= gath[r * nv + 1] != 0.0f;
+            }
+            float dmax = 0.0f;
+            int capped = 0;
+            for (int k = 0; k < W; ++k) {  // the chain's max of each step, as kernels 10, 11
+                dmax = nan_max(dmax, cdn[k]);
+                capped |= cdn[k] > p.cap;
+            }
+            ps_out[ch] = ps;
+            dmax_out[ch] = dmax;
+            bad_out[ch] = bd;
+            cap_out[ch] = capped;
+        }
+    }
+    cl.sync();  // no block leaves while rank 0 may still read its slot
+}
+
 // ---- C entry points (loaded with ctypes) ----------------------------------
 
 static bool valid_gauge_launch(const GaugeParams& p) {
@@ -1065,17 +1359,58 @@ extern "C" int sq_gauge_frames(const GaugeParams* p, const float* links_in,
     return (int)cudaGetLastError();
 }
 
+static bool valid_gauge_chunk(const GaugeParams& p) {
+    const int B = p.cl_B;
+    return valid_gauge_launch(p) && p.W >= 2 && p.W % 2 == 0 && p.H == p.W && p.loc0 >= 1 &&
+           p.L0 == p.loc0 + 2 * p.H && p.L0g >= 1 && (long long)p.L0g * p.L1 <= (1LL << 24) &&
+           p.cl_rows == (p.L0 + B - 1) / B && (B > 1 || p.cl_scratch == 0) &&
+           (p.cl_split == 0 || p.cl_split == 1);
+}
+
+// B > 1: n_chains clusters of B blocks, the strips in shared memory; B = 1: one
+// block a chain, the buffers in device memory.  Returns the launch's error.
+template <int G, typename... Args>
+static int launch_gauge_chunk(const GaugeParams& p, cudaStream_t st, Args... args) {
+    const size_t smem = gauge_chunk_floats<G>(p) * sizeof(float);
+    if (p.cl_B > 1)
+        return (int)launch_cluster(gauge_chunk_kernel<G, true>, p.n_chains, Layout<G>::T, smem,
+                                   p.cl_B, st, p, args...);
+    return (int)launch_cluster(gauge_chunk_kernel<G, false>, p.n_chains, Layout<G>::T, smem, 1,
+                               st, p, args...);
+}
+
 extern "C" int sq_gauge_chunk(const GaugeParams* p, const float* ext_in, const float* dtau_in,
-                              float* work, float* owned_out, float* ps_out, float* dmax_out,
-                              int32_t* bad_out, int32_t* cap_out, float* force, float* zk,
+                              float* owned_out, float* ps_out, float* dmax_out,
+                              int32_t* bad_out, int32_t* cap_out, float* links, float* zk,
                               void* stream) {
-    const bool ok = valid_gauge_launch(*p) && p->W >= 2 && p->W % 2 == 0 && p->H >= 0 &&
-                    p->loc0 >= 1 && p->L0 == p->loc0 + 2 * p->H && p->L0g >= 1 &&
-                    (long long)p->L0g * p->L1 <= (1LL << 24);
-    if (!ok || p->cl_B != 1) return (int)cudaErrorInvalidValue;
-    SQ_GAUGE_DISPATCH(gauge_chunk_kernel, ext_in, dtau_in, work, owned_out, ps_out, dmax_out,
-                      bad_out, cap_out, force, zk);
-    return (int)cudaGetLastError();
+    if (!valid_gauge_chunk(*p)) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (p->group == GROUP_U1)
+        return launch_gauge_chunk<GROUP_U1>(*p, st, ext_in, dtau_in, owned_out, ps_out, dmax_out,
+                                            bad_out, cap_out, links, zk);
+    if (p->group == GROUP_SU2)
+        return launch_gauge_chunk<GROUP_SU2>(*p, st, ext_in, dtau_in, owned_out, ps_out,
+                                             dmax_out, bad_out, cap_out, links, zk);
+    return launch_gauge_chunk<GROUP_SU3>(*p, st, ext_in, dtau_in, owned_out, ps_out, dmax_out,
+                                         bad_out, cap_out, links, zk);
+}
+
+// Chains of kernel 12 the card runs at once in the geometry of p: resident
+// clusters of cl_B blocks, or at cl_B = 1 resident blocks (the rule's answer).
+template <int G>
+static cudaError_t gauge_chunk_resident(const GaugeParams& p, int* out) {
+    constexpr int T = Layout<G>::T;
+    const size_t smem = gauge_chunk_floats<G>(p) * sizeof(float);
+    if (p.cl_B == 1) return resident_blocks(gauge_chunk_kernel<G, false>, T, out, smem);
+    return resident_clusters(gauge_chunk_kernel<G, true>, T, smem, p.cl_B, out);
+}
+
+extern "C" int sq_gauge_chunk_resident(const GaugeParams* p, int, int* out) {
+    *out = 0;
+    if (!valid_gauge_chunk(*p)) return (int)cudaErrorInvalidValue;
+    if (p->group == GROUP_U1) return (int)gauge_chunk_resident<GROUP_U1>(*p, out);
+    if (p->group == GROUP_SU2) return (int)gauge_chunk_resident<GROUP_SU2>(*p, out);
+    return (int)gauge_chunk_resident<GROUP_SU3>(*p, out);
 }
 
 // Chains of kernel 10 (multi = 0) or 11 (multi = 1) the card runs at once in

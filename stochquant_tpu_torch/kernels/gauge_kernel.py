@@ -23,12 +23,15 @@ U(1) (direction μ), 8 for SU(2) (plane 2c + μ for quaternion component c)
 and 36 for SU(3) (plane 18μ + 2(3r + c) + {re, im}), the state layout of the
 first two and a transposition of SU(3)'s complex64 matrices.
 
-Kernels 10 and 11 run a chain on a thread-block cluster of B blocks, each
+Kernels 10, 11 and 12 run a chain on a thread-block cluster of B blocks, each
 holding a strip of rows of every link plane in shared memory, or at B = 1 on
-one block with the links in global memory: :func:`cluster_geometry` picks B
-(``_cluster`` has the rule); the wrappers keep the last launch's geometry in
-``gauge_frame.geometry`` and ``gauge_frames_multi.geometry``.  Kernel 12 runs
-one block per chain.
+one block with the links in global memory: :func:`cluster_geometry` and
+:func:`chunk_geometry` pick B (``_cluster`` has the rule); the wrappers keep
+the last launch's geometry in ``gauge_frame.geometry``,
+``gauge_frames_multi.geometry`` and ``gauge_chunk.geometry``.  Kernel 12
+cuts the rows of its halo-extended block, updates at step k only the rows
+that still reach the owned ones, and combines its blocks' partials once
+after the W steps.
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel on PyTorch's current stream, or raises — it never falls
@@ -44,6 +47,7 @@ there instead).
 
 from __future__ import annotations
 
+import contextlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -70,6 +74,8 @@ __all__ = [
     "planes_to_links",
     "links_to_planes_shaped",
     "planes_to_links_shaped",
+    "chunk_candidates",
+    "chunk_geometry",
     "gauge_chunk",
     "gauge_chunk_ref",
     "make_gauge_chunk_step",
@@ -407,6 +413,53 @@ def gauge_chunk_ref(ext: torch.Tensor, dtau: torch.Tensor, action, cfg: GaugeCon
     return owned, ps, dmax, bad, capped
 
 
+#: threads a block of each group (``Layout<G>::T`` in csrc/gauge_kernel.cu)
+THREADS = (1024, 512, 256)
+
+
+def chunk_candidates(E0: int, L1: int, group: int, W: int) -> list:
+    """Kernel 12's geometries for an extended block of ``E0`` rows of ``L1``
+    columns and ``W`` steps: B = 1 (the block in global memory) and every B ≤
+    E0 whose two buffers of a strip fit one block's shared memory, the kept
+    noise there where it fits too (``_cluster.candidates``)."""
+    _, P, NP, _ = next(v for v in _GROUPS.values() if v[0] == group)
+    return _cluster.candidates(
+        E0, lambda rows, scratch: _cluster.gauge_chunk_smem_floats(rows, L1, P, NP, W, scratch))
+
+
+def chunk_geometry(n_chains: int, E0: int, L1: int, group: int, W: int,
+                   resident) -> _cluster.Geometry:
+    """Kernel 12's geometry: ``_cluster.choose``'s least cost among
+    :func:`chunk_candidates`, as :func:`cluster_geometry` for kernels 10 and 11."""
+    return _cluster.choose(n_chains, chunk_candidates(E0, L1, group, W), resident,
+                           _cluster.overhead_rows(SITE_OPS[group], L1))
+
+
+_SPLIT = None
+
+
+@contextlib.contextmanager
+def forced_split(split: bool):
+    """Launch kernel 12 with this work item inside this block (the timing tool
+    holds both against each other), as ``_cluster.forced`` pins B."""
+    global _SPLIT
+    before, _SPLIT = _SPLIT, bool(split)
+    try:
+        yield
+    finally:
+        _SPLIT = before
+
+
+def chunk_split(g: _cluster.Geometry, L1: int, group: int) -> bool:
+    """Whether kernel 12 gives a thread one link direction of a site (True) or
+    a site's two: a direction each where a strip has fewer than two sites a
+    thread, so that the threads stay busy (su3 64 wide at B >= 8: 0.79× the
+    time of a site a thread; u1 at B = 8, 4.5 sites a thread: 1.19×, PERF.md)."""
+    if _SPLIT is not None:
+        return _SPLIT
+    return g.rows * L1 < 2 * THREADS[group]
+
+
 def gauge_chunk(ext: torch.Tensor, dtau: torch.Tensor, action, cfg: GaugeConfig, loc0: int,
                 W: int, step_base: int, chain_off: int = 0, row_off: int = 0):
     """Kernel 12: ``W`` (even) micro-steps on the extended planes ``ext``
@@ -425,7 +478,7 @@ def gauge_chunk(ext: torch.Tensor, dtau: torch.Tensor, action, cfg: GaugeConfig,
     if dev.type != "cuda":
         raise ValueError(f"gauge kernels run on 'cuda' or 'cpu' tensors, not {dev}")
     C, P, E0, L1 = ext.shape
-    _, _, NP, FP = _GROUPS[type(action)]
+    NP = _GROUPS[type(action)][2]
     _build.check_leaves(SimpleNamespace(ext=ext, dtau=dtau),
                         {"ext": ((C, P, E0, L1), torch.float32), "dtau": ((C,), torch.float32)},
                         dev)
@@ -433,18 +486,30 @@ def gauge_chunk(ext: torch.Tensor, dtau: torch.Tensor, action, cfg: GaugeConfig,
     params.n_chains, params.L0, params.loops = C, E0, W
     params.chain_off, params.row_off = rng.u32(int(chain_off)), rng.u32(int(row_off))
     params.loc0, params.H, params.W, params.L0g = loc0, H, W, cfg.shape[0]
+    group = params.group
+    g = _cluster.forced_geometry(chunk_candidates(E0, L1, group, W)) or chunk_geometry(
+        C, E0, L1, group, W,
+        lambda g: _cluster.resident_on_card("sq_gauge_chunk_resident", params, g, False, dev,
+                                            (E0, L1, group, W)))
+    _cluster.apply(params, g)
+    # kernel 12 has no empty micro-step (cl_empty is kernels 3, 4, 10 and 11's)
+    params.cl_empty, params.cl_split = 0, int(chunk_split(g, L1, group))
     empty = _empty(dev)
-    work, owned = empty((C, P, E0, L1)), empty((C, P, loc0, L1))
-    ps, dmax = empty((C,)), empty((C,))
+    owned, ps, dmax = empty((C, P, loc0, L1)), empty((C,)), empty((C,))
     bad, capped = empty((C,), torch.int32), empty((C,), torch.int32)
-    force, zk = empty((C, FP, E0, L1)), empty((C, NP, E0, L1))
+    # at B = 1 the two link buffers, (C, 2, P, E0 + 2, L1); the kept noise of
+    # each block's strip where shared memory does not hold it
+    links = empty((C, 2, P, E0 + 2, L1)) if g.B == 1 else empty((1,))
+    zk = empty((1,)) if g.scratch_in_smem else empty((C, g.B, NP, g.rows, L1))
     _build.launch("sq_gauge_chunk", params,
-                  (ext, dtau, work, owned, ps, dmax, bad, capped, force, zk), dev)
+                  (ext, dtau, owned, ps, dmax, bad, capped, links, zk), dev)
     gauge_chunk.launches += 1
+    gauge_chunk.geometry = g
     return owned, ps, dmax, bad != 0, capped != 0
 
 
 gauge_chunk.launches = 0
+gauge_chunk.geometry = None
 
 
 def make_gauge_chunk_step(action, cfg: GaugeConfig, c_local: int, loc0: int, W: int, *,

@@ -24,9 +24,10 @@ Backends of :func:`make_halo_runner`:
                ascending dim, so corners arrive through the neighbours'
                already-extended blocks; multi-hop when a slab is thinner than
                the halo).  Otherwise, in 2-D, the per-step kernel 9.
-``cuda_step``  kernel 9 per micro-step (``kernels.field_halo_kernel``) and an
-               exact O(surface) edge fixup in PyTorch; 2-D, float32,
-               counter-based noise.
+``cuda_step``  kernel 9 per micro-step (``kernels.field_halo_kernel``), given
+               the halo slices of the split dims: one exchange and one launch
+               per shard and micro-step (two under CHECKERBOARD); 2-D,
+               float32, counter-based noise.
 ``cuda_pair``  kernel 7 forced; a mesh axis of size 1 on dim 0 is allowed (a
                ring of one).
 ``cuda_rdma``  kernel 8 (``field_kernel_nd.field_chunk_rdma_nd``): kernel 7's W
@@ -267,8 +268,8 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
     each = range(n_shards)
 
     def exchange_halos(phis):
-        """Per shard {dim: (left halo, right halo)} for every split dim.  The
-        bulk stencil below does not read them: only the edge fixup does."""
+        """Per shard {dim: (left halo, right halo)} for every split dim: the
+        slices just below and just above the block, from its ring neighbours."""
         pending = [{} for _ in each]
         for d in range(ndim):
             if not sharded_dims[d]:
@@ -448,135 +449,32 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
             rounds=rounds, device=devs[i]) for i in each]
         return [p[0].to(dtype) for p in pairs], [p[1].to(dtype) for p in pairs]
 
-    # ---------------- backend 'cuda_step': kernel 9 + exact edge fixup ------
+    # ---------------- backend 'cuda_step': kernel 9 with the halo slices -----
 
-    def slice_laplacian(phi, pend, d, side):
-        """True laplacian on the first / last slice along split dim d,
-        composed dim 0 then dim 1 like the kernel body."""
-        axis = d + 1
-        L = phi.shape[axis]
-        idx = 0 if side == 0 else L - 1
-        sl = lambda x: x.narrow(axis, idx, 1)  # noqa: E731
-        sl_phi = sl(phi)
-        left, right = pend[d]
-        if side == 0:
-            up_d = phi.narrow(axis, 1, 1) if L > 1 else right
-            c_own = up_d + left - 2.0 * sl_phi
-        else:
-            down_d = phi.narrow(axis, L - 2, 1) if L > 1 else left
-            c_own = right + down_d - 2.0 * sl_phi
-        e = 1 - d
-        e_axis = e + 1
-        Le = phi.shape[e_axis]
-        up_e = torch.roll(sl_phi, -1, e_axis)
-        down_e = torch.roll(sl_phi, 1, e_axis)
-        if e in pend:
-            el, er = pend[e]
-            up_e.narrow(e_axis, Le - 1, 1).copy_(sl(er))
-            down_e.narrow(e_axis, 0, 1).copy_(sl(el))
-        c_other = up_e + down_e - 2.0 * sl_phi
-        zero = torch.zeros_like(sl_phi)
-        lap = (zero + c_own + c_other) if d == 0 else (zero + c_other + c_own)
-        return sl_phi, lap * inv_a2, idx
-
-    def edge_noise(pair_base):
-        """Per shard {(dim, side): (η of the pair's first step, of its second,
-        the slice's global offsets, its shape)} for the edge slices of every
-        split dim, re-derived from the sites' global counters.  One draw
-        serves both micro-steps of the pair and both checkerboard half-sweeps."""
-        out = []
-        for i in each:
-            noise = {}
-            for d in range(ndim):
-                if not sharded_dims[d]:
-                    continue
-                for side, idx in ((0, 0), (1, local_shape[d] - 1)):
-                    slice_shape = tuple(1 if dd == d else local_shape[dd] for dd in range(ndim))
-                    offs = tuple(lat_offs[i][dd] + (idx if dd == d else 0) for dd in range(ndim))
-                    e0, e1 = rng.normal_pair_for_shape(
-                        cfg.seed, rng.Stream.FIELD, pair_base, (c_local,) + slice_shape,
-                        global_lattice_shape=shape, chain_offset=ch_offs[i],
-                        lattice_offsets=offs, rounds=rounds, device=devs[i])
-                    noise[(d, side)] = (e0.to(dtype), e1.to(dtype), offs, slice_shape)
-            out.append(noise)
-        return out
-
-    def apply_fixup(phi, newphi, pend, noise, parity, mask_kind, namp, dtau_b):
-        """Splice the halo-informed updates of the edge slices into the
-        kernel's bulk result (in place: ``newphi`` is the kernel's fresh
-        output); returns it with the edge detector partials."""
-        dev = phi.device
-        ed = torch.zeros((c_local,), dtype=dtype, device=dev)
-        eb = torch.zeros((c_local,), dtype=torch.bool, device=dev)
-        ep = torch.zeros((c_local,), dtype=dtype, device=dev)
-        for d in pend:
-            axis = d + 1
-            for side in (0, 1):
-                sl_phi, lap, idx = slice_laplacian(phi, pend, d, side)
-                e0, e1, offs, slice_shape = noise[(d, side)]
-                noise_sl = namp * (e1 if parity else e0)
-                det = (lap - action.dV(sl_phi).to(dtype)) * dtau_b
-                new_raw = sl_phi + det + noise_sl
-                fin = torch.isfinite(new_raw)
-                new_sl = torch.where(fin, torch.clamp(new_raw, -clamp, clamp), clamp)
-                if mask_kind is not None:
-                    mask_sl = parity_mask(offs, slice_shape, dev)
-                    if mask_kind == "odd":
-                        mask_sl = ~mask_sl
-                    new_sl = torch.where(mask_sl, new_sl, sl_phi)
-                    det = torch.where(mask_sl, det, 0.0)
-                    fin = fin | ~mask_sl
-                newphi.narrow(axis, idx, 1).copy_(new_sl)
-                ed = torch.maximum(ed, torch.amax(torch.abs(det), dim=lat_reduce))
-                eb = eb | ~torch.all(fin.reshape(c_local, -1), dim=1)
-                ep = torch.maximum(ep, torch.amax(torch.abs(new_sl), dim=lat_reduce))
-        return newphi, ed, eb, ep
-
-    def act_corrections(phi, pend):
-        """Forward-difference corrections of the kernel's locally wrapped
-        action sum: only the last slice of each exchanged dim differs."""
-        corr = torch.zeros((c_local,), dtype=dtype, device=phi.device)
-        for d in pend:
-            axis = d + 1
-            L = phi.shape[axis]
-            last, first = phi.narrow(axis, L - 1, 1), phi.narrow(axis, 0, 1)
-            diff_l = first - last
-            diff_t = pend[d][1] - last
-            corr = corr + torch.sum(
-                0.5 * diff_t * diff_t * inv_a2 - 0.5 * diff_l * diff_l * inv_a2, dim=lat_reduce)
-        return corr
-
-    def micro_step_kernel(phis, vals, pair_base, parity, noise, namps, dtaus, dtau_bs):
+    def micro_step_kernel(phis, vals, pair_base, parity, dtaus):
+        """One exchange and one launch of kernel 9 per shard (two under
+        CHECKERBOARD, each half after its own exchange), then the tail."""
         koffs = [(ch_offs[i],) + lat_offs[i] for i in each]
-        pending = exchange_halos(phis)
 
-        def half_sweep(src, pend, half, kind):
-            outs = [kstep(src[i], dtaus[i], pair_base, parity, half, koffs[i]) for i in each]
-            fixed = [apply_fixup(src[i], outs[i][0], pend[i], noise[i], parity, kind, namps[i],
-                                 dtau_bs[i]) for i in each]
-            return outs, fixed
+        def half_sweep(src, half):
+            pending = exchange_halos(src)
+            return [kstep(src[i], dtaus[i], pair_base, parity, half, koffs[i], halos=pending[i])
+                    for i in each]
 
+        o = half_sweep(phis, 0)
         if checkerboard:
-            o, fx_e = half_sweep(phis, pending, 0, "even")
-            phi_e = [f[0] for f in fx_e]
-            # the odd half re-exchanges the halos of the fresh even sites and
-            # its observables are ignored (they sample once per micro-step)
-            o2, fx_o = half_sweep(phi_e, exchange_halos(phi_e), 1, "odd")
-            newphis = [f[0] for f in fx_o]
-            max_det = [torch.maximum(torch.maximum(o[i][5], fx_e[i][1]),
-                                     torch.maximum(o2[i][5], fx_o[i][1])) for i in each]
-            bad = [(o[i][6] > 0) | fx_e[i][2] | (o2[i][6] > 0) | fx_o[i][2] for i in each]
-            npmax = [torch.maximum(o2[i][7], fx_o[i][3]) for i in each]
+            # the odd half reads the fresh even sites' halos; its observables
+            # are ignored (they sample once per micro-step)
+            o2 = half_sweep([x[0] for x in o], 1)
+            max_det = [torch.maximum(o[i][5], o2[i][5]) for i in each]
+            bad = [(o[i][6] > 0) | (o2[i][6] > 0) for i in each]
         else:
-            o, fx = half_sweep(phis, pending, 0, None)
-            newphis = [f[0] for f in fx]
-            max_det = [torch.maximum(o[i][5], fx[i][1]) for i in each]
-            bad = [(o[i][6] > 0) | fx[i][2] for i in each]
-            npmax = [torch.maximum(o[i][7], fx[i][3]) for i in each]
-        act = [o[i][3] + act_corrections(phis[i], pending[i]) for i in each]
-        return finish_micro_step(phis, newphis, vals, max_det, bad, npmax,
-                                 [o[i][1] for i in each], [o[i][2] for i in each], act,
-                                 [o[i][4] for i in each])
+            o2 = o
+            max_det = [x[5] for x in o]
+            bad = [x[6] > 0 for x in o]
+        return finish_micro_step(phis, [x[0] for x in o2], vals, max_det, bad,
+                                 [x[7] for x in o2], [x[1] for x in o], [x[2] for x in o],
+                                 [x[3] for x in o], [x[4] for x in o])
 
     # ---- 'cuda_nd' (kernel 7, one exchange per chunk) and 'cuda_rdma' ------
     # ---- (kernel 8, the halo rows read by the kernel) ----------------------
@@ -647,24 +545,20 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
                 if Wx:
                     phis, vals = chunk_step(phis, vals, dtaus, Wx, step)
                     step += Wx
+        elif backend == "cuda_step":
+            for k in range(cfg.loops):
+                phis, vals = micro_step_kernel(phis, vals, step0 + (k & ~1), k & 1, dtaus)
         else:
             bshape = (c_local,) + (1,) * ndim
             dtau_bs = [d.reshape(bshape) for d in dtaus]
             namps = [field_mod.noise_scale(d, cfg).reshape(bshape) for d in dtaus]
-            if backend == "cuda_step":
-                for k in range(cfg.loops):
-                    if k % 2 == 0:
-                        noise = edge_noise(step0 + k)
-                    phis, vals = micro_step_kernel(phis, vals, step0 + (k & ~1), k & 1, noise,
-                                                   namps, dtaus, dtau_bs)
-            else:
-                evens = ([parity_mask(lat_offs[i], local_shape, devs[i]) for i in each]
-                         if checkerboard else None)
-                for k in range(0, cfg.loops, 2):
-                    e0, e1 = noise_pairs(step0 + k)
-                    phis, vals = micro_step(phis, vals, e0, namps, dtau_bs, evens)
-                    if k + 1 < cfg.loops:
-                        phis, vals = micro_step(phis, vals, e1, namps, dtau_bs, evens)
+            evens = ([parity_mask(lat_offs[i], local_shape, devs[i]) for i in each]
+                     if checkerboard else None)
+            for k in range(0, cfg.loops, 2):
+                e0, e1 = noise_pairs(step0 + k)
+                phis, vals = micro_step(phis, vals, e0, namps, dtau_bs, evens)
+                if k + 1 < cfg.loops:
+                    phis, vals = micro_step(phis, vals, e1, namps, dtau_bs, evens)
         out = [field_mod.field_frame_epilogue(states[i], obs_sums(phis[i], vals[i]), cfg)
                for i in each]
         return [o[0] for o in out], [o[1] for o in out]

@@ -1,9 +1,10 @@
-"""The cluster geometry of the port's kernels 3, 4, 10 and 11 on the CPU: the
-rule that picks B blocks a chain (``kernels/_cluster.py``, each wrapper's
-``cluster_geometry``), given the card's occupancy answer as an argument, and
-a Python mirror of the strips and halo rows of ``csrc/cluster.cuh``.  The
-kernels themselves run only on the card (``chip_smoke.py`` [6] [10] [20],
-the tests marked ``cuda``)."""
+"""The cluster geometry of the port's kernels 3, 4, 10, 11 and 12 on the CPU:
+the rule that picks B blocks a chain (``kernels/_cluster.py``, each wrapper's
+``cluster_geometry`` / ``chunk_geometry``), given the card's occupancy answer
+as an argument, and a Python mirror of the strips and halo rows of
+``csrc/cluster.cuh`` and of kernel 12's steps over them.  The kernels
+themselves run only on the card (``chip_smoke.py`` [6] [10] [17] [20], the
+tests marked ``cuda``)."""
 
 import pytest
 import torch
@@ -164,11 +165,98 @@ def test_shared_memory_sizes_mirror_the_sources():
     assert "Layout<G>::P * strip + scratch + 3 * 32 + 4 + 3 * SQ_MAX_CLUSTER" in src
     assert "(size_t)(Layout<G>::FP + Layout<G>::NP) * strip" in src
     assert "#define SQ_MAX_CLUSTER 16" in (_build._CSRC / "cluster.cuh").read_text()
+    assert ("2 * Layout<G>::P * strip + kept + 32 * (W + 1) + (1 + SQ_MAX_CLUSTER) * (W + 2) + W"
+            in src)
+    assert "(size_t)Layout<G>::NP * p.cl_rows * p.L1" in src
     assert "cluster.cuh" in _build._HEADERS
     # the timed shapes (bytes a block)
     assert 4 * _cluster.field_smem_floats(32, 256, 1, True) == 103_872
     assert 4 * _cluster.gauge_smem_floats(64, 256, 2, 2, 2, False) == 135_760
     assert 4 * _cluster.gauge_smem_floats(4, 64, 36, 36, 16, True) == 135_760
+
+
+# kernel 12 at the timed shapes: one shard of u1 256^2 x 32 and su3 64^2 x 8 cut
+# in two along dim 0, W = H = 8, so E0 = 128 + 16 and 32 + 16 rows
+CHUNK_TIMED = [(32, 144, 256, U1, (8, 18, True)), (8, 48, 64, SU3, (8, 6, True))]
+
+
+@pytest.mark.parametrize("chains,E0,L1,group,want", CHUNK_TIMED)
+def test_chunk_geometry_at_the_timed_shapes(chains, E0, L1, group, want):
+    """Every candidate's strip fits a block's shared memory; the rule runs a
+    chain over several blocks there (u1: 3 waves of 18 rows beat 2 of 36 and 5
+    of 9; su3: 64 rows a side do not fit below B = 8)."""
+    cands = gk.chunk_candidates(E0, L1, group, 8)
+    assert [g.B for g in cands] == ([1, 4, 8, 16] if group == U1 else [1, 8, 16])
+    for g in cands:
+        assert g.smem <= _cluster.SMEM_LIMIT
+        assert g.B == 1 or g.rows == -(-E0 // g.B)
+    g = gk.chunk_geometry(chains, E0, L1, group, 8, card)
+    assert (g.B, g.rows, g.scratch_in_smem) == want
+    assert g.smem == 4 * _cluster.gauge_chunk_smem_floats(
+        g.rows, L1, (2, 8, 36)[group], (2, 6, 16)[group], 8, True)
+    # su3's strips hold fewer sites than two a thread: a thread per link direction
+    assert gk.chunk_split(g, L1, group) == (group == SU3)
+    assert not gk.chunk_split(gk.chunk_candidates(E0, L1, group, 8)[0], L1, group)
+    with gk.forced_split(group != SU3):  # the timing tool's pin, undone on leaving
+        assert gk.chunk_split(g, L1, group) == (group != SU3)
+    assert gk.chunk_split(g, L1, group) == (group == SU3)
+
+
+def test_chunk_geometry_at_many_chains_and_the_smallest_blocks():
+    # 256 chains of a small block: one block a chain, the buffers in global memory
+    assert gk.chunk_geometry(256, 24, 64, U1, 8, card).B == 1
+    # E0 = 6 rows (loc0 2, W 2): B = 2 and 4 only, and the kept noise moves out
+    # of shared memory before a strip gives up its B
+    assert [g.B for g in gk.chunk_candidates(6, 64, SU3, 2)] == [1, 2, 4]
+    g = next(g for g in gk.chunk_candidates(48, 150, SU3, 8) if g.B == 16)
+    assert not g.scratch_in_smem and g.smem <= _cluster.SMEM_LIMIT
+
+
+def _chunk_steps(E0, W, B):
+    """Kernel 12's steps over the strips of an E0-row extended block at B blocks,
+    as gauge_chunk_kernel indexes them: each rank's two buffers of local rows
+    0 .. n + 1 (local row lr is extended row r0 + lr - 1) hold the step count
+    of the value there; step k reads buffer k % 2 and writes the other, at the
+    active rows [max(r0, k + 1), min(r0 + n, E0 - 1 - k)), pushing a new first
+    row into rank - 1's row n_up + 1 and a new last row into rank + 1's row 0.
+    Returns, per rank, (r0, n, buffers) after W steps; raises where a read
+    meets a value of another step."""
+    ranks = [dict(r0=a, n=b - a, buf=[{}, {}]) for a, b in _cluster.strips(E0, B)]
+    for k_rank in ranks:  # the load: rows that exist, at step 0
+        for lr in range(k_rank["n"] + 2):
+            if 0 <= k_rank["r0"] + lr - 1 < E0:
+                k_rank["buf"][0][lr] = 0
+    for k in range(W):
+        for b, rk in enumerate(ranks):
+            r0, n = rk["r0"], rk["n"]
+            A, O = rk["buf"][k % 2], rk["buf"][1 - k % 2]
+            for r in range(max(r0, k + 1), min(r0 + n, E0 - 1 - k)):
+                lr = r - r0 + 1
+                for d in (-1, 0, 1):  # the staples and the plaquette read rows r - 1 .. r + 1
+                    assert A.get(lr + d) == k, (E0, W, B, k, b, r, d)
+                O[lr] = k + 1
+                if lr == 1 and b > 0:
+                    up = ranks[b - 1]
+                    up["buf"][1 - k % 2][up["n"] + 1] = k + 1
+                if lr == n and b + 1 < B:
+                    ranks[b + 1]["buf"][1 - k % 2][0] = k + 1
+    return ranks
+
+
+@pytest.mark.parametrize("loc0,W", [(2, 2), (4, 4), (8, 8), (13, 4), (128, 8), (32, 8)])
+def test_chunk_strips_read_only_the_values_of_their_step(loc0, W):
+    """The strips cover every row of the extended block once; no step reads a
+    row another step left (a halo row a neighbour did not push, a stale row of
+    the other buffer); after the W steps (W even: buffer 0) every owned row
+    holds the value of step W."""
+    E0 = loc0 + 2 * W
+    for B in _cluster.SIZES:
+        if B > E0:
+            continue
+        assert sorted(r for a, b in _cluster.strips(E0, B) for r in range(a, b)) == list(range(E0))
+        for rk in _chunk_steps(E0, W, B):
+            for r in range(max(rk["r0"], W), min(rk["r0"] + rk["n"], W + loc0)):
+                assert rk["buf"][0][r - rk["r0"] + 1] == W
 
 
 @pytest.fixture

@@ -101,6 +101,100 @@ def test_halo_step_nan_is_counted_on_interior_sites_only(nan, counted):
     assert np.isnan(got[5].numpy()[nan[0]])
 
 
+def _cut(lattice, offs, loc, sharded):
+    """The block at ``offs`` (chain, row, column) of a periodic lattice (C, L0,
+    L1) and its halo slices {dim: (low, high)} for the split dims."""
+    C, L0, L1 = lattice.shape
+    r, c = offs[1], offs[2]
+    rows, cols = slice(r, r + loc[0]), slice(c, c + loc[1])
+    halos = {}
+    if sharded[0]:
+        halos[0] = tuple(lattice[:, [(r - 1) % L0, (r + loc[0]) % L0][k:k + 1], cols].contiguous()
+                         for k in (0, 1))
+    if sharded[1]:
+        halos[1] = tuple(lattice[:, rows, [(c - 1) % L1, (c + loc[1]) % L1][k:k + 1]].contiguous()
+                         for k in (0, 1))
+    return lattice[:, rows, cols].contiguous(), halos
+
+
+HALO_CASES = [(Sweep.SYNC, 0, 0), (Sweep.SYNC, 1, 0), (Sweep.CHECKERBOARD, 0, 0),
+              (Sweep.CHECKERBOARD, 1, 1)]
+
+
+@pytest.mark.parametrize("sharded", [(True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("sweep,parity,half", HALO_CASES)
+def test_halo_step_with_halos_is_the_unsplit_step_on_the_block(sharded, sweep, parity, half):
+    """With the halo slices of its split dims a block's micro-step is the
+    whole lattice's on that block bit for bit (the last block, whose halos
+    above wrap, and a middle one): new φ; the detector over every site equals
+    the no-halo mode's interior on the block extended by its halo slices (the
+    corners from the lattice); the action sum takes the true forward
+    difference (the whole lattice's action density on the block, within the
+    sum bar)."""
+    cfg = _mk(shape=(16, 24), sweep=sweep)
+    act = actions.get_field(cfg.action)
+    lattice, dtau = (torch.from_numpy(a) for a in _block(cfg, cfg.shape, seed=3 + parity))
+    loc = tuple(n // 2 if sp else n for n, sp in zip(cfg.shape, sharded))
+    whole = fh.field_halo_step_ref(lattice, dtau, act, cfg, 7, parity, half, (3, 0, 0),
+                                   (False, False))
+    for offs in ((3,) + tuple(n - m for n, m in zip(cfg.shape, loc)),
+                 (3,) + tuple(n // 4 if sp else 0 for n, sp in zip(cfg.shape, sharded))):
+        block, halos = _cut(lattice, offs, loc, sharded)
+        got = fh.field_halo_step_ref(block, dtau, act, cfg, 7, parity, half, offs, sharded,
+                                     halos)
+        r, c = offs[1], offs[2]
+        assert torch.equal(got[0], whole[0][:, r:r + loc[0], c:c + loc[1]])
+    # the middle block extended by one site a side along its split dims, without halos
+    ext_loc = tuple(n + 2 if sp else n for n, sp in zip(loc, sharded))
+    ext_offs = (3,) + tuple(o - 1 if sp else o for o, sp in zip(offs[1:], sharded))
+    idx = [torch.arange(o, o + n) % L for o, n, L in zip(ext_offs[1:], ext_loc, cfg.shape)]
+    ext = lattice[:, idx[0]][:, :, idx[1]].contiguous()
+    ref = fh.field_halo_step_ref(ext, dtau, act, cfg, 7, parity, half, ext_offs, sharded)
+    inner = tuple(slice(1, -1) if sp else slice(None) for sp in sharded)
+    assert torch.equal(got[0], ref[0][(slice(None),) + inner])
+    for i in (5, 6, 7):  # max|det|, the count, max|φ_new|: every site of the block
+        assert torch.equal(got[i], ref[i]), NAMES[i]
+    sites = float(np.prod(loc))
+    dens = act.action_density(lattice, cfg.spacing, 2)[:, r:r + loc[0], c:c + loc[1]]
+    torch.testing.assert_close(got[3] / sites, dens.sum(dim=(1, 2)) / sites, **SITE_SUM)
+    torch.testing.assert_close(got[1], block.sum(dim=(1, 2)), rtol=0, atol=0)
+    assert torch.equal(got[4], block.sum(dim=2))
+
+
+def test_halo_step_counts_a_nan_in_a_halo_row():
+    """A NaN in a halo slice reaches the one edge site that reads it: its
+    update is not finite (counted, φ clamped), the chain's max|det| NaN; the
+    other chain is untouched."""
+    cfg = _mk(shape=(16, 24))
+    act = actions.get_field(cfg.action)
+    lattice, dtau = (torch.from_numpy(a) for a in _block(cfg, cfg.shape, seed=11))
+    sharded, offs, loc = (True, False), (0, 8, 0), (8, 24)
+    block, halos = _cut(lattice, offs, loc, sharded)
+    clean = fh.field_halo_step_ref(block, dtau, act, cfg, 4, 0, 0, offs, sharded, halos)
+    below = halos[0][0].clone()
+    below[1, 0, 5] = float("nan")
+    got = fh.field_halo_step_ref(block, dtau, act, cfg, 4, 0, 0, offs, sharded,
+                                 {0: (below, halos[0][1])})
+    assert got[6].tolist() == [0.0, 1.0] and clean[6].tolist() == [0.0, 0.0]
+    assert torch.isnan(got[5][1]) and not torch.isnan(got[5][0])
+    assert float(got[0][1, 0, 5]) == float(np.float32(cfg.clamp))
+    changed = got[0] != clean[0]
+    assert changed.sum() == 1 and bool(changed[1, 0, 5])
+
+
+@pytest.mark.parametrize("halos,match", [
+    ({}, "every split dim"),
+    ({0: (torch.zeros(2, 1, 32), torch.zeros(2, 1, 32)), 1: None}, "every split dim"),
+    ({0: (torch.zeros(2, 1, 31), torch.zeros(2, 1, 32))}, "shape"),
+    ({0: (torch.zeros(2, 1, 32, dtype=torch.float64), torch.zeros(2, 1, 32))}, "float32"),
+])
+def test_halo_step_refuses_halos_that_do_not_fit(halos, match):
+    with pytest.raises(ValueError, match=match):
+        fh.field_halo_step(torch.zeros((2, 8, 32)), torch.full((2,), 0.01),
+                           actions.get_field("phi4"), _mk(), 1, 0, 0, (0, 8, 0), (True, False),
+                           halos)
+
+
 def test_make_local_step_runs_the_plain_version_on_the_cpu_without_launching():
     cfg = _mk(sweep=Sweep.CHECKERBOARD)
     act = actions.get_field(cfg.action)
@@ -115,6 +209,12 @@ def test_make_local_step_runs_the_plain_version_on_the_cpu_without_launching():
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="local block"):
         step(phi[:, :4], dtau, 4, 1, 1, offs)
+    halos = {0: (phi[:, :1], phi[:, -1:]), 1: (phi[:, :, :1], phi[:, :, -1:])}
+    got = step(phi, dtau, 4, 1, 1, offs, halos=halos)
+    want = fh.field_halo_step_ref(phi, dtau, act, cfg, 4, 1, 1, offs, sharded, halos)
+    assert fh.field_halo_step.launches == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("change,args,match", [
@@ -135,9 +235,9 @@ def test_halo_step_refuses_what_the_kernel_does_not_take(change, args, match):
 
 
 def test_halo_params_mirror_the_cuda_struct():
-    """FieldHaloParams is the 2-D kernels' FieldParams followed by nine 4-byte
+    """FieldHaloParams is the 2-D kernels' FieldParams followed by ten 4-byte
     integers, in the order of csrc/field_halo_kernel.cu."""
-    assert ctypes.sizeof(_build.FieldHaloParams) == ctypes.sizeof(_build.FieldParams) + 9 * 4
+    assert ctypes.sizeof(_build.FieldHaloParams) == ctypes.sizeof(_build.FieldParams) + 10 * 4
     src = (_build._CSRC / "field_halo_kernel.cu").read_text()
     start = src.index("struct FieldHaloParams {")
     body = src[start:src.index("};", start)]
@@ -188,3 +288,28 @@ def test_cuda_halo_step_kernel_matches_plain_version(cuda_device, sweep, parity,
     with pytest.raises(ValueError, match="contiguous|stride"):
         fh.field_halo_step(phi.transpose(1, 2).contiguous().transpose(1, 2), dtau, act,
                            dataclasses.replace(cfg), 6, parity, half, offs, sharded)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharded", [(True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("sweep,parity,half", HALO_CASES)
+def test_cuda_halo_step_kernel_with_halos_matches_plain_version(cuda_device, sharded, sweep,
+                                                                parity, half):
+    cfg = _mk(shape=(50, 70), n_chains=3, sweep=sweep)
+    act = actions.get_field(cfg.action)
+    lattice, dtau = (torch.from_numpy(a).to(cuda_device) for a in _block(cfg, cfg.shape, seed=9))
+    lattice[1, 24, 3] = float("nan")  # an edge site of the dim-0 split's block
+    loc = tuple(n // 2 if sp else n for n, sp in zip(cfg.shape, sharded))
+    offs = (1,) + tuple(n - m for n, m in zip(cfg.shape, loc))
+    block, halos = _cut(lattice, offs, loc, sharded)
+    # strided views, as the runner's narrowed slices of a neighbour's block are
+    views = {d: tuple(torch.cat([h, h], dim=2 - d).narrow(2 - d, 0, h.shape[2 - d]) for h in pair)
+             for d, pair in halos.items()}
+    assert not any(h.is_contiguous() for pair in views.values() for h in pair)
+    got = fh.field_halo_step(block, dtau, act, cfg, 6, parity, half, offs, sharded, views)
+    want = fh.field_halo_step_ref(block, dtau, act, cfg, 6, parity, half, offs, sharded, halos)
+    torch.cuda.synchronize()
+    for i in (0, 5, 6, 7):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=0, equal_nan=True,
+                                   msg=NAMES[i])
+    assert_outputs_close([g.cpu() for g in got], [w.cpu().numpy() for w in want], loc)

@@ -17,6 +17,7 @@ import torch
 
 from stochquant_tpu.integrators import gauge as jg
 from stochquant_tpu.kernels import gauge_kernel as jgk
+from stochquant_tpu_torch import rng
 from stochquant_tpu_torch.integrators import gauge as tg
 from stochquant_tpu_torch.io import checkpoint
 from stochquant_tpu_torch.kernels import _build
@@ -149,9 +150,9 @@ def test_su3_plane_layout():
 
 def test_kernel_parameters_mirror_the_cuda_struct():
     # 8 integer fields, 2 unsigned and 8 floats, then the chunk kernel's 2 unsigned and
-    # 4 integers and kernels 10 and 11's 4 cluster-geometry integers, in the order of
-    # csrc/gauge_kernel.cu
-    assert ctypes.sizeof(_build.GaugeParams) == 28 * 4
+    # 4 integers, the 4 cluster-geometry integers and kernel 12's work item, in the order
+    # of csrc/gauge_kernel.cu
+    assert ctypes.sizeof(_build.GaugeParams) == 29 * 4
     src = (_build._CSRC / "gauge_kernel.cu").read_text()
     start = src.index("struct GaugeParams {")
     body = src[start:src.index("};", start)]
@@ -305,6 +306,73 @@ def test_chunk_flags_and_nan_rows():
     for g, c in zip(got, clean):
         assert torch.equal(g[0], c[0])
     assert torch.isnan(got[2][1]) and torch.isnan(got[0][1]).any()
+
+
+def _chunk_on_the_shrinking_domain(ext, dtau, action, cfg, loc0, W, step_base, chain_off,
+                                   row_off):
+    """``gauge_chunk_ref``'s W steps, each keeping only kernel 12's domain: step
+    k keeps its update of rows [k + 1, E0 - 1 - k) and sets every other row to
+    NaN, so a read outside the domain would reach the owned rows."""
+    H = W
+    C, P, E0, L1 = ext.shape
+    L0g, NP = cfg.shape[0], gk._GROUPS[type(action)][2]
+    rows = (torch.arange(E0, dtype=torch.int64) + (row_off - H)) % L0g
+    site = (torch.arange(NP, dtype=torch.int64).view(NP, 1, 1) * (L0g * L1)
+            + rows.view(1, E0, 1) * L1 + torch.arange(L1, dtype=torch.int64).view(1, 1, L1))
+    noise_shape = action.noise_shape(C, 2, (E0, L1))
+    site = rng.u32(site).reshape((1,) + tuple(noise_shape[1:]))
+    chains = rng.u32(torch.arange(C, dtype=torch.int64) + chain_off)
+    k1 = rng.chain_key(rng.Stream.FIELD, chains).view((C,) + (1,) * (len(noise_shape) - 1))
+    own = torch.zeros((1, 1, E0, 1), dtype=torch.bool)
+    own[:, :, H:H + loc0] = True
+    cap = float(np.float32(cfg.drift_cap))
+    links = gk.planes_to_links(ext, action)
+    ps, dmax = torch.zeros((C,)), torch.zeros((C,))
+    bad, capped = torch.zeros((C,), dtype=torch.bool), torch.zeros((C,), dtype=torch.bool)
+    k = 0
+    for j in range(0, W, 2):
+        for eta in rng.normal_pair(rng.u32(cfg.seed), k1, site, rng.u32(step_base + j)):
+            f = action.drift(links, 2)
+            dnorm = torch.amax(torch.where(own, action.drift_magnitude(f), 0.0), dim=(1, 2, 3))
+            plaq = torch.where(own[:, 0], action.plaquette_site(links, 0, 1, 2), 0.0)
+            planes = gk.links_to_planes(action.apply_update(links, action.omega(f, eta, dtau)),
+                                        action)
+            keep = torch.zeros((1, 1, E0, 1), dtype=torch.bool)
+            keep[:, :, k + 1:E0 - 1 - k] = True
+            planes = torch.where(keep, planes, float("nan"))
+            links = gk.planes_to_links(planes, action)
+            ps = ps + plaq.sum(dim=(1, 2))
+            dmax = torch.maximum(dmax, dnorm)
+            bad = bad | ~torch.all((torch.isfinite(planes) | ~own).reshape(C, -1), dim=1)
+            capped = capped | (dnorm > cap)
+            k += 1
+    return planes[:, :, H:H + loc0].contiguous(), ps, dmax, bad, capped
+
+
+@pytest.mark.parametrize("group,loc0,W,row_off", [
+    ("u1", 4, 2, 0),     # the upper halo wraps the global lattice
+    ("u1", 8, 4, 12),    # the lower halo wraps it
+    ("u1", 8, 8, 8),     # the extended block is 1.5 lattices
+    ("su2", 4, 2, 14),
+    ("su2", 4, 4, 0),
+    ("su2", 8, 8, 4),
+])
+def test_chunk_needs_only_the_rows_that_reach_the_owned_ones(group, loc0, W, row_off):
+    """Kernel 12 updates at step k only the rows [k + 1, E0 - 1 - k) of the
+    extended block and never wraps in dim 0: ``gauge_chunk_ref`` with every
+    other row poisoned after each step gives the owned links, the plaquette
+    sum, the drift max and both flags bit for bit."""
+    cfg = dataclasses.replace(CFG[group], shape=(16, 8), n_chains=2, drift_cap=0.9)
+    act = tg.resolve_gauge_action(cfg)
+    s0 = tg.init_gauge_state(cfg, act, device="cpu")
+    ext = torch.from_numpy(_extended(gk.links_to_planes(s0.links, act).numpy(), row_off, loc0,
+                                     W))
+    dtau = torch.tensor([cfg.dtau, 1.5 * cfg.dtau])
+    want = gk.gauge_chunk_ref(ext, dtau, act, cfg, loc0, W, 9, 2, row_off)
+    got = _chunk_on_the_shrinking_domain(ext, dtau, act, cfg, loc0, W, 9, 2, row_off)
+    assert not torch.isnan(got[0]).any()
+    for name, g, w in zip(("owned", "plaquette", "dmax", "bad", "capped"), got, want):
+        assert torch.equal(g, w), name
 
 
 @pytest.mark.parametrize("group", ["u1", "su2", "su3"])

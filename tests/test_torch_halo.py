@@ -151,12 +151,14 @@ def test_halo_cuda_backend_resolution():
 
 def test_halo_runner_takes_replacement_kernel_wrappers():
     """``step=`` / ``chunk=`` swap the wrapper (the ``_ref`` functions force
-    the plain versions): the runner calls it once per micro-step / chunk and shard."""
+    the plain versions): the runner calls it once per micro-step / chunk and
+    shard, kernel 9 with the halo slices of the split dims."""
     calls = {"step": 0, "chunk": 0}
 
-    def step(*a):
+    def step(*a, halos):
         calls["step"] += 1
-        return field_halo_kernel.field_halo_step_ref(*a)
+        assert set(halos) == {0} and all(h.shape == (4, 1, 16) for h in halos[0])
+        return field_halo_kernel.field_halo_step_ref(*a, halos=halos)
 
     def chunk(*a):
         calls["chunk"] += 1

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Field kernels 3-8 and gauge kernels 10-12 on the card: times, cluster sizes,
+"""Field kernels 3-9 and gauge kernels 10-12 on the card: times, cluster sizes,
 tiles and the empty micro-step.
 
     python3 tools/lattice_kernel_timing.py measure [--root DIR] [--only clusters|fields]
@@ -25,9 +25,11 @@ kernel 7 (``field_chunk_nd``) at 32^4 x 1, x 4 and x 8 (W = 4, dim 0 extended
 periodically), on the (16, 128, 256) shard of 256^2 x 16 cut in two (W = 8), on
 the ring of one (16, 256, 256) (W = 8) and on the (8, 16, 32, 32, 32) shard of
 32^4 x 8 cut in two (W = 2); kernel 8 (``field_chunk_rdma_nd``) on the same three
-slabs.  Beside the CUDA-event ms of the wrapper, ``device_us`` is the kernel's
-own device time per launch (torch.profiler), which the host's pace does not
-reach.  ``--root`` takes the package from another checkout (e.g. the parent
+slabs; kernel 9 (``field_halo_step``) on the (16, 128, 256) shard, with its
+halo rows where the checkout's kernel takes them.  Beside the CUDA-event ms
+of the wrapper, ``device_us`` is the kernel's own device time per launch
+(torch.profiler), which the host's pace does not reach (kernel 12 has it
+too).  ``--root`` takes the package from another checkout (e.g. the parent
 commit unpacked with ``git archive``); the kernels build into that checkout.
 ``--only`` keeps the cluster kernels (3, 4, 10-12) or the field kernels 5-8.
 
@@ -36,7 +38,9 @@ the rule can pick for the timed shape, holds each one's outputs against B = 1
 (bit for bit but for the site sums, which take another order), and times the
 empty micro-step at each B > 1: the same launch with the site work skipped,
 its barriers, halo publication and reductions kept (``_cluster.forced(B,
-empty=True)``), per micro-step.  For the field kernels it times kernel 5 at
+empty=True)``), per micro-step.  Kernel 12 it times at every cluster size
+and with either work item (a site, or a link direction: ``forced_split``),
+ms and device time, each held against B = 1, beside the rule's choice.  For the field kernels it times kernel 5 at
 1024^2 x 16 and 256^2 x 16 at every strip height T0 that fits (synchronous
 and checkerboard) and kernels 6 and 7 at 32^4 x 1 and x 8 and on the split
 shard under every ``TARGET_BLOCKS`` of the tile rule, each held against the
@@ -50,6 +54,7 @@ power limit come first.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -91,11 +96,12 @@ def load(root: Path):
     from stochquant_tpu_torch.kernels import field_kernel as fk
     from stochquant_tpu_torch.kernels import field_kernel_nd as nd
     from stochquant_tpu_torch.kernels import field_kernel_tiled as ft
+    from stochquant_tpu_torch.kernels import field_halo_kernel as fh
     from stochquant_tpu_torch.kernels import gauge_kernel as gk
 
     _build.library()
     return dict(torch=torch, actions=actions, FieldConfig=FieldConfig, Sweep=Sweep, field=field,
-                gauge=gauge, fk=fk, gk=gk, nd=nd, ft=ft)
+                gauge=gauge, fk=fk, gk=gk, nd=nd, ft=ft, fh=fh)
 
 
 def wrap_block(torch, phi, H: int, off0: int, loc0: int):
@@ -106,7 +112,7 @@ def wrap_block(torch, phi, H: int, off0: int, loc0: int):
 
 def field_cases(m):
     """(name, launch, kernel-name fragment for the profiler, micro-steps a
-    launch) of kernels 5-8 at the main paths' shapes, from fresh states."""
+    launch) of kernels 5-9 at the main paths' shapes, from fresh states."""
     torch, nd, ft, field = m["torch"], m["nd"], m["ft"], m["field"]
     FieldConfig = m["FieldConfig"]
     dev = torch.device("cuda")
@@ -147,6 +153,18 @@ def field_cases(m):
         left = left if loc0 < cfg.shape[0] else own
         out.append((f"k8_{name}_W{W}", lambda o=own, lf=left, r=right, s=s, a=act, c=cfg, W=W:
                     nd.field_chunk_rdma_nd(o, lf, r, s.dtau, a, c, W, 7), "nd_kernel", W))
+    # kernel 9 on shard 1 of the split 256^2 x 16 lattice, as the cuda_step
+    # runner launches it: with its halo rows where the checkout's kernel takes
+    # them (narrowed views of shard 0), else without (the edge fixup's mode)
+    cfg = FieldConfig(**SPLIT)
+    act = m["actions"].get_field(cfg.action)
+    s = field.init_field_state(cfg, device=dev)
+    loc0 = cfg.shape[0] // 2
+    args = (s.phi[:, loc0:].contiguous(), s.dtau, act, cfg, 7, 0, 0, (0, loc0, 0), (True, False))
+    if "halos" in inspect.signature(m["fh"].field_halo_step).parameters:
+        args += ({0: (s.phi[:, loc0 - 1:loc0], s.phi[:, :1])},)
+    out.append(("k9_x2_256x16", lambda a=args: m["fh"].field_halo_step(*a),
+                "field_halo_step_kernel", 1))
     torch.cuda.synchronize()
     return out
 
@@ -218,8 +236,13 @@ def measure(root: Path, only=None) -> None:
         for name, launch, wrapper, steps in cases(m):
             with Clock() as clk:
                 ms = cuda_ms(m["torch"], launch)
+                # kernel 12: its own device time too (the parent's and the change's
+                # kernels are both named gauge_chunk_kernel<...>)
+                us = (device_us(m["torch"], launch, "gauge_chunk_kernel")
+                      if name.startswith("k12") else None)
+            extra = {} if us is None else dict(device_us=us)
             emit(case=name, ms=ms, micro_steps=steps, clock=clk.line,
-                 geometry=geometry(wrapper), root=str(root))
+                 geometry=geometry(wrapper), root=str(root), **extra)
     if only != "clusters":
         for name, launch, fragment, steps in field_cases(m):
             with Clock() as clk:
@@ -339,6 +362,41 @@ def sweep_fields(m) -> None:
         nd.TARGET_BLOCKS = default
 
 
+def sweep_chunk(m, name: str, launch) -> None:
+    """Kernel 12 at every cluster size its rule can pick for the timed shard
+    and with either work item (a site, or a link direction of a site): ms and
+    device time per launch, each held against B = 1 (links, drift max and
+    flags bit for bit, the plaquette sum as a mean within rtol 3e-5 / atol
+    3e-6)."""
+    from stochquant_tpu_torch.kernels import _cluster
+
+    torch, gk = m["torch"], m["gk"]
+    group = name[4:]
+    kw = GAUGE[group]
+    E0, L1 = kw["shape"][0] // 2 + 2 * CHUNK_W, kw["shape"][1]
+    code = ("u1", "su2", "su3").index(group)
+    launch()
+    rule = gk.gauge_chunk.geometry
+    rule_split = gk.chunk_split(rule, L1, code)
+    with _cluster.forced(1):
+        ref = launch()
+    sites = CHUNK_W * (E0 - 2 * CHUNK_W) * L1
+    for g in gk.chunk_candidates(E0, L1, code, CHUNK_W):
+        for split in (False, True):
+            with _cluster.forced(g.B), gk.forced_split(split):
+                got = launch()
+                same = (all(torch.equal(x, y) for x, y in zip(got[2:], ref[2:]))
+                        and torch.equal(got[0], ref[0])
+                        and torch.allclose(got[1].double() / sites, ref[1].double() / sites,
+                                           rtol=3e-5, atol=3e-6))
+                with Clock() as clk:
+                    ms = cuda_ms(torch, launch, reps=20)
+                    us = device_us(torch, launch, "gauge_chunk_kernel")
+            emit(sweep=name, B=g.B, split=split, ms=ms, device_us=us,
+                 geometry=geometry(gk.gauge_chunk), same_as_B1=same,
+                 rule=dict(B=rule.B, split=rule_split), clock=clk.line)
+
+
 def sweep(only=None) -> None:
     m = load(HERE)
     if only != "clusters":
@@ -349,7 +407,10 @@ def sweep(only=None) -> None:
 
     torch, fk, gk = m["torch"], m["fk"], m["gk"]
     for name, launch, wrapper, steps in cases(m):
-        if name.startswith(("k11", "k12")) or name == "k3h":
+        if name.startswith("k12"):
+            sweep_chunk(m, name, launch)
+            continue
+        if name.startswith("k11") or name == "k3h":
             continue
         launch()
         shape, C = (256, 256), 16
