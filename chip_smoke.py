@@ -219,7 +219,25 @@ non-zero:
     W = 8 (CUDA events, in turns) beside kernel 8's plain version; the
     one-step tail beside the pair at 32⁴ × 1 (CUDA events, in turns).
 
-Every timing phase ([5], [9], [12], [15], [19], [22], [23], [26]) ends with the
+27. complex Langevin, which no kernel implements in either package: ``cli
+    run`` on every complex preset (``complex_gaussian``, ``complex_quartic``,
+    ``complex_chain``, ``complex_field_2d``) and complexified gauge preset
+    (``cu1_2d_complex``, ``csu3_2d_complex``, with gauge cooling) at its JAX
+    width: burn 1 + 2 frames, ``--resume`` for 1, an uninterrupted burn 1 +
+    3, the resume bitwise, the records finite with the JAX runner's keys,
+    every kernel counter at 0, ``auto`` on the gauge presets recording its
+    ``backend_fallback``; each family at a small size on the card against
+    the CPU run of the same code (integer leaves equal, float leaves and both
+    parts of complex ones within 2e-5, site means within rtol 3e-5, atol
+    3e-6); ⟨z²⟩ of ``complex_gaussian`` against 1/σ and of
+    ``complex_field_2d`` against the lattice propagator, each within 6
+    standard errors over chains after a burn-in, and ``cu1_2d_complex``'s
+    unitarity norm with cooling below its value without; MLUPS of the chain
+    and field presets and of the complex field at 256² × 16 (with the
+    device's idle share under ``torch.profiler``), link-MLUPS of the gauge
+    presets.
+
+Every timing phase ([5], [9], [12], [15], [19], [22], [23], [26], [27]) ends with the
 range of the card's SM clock, power draw and temperature sampled while it ran.
 
 ``python3 chip_smoke.py --log PATH`` also writes every printed line to PATH.
@@ -2500,14 +2518,18 @@ PLAIN_TOL_SPEC = 1e-4   # the spectrum, relative to a chain's largest mode (cuFF
 PLAIN_TOL_FIELD_EXACT = 5e-5  # fields under Scheme.EXACT: float32 rfftn round trips
 
 
-def card_vs_cpu(torch, label: str, run, tol: float, card: str) -> None:
+def card_vs_cpu(torch, label: str, run, tol: float, card: str, sums=()) -> None:
     """``run(device)`` -> final state on the card and on the CPU: integer
-    leaves equal, float leaves within ``tol`` (the spectrum within
-    PLAIN_TOL_SPEC of each chain's largest mode)."""
+    leaves equal, float leaves and both parts of complex ones within ``tol``
+    (the spectrum within PLAIN_TOL_SPEC of each chain's largest mode; the
+    site-reduced means named in ``sums`` within rtol FIELD_RTOL, atol
+    FIELD_ATOL)."""
     on_card, on_cpu = run("cuda"), run("cpu")
-    worst, spec = 0.0, None
+    worst, spec, worst_sum = 0.0, None, 0.0
     for name, x, y in zip(on_card._fields, on_card, on_cpu):
         x = x.cpu()
+        if x.is_complex():
+            x, y = torch.view_as_real(x), torch.view_as_real(y)
         if not x.is_floating_point():
             if not torch.equal(x, y):
                 raise SystemExit(f"{label}: {name} differs between the card and the CPU")
@@ -2515,12 +2537,18 @@ def card_vs_cpu(torch, label: str, run, tol: float, card: str) -> None:
         d = (x.double() - y.double()).abs()
         if name == "spec_mean":
             spec = float((d / (y.double().abs().amax(dim=1, keepdim=True) + 1e-30)).max())
-            continue
-        worst = max(worst, float(d.max()))
+        elif name in sums:
+            worst_sum = max(worst_sum, float((d / (FIELD_ATOL + FIELD_RTOL
+                                                   * y.double().abs())).max()))
+        else:
+            worst = max(worst, float(d.max()))
     log(f"  {label}: card vs CPU max|Δ| {worst:.3e} (limit {tol:g})"
         + (f", spectrum {spec:.3e} of the largest mode (limit {PLAIN_TOL_SPEC:g})"
-           if spec is not None else "") + f" [{card}]")
-    if not worst <= tol or (spec is not None and not spec <= PLAIN_TOL_SPEC):
+           if spec is not None else "")
+        + (f", site means at {worst_sum:.3f} of rtol {FIELD_RTOL:g} + atol {FIELD_ATOL:g}"
+           if sums else "") + f" [{card}]")
+    if (not worst <= tol or (spec is not None and not spec <= PLAIN_TOL_SPEC)
+            or not worst_sum <= 1.0):
         raise SystemExit(f"{label}: the plain path on the card disagrees with the CPU")
 
 
@@ -2988,6 +3016,198 @@ def phase_rdma_timings(torch, mods, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# complex Langevin: the complex actions and the complexified gauge groups
+# (no kernel in either package)
+# ---------------------------------------------------------------------------
+
+CL_PRESETS = ("complex_gaussian", "complex_quartic", "complex_chain", "complex_field_2d",
+              "cu1_2d_complex", "csu3_2d_complex")
+CL_KEYS = ("re_z2", "im_z2", "drift_max")  # stochquant_tpu/runtime.py:283-287
+CL_GAUGE_KEYS = ("plaquette", "plaquette_exact_2d", "drift_max", "plaquette_im",
+                 "plaquette_exact_2d_im", "unitarity_norm")  # stochquant_tpu/runtime.py:418-436
+
+
+def phase_complex_langevin(torch, mods, tmp: Path, card: str) -> dict:
+    """The complex-Langevin sector on the card, no kernel in either package:
+    every complex and complexified-gauge preset at its JAX width through `cli
+    run` (burn 1 + 2 frames, --resume for 1, uninterrupted burn 1 + 3: the
+    resume bitwise, records finite with the JAX runner's keys, no kernel
+    launched, `auto` on the gauge presets recording its fallback); each
+    family at a small size on the card against the CPU run of the same code;
+    the known answers ⟨z²⟩ = 1/σ (0-D) and the lattice propagator (2-D
+    field) within 6 standard errors over chains, and the unitarity norm of
+    cu1 with cooling below its value without; then rates."""
+    import dataclasses
+
+    cli, checkpoint, runtime, metrics = (mods[k] for k in ("cli", "checkpoint", "runtime",
+                                                           "metrics"))
+    counters = dict(mods["counters"], chain_frame=mods["ck"].chain_frame,
+                    chain_frames_multi=mods["ck"].chain_frames_multi)
+    from stochquant_tpu_torch.actions import complex_actions
+    from stochquant_tpu_torch.integrators import complex_field as cfield
+    from stochquant_tpu_torch.integrators import complex_langevin as cl
+    gauge = mods["gauge"]
+    presets = {**cli.COMPLEX_PRESETS, **cli.GAUGE_PRESETS}
+    quiet = lambda: metrics.MetricsSink(callback=lambda r: None)  # noqa: E731
+    out = {}
+
+    def records(path):
+        return [json.loads(line) for line in open(path)]
+
+    # 1. each preset at its width through the CLI
+    for preset in CL_PRESETS:
+        is_gauge = preset in cli.GAUGE_PRESETS
+        common = ["run", "--preset", preset, "--device", "cuda"]
+        paths = {p: (str(tmp / f"cl_{preset}_{p}.npz"), str(tmp / f"cl_{preset}_{p}.jsonl"))
+                 for p in "abc"}
+
+        def three_runs():
+            cli.main(common + ["--burn", "1", "--frames", "2", "--out", paths["a"][0],
+                               "--metrics", paths["a"][1]])
+            cli.main(common + ["--frames", "1", "--resume", paths["a"][0], "--out",
+                               paths["b"][0], "--metrics", paths["b"][1]])
+            cli.main(common + ["--burn", "1", "--frames", "3", "--out", paths["c"][0],
+                               "--metrics", paths["c"][1]])
+
+        counted(torch, counters, {}, f"cli run --preset {preset} (burn 1 + 2, resume 1, "
+                f"burn 1 + 3 frames)", three_runs)
+        for part in "abc":
+            recs = records(paths[part][1])
+            if is_gauge:
+                if recs[0].get("type") != "backend_fallback" or recs[0].get("backend") != "torch":
+                    raise SystemExit(f"{preset}{part}: auto did not record why it runs the "
+                                     "plain path")
+                recs = recs[1:]
+            check_records(recs, preset + part, CL_GAUGE_KEYS if is_gauge else CL_KEYS)
+        resumed, cfg = checkpoint.load(paths["b"][0], "cpu")
+        straight, _ = checkpoint.load(paths["c"][0], "cpu")
+        for name, x, y in zip(resumed._fields, resumed, straight):
+            if not torch.equal(x, y):
+                raise SystemExit(f"{preset}: resumed run differs from the uninterrupted one "
+                                 f"in {name}")
+        last = records(paths["c"][1])[-2]
+        keys = CL_GAUGE_KEYS if is_gauge else CL_KEYS
+        log(f"    {preset} at {preset_width(cfg)}: records finite with the JAX runner's keys, "
+            f"no kernel launched{', fallback recorded' if is_gauge else ''}, resume bitwise; "
+            f"last frame {json.dumps({k: last[k] for k in keys})}")
+
+    # 2. the card against the CPU, each family at a small size
+    small = {
+        "complex_quartic": dict(n_chains=256, loops=10, frames=2),
+        "complex_chain": dict(n_chains=64, loops=11, frames=2),
+        "complex_field_2d": dict(n_chains=8, shape=(16, 16), loops=10, frames=2),
+        "cu1_2d_complex": dict(n_chains=8, shape=(8, 8), loops=10, frames=2),
+        "csu3_2d_complex": dict(n_chains=8, shape=(8, 8), loops=10, frames=2),
+    }
+    for preset, change in small.items():
+        cfg = dataclasses.replace(presets[preset], **change)
+        is_gauge = preset in cli.GAUGE_PRESETS
+        entry = runtime.run_gauge if is_gauge else runtime.run_complex
+
+        def run(device, cfg=cfg, entry=entry):
+            return entry(cfg, device=device, sink=quiet()).state
+
+        sums = (("plaq_mean",) if is_gauge else ("z2r_mean", "z2i_mean", "zim_mean")
+                if preset == "complex_field_2d" else ())
+        card_vs_cpu(torch, f"{preset} cut to {change}", run, PLAIN_TOL, card, sums)
+
+    # 3. known answers at the preset widths (Δτ held: grow_after 10**9)
+    for preset, burn, frames in (("complex_gaussian", 40, 40), ("complex_field_2d", 30, 20)):
+        cfg = dataclasses.replace(presets[preset], grow_after=10**9, frames=frames, seed=21)
+        t0 = time.time()
+        res = counted(torch, counters, {}, f"runtime.run_complex {preset} burn {burn} + "
+                      f"{frames} frames", lambda cfg=cfg, burn=burn: runtime.run_complex(
+                          cfg, device="cuda", burn_frames=burn, sink=quiet()))
+        seconds = time.time() - t0
+        act = complex_actions.get_complex(cfg.action)
+        want = (1.0 / act.sigma if preset == "complex_gaussian" else
+                cfield.exact_gaussian_z2(cfg.shape, cfg.spacing, act.sigma))
+        re = res.state.z2r_mean.double().cpu().reshape(cfg.n_chains, -1).mean(dim=1)
+        im = res.state.z2i_mean.double().cpu().reshape(cfg.n_chains, -1).mean(dim=1)
+        got = complex(float(re.mean()), float(im.mean()))
+        err = math.hypot(float(re.std()), float(im.std())) / math.sqrt(cfg.n_chains)
+        z = abs(got - want) / err
+        log(f"  {preset} ({cfg.n_chains} chains, dtau {cfg.dtau:g}, loops {cfg.loops}; burn "
+            f"{burn} + {frames} frames, {seconds:.1f}s): <z^2> {got:.5f} against the exact "
+            f"{want:.5f}, {z:.2f} standard errors over chains (limit 6; the Euler-Maruyama "
+            f"step's bias dtau/2 = {cfg.dtau / 2:.1e}, standard error {err:.1e}) [{card}]")
+        if not (torch.isfinite(res.state.zr).all() and z < 6.0):
+            raise SystemExit(f"{preset}: <z^2> is not within 6 standard errors of its exact value")
+
+    # cu1's drift is a lattice curl, so from unitary links Im θ stays free of
+    # divergence and cooling has nothing to remove: start from an imaginary
+    # gauge transform of the cold links, Im θ_μ(x) = b(x) − b(x+μ̂)
+    base = dataclasses.replace(presets["cu1_2d_complex"], frames=3)
+    cold = gauge.init_gauge_state(base, gauge.resolve_gauge_action(base), device="cuda")
+    b = 0.3 * torch.randn((base.n_chains,) + base.shape,
+                          generator=torch.Generator().manual_seed(27)).to("cuda")
+    im = torch.stack([b - torch.roll(b, -1, dims=1 + mu) for mu in range(base.ndim)], dim=1)
+    start = tmp / "cu1_gauge_transformed.npz"
+    checkpoint.save(start, cold._replace(links=torch.complex(cold.links.real, im)), base)
+    norms = {}
+    for rate in (base.cooling_rate, 0.0):
+        recs = []
+        runtime.run_gauge(dataclasses.replace(base, cooling_rate=rate), device="cuda",
+                          checkpoint_in=str(start), sink=metrics.MetricsSink(callback=recs.append))
+        norms[rate] = [r["unitarity_norm"] for r in recs if r["type"] == "frame"]
+    log(f"  cu1_2d_complex, 3 frames from a gauge transform of the cold links (Im part 0.3 "
+        f"N(0,1) gradients): unitarity norm (max over chains) {norms[base.cooling_rate]} with "
+        f"cooling rate {base.cooling_rate}, {norms[0.0]} without")
+    if not (all(math.isfinite(v) for v in norms[base.cooling_rate])
+            and norms[base.cooling_rate][-1] < norms[0.0][-1]):
+        raise SystemExit("cu1_2d_complex: cooling did not keep the unitarity norm below its "
+                         "value without cooling")
+
+    # 4. rates: median of 3 frames after a warm-up frame, loops 20, at the widths
+    cells = [
+        ("complex_chain", presets["complex_chain"]),
+        ("complex_field_2d", presets["complex_field_2d"]),
+        ("complex_field_256x256x16", dataclasses.replace(presets["complex_field_2d"],
+                                                         shape=(256, 256), n_chains=16)),
+        ("cu1_2d_complex", presets["cu1_2d_complex"]),
+        ("csu3_2d_complex", presets["csu3_2d_complex"]),
+    ]
+    for key, cfg in cells:
+        cfg = dataclasses.replace(cfg, loops=20, grow_after=10**9)
+        if isinstance(cfg, gauge.GaugeConfig):
+            act = gauge.resolve_gauge_action(cfg)
+            state, run_n = gauge.init_gauge_state(cfg, act, device="cuda"), gauge.run_gauge_frames
+            ups, unit = cfg.n_chains * cfg.ndim * math.prod(cfg.shape) * cfg.loops, "link-MLUPS"
+        elif isinstance(cfg, cfield.ComplexFieldConfig):
+            act = complex_actions.get_complex(cfg.action)
+            state, run_n = cfield.init_cfield_state(cfg, device="cuda"), cfield.run_cfield_frames
+            ups, unit = cfg.n_chains * math.prod(cfg.shape) * cfg.loops, "MLUPS"
+        else:
+            act = complex_actions.get_complex(cfg.action)
+            state, run_n = cl.init_ccl_state(cfg, device="cuda"), cl.run_ccl_frames
+            ups, unit = cfg.n_chains * cfg.n_sites * cfg.loops, "MLUPS"
+
+        def step(s, run_n=run_n, act=act, cfg=cfg):
+            return run_n(s, act, cfg, 1)[0]
+
+        holder = {"s": step(state)}  # warm-up
+        reps = [timed(torch, lambda: holder.update(s=step(holder["s"]))) for _ in range(3)]
+        t = sorted(reps)[1]
+        out["cl_" + key] = dict(mlups=ups / t / 1e6, seconds=t, reps=reps)
+        msg = (f"  {key} {preset_width(cfg)} loops {cfg.loops}: {ups / t / 1e6:.3f} {unit} "
+               f"(median of 3 frames after a warm-up, {t * 1e3:.2f} ms a frame; reps "
+               f"{[round(r, 5) for r in reps]})")
+        if key == "complex_field_256x256x16":
+            wall, busy, rows = device_profile(torch, lambda: step(holder["s"]))
+            out["cl_" + key]["idle"] = 1.0 - busy / wall
+            msg += (f"; one more frame under torch.profiler: device busy {busy * 1e3:.3f} of "
+                    f"{wall * 1e3:.3f} ms wall, idle {1.0 - busy / wall:.1%}")
+        log(msg + f" [{card}]")
+    return out
+
+
+def preset_width(cfg) -> str:
+    shape = getattr(cfg, "shape", None) or (getattr(cfg, "n_sites", None),)
+    shape = tuple(s for s in shape if s is not None)
+    return f"{cfg.n_chains} chains" + (f" x {'x'.join(map(str, shape))}" if shape else "")
+
+
 
 def main() -> int:
     global LOG_FILE
@@ -3202,6 +3422,15 @@ def main() -> int:
     with CardSampler("[26]"):
         t.update(phase_rdma_timings(torch, mods, card))
     log(f"  phases [24]-[26] took {time.perf_counter() - t_rdma:.1f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 27. complex Langevin: complex actions and complexified gauge groups
+        t_cl = time.perf_counter()
+        log(f"[27] complex Langevin on the card (no kernel in either package): cli run on "
+            f"{', '.join(CL_PRESETS)}; card vs CPU; known answers; rates [{card}]:")
+        with CardSampler("[27]"):
+            t.update(phase_complex_langevin(torch, mods, Path(tmp), card))
+        log(f"  phase [27] took {time.perf_counter() - t_cl:.1f} s")
 
     # max_abs_err: the comparisons at the main paths' shapes (chain: headline
     # K=1, main-path state K=2, config 2 K=16; field: 256^2 x 16 K=1 and K=10,

@@ -46,7 +46,10 @@ def true_divide(a, b):
     and device (rounded to float32 as the JAX package rounds its weak-typed
     scalars): PyTorch's CUDA division by, or of, a Python scalar multiplies
     by a reciprocal instead, one rounding more than the JAX package and the
-    CUDA kernels."""
+    CUDA kernels.  A complex tensor over a Python float divides each part,
+    as XLA's complex division by a real number does."""
+    if isinstance(a, torch.Tensor) and a.is_complex() and not isinstance(b, torch.Tensor):
+        return torch.view_as_complex(true_divide(torch.view_as_real(a), b))
     ref = a if isinstance(a, torch.Tensor) else b
     if not isinstance(a, torch.Tensor):
         a = torch.full((), a, dtype=ref.dtype, device=ref.device)

@@ -340,6 +340,9 @@ class GaugeAction:
     """
 
     beta: float = 1.0
+    #: dtype of the scalar observables (``plaq_mean``); the complexified
+    #: groups of ``actions.gauge_complex`` report complex plaquettes
+    obs_dtype = "float32"
 
     def init_links(self, shape, device=None):
         raise NotImplementedError
@@ -412,6 +415,11 @@ class GaugeAction:
     def hot_start(self, links, eta):
         """Randomized links from identity ``links`` and one noise draw."""
         return self.apply_update(links, self.noise_to_tangent(eta))
+
+    def unitarity_norm(self, links, ndim: int):
+        """Distance from the unitary submanifold, (C,) ≥ 0: identically 0 for
+        the compact groups; the complexified ones override it."""
+        return torch.zeros((links.shape[0],), dtype=torch.float32, device=links.device)
 
 
 def _sum_pairs(ndim, fn, dtype, device, C):

@@ -1,5 +1,5 @@
-"""Command-line runner for chain, field and compact gauge presets (port of
-``stochquant_tpu.cli run``).
+"""Command-line runner for chain, field, complex-Langevin and gauge presets
+(port of ``stochquant_tpu.cli run``).
 
 Examples:
     python -m stochquant_tpu_torch.cli run --preset double_well --frames 100
@@ -11,6 +11,8 @@ Examples:
     python -m stochquant_tpu_torch.cli run --preset phi4_4d --chains 4 --exchange-steps 4
     python -m stochquant_tpu_torch.cli run --preset su3_2d --frames 20 --measure-loops
     python -m stochquant_tpu_torch.cli run --preset u1_2d --device cpu --frames 3 --loops 10
+    python -m stochquant_tpu_torch.cli run --preset complex_field_2d --frames 20 --burn 5
+    python -m stochquant_tpu_torch.cli run --preset csu3_2d_complex --frames 20
 """
 
 from __future__ import annotations
@@ -26,15 +28,34 @@ import torch
 from stochquant_tpu_torch import metrics as metrics_mod
 from stochquant_tpu_torch import runtime
 from stochquant_tpu_torch.config import PRESETS, ChainConfig, FieldConfig, Scheme
+from stochquant_tpu_torch.integrators.complex_field import ComplexFieldConfig
+from stochquant_tpu_torch.integrators.complex_langevin import (
+    ComplexChainConfig,
+    ComplexLangevinConfig,
+)
 from stochquant_tpu_torch.integrators.gauge import GaugeConfig
 
-#: The JAX package's compact-group gauge presets (``stochquant_tpu.cli``).
+#: The JAX package's complex-Langevin presets (``stochquant_tpu.cli``).
+COMPLEX_PRESETS = {
+    "complex_gaussian": ComplexLangevinConfig(action="complex_gaussian"),
+    "complex_quartic": ComplexLangevinConfig(action="complex_quartic", dtau=5e-4, loops=200),
+    "complex_chain": ComplexChainConfig(action="complex_gaussian"),
+    "complex_field_2d": ComplexFieldConfig(action="complex_gaussian", shape=(32, 32),
+                                           n_chains=64),
+}
+
+#: The JAX package's gauge presets (``stochquant_tpu.cli``), the last two
+#: complex Langevin at complex β with gauge cooling.
 GAUGE_PRESETS = {
     "u1_2d": GaugeConfig(group="u1", beta=1.0, shape=(16, 16), n_chains=64),
     "su2_2d": GaugeConfig(group="su2", beta=2.0, shape=(16, 16), n_chains=64),
     "su3_2d": GaugeConfig(group="su3", beta=2.0, shape=(8, 8), n_chains=64),
     "su3_4d": GaugeConfig(group="su3", beta=5.7, shape=(4, 4, 4, 4), n_chains=4, dtau=1e-3),
     "su2_4d": GaugeConfig(group="su2", beta=2.2, shape=(8, 8, 8, 8), n_chains=8, dtau=1e-3),
+    "cu1_2d_complex": GaugeConfig(group="cu1", beta=1.0, beta_im=0.5, shape=(16, 16),
+                                  n_chains=64, dtau=5e-3, cooling_rate=0.05),
+    "csu3_2d_complex": GaugeConfig(group="csu3", beta=2.0, beta_im=0.5, shape=(8, 8),
+                                   n_chains=32, dtau=2e-3, cooling_rate=0.05),
 }
 
 
@@ -58,7 +79,7 @@ def _apply_overrides(cfg, args):
 
 
 def cmd_run(args):
-    presets = {**PRESETS, **GAUGE_PRESETS}
+    presets = {**PRESETS, **COMPLEX_PRESETS, **GAUGE_PRESETS}
     preset = presets.get(args.preset)
     if preset is None:
         sys.exit(f"unknown preset {args.preset!r}; known: {sorted(presets)}")
@@ -79,14 +100,18 @@ def cmd_run(args):
             stack.callback(_export_trace, prof, args.profile)  # runs after the profiler stops
             stack.enter_context(prof)
         guard = stack.enter_context(runtime.PreemptionGuard())
-        run = (runtime.run_chain if isinstance(cfg, ChainConfig)
-               else runtime.run_field if isinstance(cfg, FieldConfig) else runtime.run_gauge)
-        run(
-            cfg, device=args.device, backend=args.backend, burn_frames=args.burn,
+        common = dict(
+            device=args.device, burn_frames=args.burn,
             sink=metrics_mod.MetricsSink(stream=stream), checkpoint_out=args.out,
             checkpoint_in=resume, checkpoint_every=args.checkpoint_every,
             resume_progress=resume_progress, stop=guard,
         )
+        if isinstance(cfg, (ComplexLangevinConfig, ComplexChainConfig, ComplexFieldConfig)):
+            runtime.run_complex(cfg, **common)  # no kernel in either package: no backend
+        else:
+            run = (runtime.run_chain if isinstance(cfg, ChainConfig)
+                   else runtime.run_field if isinstance(cfg, FieldConfig) else runtime.run_gauge)
+            run(cfg, backend=args.backend, **common)
 
 
 def _export_trace(prof, directory) -> None:
@@ -98,7 +123,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="stochquant_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    r = sub.add_parser("run", help="run a chain, field or gauge preset simulation")
+    r = sub.add_parser("run", help="run a chain, field, complex-Langevin or gauge preset "
+                       "simulation")
     r.add_argument("--preset", required=True)
     r.add_argument("--frames", type=int)
     r.add_argument("--loops", type=int)
@@ -116,8 +142,9 @@ def main(argv=None):
         help="execution path: the hand-written CUDA kernels vs the plain "
         "PyTorch integrator; auto = cuda on a CUDA device, torch on the CPU "
         "(auto runs what has no kernel in either package on the plain path and records "
-        "a backend_fallback: su2_4d, su3_4d, --scheme lm / exact, quartic_large's "
-        "power spectrum)",
+        "a backend_fallback: su2_4d, su3_4d, cu1_2d_complex, csu3_2d_complex, --scheme lm / "
+        "exact, quartic_large's power spectrum; the complex_* presets have no backend and "
+        "ignore it)",
     )
     r.add_argument(
         "--tile-rows", type=int,

@@ -20,7 +20,8 @@ import torch
 from stochquant_tpu_torch.actions.base import true_divide
 from stochquant_tpu_torch.rng import u32
 
-__all__ = ["merge_frame_sum", "init_runs", "runs_after", "bump_runs", "runs_total"]
+__all__ = ["merge_frame_sum", "init_runs", "runs_after", "bump_runs", "runs_total",
+           "adapt_dtau"]
 
 
 def init_runs(n_chains: int, device=None) -> torch.Tensor:
@@ -61,6 +62,25 @@ def merge_frame_sum(mean, frame_sum, loops: int, n_new):
 
     ``n_new`` is the total count including this frame (``runs_after``).
     The weight is an IEEE division (``true_divide``), as in the JAX package.
+    A complex mean (the complexified gauge groups' plaquette) merges each
+    part with the same real weight.
     """
+    if mean.is_complex():
+        return torch.view_as_complex(merge_frame_sum(
+            torch.view_as_real(mean), torch.view_as_real(frame_sum), loops, n_new[..., None]))
     w = true_divide(float(loops), n_new)
     return mean + (frame_sum * (1.0 / float(loops)) - mean) * w
+
+
+def adapt_dtau(dtau, stab_cnt, accept, cfg):
+    """The frame epilogue's adaptive Δτ: ×``cfg.shrink`` on a rejected frame,
+    ÷``cfg.shrink`` after ``cfg.grow_after`` stable frames in a row (the
+    counter then restarts), capped at ``cfg.dtau_max``.  Returns the new
+    (dtau, stab_cnt)."""
+    grow = accept & (stab_cnt >= cfg.grow_after)
+    new = torch.where(grow, true_divide(dtau, cfg.shrink),
+                      torch.where(accept, dtau, dtau * cfg.shrink))
+    if cfg.dtau_max is not None:
+        new = torch.clamp(new, max=float(np.float32(cfg.dtau_max)))
+    cnt = torch.where(accept, torch.where(stab_cnt >= cfg.grow_after, 0, stab_cnt + 1), 0)
+    return new, cnt.to(torch.int32)

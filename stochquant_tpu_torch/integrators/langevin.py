@@ -475,17 +475,7 @@ def frame_epilogue(state: ChainState, sums: FrameSums, cfg: ChainConfig):
         dtau = state.dtau
         stab_cnt = torch.where(accept, state.stab_cnt + 1, 0).to(torch.int32)
     else:
-        grow = accept & (state.stab_cnt >= cfg.grow_after)
-        dtau = torch.where(
-            grow,
-            true_divide(state.dtau, cfg.shrink),
-            torch.where(accept, state.dtau, state.dtau * cfg.shrink),
-        )
-        if cfg.dtau_max is not None:
-            dtau = torch.clamp(dtau, max=float(np.float32(cfg.dtau_max)))
-        stab_cnt = torch.where(
-            accept, torch.where(grow, 0, state.stab_cnt + 1), 0
-        ).to(torch.int32)
+        dtau, stab_cnt = accum.adapt_dtau(state.dtau, state.stab_cnt, accept, cfg)
     lrg_vl = torch.where(accept, sums.lrg_vl, state.lrg_vl)
     new_state = ChainState(
         f=torch.where(a1, sums.f, state.f),

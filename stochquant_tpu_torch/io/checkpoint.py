@@ -6,9 +6,20 @@ given, ``frames_done``) — the layout of
 ``stochquant_tpu.io.checkpoint.save``, so a checkpoint written by either
 package resumes in the other.  On disk ``runs`` is a ``(C, 2)`` uint32
 (lo, hi) pair and ``step`` a uint32 scalar; in memory they are int64
-tensors holding the same words.  The ``"chain"`` (``ChainState``),
-``"field"`` (``FieldState``) and ``"gauge"`` (``GaugeState``; SU(3) links
-complex64 in memory and on disk) kinds are ported.
+tensors holding the same words.  Every kind of the JAX package's
+single-file format is ported:
+
+* ``"chain"`` (``ChainState``) and ``"field"`` (``FieldState``);
+* ``"gauge"`` (``GaugeState``): SU(3) links complex64 ``(C, D, *L, 3, 3)``;
+  the complexified groups' links complex64, ``cu1`` ``(C, D, *L)`` and
+  ``csu2`` / ``csu3`` ``(C, D, *L, N, N)``, with a complex64 ``plaq_mean``;
+* ``"complex0d"`` (``CLState``), ``"complex_chain"`` (``ComplexChainState``)
+  and ``"complex_field"`` (``ComplexFieldState``): real and imaginary parts
+  as float32 leaves.
+
+The leaves of ``ComplexChainState`` are a subset of those of the other two
+complex kinds, so a state class is told by its kind tag or by the exact set
+of its leaf names, never by a subset.
 """
 
 from __future__ import annotations
@@ -20,13 +31,26 @@ import numpy as np
 import torch
 
 from stochquant_tpu_torch.config import ChainConfig, FieldConfig
+from stochquant_tpu_torch.integrators.complex_field import ComplexFieldConfig, ComplexFieldState
+from stochquant_tpu_torch.integrators.complex_langevin import (
+    CLState,
+    ComplexChainConfig,
+    ComplexChainState,
+    ComplexLangevinConfig,
+)
 from stochquant_tpu_torch.integrators.field import FieldState
 from stochquant_tpu_torch.integrators.gauge import GaugeConfig, GaugeState
 from stochquant_tpu_torch.integrators.langevin import ChainState
 
 # kind tag -> (state class, config class); the JAX package's on-disk tags
-_KIND = {"chain": (ChainState, ChainConfig), "field": (FieldState, FieldConfig),
-         "gauge": (GaugeState, GaugeConfig)}
+_KIND = {
+    "chain": (ChainState, ChainConfig),
+    "field": (FieldState, FieldConfig),
+    "complex0d": (CLState, ComplexLangevinConfig),
+    "complex_chain": (ComplexChainState, ComplexChainConfig),
+    "complex_field": (ComplexFieldState, ComplexFieldConfig),
+    "gauge": (GaugeState, GaugeConfig),
+}
 _STATE_KIND = {cls: kind for kind, (cls, _) in _KIND.items()}
 _U32_LEAVES = ("runs", "step")
 # moment channels older checkpoints lack, with the second moment they are
@@ -43,14 +67,18 @@ def state_to_numpy(state) -> dict:
     return out
 
 
-def state_from_numpy(arrays: dict, device):
-    """A ``ChainState``, ``FieldState`` or ``GaugeState`` (the one whose
-    leaves ``arrays`` holds) on ``device`` from numpy arrays, e.g. the leaves
-    of the JAX package's state; ``step`` stays on the host."""
-    found = [cls for cls in _STATE_KIND if set(cls._fields) <= set(arrays)]
-    if len(found) != 1:
-        raise ValueError(f"leaves {sorted(arrays)} match no single state class: {found}")
-    cls = found[0]
+def state_from_numpy(arrays: dict, device, kind=None):
+    """The state of ``kind`` (a tag of the on-disk format) on ``device`` from
+    numpy arrays, e.g. the leaves of the JAX package's state; without
+    ``kind``, the state class whose leaf names are exactly the keys of
+    ``arrays``.  ``step`` stays on the host."""
+    if kind is not None:
+        cls = _KIND[kind][0]
+    else:
+        found = [c for c in _STATE_KIND if set(c._fields) == set(arrays)]
+        if len(found) != 1:
+            raise ValueError(f"leaves {sorted(arrays)} match no single state class: {found}")
+        cls = found[0]
     leaves = []
     for name in cls._fields:
         a = np.asarray(arrays[name])
@@ -89,10 +117,8 @@ def load(path, device):
     with np.load(path) as z:
         meta = json.loads(bytes(z["meta"].tobytes()).decode())
         if meta["kind"] not in _KIND:
-            raise ValueError(
-                f"checkpoint {path} holds a {meta['kind']!r} run; only chain, field "
-                "and gauge checkpoints are ported"
-            )
+            raise ValueError(f"checkpoint {path} holds a {meta['kind']!r} run; the known "
+                             f"kinds are {sorted(_KIND)}")
         cls, cfg_cls = _KIND[meta["kind"]]
         arrays = {}
         for name in cls._fields:
@@ -111,4 +137,4 @@ def load(path, device):
                 raise KeyError(f"checkpoint {path} is missing leaf {name!r}")
     if arrays["runs"].ndim == 1:
         arrays["runs"] = np.stack([arrays["runs"], np.zeros_like(arrays["runs"])], axis=-1)
-    return state_from_numpy(arrays, device), cfg_cls.from_json(meta["config"])
+    return state_from_numpy(arrays, device, meta["kind"]), cfg_cls.from_json(meta["config"])

@@ -90,7 +90,8 @@ def unsupported_reason(action, cfg: GaugeConfig):
     kernels' contract) do not take this case, or None: they cover compact
     U(1), SU(2) and SU(3) on 2-D lattices without gauge cooling."""
     if type(action) not in _GROUPS:
-        return f"the gauge kernels implement u1, su2 and su3, not {type(action).__name__}"
+        return (f"the gauge kernels implement u1, su2 and su3, not group {cfg.group} "
+                f"({type(action).__name__})")
     if cfg.ndim != 2:
         return (f"the gauge kernels take 2-D lattices, not shape {cfg.shape} (the JAX package "
                 "has no kernel for D >= 3 either; backend='torch' runs the plain integrator)")
@@ -277,7 +278,8 @@ def gauge_frame_sums(state: GaugeState, action, cfg: GaugeConfig) -> GaugeFrameS
 def gauge_frame(state: GaugeState, action, cfg: GaugeConfig):
     """Kernel 10 + the PyTorch epilogue: one frame for every chain.
     Returns (state, metrics), metrics of shape (C,)."""
-    return gauge_mod.gauge_frame_epilogue(state, gauge_frame_sums(state, action, cfg), cfg)
+    return gauge_mod.gauge_frame_epilogue(state, gauge_frame_sums(state, action, cfg), cfg,
+                                          action)
 
 
 gauge_frame.launches = 0

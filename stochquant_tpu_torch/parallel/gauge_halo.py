@@ -16,12 +16,16 @@ block's noise from the global (chain, link, step) counters and updates its
 owned links; the drift norm is completed across shards by ``pmax`` *every
 micro-step*, so the drift-cap rescale is the unsplit integrator's and the
 links agree with it bit for bit.  The plaquette is a sum of per-shard sums
-(tolerance-tested).
+(tolerance-tested).  It runs the complexified groups (``cu1``, ``csu2``,
+``csu3``: their drift has the same one-site reach) with complex links, the
+finite check on both parts and the unitarity norm the lattice mean of the
+unsplit run (the shards' means summed by ``psum`` over the number of shards).
 
 :func:`make_gauge_chunk_runner`: kernel 12 (``kernels.gauge_kernel.gauge_chunk``),
 one launch per W micro-steps on the block extended by H = W halo rows,
 exchanged once per chunk; 2-D u1 / su2 / su3, dim 0 split, even
-``cfg.loops``.  The links are those of the unsplit kernel 10 bit for bit
+``cfg.loops``; the complexified groups are refused.  The links are those of
+the unsplit kernel 10 bit for bit
 while the drift cap is quiescent.  The cap's semantics differ by design: a cap
 event rejects the frame (rollback and Δτ shrink) where the unsplit path
 rescales that step, which would need a collective per micro-step.
@@ -60,13 +64,13 @@ def make_gauge_halo_runner(action, cfg: GaugeConfig, mesh: DeviceMesh):
     if cfg.cooling_rate > 0.0:
         raise ValueError("gauge cooling is not supported under the halo runner (wider "
                          "stencil); run unsplit or disable cooling")
-    gauge_mod.check_gauge_supported(cfg)
     ndim, shape = cfg.ndim, tuple(cfg.shape)
     lat_spec = tuple(cfg.mesh_axes)
     sizes, local_shape, c_local, ch_offs, lat_offs = mesh_mod.split_geometry(cfg, mesh)
     sharded_dims = tuple(n > 1 for n in sizes)
     lat_mesh_axes = tuple(ax for ax, n in zip(lat_spec, sizes) if n > 1)
     volume = float(math.prod(shape))
+    n_lat = float(math.prod(sizes))
     cap = float(np.float32(cfg.drift_cap))
     lat_axes_state = action.lattice_axes(ndim)
     lat_axes_noise = action.noise_lattice_axes(ndim)
@@ -147,8 +151,13 @@ def make_gauge_halo_runner(action, cfg: GaugeConfig, mesh: DeviceMesh):
             vals = substep(vals, e0, dtaus)
             if k + 1 < cfg.loops:
                 vals = substep(vals, e1, dtaus)
-        out = [gauge_mod.gauge_frame_epilogue(states[i], GaugeFrameSums(*vals[i]), cfg)
+        out = [gauge_mod.gauge_frame_epilogue(states[i], GaugeFrameSums(*vals[i]), cfg, action)
                for i in each]
+        # the unitarity norm is a per-link mean (no halo) over equal blocks:
+        # the mean of the shards' means is the unsplit run's lattice mean
+        norms = mesh_mod.psum([o[1]["unitarity_norm"] for o in out], mesh, lat_mesh_axes)
+        for o, un in zip(out, norms):
+            o[1]["unitarity_norm"] = true_divide(un, n_lat)
         return [o[0] for o in out], [o[1] for o in out]
 
     return mesh_mod.frame_loop(frame, mesh, cfg.mesh_chain_axis)
@@ -230,7 +239,7 @@ def make_gauge_chunk_runner(action, cfg: GaugeConfig, mesh: DeviceMesh, *, chunk
             # state's drift_max is rolled back the same way in both
             sums = GaugeFrameSums(links, ps[i] * inv_vol,
                                   torch.maximum(states[i].drift_max, dmax[i]), reject[i])
-            out.append(gauge_mod.gauge_frame_epilogue(states[i], sums, cfg))
+            out.append(gauge_mod.gauge_frame_epilogue(states[i], sums, cfg, action))
         return [o[0] for o in out], [o[1] for o in out]
 
     run = mesh_mod.frame_loop(frame, mesh, cfg.mesh_chain_axis)

@@ -1,13 +1,15 @@
-"""Host loops for chain, field and gauge runs (port of
+"""Host loops for chain, field, complex-Langevin and gauge runs (port of
 ``stochquant_tpu.runtime``'s ``run_chain``, ``select_field_backend``,
-``run_field`` and ``run_gauge``).
+``run_field``, ``run_complex`` and ``run_gauge``).
 
 State stays on the device; a loop launches ``fps`` frames at a time (gauge
 runs: ``frames_per_launch``), streams the small per-frame metrics (chains:
 the connected correlator; fields: magnetization, ⟨φ²⟩, susceptibility,
-Binder cumulant; gauge: the mean plaquette beside its exact 2-D value, the
-drift max and, with ``measure_loops``, the Polyakov loop) and writes
-full-state checkpoints that resume bitwise (in this package or the JAX one).
+Binder cumulant; complex Langevin: Re/Im ⟨z²⟩ and the drift max; gauge: the
+mean plaquette beside its exact 2-D value, the drift max, for the
+complexified groups the imaginary parts and the unitarity norm, and with
+``measure_loops`` the Polyakov loop) and writes full-state checkpoints that
+resume bitwise (in this package or the JAX one).
 
 ``run_field`` and ``run_gauge`` take ``mesh=`` (``parallel.make_mesh``): with
 ``cfg.mesh_axes`` set the lattice is split over the mesh and the halo runners
@@ -28,7 +30,10 @@ import torch
 
 from stochquant_tpu_torch import actions as actions_mod
 from stochquant_tpu_torch import metrics as metrics_mod
+from stochquant_tpu_torch.actions import complex_actions
 from stochquant_tpu_torch.config import ChainConfig, FieldConfig, Scheme
+from stochquant_tpu_torch.integrators import complex_field as cfield
+from stochquant_tpu_torch.integrators import complex_langevin as cl
 from stochquant_tpu_torch.integrators import field as field_mod
 from stochquant_tpu_torch.integrators import gauge as gauge_mod
 from stochquant_tpu_torch.integrators import langevin
@@ -128,6 +133,9 @@ def _frames_already_done(state, cfg, checkpoint_in=None) -> int:
 
 
 def _check_resume_compat(loaded_cfg, cfg, checkpoint_in, fields) -> None:
+    if type(loaded_cfg) is not type(cfg):
+        raise ValueError(f"checkpoint {checkpoint_in} holds a {type(loaded_cfg).__name__} "
+                         f"run, not {type(cfg).__name__}")
     bad = {
         f: (getattr(loaded_cfg, f), getattr(cfg, f))
         for f in fields
@@ -527,18 +535,93 @@ def run_field(
     return RunResult(state=state, cfg=cfg, summary=summary)
 
 
+def run_complex(
+    cfg,
+    *,
+    device,
+    burn_frames: int = 0,
+    sink: Optional[metrics_mod.MetricsSink] = None,
+    checkpoint_out: Optional[str] = None,
+    checkpoint_in: Optional[str] = None,
+    checkpoint_every: int = 0,
+    stop=None,
+    resume_progress: bool = False,
+) -> RunResult:
+    """Run a complex-Langevin ensemble on ``device``: 0-D
+    (``ComplexLangevinConfig``), a 1-D chain (``ComplexChainConfig``) or a
+    D-dim field (``ComplexFieldConfig``).  No kernel implements complex
+    Langevin in either package, so there is no backend to choose: the plain
+    PyTorch integrator runs on the device, the state never leaves it, and
+    only the per-frame scalars come to the host.  A burn-in resets the means
+    after it; stop and resume_progress as in :func:`run_chain`."""
+    device = resolve_device(device)
+    if isinstance(cfg, cfield.ComplexFieldConfig):
+        init, run_n = cfield.init_cfield_state, cfield.run_cfield_frames
+        reset, sites, geometry = cfield.reset_cfield_means, math.prod(cfg.shape), ("shape",)
+    elif isinstance(cfg, cl.ComplexChainConfig):
+        init, run_n = cl.init_ccl_state, cl.run_ccl_frames
+        reset, sites, geometry = cl.reset_ccl_means, cfg.n_sites, ("n_sites",)
+    elif isinstance(cfg, cl.ComplexLangevinConfig):
+        init, run_n = cl.init_cl_state, cl.run_cl_frames
+        reset, sites, geometry = cl.reset_cl_means, 1, ()
+    else:
+        raise TypeError(f"run_complex takes a complex-Langevin config, not {type(cfg).__name__}")
+    act = complex_actions.get_complex(cfg.action, **dict(getattr(cfg, "action_params", ())))
+    sink = sink or metrics_mod.MetricsSink()
+    if checkpoint_in:
+        state, loaded_cfg = ckpt_mod.load(checkpoint_in, device)
+        _check_resume_compat(loaded_cfg, cfg, checkpoint_in, ("action", "n_chains") + geometry)
+    else:
+        state = init(cfg, device=device)
+    frames_done = (
+        _frames_already_done(state, cfg, checkpoint_in)
+        if (resume_progress and checkpoint_in)
+        else 0
+    )
+    if burn_frames and frames_done == 0:
+        state, _ = run_n(state, act, cfg, burn_frames)
+        state = reset(state)
+
+    updates_per_frame = cfg.n_chains * sites * cfg.loops
+    while frames_done < cfg.frames:
+        state, m = run_n(state, act, cfg, 1)
+        frames_done += 1
+        obs = {
+            "re_z2": float(state.z2r_mean.mean()),
+            "im_z2": float(state.z2i_mean.mean()),
+            "drift_max": float(m["drift_max"].max()),
+        }
+        sink.frame(
+            frames_done - 1,
+            cfg.frames,
+            updates_per_frame,
+            m["dtau"][-1].cpu().numpy(),
+            float(m["stable"].float().mean()),
+            observables=obs,
+        )
+        if checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0:
+            ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
+        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done):
+            break
+    if checkpoint_out:
+        ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
+    summary = sink.summary()
+    sink.emit(summary)
+    return RunResult(state=state, cfg=cfg, summary=summary)
+
+
 def select_gauge_backend(cfg: gauge_mod.GaugeConfig, backend: str, device, mesh=None):
     """Resolve a gauge run's path: ('cuda', None) for kernels 10 and 11, or
     ('torch', reason) for the plain PyTorch integrator, with ``reason`` set
     when 'auto' on a CUDA device falls back (the caller records it).
 
     'auto' takes the kernels on a CUDA device wherever they apply (2-D u1,
-    su2, su3 without cooling: the JAX package's ``supports``); other compact
-    configurations (``su2_4d``, ``su3_4d``) have no kernel in the JAX package
+    su2, su3 without cooling: the JAX package's ``supports``); the other
+    configurations (``su2_4d``, ``su3_4d``, the complexified groups ``cu1``,
+    ``csu2``, ``csu3`` and gauge cooling) have no kernel in the JAX package
     either and run the plain path on the device.  'cuda' raises for a case
     the kernels do not cover, naming it; 'torch' is the plain path on any
-    device.  The complexified groups raise on every route: they are not
-    ported yet.
+    device.
 
     With ``mesh`` (and ``cfg.mesh_axes``) the links are split over the mesh
     and ``device`` is ignored: 'torch' is the per-step halo runner
@@ -547,7 +630,7 @@ def select_gauge_backend(cfg: gauge_mod.GaugeConfig, backend: str, device, mesh=
     two differ in what a cap event does, so 'auto' keeps the per-step runner,
     as the JAX package does, and where kernel 12 would apply says so in
     ``reason``; 'cuda' opts into the chunk runner and raises for what it does
-    not cover."""
+    not cover (the complexified groups, cooling, D != 2), naming it."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown gauge backend {backend!r}; known: {BACKENDS}")
     act = gauge_mod.resolve_gauge_action(cfg)
@@ -557,6 +640,7 @@ def select_gauge_backend(cfg: gauge_mod.GaugeConfig, backend: str, device, mesh=
             if not on_cuda:
                 raise ValueError("backend='cuda' runs the CUDA kernels and needs a mesh of CUDA "
                                  f"devices, not {sorted({str(d) for d in mesh.devices})}")
+            gauge_kernel.check_kernel_config(act, cfg)  # the chunk runner's groups
             return "cuda", None
         if backend == "auto" and on_cuda and gauge_kernel.supports(act, cfg):
             return "torch", ("a split gauge run on 'auto' keeps the per-step halo runner (exact "
@@ -594,7 +678,8 @@ def run_gauge(
     stop=None,
     resume_progress: bool = False,
 ) -> RunResult:
-    """Run a compact lattice-gauge Langevin ensemble (``GaugeConfig``) on
+    """Run a lattice-gauge Langevin ensemble (``GaugeConfig``, compact or
+    complexified group) on
     ``device``, or with ``mesh`` and ``cfg.mesh_axes`` split over the mesh's
     devices (``device`` then only says where whole states are assembled);
     returns the final whole state.
@@ -650,7 +735,8 @@ def run_gauge(
         state = ([gauge_mod.reset_gauge_means(s) for s in state] if split
                  else gauge_mod.reset_gauge_means(state))
 
-    exact2d = gauge_mod.exact_plaquette_2d(cfg.group, cfg.beta) if cfg.ndim == 2 else None
+    beta = complex(cfg.beta, cfg.beta_im) if cfg.beta_im else cfg.beta
+    exact2d = gauge_mod.exact_plaquette_2d(cfg.group, beta) if cfg.ndim == 2 else None
     updates_per_frame = cfg.n_chains * cfg.ndim * math.prod(cfg.shape) * cfg.loops
     while frames_done < cfg.frames:
         state, m = run_n(state, 1)
@@ -658,11 +744,17 @@ def run_gauge(
         # the Polyakov loop reads the whole lattice; the plaquette only a scalar
         view = state if not split else (whole(state) if cfg.measure_loops
                                         else split.scalars(state))
+        plaq = complex(view.plaq_mean.mean())
         obs = {
-            "plaquette": float(view.plaq_mean.mean()),
-            "plaquette_exact_2d": exact2d,
+            "plaquette": plaq.real,
+            "plaquette_exact_2d": None if exact2d is None else float(np.real(exact2d)),
             "drift_max": float(m["drift_max"].max()),
         }
+        if view.plaq_mean.is_complex():
+            obs["plaquette_im"] = plaq.imag
+            if exact2d is not None:
+                obs["plaquette_exact_2d_im"] = float(np.imag(exact2d))
+            obs["unitarity_norm"] = float(m["unitarity_norm"].max())
         if cfg.measure_loops:
             p = gauge_loops.polyakov_loop(act, view.links, 0).mean(dim=0)
             obs["polyakov_re"], obs["polyakov_im"] = float(p[0]), float(p[1])

@@ -1,5 +1,5 @@
-"""Chain, field and gauge checkpoints interchange between the JAX package and
-the port, and resume bitwise inside the port."""
+"""Chain, field, gauge and complex-Langevin checkpoints interchange between
+the JAX package and the port, and resume bitwise inside the port."""
 
 import json
 import warnings
@@ -105,10 +105,11 @@ def test_old_layouts_upgrade_and_other_kinds_raise(tmp_path):
     assert loaded.runs.shape == (CFG.n_chains, 2) and int(loaded.runs[:, 1].abs().sum()) == 0
     assert torch.count_nonzero(loaded.x4_mean) == 0
 
-    meta = {"kind": "complex_field", "config": "{}", "version": 1}
-    gpath = tmp_path / "complex_field.npz"
+    # every kind of the JAX package's single-file format is ported; an unknown tag raises
+    meta = {"kind": "spin_glass", "config": "{}", "version": 1}
+    gpath = tmp_path / "spin_glass.npz"
     np.savez(gpath, meta=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8))
-    with pytest.raises(ValueError, match="complex_field"):
+    with pytest.raises(ValueError, match="spin_glass"):
         checkpoint.load(gpath, "cpu")
     with pytest.raises(ValueError, match="no single state class"):
         checkpoint.state_from_numpy({"phi": np.zeros(2)}, "cpu")
@@ -224,3 +225,117 @@ def test_gauge_checkpoints_resume_in_either_package(group, tmp_path):
     b, _ = gauge.run_gauge_frames(got, act, cfg, 1)
     for name, x, y in zip(a._fields, a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# complex Langevin and the complexified gauge groups
+# ---------------------------------------------------------------------------
+
+from stochquant_tpu.actions import complex_actions as jca  # noqa: E402
+from stochquant_tpu.integrators import complex_field as jcf  # noqa: E402
+from stochquant_tpu.integrators import complex_langevin as jcl  # noqa: E402
+from stochquant_tpu_torch.actions import complex_actions as ca  # noqa: E402
+from stochquant_tpu_torch.integrators import complex_field as cf  # noqa: E402
+from stochquant_tpu_torch.integrators import complex_langevin as cl  # noqa: E402
+
+# kind -> (port config, JAX module's init, run and config class, port's init and run)
+COMPLEX_KINDS = {
+    "complex0d": (cl.ComplexLangevinConfig(action="complex_quartic", n_chains=6, dtau=1e-2,
+                                           loops=5, seed=3),
+                  jcl.init_cl_state, jcl.run_cl_frames, jcl.ComplexLangevinConfig,
+                  cl.init_cl_state, cl.run_cl_frames),
+    "complex_chain": (cl.ComplexChainConfig(n_sites=8, n_chains=3, dtau=1e-2, loops=5, seed=3),
+                      jcl.init_ccl_state, jcl.run_ccl_frames, jcl.ComplexChainConfig,
+                      cl.init_ccl_state, cl.run_ccl_frames),
+    "complex_field": (cf.ComplexFieldConfig(shape=(4, 6), n_chains=3, dtau=1e-2, loops=5, seed=3),
+                      jcf.init_cfield_state, jcf.run_cfield_frames, jcf.ComplexFieldConfig,
+                      cf.init_cfield_state, cf.run_cfield_frames),
+}
+
+
+def test_complex_states_are_told_apart_by_their_exact_leaves():
+    """ComplexChainState's leaves are a subset of CLState's and
+    ComplexFieldState's: each class is found by its exact leaf set (or its
+    kind), never by a subset."""
+    for kind, (cfg, jinit, _, jcfg_cls, tinit, _) in COMPLEX_KINDS.items():
+        js = jinit(jcfg_cls.from_json(cfg.to_json()))
+        arrays = {n: np.asarray(v) for n, v in zip(js._fields, js)}
+        state = checkpoint.state_from_numpy(arrays, "cpu")
+        assert type(state) is type(tinit(cfg, device="cpu")), kind
+        assert type(checkpoint.state_from_numpy(arrays, "cpu", kind)) is type(state)
+        for name, leaf in zip(js._fields, js):
+            np.testing.assert_array_equal(checkpoint.state_to_numpy(state)[name],
+                                          np.asarray(leaf), err_msg=name)
+    with pytest.raises(ValueError, match="no single state class"):
+        checkpoint.state_from_numpy({n: np.zeros(2) for n in cl.CLState._fields if n != "zi"},
+                                    "cpu")
+
+
+@pytest.mark.parametrize("kind", sorted(COMPLEX_KINDS))
+def test_complex_checkpoints_resume_across_packages_bitwise(kind, tmp_path):
+    cfg, jinit, jrun, jcfg_cls, tinit, trun = COMPLEX_KINDS[kind]
+    jcfg = jcfg_cls.from_json(cfg.to_json())
+    assert jcfg.to_json() == cfg.to_json()
+    params = dict(getattr(cfg, "action_params", ()))
+    ja, ta = jca.get_complex(cfg.action, **params), ca.get_complex(cfg.action, **params)
+    s1, _ = jrun(jinit(jcfg), ja, jcfg, 1)
+    jpath = tmp_path / "jax.npz"
+    jck.save(jpath, s1, jcfg, frames_done=1)
+
+    # JAX -> port: the same bits, and the port's next frame from them is the port's
+    state, cfg2 = checkpoint.load(jpath, "cpu")
+    assert cfg2 == cfg and checkpoint.read_meta(jpath)["kind"] == kind
+    host = checkpoint.state_to_numpy(state)
+    for name, leaf in zip(s1._fields, s1):
+        assert host[name].dtype == np.asarray(leaf).dtype, name
+        np.testing.assert_array_equal(host[name], np.asarray(leaf), err_msg=name)
+
+    # port -> JAX: the port's state after one more frame loads in JAX bit for bit
+    got, _ = trun(state, ta, cfg2, 1)
+    ppath = tmp_path / "port.npz"
+    checkpoint.save(ppath, got, cfg2, frames_done=2)
+    jstate, jcfg3 = jck.load(ppath)
+    assert jcfg3 == jcfg and jck.read_meta(ppath)["kind"] == kind
+    for name, leaf in zip(jstate._fields, jstate):
+        np.testing.assert_array_equal(np.asarray(leaf), checkpoint.state_to_numpy(got)[name],
+                                      err_msg=name)
+    # and a resume in the port is bitwise its uninterrupted run
+    straight, _ = trun(tinit(cfg, device="cpu"), ta, cfg, 3)
+    half, _ = trun(tinit(cfg, device="cpu"), ta, cfg, 2)
+    checkpoint.save(ppath, half, cfg)
+    resumed, _ = trun(checkpoint.load(ppath, "cpu")[0], ta, cfg, 1)
+    for name, a, b in zip(straight._fields, straight, resumed):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("group", ["cu1", "csu3"])
+def test_complexified_gauge_checkpoints_resume_across_packages_bitwise(group, tmp_path):
+    cfg = gauge.GaugeConfig(group=group, beta=1.5, beta_im=0.5, shape=(4, 6), n_chains=2,
+                            dtau=2e-3, loops=3, seed=6, hot_start=True, cooling_rate=0.05)
+    jcfg = jgauge.GaugeConfig.from_json(cfg.to_json())
+    assert jcfg.to_json() == cfg.to_json()
+    ja, ta = jgauge.resolve_gauge_action(jcfg), gauge.resolve_gauge_action(cfg)
+    s1, _ = jgauge.run_gauge_frames(jgauge.init_gauge_state(jcfg, ja), ja, jcfg, 1)
+    jpath = tmp_path / "jax_gauge.npz"
+    jck.save(jpath, s1, jcfg, frames_done=1)
+    state, cfg2 = checkpoint.load(jpath, "cpu")
+    assert cfg2 == cfg and state.links.dtype == torch.complex64
+    assert state.plaq_mean.dtype == torch.complex64
+    host = checkpoint.state_to_numpy(state)
+    for name, leaf in zip(s1._fields, s1):
+        assert host[name].dtype == np.asarray(leaf).dtype, name
+        np.testing.assert_array_equal(host[name], np.asarray(leaf), err_msg=name)
+    got, _ = gauge.run_gauge_frames(state, ta, cfg2, 1)
+    ppath = tmp_path / "port_gauge.npz"
+    checkpoint.save(ppath, got, cfg2, frames_done=2)
+    jstate, jcfg3 = jck.load(ppath)
+    assert jcfg3 == jcfg
+    for name, leaf in zip(jstate._fields, jstate):
+        np.testing.assert_array_equal(np.asarray(leaf), checkpoint.state_to_numpy(got)[name],
+                                      err_msg=name)
+    straight, _ = gauge.run_gauge_frames(gauge.init_gauge_state(cfg, ta, device="cpu"), ta, cfg, 3)
+    half, _ = gauge.run_gauge_frames(gauge.init_gauge_state(cfg, ta, device="cpu"), ta, cfg, 2)
+    checkpoint.save(ppath, half, cfg)
+    resumed, _ = gauge.run_gauge_frames(checkpoint.load(ppath, "cpu")[0], ta, cfg, 1)
+    for name, a, b in zip(straight._fields, straight, resumed):
+        assert torch.equal(a, b), name

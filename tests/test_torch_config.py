@@ -1,5 +1,6 @@
-"""The port's config is a field-for-field copy of the JAX package's, and the
-port imports neither JAX nor Triton."""
+"""The port's configs (chain, field, gauge and complex Langevin) are
+field-for-field copies of the JAX package's, and the port imports neither
+JAX nor Triton."""
 
 import os
 import re
@@ -86,9 +87,43 @@ def test_non_default_gauge_config_json_byte_equal():
     assert [f.name for f in jcfg.dataclasses.fields(jgauge.GaugeConfig)] == [
         f.name for f in tcfg.dataclasses.fields(tgauge.GaugeConfig)
     ]
-    # every compact-group gauge preset of the JAX CLI is in the port's
-    compact = {k for k, v in jcli._gauge_presets().items() if v.group in ("u1", "su2", "su3")}
-    assert compact == set(tcli.GAUGE_PRESETS)
+    # every gauge preset of the JAX CLI, the complexified groups' too, is in the port's
+    assert set(jcli._gauge_presets()) == set(tcli.GAUGE_PRESETS)
+
+
+@pytest.mark.parametrize("name", sorted(tcli.COMPLEX_PRESETS))
+def test_complex_preset_json_byte_equal_and_round_trips(name):
+    a, b = jcli._complex_presets()[name].to_json(), tcli.COMPLEX_PRESETS[name].to_json()
+    assert a == b
+    assert type(tcli.COMPLEX_PRESETS[name]).from_json(a) == tcli.COMPLEX_PRESETS[name]
+    assert set(jcli._complex_presets()) == set(tcli.COMPLEX_PRESETS)
+
+
+def test_non_default_complex_configs_json_byte_equal():
+    from stochquant_tpu.integrators import complex_field as jcf
+    from stochquant_tpu.integrators import complex_langevin as jcl
+    from stochquant_tpu_torch.integrators import complex_field as tcf
+    from stochquant_tpu_torch.integrators import complex_langevin as tcl
+
+    common = dict(n_chains=3, dtau=2e-3, loops=7, frames=9, seed=11, noise_amp=0.5,
+                  drift_cap=3.0, clamp=50.0, shrink=0.9, grow_after=4, dtau_max=5e-3)
+    pairs = [
+        (jcl.ComplexLangevinConfig, tcl.ComplexLangevinConfig,
+         dict(common, action="complex_quartic", action_params=(("lam", 2.0),))),
+        (jcl.ComplexChainConfig, tcl.ComplexChainConfig,
+         dict(common, action="complex_quartic", n_sites=12, dt=0.3, mass=2.0)),
+        (jcf.ComplexFieldConfig, tcf.ComplexFieldConfig,
+         dict(common, shape=(4, 6, 8), spacing=0.7, action_params=(("sigma_im", 0.25),))),
+    ]
+    for jcls, tcls, kw in pairs:
+        a, b = jcls(**kw), tcls(**kw)
+        assert a.to_json() == b.to_json()
+        assert tcls.from_json(a.to_json()) == b
+        assert [f.name for f in jcfg.dataclasses.fields(jcls)] == [
+            f.name for f in tcfg.dataclasses.fields(tcls)]
+    cu1 = dict(group="cu1", beta=1.0, beta_im=0.5, shape=(16, 16), n_chains=64, dtau=5e-3,
+               cooling_rate=0.05, cooling_steps=3)
+    assert jgauge.GaugeConfig(**cu1).to_json() == tgauge.GaugeConfig(**cu1).to_json()
 
 
 def test_whole_presets_table_is_copied():
@@ -118,6 +153,10 @@ def test_port_imports_without_jax_or_triton():
         "import stochquant_tpu_torch.kernels.field_halo_kernel\n"
         "import stochquant_tpu_torch.parallel, stochquant_tpu_torch.parallel.mesh\n"
         "import stochquant_tpu_torch.parallel.halo, stochquant_tpu_torch.parallel.gauge_halo\n"
+        "import stochquant_tpu_torch.actions.complex_actions\n"
+        "import stochquant_tpu_torch.actions.gauge_complex\n"
+        "import stochquant_tpu_torch.integrators.complex_langevin\n"
+        "import stochquant_tpu_torch.integrators.complex_field\n"
         # the Philox stream, the plain-path schemes and the spectrum run without them too
         "import dataclasses\n"
         "from stochquant_tpu_torch import rng, runtime, metrics\n"
@@ -139,6 +178,14 @@ def test_port_imports_without_jax_or_triton():
         "fact = actions.get_field(f.action)\n"
         "field_kernel.run_field_frames_kernel(field.init_field_state(f, device='cpu'), fact, f, 1)\n"
         "runtime.run_field(dataclasses.replace(f, scheme=Scheme.EXACT), device='cpu', sink=quiet())\n"
+        # the complex-Langevin sector: the three complex kinds and a complexified group
+        "from stochquant_tpu_torch import cli\n"
+        "for name, cc in cli.COMPLEX_PRESETS.items():\n"
+        "    runtime.run_complex(dataclasses.replace(cc, n_chains=2, loops=2, frames=1),\n"
+        "                        device='cpu', sink=quiet())\n"
+        "g = dataclasses.replace(cli.GAUGE_PRESETS['csu3_2d_complex'], n_chains=1, loops=1,\n"
+        "                        frames=1, shape=(4, 4))\n"
+        "runtime.run_gauge(g, device='cpu', sink=quiet())\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'triton', 'stochquant_tpu'))\n"
         "assert not bad, bad\n"
@@ -161,12 +208,20 @@ def test_split_lattice_modules_import_where_jax_is_blocked():
         "import stochquant_tpu_torch.parallel, stochquant_tpu_torch.parallel.halo\n"
         "import stochquant_tpu_torch.parallel.gauge_halo\n"
         "import stochquant_tpu_torch.kernels.field_halo_kernel\n"
+        "import stochquant_tpu_torch.actions.gauge_complex\n"
+        "import stochquant_tpu_torch.integrators.complex_langevin\n"
+        "import stochquant_tpu_torch.integrators.complex_field\n"
         "from stochquant_tpu_torch import runtime, metrics, parallel\n"
         "from stochquant_tpu_torch.config import FieldConfig\n"
         "cfg = FieldConfig(shape=(8, 8), n_chains=2, loops=2, frames=1, mesh_axes=('x', None))\n"
         "mesh = parallel.make_mesh([('x', 2)], devices='cpu')\n"
         "res = runtime.run_field(cfg, mesh=mesh, sink=metrics.MetricsSink(callback=lambda r: 0))\n"
         "assert res.state.phi.shape == (2, 8, 8)\n"
+        "from stochquant_tpu_torch.integrators.gauge import GaugeConfig\n"
+        "g = GaugeConfig(group='cu1', beta_im=0.5, shape=(8, 8), n_chains=2, loops=2,\n"
+        "                frames=1, mesh_axes=('x', None))\n"
+        "res = runtime.run_gauge(g, mesh=mesh, sink=metrics.MetricsSink(callback=lambda r: 0))\n"
+        "assert res.state.links.dtype.is_complex\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)

@@ -168,8 +168,13 @@ def test_cold_links_and_exact_plaquette():
         for beta in (1.0, 2.5):
             assert tg.exact_plaquette_2d(group, beta) == pytest.approx(
                 jg.exact_plaquette_2d(group, beta), rel=1e-12)
-    with pytest.raises(ValueError, match="not ported"):
-        tg.resolve_gauge_action(tg.GaugeConfig(group="cu1", beta_im=0.5))
+    # the complexified groups resolve with Im β; a compact group refuses one, as in JAX
+    act = tg.resolve_gauge_action(tg.GaugeConfig(group="cu1", beta_im=0.5))
+    assert act.beta_im == 0.5 and act.obs_dtype == "complex64"
+    with pytest.raises(TypeError):
+        tg.resolve_gauge_action(tg.GaugeConfig(group="u1", beta_im=0.5))
+    with pytest.raises(TypeError):
+        jg.resolve_gauge_action(jg.GaugeConfig(group="u1", beta_im=0.5))
 
 
 # (group, case) -> config changes and whether chain 1 starts with a NaN link

@@ -248,7 +248,7 @@ def test_chunk_runner_w_contracts():
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh_axes=None), "mesh_axes required"),
     (dict(cooling_rate=0.1), "cooling is not supported"),
-    (dict(group="cu1"), "not ported"),
+    (dict(group="cu1", cooling_rate=0.05), "cooling is not supported"),  # complexified, cooled
     (dict(mesh_axes=("x",)), "one entry per lattice dim"),
     (dict(shape=(6, 8)), "not divisible"),
 ])

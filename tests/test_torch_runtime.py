@@ -391,8 +391,9 @@ def test_gauge_auto_on_cuda_falls_back_for_what_has_no_kernel(change):
     ({}, "cuda", torch.device("cpu"), "CUDA device"),
     (dict(mesh_axes=("x", None)), "auto", CUDA, "mesh_axes"),
     (dict(mesh_chain_axis="chains"), "torch", torch.device("cpu"), "mesh_chain_axis"),
-    (dict(group="cu1", beta_im=0.5), "auto", CUDA, "not ported"),
-    (dict(group="csu3"), "torch", torch.device("cpu"), "not ported"),
+    # the complexified groups have no kernel in either package: 'cuda' names the group
+    (dict(group="cu1", beta_im=0.5), "cuda", CUDA, "group cu1"),
+    (dict(group="csu3"), "cuda", CUDA, "group csu3"),
     ({}, "pallas", CUDA, "backend"),
 ])
 def test_gauge_routing_raises_for_what_is_not_ported(change, backend, device, match):
@@ -713,7 +714,8 @@ def test_gauge_routing_under_a_mesh(change, mesh, backend, want, reasoned):
     (GX2, _cpu_mesh(("x", 2)), "cuda", "mesh of CUDA devices"),
     ({}, _cpu_mesh(("x", 2)), "auto", "needs cfg.mesh_axes"),
     (GX2, _cpu_mesh(("x", 2)), "pallas", "backend"),
-    (dict(GX2, group="cu1"), _cpu_mesh(("x", 2)), "auto", "not ported"),
+    # the chunk runner (kernel 12) refuses the complexified groups, naming the group
+    (dict(GX2, group="cu1"), _cuda_mesh(("x", 2)), "cuda", "group cu1"),
 ])
 def test_gauge_routing_under_a_mesh_raises(change, mesh, backend, match):
     cfg = dataclasses.replace(GAUGE_BASE, **change)
@@ -911,3 +913,151 @@ def test_cli_run_new_options_on_the_cpu_resume_bitwise(args, tmp_path):
                   "--chains", "2", "--loops", "4", "--frames", "3", "--out", t] + quiet)
         threefry, _ = checkpoint.load(t, "cpu")
         assert all(torch.equal(x, y) for x, y in zip(straight, threefry))
+
+
+# ---------------------------------------------------------------------------
+# complex Langevin: run_complex, the complex presets, the complexified groups
+# ---------------------------------------------------------------------------
+
+CL_PRESETS = ("complex_gaussian", "complex_quartic", "complex_chain", "complex_field_2d",
+              "cu1_2d_complex", "csu3_2d_complex")
+
+
+@pytest.mark.parametrize("preset", CL_PRESETS)
+def test_cli_run_complex_presets_match_the_jax_cli_records(preset, tmp_path):
+    """`cli run` on each complex preset at a cut size on the CPU: the records
+    carry the JAX CLI's keys, the final state is the JAX run's (decisions and
+    counters exact, float leaves within rtol 1e-5, site sums within rtol
+    3e-5), and a resume is bitwise the uninterrupted run."""
+    from stochquant_tpu import cli as jcli
+    from stochquant_tpu.io import checkpoint as jck
+
+    small = ["--chains", "2", "--loops", "3"]
+    if preset in ("complex_field_2d", "cu1_2d_complex", "csu3_2d_complex"):
+        small = ["--chains", "2", "--loops", "2"]
+    base = ["run", "--preset", preset, *small]
+    paths = {k: (tmp_path / f"{k}.npz", tmp_path / f"{k}.jsonl") for k in "abcj"}
+    cli.main(base + ["--device", "cpu", "--burn", "1", "--frames", "2", "--out",
+                     str(paths["a"][0]), "--metrics", str(paths["a"][1])])
+    cli.main(base + ["--device", "cpu", "--frames", "1", "--resume", str(paths["a"][0]),
+                     "--out", str(paths["b"][0]), "--metrics", str(paths["b"][1])])
+    cli.main(base + ["--device", "cpu", "--burn", "1", "--frames", "3", "--out",
+                     str(paths["c"][0]), "--metrics", str(paths["c"][1])])
+    jcli.main(base + ["--burn", "1", "--frames", "3", "--out", str(paths["j"][0]),
+                      "--metrics", str(paths["j"][1])])
+    resumed, _ = checkpoint.load(paths["b"][0], "cpu")
+    straight, cfg = checkpoint.load(paths["c"][0], "cpu")
+    for name, x, y in zip(resumed._fields, resumed, straight):
+        assert torch.equal(x, y), name
+
+    got, want = _records(paths["c"][1]), _records(paths["j"][1])
+    assert [r["type"] for r in got] == [r["type"] for r in want]
+    for g, w in zip(got, want):
+        assert set(g) == set(w), (set(g) ^ set(w))
+    frames = [r for r in got if r["type"] == "frame"]
+    assert len(frames) == 3 and all(r["stable_frac"] == 1.0 for r in frames)
+    jstate, jcfg = jck.load(paths["j"][0])
+    assert jcfg.to_json() == cfg.to_json() and jck.read_meta(paths["c"][0])["frames_done"] == 3
+    site_sums = ("plaq_mean",) + (("z2r_mean", "z2i_mean", "zim_mean")
+                                  if preset == "complex_field_2d" else ())
+    for name, g, w in zip(straight._fields, straight, jstate):
+        w = np.asarray(w)
+        if name in ("runs", "stab_cnt", "step"):
+            np.testing.assert_array_equal(g.numpy().astype(w.dtype), w, err_msg=name)
+        elif name in site_sums:
+            np.testing.assert_allclose(g.numpy(), w, rtol=3e-5, atol=3e-6, err_msg=name)
+        else:
+            np.testing.assert_allclose(g.numpy(), w, rtol=2e-5, atol=2e-6, err_msg=name)
+    for key in ("re_z2", "im_z2", "plaquette", "plaquette_im", "unitarity_norm"):
+        if key in frames[-1]:
+            assert frames[-1][key] == pytest.approx(
+                [r for r in want if r["type"] == "frame"][-1][key], rel=1e-4, abs=1e-6), key
+
+
+def test_run_complex_resumes_progress_and_refuses_other_runs(tmp_path):
+    cfg = dataclasses.replace(cli.COMPLEX_PRESETS["complex_chain"], n_chains=2, n_sites=8,
+                              loops=4, frames=4)
+    full = runtime.run_complex(cfg, device="cpu", sink=metrics.MetricsSink(), burn_frames=1)
+    ck, mpath = tmp_path / "c.npz", tmp_path / "m.jsonl"
+    stop = iter([False, True]).__next__
+    with open(mpath, "w") as fh:
+        runtime.run_complex(cfg, device="cpu", sink=metrics.MetricsSink(stream=fh),
+                            burn_frames=1, checkpoint_out=str(ck), stop=stop)
+    assert any(r["type"] == "preempted" and r["frames_done"] == 2 for r in _records(mpath))
+    res = runtime.run_complex(cfg, device="cpu", sink=metrics.MetricsSink(),
+                              checkpoint_in=str(ck), resume_progress=True)
+    for name, a, b in zip(full.state._fields, res.state, full.state):
+        assert torch.equal(a, b), name
+    with pytest.raises(ValueError, match="n_sites"):
+        runtime.run_complex(dataclasses.replace(cfg, n_sites=16), device="cpu",
+                            checkpoint_in=str(ck))
+    with pytest.raises(ValueError, match="ComplexChainConfig"):
+        runtime.run_complex(cli.COMPLEX_PRESETS["complex_gaussian"], device="cpu",
+                            checkpoint_in=str(ck))
+    with pytest.raises(TypeError, match="complex-Langevin config"):
+        runtime.run_complex(TINY["harmosc"], device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            runtime.run_complex(cfg, device="cuda")
+
+
+def test_run_gauge_cu1_2d_complex_on_a_mesh_equals_the_unsplit_run():
+    """cu1_2d_complex under a 2-way mesh of CPU devices on the per-step halo
+    runner (backend 'torch', cooling off: the halo runner refuses it): the
+    unsplit run's links and decisions bit for bit, the unitarity norm its
+    lattice mean (rtol 1e-5: the shards' means are summed in another order)."""
+    from stochquant_tpu_torch import parallel
+
+    base = dataclasses.replace(cli.GAUGE_PRESETS["cu1_2d_complex"], n_chains=2, loops=3,
+                               frames=2, cooling_rate=0.0, hot_start=True)
+    cfg = dataclasses.replace(base, mesh_axes=("x", None))
+    mesh = parallel.make_mesh([("x", 2)], devices="cpu")
+    recs, want_recs = [], []
+    got = runtime.run_gauge(cfg, mesh=mesh, backend="torch", burn_frames=1,
+                            sink=metrics.MetricsSink(callback=recs.append))
+    want = runtime.run_gauge(base, device="cpu", burn_frames=1,
+                             sink=metrics.MetricsSink(callback=want_recs.append))
+    for name in ("links", "drift_max", "dtau", "runs", "stab_cnt", "step"):
+        assert torch.equal(getattr(got.state, name), getattr(want.state, name)), name
+    torch.testing.assert_close(got.state.plaq_mean, want.state.plaq_mean, rtol=1e-5, atol=1e-7)
+    frames = [r for r in recs if r["type"] == "frame"]
+    assert {"plaquette_im", "plaquette_exact_2d_im", "unitarity_norm"} <= set(frames[-1])
+    want_frames = [r for r in want_recs if r["type"] == "frame"]
+    assert len(frames) == len(want_frames)
+    np.testing.assert_allclose([r["unitarity_norm"] for r in frames],
+                               [r["unitarity_norm"] for r in want_frames], rtol=1e-5, atol=1e-9)
+    with pytest.raises(ValueError, match="cooling"):
+        runtime.run_gauge(dataclasses.replace(cfg, cooling_rate=0.05), mesh=mesh,
+                          sink=metrics.MetricsSink())
+
+
+@pytest.mark.parametrize("preset", ["cu1_2d_complex", "csu3_2d_complex"])
+def test_complexified_gauge_presets_route_to_the_plain_path(preset, monkeypatch):
+    """'auto' on a CUDA device runs the plain integrator and records why
+    (here on the CPU with the route resolved for a CUDA device); 'cuda'
+    raises, naming the group."""
+    cfg = dataclasses.replace(cli.GAUGE_PRESETS[preset], n_chains=1, loops=2, frames=1)
+    route, reason = runtime.select_gauge_backend(cfg, "auto", CUDA)
+    assert route == "torch" and cfg.group in reason
+    with pytest.raises(ValueError, match=f"group {cfg.group}"):
+        runtime.select_gauge_backend(cfg, "cuda", CUDA)
+    real = runtime.select_gauge_backend
+    monkeypatch.setattr(runtime, "select_gauge_backend",
+                        lambda cfg, backend, device: real(cfg, backend, CUDA))
+    recs = []
+    runtime.run_gauge(cfg, device="cpu", sink=metrics.MetricsSink(callback=recs.append))
+    assert recs[0]["type"] == "backend_fallback" and recs[0]["backend"] == "torch"
+    frame = [r for r in recs if r["type"] == "frame"][0]
+    assert np.isfinite([frame[k] for k in ("plaquette", "plaquette_im", "unitarity_norm",
+                                           "plaquette_exact_2d_im")]).all()
+
+
+def test_measure_loops_on_a_complexified_group():
+    cfg = dataclasses.replace(cli.GAUGE_PRESETS["csu3_2d_complex"], n_chains=1, loops=2,
+                              frames=1, shape=(4, 4), measure_loops=True)
+    recs = []
+    runtime.run_gauge(cfg, device="cpu", sink=metrics.MetricsSink(callback=recs.append))
+    frame = [r for r in recs if r["type"] == "frame"][0]
+    assert np.isfinite([frame["polyakov_re"], frame["polyakov_im"]]).all()
+    loops = [r for r in recs if r["type"] == "wilson_loops"]
+    assert len(loops) == 1 and np.asarray(loops[0]["w"]).shape == (2, 2)
