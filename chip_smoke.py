@@ -53,8 +53,11 @@ non-zero:
    2`` (one burn-in frame, 3 frames, ``--resume`` for one more, and an
    uninterrupted 4-frame run: bitwise equal; kernels 3 and 4 launched;
    finite observables, stable_frac ≥ 0.99), then the same with
-   ``--tile-rows 64`` (kernel 5); kernels 4 and 5 from the runs'
-   checkpoints held against their plain versions as in 6;
+   ``--tile-rows 64`` and with ``--tile-rows 0`` (kernel 5 at the strip
+   rule's height, 32 rows at 256², named by the run's ``autotune`` record);
+   kernels 4 and 5 from the runs' checkpoints held against their plain
+   versions as in 6, and kernel 5 timed at both heights in turns (CUDA
+   events, mean of 50) and by its device time (torch.profiler);
 8. tiled at a size that needs it: ``runtime.run_field`` on a 1024² lattice ×
    16 chains, which ``auto`` routes to kernel 5 (4 MiB per chain, above the
    1 MiB rule); one frame of it held against ``field_frame_tiled`` with the
@@ -237,7 +240,29 @@ non-zero:
     device's idle share under ``torch.profiler``), link-MLUPS of the gauge
     presets.
 
-Every timing phase ([5], [9], [12], [15], [19], [22], [23], [26], [27]) ends with the
+28. chains over a mesh and across processes, sharded checkpoints, on-card
+    autotune and the reference format: (a) ``runtime.run_chain`` on the
+    headline (65,536 chains) over a mesh of 2 shards on the one card, fpl 1
+    and 2, Threefry and Philox, exact launch counts (kernels 1 / 2 per shard),
+    every state leaf and record bit for bit the unsplit run's; a
+    ``save_sharded`` / ``load_sharded`` round trip and a resume from the
+    sharded files bitwise the uninterrupted run; the host times of a
+    whole-state and a sharded checkpoint write and read; a frame of the mesh
+    beside the unsplit frame in turns; (b) two processes on the card (gloo
+    through a file store), each 32,768 chains through kernels 1 and 2 with
+    its global chain offset, each writing its ``save_sharded`` file; two new
+    processes load them and run a frame more: the files joined bitwise the
+    one-process run, the stable fraction summed over the processes by gloo
+    the one-process one; (c) ``runtime.run_field`` with ``tile_rows=0`` at 32⁴
+    × 4 (kernel 6 at every admitted height, then the run) and with
+    ``exchange_steps=0`` on the 256² × 16 split at x = 2 (kernel 7 at every
+    admitted W), exact launch counts, each run's φ and decisions bitwise the
+    untuned run's (the unsplit kernel 3 for the split), the ``autotune``
+    records with each candidate's time; (d) ``export_reference`` of a card
+    state and ``import_reference`` of the file: f, the means, ω, the count
+    and the clamped Δτ bit for bit.
+
+Every timing phase ([5], [9], [12], [15], [19], [22], [23], [26], [27], [28]) ends with the
 range of the card's SM clock, power draw and temperature sampled while it ran.
 
 ``python3 chip_smoke.py --log PATH`` also writes every printed line to PATH.
@@ -1081,11 +1106,12 @@ def field_cli_runs(torch, cli, checkpoint, counters, tmp: Path, tag: str, extra:
     return launches
 
 
-def phase_field_main_path(torch, fk, ft, cli, checkpoint, actions, tmp: Path):
+def phase_field_main_path(torch, fk, ft, cli, checkpoint, actions, tmp: Path, card: str):
     """The port's CLI on preset phi4_2d through kernels 3 and 4, then with
-    --tile-rows through kernel 5; then kernels 4 and 5 from the runs'
-    checkpoints against their plain versions.  Returns (launch counts,
-    max|Δ| per kernel)."""
+    --tile-rows 64 and with --tile-rows 0 (the strip rule's default height)
+    through kernel 5; then kernels 4 and 5 from the runs' checkpoints against
+    their plain versions, and kernel 5 timed at both heights.  Returns (launch
+    counts, max|Δ| per kernel, kernel 5's ms per height)."""
     counters = {"field_frame": fk.field_frame, "field_frames_multi": fk.field_frames_multi,
                 "field_pair": ft.field_pair}
     whole = field_cli_runs(torch, cli, checkpoint, counters, tmp, "w", [])
@@ -1094,6 +1120,18 @@ def phase_field_main_path(torch, fk, ft, cli, checkpoint, actions, tmp: Path):
     tiled = field_cli_runs(torch, cli, checkpoint, counters, tmp, "t", ["--tile-rows", "64"])
     if tiled["field_pair"] < 1 or tiled["field_frame"] or tiled["field_frames_multi"]:
         raise SystemExit(f"the --tile-rows main path did not run kernel 5 alone: {tiled}")
+    default = field_cli_runs(torch, cli, checkpoint, counters, tmp, "d", ["--tile-rows", "0"])
+    if default["field_pair"] != tiled["field_pair"] or default["field_frame"] or \
+            default["field_frames_multi"]:
+        raise SystemExit(f"the --tile-rows 0 main path did not run kernel 5 alone as often as "
+                         f"--tile-rows 64: {default}")
+    tuned = [json.loads(line) for line in open(tmp / "da.jsonl")][0]
+    state, cfg = checkpoint.load(tmp / "da.npz", "cuda")
+    height = ft.resolve_tile_rows(cfg)
+    if tuned.get("type") != "autotune" or tuned.get("tile_rows") != height:
+        raise SystemExit(f"--tile-rows 0: the first record is {tuned}, not the strip rule's "
+                         f"height {height}")
+    log(f"  --tile-rows 0 resolves to the strip rule's {height} rows: {json.dumps(tuned)}")
 
     err = {}
     state, cfg = checkpoint.load(tmp / "wa.npz", "cuda")
@@ -1107,10 +1145,31 @@ def phase_field_main_path(torch, fk, ft, cli, checkpoint, actions, tmp: Path):
         f"main path C={cfg.n_chains} {cfg.shape} field_pair tile_rows=64",
         ft.field_pair(state.phi, state.dtau, act, cfg, step, 64),
         ft.field_pair_ref(state.phi, state.dtau, act, cfg, step, 64))
+    act = actions.get_field(cfg.action)
+    step = int(state.step)
+    err["field_pair"] = max(err["field_pair"], gate(
+        f"main path C={cfg.n_chains} {cfg.shape} field_pair tile_rows={height} (the rule's)",
+        ft.field_pair(state.phi, state.dtau, act, cfg, step, height),
+        ft.field_pair_ref(state.phi, state.dtau, act, cfg, step, height)))
+    ms = {}
+    for t0 in (height, 64, height, 64):  # in turns
+        ms.setdefault(t0, []).append(cuda_ms(
+            torch, lambda t0=t0: ft.field_pair(state.phi, state.dtau, act, cfg, step, t0), reps=50))
+    pair_ms = {}
+    for t0, v in ms.items():
+        _, _, rows = device_profile(torch, lambda t0=t0: [ft.field_pair(
+            state.phi, state.dtau, act, cfg, step, t0) for _ in range(20)])
+        own = [r for r in rows if "field_pair" in r[0]]
+        device_us = sum(r[1] for r in own) / max(sum(r[2] for r in own), 1) * 1e6
+        pair_ms[t0] = {"ms": min(v), "device_us": device_us}
+        log(f"  field_pair at {cfg.shape} x {cfg.n_chains}, tile_rows {t0}"
+            f"{' (the rule)' if t0 == height else ''}: {min(v):.4f} ms/launch (CUDA events, "
+            f"mean of 50, least of 2 turns: {[round(x, 4) for x in v]}); {device_us:.2f} µs of "
+            f"device time a launch (torch.profiler, 20 launches) [{card}]")
     launches = {"field_frame": whole["field_frame"],
                 "field_frames_multi": whole["field_frames_multi"],
-                "field_pair": tiled["field_pair"]}
-    return launches, err
+                "field_pair": tiled["field_pair"] + default["field_pair"]}
+    return launches, err, pair_ms
 
 
 def phase_field_tiled_large(torch, ft, runtime, metrics, cfgmod, actions, tmp: Path, card: str):
@@ -3202,6 +3261,333 @@ def phase_complex_langevin(torch, mods, tmp: Path, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [28] chains over a mesh and across processes, sharded checkpoints, on-card
+# autotune, the reference format
+# ---------------------------------------------------------------------------
+
+#: one process of [28](b): its half of the headline chains through kernels 1 and 2
+#: with its global chain offset, then its save_sharded file; no JAX anywhere
+MESH_WORKER = r"""
+import dataclasses, json, sys, time
+import torch
+from stochquant_tpu_torch import actions
+from stochquant_tpu_torch.config import ChainConfig
+from stochquant_tpu_torch.integrators import langevin
+from stochquant_tpu_torch.io import checkpoint
+from stochquant_tpu_torch.kernels import chain_kernel as ck
+from stochquant_tpu_torch.parallel import distributed, mesh as mesh_mod
+
+rank, store, ckdir, phase = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+cfg = ChainConfig.from_json(sys.argv[5])
+distributed.initialize(f"file://{store}", world_size=2, rank=rank, timeout_s=120)
+act = actions.get(cfg.action)
+per, off = distributed.process_local_chains(cfg.n_chains)
+mesh = distributed.global_mesh([("chain", 2)], devices="cuda:0")
+c_local, offsets = mesh_mod.chain_split(cfg.n_chains, mesh, "chain")
+assert offsets == [off] and c_local == per, (offsets, off)
+local = dataclasses.replace(cfg, n_chains=c_local, mesh_chain_axis=None)
+if phase == "first":
+    shards = mesh_mod.shard_chain_state(langevin.init_chain_state(cfg, act, device="cuda:0"), mesh)
+    n, done = 3, 3
+else:
+    shards, loaded = checkpoint.load_sharded(f"{ckdir}/first", mesh)
+    assert loaded == cfg
+    n, done = 1, 4
+for fn in (ck.chain_frame, ck.chain_frames_multi):
+    fn.launches = fn.launches_hw = 0
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+out = [ck.run_frames_kernel(s, act, local, n, frames_per_launch=2, chain_offset=o)
+       for s, o in zip(shards, offsets)]
+torch.cuda.synchronize()
+seconds = time.perf_counter() - t0
+launches = {"chain_frame": ck.chain_frame.launches,
+            "chain_frames_multi": ck.chain_frames_multi.launches}
+stable, chains = distributed.all_sum([sum(float(o[1]["stable"][-1].sum()) for o in out), per])
+checkpoint.save_sharded(f"{ckdir}/{phase}", [o[0] for o in out], cfg, mesh, frames_done=done)
+torch.distributed.barrier()
+torch.distributed.destroy_process_group()
+assert "jax" not in sys.modules
+print("WORKER " + json.dumps({"rank": rank, "phase": phase, "offset": off, "chains": per,
+                              "launches": launches, "seconds": seconds,
+                              "stable_frac": stable / chains}), flush=True)
+"""
+
+
+def chain_counted(torch, ck, label: str, want: dict, fn):
+    """``fn`` with kernels 1 and 2's counters set to 0 just before and read
+    just after; they must be exactly ``want``, Threefry launches under the
+    kernel's name and Philox ones under ``*_hw``."""
+    fns = {"chain_frame": ck.chain_frame, "chain_frames_multi": ck.chain_frames_multi}
+    for f in fns.values():
+        f.launches = f.launches_hw = 0
+    t0 = time.time()
+    result = fn()
+    torch.cuda.synchronize()
+    got = {k: f.launches - f.launches_hw for k, f in fns.items() if f.launches - f.launches_hw}
+    got.update({k + "_hw": f.launches_hw for k, f in fns.items() if f.launches_hw})
+    log(f"  {label}: {time.time() - t0:.2f}s, launches {got or 'none'}")
+    if got != want:
+        raise SystemExit(f"{label}: launches {got}, expected {want}")
+    return result
+
+
+TIMING_KEYS = ("wall_time", "mlups", "avg_mlups", "elapsed_s")
+
+
+def same_records(label: str, a: list, b: list) -> None:
+    """Two runs' records equal but for their wall times."""
+    def norm(recs):
+        return json.dumps([{k: v for k, v in r.items() if k not in TIMING_KEYS} for r in recs],
+                          default=lambda o: o.tolist())
+    if norm(a) != norm(b):
+        raise SystemExit(f"{label}: the records differ from the unsplit run's")
+
+
+def run_workers(torch, tmp: Path, phase: str, cfg) -> list:
+    """The two processes of [28](b) for one phase; each must exit 0 within its
+    time limit (a hang is killed and fails the phase)."""
+    import os
+
+    script = tmp / "mesh_worker.py"
+    script.write_text(MESH_WORKER)
+    # modules loaded with the context, so the timed frames hold no first-launch load
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               CUDA_MODULE_LOADING="EAGER")
+    store = tmp / f"store_{phase}"
+    procs = [subprocess.Popen([sys.executable, str(script), str(rank), str(store), str(tmp),
+                               phase, cfg.to_json()], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"[28](b) {phase}: a worker did not finish within 240 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        line = next((ln for ln in out.splitlines() if ln.startswith("WORKER ")), None)
+        if p.returncode != 0 or line is None:
+            raise SystemExit(f"[28](b) {phase} rank {rank} failed ({p.returncode}):\n{out[-3000:]}")
+        reports.append(json.loads(line[len("WORKER "):]))
+    return reports
+
+
+def phase_chain_mesh(torch, mods, tmp: Path, card: str):
+    """[28]: (a) the headline chains over a 2-shard chain mesh of the card,
+    bitwise the unsplit run, then sharded checkpoints and their times; (b) two
+    processes on the card (gloo) with their sharded files; (c) the autotuners
+    on kernels 6 and 7; (d) the reference format.  Returns the main paths'
+    launch counts and the timings."""
+    import dataclasses
+
+    runtime, metrics, cfgmod, parallel = (mods["runtime"], mods["metrics"], mods["cfgmod"],
+                                          mods["parallel"])
+    ck, checkpoint, langevin, actions, nd = (mods["ck"], mods["checkpoint"], mods["langevin"],
+                                             mods["actions"], mods["nd"])
+    autotune, mesh_mod, field = mods["autotune"], mods["mesh_mod"], mods["field"]
+    totals, out = collections.Counter(), {}
+    mesh = parallel.make_mesh([("chain", 2)], devices=["cuda:0", "cuda:0"])
+    base = cfgmod.ChainConfig(**HEADLINE, frames=2)
+    act = actions.get(base.action)
+    ups = base.n_chains * base.n_sites * base.loops
+
+    # (a) run_chain(mesh=) at the headline width, fpl 1 and 2, Threefry and Philox
+    states = {}
+    for rng in ("threefry", "hardware"):
+        for K in (1, 2):
+            cfg = dataclasses.replace(base, rng_impl=rng, frames_per_launch=K, fps=K)
+            hw = "_hw" if rng == "hardware" else ""
+            per_run = ({"chain_frame": 3} if K == 1 else {"chain_frame": 1, "chain_frames_multi": 1})
+            want = {k + hw: v for k, v in per_run.items()}
+            label = f"headline {rng} fpl {K}: burn 1 + {cfg.frames} frames"
+            ra, rb = [], []
+            a = chain_counted(torch, ck, f"{label}, unsplit", want, lambda: runtime.run_chain(
+                cfg, device="cuda", burn_frames=1, sink=metrics.MetricsSink(callback=ra.append)))
+            split = dataclasses.replace(cfg, mesh_chain_axis="chain")
+            b = chain_counted(torch, ck, f"{label}, run_chain(mesh=chain 2 on cuda:0)",
+                              {k: 2 * v for k, v in want.items()}, lambda: runtime.run_chain(
+                                  split, mesh=mesh, burn_frames=1,
+                                  sink=metrics.MetricsSink(callback=rb.append)))
+            totals.update({k: 2 * v for k, v in want.items()})
+            check_records(rb, label, ("dtau", "stable_frac"))
+            same_state(torch, f"{label}: mesh vs unsplit", b.state, a.state, "all")
+            same_records(label, ra, rb)
+            log(f"  {label}: every leaf and record bitwise the unsplit run's; stable_frac "
+                f"{[r['stable_frac'] for r in rb if r['type'] == 'frame']}")
+            states[(rng, K)] = (split, a.state)
+
+    # sharded save, load_sharded and resume, against the uninterrupted run (threefry, fpl 2)
+    split, uninterrupted = states[("threefry", 2)]
+    first = runtime.run_chain(dataclasses.replace(split, frames=1), mesh=mesh, burn_frames=1,
+                              sink=metrics.MetricsSink())
+    shards = mesh_mod.shard_chain_state(first.state, mesh)
+    path, got = str(tmp / "headline_sharded"), {}
+    out["ckpt_sharded_save_s"] = timed(torch, lambda: checkpoint.save_sharded(
+        path, shards, split, mesh, frames_done=1))
+    out["ckpt_sharded_load_s"] = timed(torch, lambda: got.update(
+        sharded=checkpoint.load_sharded(path, mesh)[0]))
+    loaded = got["sharded"]
+    for i, (x, y) in enumerate(zip(shards, loaded)):
+        same_state(torch, f"headline shard {i}: load_sharded vs the saved shard", y, x, "all")
+    resumed = chain_counted(torch, ck, "headline threefry fpl 2: resumed from the sharded files "
+                            "for the 2nd frame", {"chain_frame": 2}, lambda: runtime.run_chain(
+                                split, mesh=mesh, checkpoint_in=path, resume_progress=True,
+                                sink=metrics.MetricsSink()))
+    totals.update({"chain_frame": 2})
+    same_state(torch, "headline: sharded resume vs uninterrupted", resumed.state, uninterrupted,
+               "all")
+    whole_path = str(tmp / "headline_whole.npz")
+    out["ckpt_whole_save_s"] = timed(torch, lambda: checkpoint.save(
+        whole_path, first.state, split, frames_done=1))
+    out["ckpt_whole_load_s"] = timed(torch, lambda: got.update(
+        whole=checkpoint.load(whole_path, "cuda")[0]))
+    same_state(torch, "headline: whole-state save/load", got["whole"], first.state, "all")
+    size = sum(Path(f).stat().st_size for f in Path(tmp).glob("headline_sharded.proc*"))
+    log(f"  checkpoints of the headline state ({size / 2**20:.1f} MiB on disk): whole-state "
+        f"save {out['ckpt_whole_save_s']:.3f} s, load {out['ckpt_whole_load_s']:.3f} s; "
+        f"sharded (2 shards, one file) save {out['ckpt_sharded_save_s']:.3f} s, load "
+        f"{out['ckpt_sharded_load_s']:.3f} s (host clock, device synchronised) [{card}]")
+    # one frame of the mesh against the unsplit run, timed in turns (one card: not a mesh cost)
+    cfg1 = dataclasses.replace(base, frames=1)
+    s0 = langevin.init_chain_state(cfg1, act, device="cuda")
+    s0, _ = ck.run_frames_kernel(s0, act, cfg1, 1)
+    c_local, offsets = mesh_mod.chain_split(cfg1.n_chains, mesh, "chain")
+    local = dataclasses.replace(cfg1, n_chains=c_local)
+    sh = mesh_mod.shard_chain_state(s0, mesh)
+    reps = {"unsplit": [], "mesh": []}
+    for name in ("unsplit", "mesh", "mesh", "unsplit"):
+        if name == "unsplit":
+            reps[name].append(timed(torch, lambda: ck.run_frames_kernel(s0, act, cfg1, 1)))
+        else:
+            reps[name].append(timed(torch, lambda: [
+                ck.run_frames_kernel(x, act, local, 1, chain_offset=o)
+                for x, o in zip(sh, offsets)]))
+    for name, v in reps.items():
+        out[f"chain_mesh_{name}"] = dict(mlups=ups / min(v) / 1e6, seconds=min(v), reps=v)
+    log(f"  headline frame, kernel 1, in turns: unsplit {ups / min(reps['unsplit']) / 1e6:.1f} "
+        f"MLUPS, 2 shards on the one card {ups / min(reps['mesh']) / 1e6:.1f} MLUPS (least of 2; "
+        f"two launches of half the chains in turn on one card: not a mesh cost) [{card}]")
+
+    # (b) two processes on cuda:0, gloo through a file store, each half the chains
+    pcfg = cfgmod.ChainConfig(**HEADLINE, mesh_chain_axis="chain")
+    t0 = time.perf_counter()
+    first_r = run_workers(torch, tmp, "first", pcfg)
+    resume_r = run_workers(torch, tmp, "resume", pcfg)
+    wall = time.perf_counter() - t0
+    for r in first_r + resume_r:
+        want = ({"chain_frame": 1, "chain_frames_multi": 1} if r["phase"] == "first"
+                else {"chain_frame": 1, "chain_frames_multi": 0})
+        if r["launches"] != want or r["chains"] != pcfg.n_chains // 2:
+            raise SystemExit(f"[28](b) rank {r['rank']} {r['phase']}: {r}")
+        totals.update(r["launches"])
+        log(f"  process {r['rank']} {r['phase']}: chains {r['offset']}..{r['offset'] + r['chains'] - 1}"
+            f", launches {r['launches']}, {r['seconds']:.3f} s of frames "
+            f"({r['chains'] * pcfg.n_sites * pcfg.loops * (3 if r['phase'] == 'first' else 1) / r['seconds'] / 1e6:.1f}"
+            f" MLUPS a process, both on one card: not a mesh cost), stable_frac over both "
+            f"processes {r['stable_frac']} [{card}]")
+    if not all((tmp / f"resume.proc{i}-of-2.npz").exists() for i in range(2)):
+        raise SystemExit("[28](b): the resumed processes did not write their sharded files")
+    pact = actions.get(pcfg.action)
+    ref = langevin.init_chain_state(pcfg, pact, device="cuda")
+    ref3, m3 = ck.run_frames_kernel(ref, pact, pcfg, 3, frames_per_launch=2)
+    ref4, m4 = ck.run_frames_kernel(ref3, pact, pcfg, 1, frames_per_launch=2)
+    one = parallel.make_mesh([("chain", 2)], devices="cuda:0")
+    for phase, want, m in (("first", ref3, m3), ("resume", ref4, m4)):
+        got, _ = checkpoint.load_sharded(str(tmp / phase), one)
+        same_state(torch, f"two processes, {phase}: their sharded files vs one process",
+                   mesh_mod.gather_chain_state(got, one), want, "all")
+        frac = float(m["stable"][-1].float().mean())
+        if any(r["stable_frac"] != frac for r in (first_r if phase == "first" else resume_r)):
+            raise SystemExit(f"[28](b) {phase}: the stable fraction summed over the processes "
+                             f"differs from one process's {frac}")
+    log(f"  two processes: 3 frames, save_sharded, new processes load and run 1: the files "
+        f"joined bitwise the one-process run; {wall:.1f} s with process start-up")
+
+    # (c) the autotuners: tile_rows=0 at 32^4 x 4 (kernel 6), exchange_steps=0 on the split
+    autotune.clear_cache()
+    fcfg = cfgmod.FieldConfig(**BENCH_ND, n_chains=4, frames=1, tile_rows=0)
+    admitted, skipped = autotune.tile_rows_candidates(fcfg)
+    pairs = fcfg.loops // 2
+    tune = (1 + autotune._TUNE_REPS) * autotune._TUNE_FRAMES * pairs
+    recs = []
+    counters = {k: mods["counters"][k] for k in ("field_pair_nd", "field_chunk_nd")}
+    tuned = counted(torch, counters, {"field_pair_nd": tune * len(admitted) + pairs},
+                    f"run_field {fcfg.shape} x {fcfg.n_chains} tile_rows=0 (kernel 6 for "
+                    f"{admitted})", lambda: runtime.run_field(
+                        fcfg, device="cuda", sink=metrics.MetricsSink(callback=recs.append)))
+    totals.update({"field_pair_nd": tune * len(admitted) + pairs})
+    rec = recs[0]
+    if rec["type"] != "autotune" or rec["tile_rows"] not in admitted or \
+            sorted(map(int, rec["candidates_ms"])) != admitted:
+        raise SystemExit(f"tile_rows=0: unexpected record {rec}")
+    check_records(recs, "tile_rows=0", ("mag", "phi2", "binder"))
+    plain_tile = runtime.run_field(dataclasses.replace(fcfg, tile_rows=None), device="cuda",
+                                   sink=metrics.MetricsSink())
+    same_state(torch, f"tile_rows=0 (picked {rec['tile_rows']}) vs the tile rule",
+               tuned.state, plain_tile.state, FIELD_EXACT)
+    log(f"  autotune record: {json.dumps(rec)} [{card}]")
+
+    scfg = cfgmod.FieldConfig(**SPLIT_FIELD, frames=1, mesh_axes=("x", None), exchange_steps=0)
+    x2 = parallel.make_mesh([("x", 2)], devices="cuda:0")
+    fact = actions.get_field(scfg.action)
+    admitted, skipped = autotune.exchange_steps_candidates(fact, scfg, x2)
+    chunks = lambda W: scfg.loops // W + (1 if scfg.loops % W else 0)  # noqa: E731
+    tune_chunks = (1 + autotune._TUNE_REPS) * autotune._TUNE_FRAMES * 2 * sum(map(chunks, admitted))
+    recs = []
+    res = [None]
+
+    def split_run():
+        res[0] = runtime.run_field(scfg, mesh=x2, sink=metrics.MetricsSink(callback=recs.append))
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.time()
+    split_run()
+    torch.cuda.synchronize()
+    rec = recs[0]
+    want = tune_chunks + 2 * chunks(rec["exchange_steps"])
+    got = {k: c.launches for k, c in counters.items() if c.launches}
+    log(f"  run_field {scfg.shape} x {scfg.n_chains} loops {scfg.loops} x=2 exchange_steps=0 "
+        f"(kernel 7 for W in {admitted}; skipped {skipped}): {time.time() - t0:.2f}s, "
+        f"launches {got}")
+    if got != {"field_chunk_nd": want} or rec["type"] != "autotune" or \
+            sorted(map(int, rec["candidates_ms"])) != admitted:
+        raise SystemExit(f"exchange_steps=0: launches {got} (expected {want}), record {rec}")
+    totals.update(got)
+    check_records(recs, "exchange_steps=0", ("mag", "phi2", "binder"))
+    unsplit = runtime.run_field(dataclasses.replace(scfg, mesh_axes=None, exchange_steps=None),
+                                device="cuda", backend="cuda", sink=metrics.MetricsSink())
+    same_state(torch, f"exchange_steps=0 (picked W={rec['exchange_steps']}) x=2 vs unsplit "
+               f"kernel 3", res[0].state, unsplit.state, FIELD_EXACT)
+    log(f"  autotune record: {json.dumps(rec)} [{card}]")
+
+    # (d) the reference "%a" format from a card state
+    state = uninterrupted
+    ref_path = tmp / "headline_chain5.txt"
+    checkpoint.export_reference(ref_path, state, chain=5)
+    icfg = dataclasses.replace(base, n_chains=2)
+    imp = checkpoint.import_reference(ref_path, icfg, "cuda")
+    pairs = (("f", imp.f[1], state.f[5]), ("x_mean", imp.x_mean[0], state.x_mean[5]),
+             ("xx0_mean", imp.xx0_mean[1], state.xx0_mean[5]),
+             ("omega", imp.omega[0], state.omega[5]),
+             ("dtau", imp.dtau[0], torch.clamp(state.dtau[5], max=icfg.dtau)),
+             ("runs", imp.runs[1], state.runs[5]))
+    for name, x, y in pairs:
+        if not torch.equal(x, y):
+            raise SystemExit(f"export_reference -> import_reference: {name} differs")
+    if int(imp.step) != 0 or not torch.equal(imp.lrg_vl, imp.f.abs().amax(dim=1)):
+        raise SystemExit("import_reference: step or lrg_vl not as the reference reader's")
+    log(f"  export_reference -> import_reference of chain 5 of the headline state: f, means, "
+        f"omega, runs and the clamped dtau bitwise ({ref_path.stat().st_size} bytes)")
+    return dict(totals), out
+
+
 def preset_width(cfg) -> str:
     shape = getattr(cfg, "shape", None) or (getattr(cfg, "n_sites", None),)
     shape = tuple(s for s in shape if s is not None)
@@ -3283,9 +3669,9 @@ def main() -> int:
 
         # 7. field main path
         log("[7] field main path: cli run --preset phi4_2d --chains 16 --frames-per-launch 2, "
-            "then with --tile-rows 64:")
-        field_launches, field_err = phase_field_main_path(torch, fk, ft, cli, checkpoint,
-                                                          actions, Path(tmp))
+            "then with --tile-rows 64 and --tile-rows 0 (the strip rule's height):")
+        field_launches, field_err, pair_256_ms = phase_field_main_path(
+            torch, fk, ft, cli, checkpoint, actions, Path(tmp), card)
         launches.update(field_launches)
 
         # 8. tiled at a size that needs it
@@ -3432,6 +3818,23 @@ def main() -> int:
             t.update(phase_complex_langevin(torch, mods, Path(tmp), card))
         log(f"  phase [27] took {time.perf_counter() - t_cl:.1f} s")
 
+    from stochquant_tpu_torch.kernels import autotune
+    from stochquant_tpu_torch.parallel import mesh as mesh_mod
+
+    mods.update(autotune=autotune, mesh_mod=mesh_mod)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 28. chains over a mesh and across processes, sharded checkpoints, autotune,
+        # the reference format
+        t_mesh = time.perf_counter()
+        log(f"[28] run_chain(mesh=) on the headline (2 shards on cuda:0), two processes (gloo), "
+            f"sharded checkpoints, tile_rows=0 / exchange_steps=0, the reference format [{card}]:")
+        with CardSampler("[28]"):
+            mesh_launches, mesh_t = phase_chain_mesh(torch, mods, Path(tmp), card)
+        t.update(mesh_t)
+        for k, v in mesh_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"  phase [28] took {time.perf_counter() - t_mesh:.1f} s; its launches {mesh_launches}")
+
     # max_abs_err: the comparisons at the main paths' shapes (chain: headline
     # K=1, main-path state K=2, config 2 K=16; field: 256^2 x 16 K=1 and K=10,
     # main-path states K=2 and one tiled pair, 1024^2 x 16 tiled; gauge: the
@@ -3483,6 +3886,9 @@ def main() -> int:
     pair_k["launches"] += launches["field_step_nd"]
     pair_k["tail_launches"] = launches["field_step_nd"]
     pair_k["tail_ms"] = t["field_step_nd_ms"]
+    # kernel 5 at the main path's 256^2 x 16 ([7]): the strip rule's height and --tile-rows 64
+    strip_k = next(k for k in kernels if k["name"] == "field_pair")
+    strip_k["ms_256_by_tile_rows"] = {str(t0): v for t0, v in pair_256_ms.items()}
     # kernels 8, 9 and 12 also carry the profiler's device time per launch ("ms"
     # is CUDA events around the wrapper, as for every other kernel); 12 its
     # cluster geometry at the u1 shard

@@ -1,5 +1,6 @@
-"""Command-line runner for chain, field, complex-Langevin and gauge presets
-(port of ``stochquant_tpu.cli run``).
+"""Command-line runner for chain, field, complex-Langevin and gauge presets,
+a live plot of a run's records and the import of a reference "%a" file
+(port of ``stochquant_tpu.cli``: ``run``, ``plot``, ``reference-import``).
 
 Examples:
     python -m stochquant_tpu_torch.cli run --preset double_well --frames 100
@@ -13,6 +14,11 @@ Examples:
     python -m stochquant_tpu_torch.cli run --preset u1_2d --device cpu --frames 3 --loops 10
     python -m stochquant_tpu_torch.cli run --preset complex_field_2d --frames 20 --burn 5
     python -m stochquant_tpu_torch.cli run --preset csu3_2d_complex --frames 20
+    python -m stochquant_tpu_torch.cli run --preset phi4_4d --chains 4 --tile-rows 0
+    python -m stochquant_tpu_torch.cli run --preset double_well --metrics run.jsonl &
+    python -m stochquant_tpu_torch.cli plot --follow run.jsonl
+    python -m stochquant_tpu_torch.cli reference-import --file ref.txt --preset double_well \
+        --out imported.npz
 """
 
 from __future__ import annotations
@@ -119,6 +125,23 @@ def _export_trace(prof, directory) -> None:
     prof.export_chrome_trace(os.path.join(directory, "trace.json"))
 
 
+def cmd_plot(args):
+    from stochquant_tpu_torch import viz
+
+    viz.live_plot(args.follow)
+
+
+def cmd_reference_import(args):
+    from stochquant_tpu_torch.io import checkpoint
+
+    cfg = PRESETS.get(args.preset)
+    if not isinstance(cfg, ChainConfig):
+        sys.exit("reference-import only applies to chain presets")
+    state = checkpoint.import_reference(args.file, cfg, runtime.resolve_device(args.device))
+    checkpoint.save(args.out, state, cfg)
+    print(f"imported {args.file} -> {args.out}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="stochquant_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -150,13 +173,15 @@ def main(argv=None):
         "--tile-rows", type=int,
         help="field presets: dim-0 rows one block of the tiled CUDA kernels owns (any "
         "value routes a 2-D run to the strip-tiled kernel; default: whole-lattice kernels "
-        "up to 1 MiB in 2-D, a rule that fills the card in D >= 3)",
+        "up to 1 MiB in 2-D, a rule that fills the card in D >= 3; 0 = timed on the card "
+        "in D >= 3, the strip rule's height in 2-D)",
     )
     r.add_argument(
         "--exchange-steps", type=int,
         help="field presets: micro-steps per launch of the chunk kernel (W, even): in "
         "D >= 3 a W above 2 runs frames as W-step chunk launches instead of pair launches; "
-        "a lattice split over a mesh (2-D included) exchanges halos every W steps",
+        "a lattice split over a mesh (2-D included) exchanges halos every W steps (0 = "
+        "timed on the card there)",
     )
     r.add_argument(
         "--frames-per-launch", type=int,
@@ -197,6 +222,18 @@ def main(argv=None):
     r.add_argument("--metrics", help="write JSON-lines metrics here instead of stdout")
     r.add_argument("--profile", help="write a torch.profiler chrome trace into this directory")
     r.set_defaults(fn=cmd_run)
+
+    pl = sub.add_parser("plot", help="live-plot a metrics stream (matplotlib)")
+    pl.add_argument("--follow", required=True, help="metrics .jsonl file to tail")
+    pl.set_defaults(fn=cmd_plot)
+
+    ri = sub.add_parser("reference-import", help="convert a reference %%a checkpoint")
+    ri.add_argument("--file", required=True)
+    ri.add_argument("--preset", required=True)
+    ri.add_argument("--out", default="imported.npz")
+    ri.add_argument("--device", default="cuda",
+                    help="torch device the state is built on: cuda (default) or cpu")
+    ri.set_defaults(fn=cmd_reference_import)
 
     args = p.parse_args(argv)
     args.fn(args)

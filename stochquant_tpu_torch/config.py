@@ -11,16 +11,16 @@ rows one block of field kernels 5, 6 and 7 owns) and, for D >= 3 lattices,
 ``FieldConfig.exchange_steps`` (W > 2 runs frames through the W-step chunk
 kernel 7 instead of the pair kernel 6), and ignores ``block_chains``, which
 stays for checkpoint compatibility: one launch covers every chain (see
-``kernels.chain_kernel.run_frames_kernel``).  ``FieldConfig.mesh_axes`` /
-``mesh_chain_axis`` split a field run over the mesh given to
-``runtime.run_field(mesh=)`` (``parallel.halo``), where ``exchange_steps`` is
-the chunk kernel's W.  ``rng_impl="hardware"`` (the TPU's on-core generator in
-the JAX package) selects the Philox-4x32-10 variants of chain kernels 1, 2
+``kernels.chain_kernel.run_frames_kernel``; 0 records that layout).
+``FieldConfig.mesh_axes`` / ``mesh_chain_axis`` split a field run over the
+mesh given to ``runtime.run_field(mesh=)`` (``parallel.halo``), where
+``exchange_steps`` is the chunk kernel's W; ``ChainConfig.mesh_chain_axis``
+splits the chains over the mesh given to ``runtime.run_chain(mesh=)``.  The
+value 0 of ``tile_rows`` (D >= 3) and ``exchange_steps`` is timed on the card
+(``kernels.autotune``).  ``rng_impl="hardware"`` (the TPU's on-core generator
+in the JAX package) selects the Philox-4x32-10 variants of chain kernels 1, 2
 and field kernels 3, 4; every other path ignores it and draws Threefry-20, as
-the JAX package's XLA paths do.  Fields that belong to features not ported yet
-(``block_chains=0`` and ``tile_rows=0`` autotune, ``ChainConfig.mesh_chain_axis``,
-``exchange_steps=0`` autotune) raise a ``ValueError`` naming the feature
-where the run starts.
+the JAX package's XLA paths do.
 """
 
 from __future__ import annotations

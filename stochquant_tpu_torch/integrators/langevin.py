@@ -500,8 +500,10 @@ def stack_metrics(per_frame) -> dict:
     return {key: torch.stack([m[key] for m in per_frame]) for key in per_frame[0]}
 
 
-def run_frames(state: ChainState, action: QMAction, cfg: ChainConfig, n_frames: int):
-    """``n_frames`` macro-steps in plain PyTorch on the state's device.
+def run_frames(state: ChainState, action: QMAction, cfg: ChainConfig, n_frames: int,
+               chain_offset: int = 0):
+    """``n_frames`` macro-steps in plain PyTorch on the state's device; the
+    rows of ``state`` are the global chains ``chain_offset …``.
 
     Returns (final_state, metrics) with metrics stacked over frames (n_frames, C).
     """
@@ -510,7 +512,7 @@ def run_frames(state: ChainState, action: QMAction, cfg: ChainConfig, n_frames: 
                  if cfg.scheme == Scheme.EXACT else None)  # eigh once per call
     per_frame = []
     for _ in range(n_frames):
-        sums = frame_sums(state, action, cfg, exact_ops=exact_ops)
+        sums = frame_sums(state, action, cfg, chain_offset, exact_ops=exact_ops)
         state, m = frame_epilogue(state, sums, cfg)
         per_frame.append(m)
     return state, stack_metrics(per_frame)

@@ -13,12 +13,16 @@ The output goes to ``build/stochquant_tpu_torch/<hash of sources + flags>/``
 beside the package, so an edited source, header or flag builds anew and an
 unchanged one is reused.  The compiler's report (registers, shared memory,
 spills per kernel) is kept next to the library in ``nvcc.log``.  Nothing is
-built when the package is imported.
+built when the package is imported.  Processes that start together (the
+ranks of a process group on one card) build once: each takes a lock file in
+the build directory, and the first to hold it builds while the others wait
+and then load its library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -206,7 +210,11 @@ def library() -> ctypes.CDLL:
     with every entry point's argument and result types declared."""
     path = build_dir() / "libsq_kernels.so"
     if not path.exists():
-        _compile(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with open(path.parent / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            if not path.exists():
+                _compile(path)
     lib = ctypes.CDLL(str(path))
     ptr = ctypes.c_void_p
     chain = ctypes.POINTER(ChainParams)

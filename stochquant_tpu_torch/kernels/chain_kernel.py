@@ -308,31 +308,32 @@ chain_frames_multi.launches_hw = 0
 
 def run_frames_kernel(state: ChainState, action: QMAction, cfg: ChainConfig,
                       n_frames: int, *, frames_per_launch: int = 1,
-                      block_chains: Optional[int] = None):
+                      block_chains: Optional[int] = None, chain_offset: int = 0):
     """``n_frames`` frames through the chain kernels — the counterpart of
     ``stochquant_tpu.kernels.chain_kernel.run_frames_pallas``.
 
     ``frames_per_launch`` K > 1 runs groups of K frames through kernel 2
     (epilogue in-kernel) and the remainder through kernel 1; per-frame
-    results are the same either way.  ``block_chains`` (the Pallas kernels'
-    chains per VMEM block) is accepted and ignored: one launch covers every
-    chain (``launch_geometry`` lays them out), and noise is keyed by global
-    chain id, so no blocking could change the results.  Only its autotune
-    value 0 raises, as not ported.  Returns (state, metrics) with metrics of
-    shape (n_frames, C).
+    results are the same either way.  The rows of ``state`` are the global
+    chains ``chain_offset …`` (a shard of a chain mesh, or a process's part of
+    the chains), whose noise streams they draw.  ``block_chains`` (the Pallas
+    kernels' chains per VMEM block; 0 = autotune there) is accepted and
+    ignored: one launch covers every chain (``launch_geometry`` lays them
+    out), and noise is keyed by global chain id, so no blocking could change
+    the results.  Returns (state, metrics) with metrics of shape
+    (n_frames, C).
     """
     check_kernel_config(cfg)
-    if block_chains == 0:
-        raise ValueError("block_chains=0 (autotune) is not ported yet")
     K = max(frames_per_launch, 1)
     per_group = []
     done = 0
     while done < n_frames:
         if K > 1 and n_frames - done >= K:
-            state, m = chain_frames_multi(state, action, cfg, K)
+            state, m = chain_frames_multi(state, action, cfg, K, chain_offset)
             done += K
         else:
-            state, m = langevin.frame_epilogue(state, chain_frame(state, action, cfg), cfg)
+            state, m = langevin.frame_epilogue(
+                state, chain_frame(state, action, cfg, chain_offset), cfg)
             m = {k: v[None] for k, v in m.items()}
             done += 1
         per_group.append(m)

@@ -139,7 +139,7 @@ def resolve_tiles(cfg: FieldConfig, loc, n_chains: int, tile_rows=None, halos=No
     """The extents of one tile of the owned block ``loc`` (``halos`` per side
     in the split dims, none by default).
 
-    Dim 0: ``tile_rows``, else ``cfg.tile_rows``, else this rule; the other
+    Dim 0: ``tile_rows``, else ``cfg.tile_rows``, else (None or 0) this rule; the other
     dims: this rule.  It starts from the whole extents and halves the largest
     free extent (the lowest dim on a tie) while the launch has fewer than
     ``TARGET_BLOCKS`` owned tiles or the staged box exceeds ``BOX_BUDGET``,
@@ -151,9 +151,7 @@ def resolve_tiles(cfg: FieldConfig, loc, n_chains: int, tile_rows=None, halos=No
     shape = tuple(cfg.shape)
     halos = tuple(halos) if halos is not None else (0,) * len(loc)
     tiles = list(loc)
-    t0 = tile_rows if tile_rows is not None else cfg.tile_rows
-    if t0 == 0:
-        raise ValueError("tile_rows=0 (autotune) is not ported yet: give a tile height or None")
+    t0 = tile_rows or cfg.tile_rows  # None or 0 (autotune, resolved by the runtime): the rule
     if t0:
         if t0 < 0 or loc[0] % t0:
             raise ValueError(f"tile_rows={t0} must divide the dim-0 extent {loc[0]}")

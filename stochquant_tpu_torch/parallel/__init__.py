@@ -1,6 +1,7 @@
-"""A lattice split over a device mesh: the mesh and its collectives
-(:mod:`.mesh`), the field halo runner (:mod:`.halo`) and the gauge halo and
-chunk runners (:mod:`.gauge_halo`)."""
+"""A state split over a device mesh: the mesh and its collectives
+(:mod:`.mesh`), the field halo runner (:mod:`.halo`), the gauge halo and
+chunk runners (:mod:`.gauge_halo`) and meshes across processes
+(:mod:`.distributed`)."""
 
 from stochquant_tpu_torch.parallel.mesh import (  # noqa: F401
     DeviceMesh,

@@ -143,8 +143,6 @@ def rdma_refusal(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh):
     local_shape, c_local, sharded_dims, W_probe = geo
     if any(sharded_dims[1:]):
         return f"kernel 8 takes dim-0-only splits, not mesh_axes {lat}"
-    if cfg.exchange_steps == 0:
-        return "exchange_steps=0 (autotune) is not ported yet: give an even W or None"
     if mesh.axis_size(lat[0]) > 1:
         for ring in mesh.groups((lat[0],)):
             if len({mesh.devices[i] for i in ring}) > 1:
@@ -215,12 +213,8 @@ def resolve_backend(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, bac
         raise ValueError("the lattice-split kernel path requires rng_impl='threefry' or "
                          "'threefry13' (the exact edge fixup re-derives counter noise), "
                          f"not {cfg.rng_impl!r}")
-    if backend == "cuda_nd":
-        if cfg.loops % 2:
-            raise ValueError("the composed chunk kernel needs an even cfg.loops")
-        if cfg.exchange_steps == 0:
-            raise ValueError("exchange_steps=0 (autotune) is not ported yet: give an even W "
-                             "or None")
+    if backend == "cuda_nd" and cfg.loops % 2:
+        raise ValueError("the composed chunk kernel needs an even cfg.loops")
     return backend
 
 

@@ -28,7 +28,11 @@ The collectives are plain functions over the list of shards:
 
 ``torch.distributed`` is not used here: gloo has no CUDA send/recv and NCCL
 refuses two ranks on one GPU, so neither could run a cut lattice on a
-one-GPU machine.  A multi-host module would sit beside this one.
+one-GPU machine.  A mesh that spans processes (``parallel.distributed.
+global_mesh``) names the *global* axis sizes and holds only this process's
+positions (a contiguous run of the global positions in C order, so the
+first axis spans the processes): its shards place, save and load by global
+coordinates, and nothing in this module moves data between processes.
 
 Because the noise is keyed by global (chain, site, step) coordinates, any
 placement produces the same field trajectory.
@@ -44,7 +48,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from stochquant_tpu_torch.integrators.field import FieldState
-from stochquant_tpu_torch.integrators.gauge import GaugeState
+from stochquant_tpu_torch.integrators.gauge import GaugeState, resolve_gauge_action
 from stochquant_tpu_torch.integrators.langevin import ChainState, stack_metrics
 
 __all__ = [
@@ -58,6 +62,7 @@ __all__ = [
     "field_state_spec",
     "gauge_state_spec",
     "chain_state_spec",
+    "state_spec",
     "shard_state",
     "gather_state",
     "shard_field_state",
@@ -69,20 +74,28 @@ __all__ = [
     "shard_state_from_numpy",
     "gather_metrics",
     "split_geometry",
+    "chain_split",
     "frame_loop",
 ]
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceMesh:
-    """Named axes over a flat tuple of devices (C order of the coordinates)."""
+    """Named axes over a flat tuple of devices (C order of the coordinates).
+
+    Across processes (``process_count`` > 1) ``shape`` is the global mesh and
+    ``devices`` are this process's positions, the global ones
+    ``process_index · size …`` in C order; coordinates are global."""
 
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     devices: Tuple[torch.device, ...]
+    process_index: int = 0
+    process_count: int = 1
 
     @property
     def size(self) -> int:
+        """Positions this process holds (every position in one process)."""
         return len(self.devices)
 
     def axis_size(self, name: Optional[str]) -> int:
@@ -93,7 +106,8 @@ class DeviceMesh:
         return self.shape[self.axis_names.index(name)]
 
     def coords(self, i: int) -> Tuple[int, ...]:
-        return tuple(int(c) for c in _unravel(i, self.shape))
+        """Global coordinates of this process's position ``i``."""
+        return tuple(int(c) for c in _unravel(i + self.process_index * self.size, self.shape))
 
     def coord(self, i: int, name: Optional[str]) -> int:
         """Shard ``i``'s coordinate along axis ``name``; 0 where
@@ -278,6 +292,19 @@ def chain_state_spec(chain_axis: Optional[str]) -> ChainState:
     )
 
 
+def state_spec(cls, cfg):
+    """The spec of a state of class ``cls`` split as ``cfg`` says: the one
+    layout of the runners' shards and of a sharded checkpoint."""
+    if cls is ChainState:
+        return chain_state_spec(cfg.mesh_chain_axis)
+    if cls is FieldState:
+        return field_state_spec(cfg)
+    if cls is GaugeState:
+        return gauge_state_spec(resolve_gauge_action(cfg), cfg)
+    raise ValueError(f"no sharded layout for a {cls.__name__}: chain, field and gauge states "
+                     "split over a mesh")
+
+
 def _block(spec, mesh: DeviceMesh, i: int, shape) -> tuple:
     """The index of shard ``i``'s block of a whole tensor of ``shape``."""
     index = []
@@ -308,11 +335,19 @@ def shard_state(state, spec, mesh: DeviceMesh) -> list:
     return shards
 
 
+def _one_process(mesh: DeviceMesh, what: str) -> None:
+    if mesh.process_count > 1:
+        raise ValueError(f"{what} needs every shard in this process; a mesh across "
+                         f"{mesh.process_count} processes saves and loads its shards "
+                         "(io.checkpoint.save_sharded / load_sharded)")
+
+
 def gather_state(shards: list, spec, mesh: DeviceMesh, device=None, only=None):
     """The inverse of :func:`shard_state`: the whole state on ``device``
     (default: the mesh's first device).  ``only`` names the leaves to gather;
     the others come back as ``None`` (a run loop reads the per-chain scalars
     every frame and the lattice only at a checkpoint)."""
+    _one_process(mesh, "gather_state")
     device = mesh.devices[0] if device is None else torch.device(device)
     leaves = []
     for k, (name, sp) in enumerate(zip(spec._fields, spec)):
@@ -374,6 +409,7 @@ def shard_state_from_numpy(arrays: dict, mesh: DeviceMesh, cfg, action=None) -> 
 def gather_metrics(per_shard: list, mesh: DeviceMesh, chain_axis: Optional[str]) -> dict:
     """Per-shard metrics of (frames, C_local) leaves → (frames, C) on the
     mesh's first device (the shards along the lattice axes hold replicas)."""
+    _one_process(mesh, "gather_metrics")
     out = {}
     for key in per_shard[0]:
         stacked = [m[key] for m in per_shard]
@@ -412,6 +448,17 @@ def split_geometry(cfg, mesh: DeviceMesh):
     lat_offs = [tuple(mesh.coord(i, ax) * ls for ax, ls in zip(lat_spec, local_shape))
                 for i in range(mesh.size)]
     return sizes, local_shape, c_local, ch_offs, lat_offs
+
+
+def chain_split(n_chains: int, mesh: DeviceMesh, chain_axis: Optional[str]):
+    """(chains per shard, each shard's global chain offset) for ``n_chains``
+    chains split over ``chain_axis``; raises where they do not divide."""
+    n = mesh.axis_size(chain_axis)
+    if n_chains % n:
+        raise ValueError(f"n_chains {n_chains} not divisible by mesh axis {chain_axis!r} "
+                         f"of size {n}")
+    c_local = n_chains // n
+    return c_local, [mesh.coord(i, chain_axis) * c_local for i in range(mesh.size)]
 
 
 def frame_loop(frame, mesh: DeviceMesh, chain_axis: Optional[str]):

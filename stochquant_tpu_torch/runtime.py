@@ -39,7 +39,7 @@ from stochquant_tpu_torch.integrators import gauge as gauge_mod
 from stochquant_tpu_torch.integrators import langevin
 from stochquant_tpu_torch.io import checkpoint as ckpt_mod
 from stochquant_tpu_torch.kernels import (
-    chain_kernel, field_kernel, field_kernel_nd, field_kernel_tiled, gauge_kernel,
+    autotune, chain_kernel, field_kernel, field_kernel_nd, field_kernel_tiled, gauge_kernel,
 )
 from stochquant_tpu_torch.observables import gauge_loops
 from stochquant_tpu_torch.parallel import gauge_halo as gauge_halo_mod
@@ -126,7 +126,7 @@ def select_backend(backend: str, device: torch.device, cfg: Optional[ChainConfig
 
 def _frames_already_done(state, cfg, checkpoint_in=None) -> int:
     if checkpoint_in:
-        meta = ckpt_mod.read_meta(checkpoint_in)
+        meta = ckpt_mod.read_meta_any(checkpoint_in)
         if "frames_done" in meta:
             return min(cfg.frames, int(meta["frames_done"]))
     return min(cfg.frames, int(state.step) // max(cfg.loops, 1))
@@ -148,14 +148,24 @@ def _check_resume_compat(loaded_cfg, cfg, checkpoint_in, fields) -> None:
         )
 
 
-def _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, whole=None) -> bool:
-    """Poll ``stop``; when set, checkpoint (``whole`` gathers a split state
-    first) and record the preemption."""
+def _load_whole(checkpoint_in, device, cfg, fields):
+    """A whole-state checkpoint on ``device``; a sharded one needs the mesh
+    it was split over and raises here, as the JAX ``run_field`` does."""
+    if ckpt_mod.is_sharded_checkpoint(checkpoint_in):
+        raise ValueError(f"{checkpoint_in} is a sharded checkpoint; resume it under a mesh "
+                         "(mesh= with the config's mesh axes) whose shards align with it")
+    state, loaded_cfg = ckpt_mod.load(checkpoint_in, device)
+    _check_resume_compat(loaded_cfg, cfg, checkpoint_in, fields)
+    return state
+
+
+def _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, mesh=None) -> bool:
+    """Poll ``stop``; when set, checkpoint (a split state of ``mesh`` as
+    ``io.checkpoint.save_auto`` writes it) and record the preemption."""
     if stop is None or not stop():
         return False
     if checkpoint_out:
-        ckpt_mod.save(checkpoint_out, whole(state) if whole else state, cfg,
-                      frames_done=frames_done)
+        ckpt_mod.save_auto(checkpoint_out, state, cfg, mesh=mesh, frames_done=frames_done)
     sink.emit({"type": "preempted", "frames_done": frames_done, "checkpoint": checkpoint_out})
     return True
 
@@ -178,7 +188,7 @@ def _check_mesh_cfg(cfg, mesh) -> bool:
     names mesh axes without a mesh, or a mesh without ``cfg.mesh_axes``, raises."""
     if mesh is None:
         for name in ("mesh_axes", "mesh_chain_axis"):
-            if getattr(cfg, name) is not None:
+            if getattr(cfg, name, None) is not None:
                 raise ValueError(f"cfg.{name}={getattr(cfg, name)!r} names mesh axes but no mesh "
                                  "was given: pass mesh=parallel.make_mesh(...)")
         return False
@@ -189,13 +199,32 @@ def _check_mesh_cfg(cfg, mesh) -> bool:
 
 
 class _SplitState:
-    """A run loop's view of a state that is a list of per-shard states."""
+    """A run loop's view of a state that is a list of per-shard states, of
+    class ``cls`` split over ``mesh`` as ``cfg`` says; a mesh across
+    processes raises."""
 
-    def __init__(self, spec, mesh, device, scalars):
-        self.spec, self.mesh, self.device, self._scalars = spec, mesh, device, scalars
+    def __init__(self, cls, cfg, mesh, device, scalars):
+        if mesh.process_count > 1:
+            raise ValueError(
+                "the runners run in one process (as the JAX package's run_chain): across "
+                "processes each runs chain_kernel.run_frames_kernel(..., chain_offset=) on its "
+                "part of the chains (parallel.distributed.process_local_chains) and saves with "
+                "io.checkpoint.save_sharded")
+        self.spec = mesh_mod.state_spec(cls, cfg)
+        self.mesh, self.device, self._scalars = mesh, device, scalars
 
     def shard(self, whole) -> list:
         return mesh_mod.shard_state(whole, self.spec, self.mesh)
+
+    def load(self, checkpoint_in, cfg, fields):
+        """The per-shard states of a checkpoint: a sharded one restored onto
+        the mesh block by block, a whole-state one loaded and split."""
+        if ckpt_mod.is_sharded_checkpoint(checkpoint_in):
+            shards, loaded_cfg = ckpt_mod.load_sharded(checkpoint_in, self.mesh)
+        else:
+            return self.shard(_load_whole(checkpoint_in, self.device, cfg, fields))
+        _check_resume_compat(loaded_cfg, cfg, checkpoint_in, fields)
+        return shards
 
     def whole(self, shards):
         return mesh_mod.gather_state(shards, self.spec, self.mesh, self.device)
@@ -206,10 +235,22 @@ class _SplitState:
                                      only=self._scalars)
 
 
+def _check_chain_mesh(cfg: ChainConfig, mesh) -> bool:
+    """True for a chain run over a mesh (``mesh`` and ``cfg.mesh_chain_axis``,
+    the one mesh field of ``ChainConfig``); a chain axis without a mesh or a
+    mesh without a chain axis raises."""
+    if mesh is None:
+        _check_mesh_cfg(cfg, None)
+        return False
+    if cfg.mesh_chain_axis is None:
+        raise ValueError("a mesh needs cfg.mesh_chain_axis: the mesh axis the chains split over")
+    return True
+
+
 def run_chain(
     cfg: ChainConfig,
     *,
-    device,
+    device=None,
     backend: str = "auto",
     burn_frames: int = 0,
     sink: Optional[metrics_mod.MetricsSink] = None,
@@ -217,54 +258,80 @@ def run_chain(
     checkpoint_in: Optional[str] = None,
     checkpoint_every: int = 0,
     stream_correlator: bool = True,
+    mesh=None,
     stop=None,
     resume_progress: bool = False,
 ) -> RunResult:
-    """Run a 1-D chain ensemble per the config on ``device``; returns the
-    final state.
+    """Run a 1-D chain ensemble per the config on ``device``, or with
+    ``mesh`` and ``cfg.mesh_chain_axis`` split over the mesh's chain axis
+    (``device`` then only says where whole states are assembled: default the
+    mesh's first device); returns the final whole state.
 
     backend: 'cuda' (the hand-written kernels), 'torch' (the plain PyTorch
     integrator, on any device) or 'auto' (cuda on a CUDA device, torch on
-    the CPU), resolved by :func:`select_backend`.  stop: optional callable
-    polled between frame groups (e.g. a PreemptionGuard); when true the loop
-    checkpoints and returns early.
+    the CPU), resolved by :func:`select_backend`.  Under a mesh every shard
+    runs its chains (kernels 1 / 2 on the card) with its global chain offset,
+    so state, metrics and records are bit for bit the unsplit run's; the
+    records gather the per-chain metrics and correlators in mesh order, a
+    checkpoint the whole state (``io.checkpoint.save_auto``), and a sharded
+    checkpoint resumes block by block.  ``block_chains=0`` records the
+    launch's layout (``kernels.autotune.best_block_chains``).  stop: optional
+    callable polled between frame groups (e.g. a PreemptionGuard); when true
+    the loop checkpoints and returns early.
     resume_progress: with checkpoint_in, count the checkpoint's completed
     frames toward cfg.frames instead of running cfg.frames more.
     """
-    device = resolve_device(device)
-    backend, reason = select_backend(backend, device, cfg)
+    split = None
+    if _check_chain_mesh(cfg, mesh):
+        device = _mesh_device(mesh, device)
+        split = _SplitState(langevin.ChainState, cfg, mesh, device, ("x_mean", "xx0_mean"))
+        _mesh_on_cuda(mesh)  # one device type
+        backend, reason = select_backend(backend, mesh.devices[0], cfg)
+        c_local, offsets = mesh_mod.chain_split(cfg.n_chains, mesh, cfg.mesh_chain_axis)
+        run_cfg = dataclasses.replace(cfg, n_chains=c_local, mesh_chain_axis=None)
+    else:
+        device = resolve_device(device)
+        backend, reason = select_backend(backend, device, cfg)
+        offsets, run_cfg = [0], cfg
     act = actions_mod.get(cfg.action)
     langevin.check_supported(cfg, act)
-    if cfg.mesh_chain_axis is not None:
-        raise ValueError("mesh_chain_axis (chains sharded over a device mesh) is not ported yet")
-    if cfg.block_chains == 0:
-        raise ValueError("block_chains=0 (autotune) is not ported yet")
     sink = sink or metrics_mod.MetricsSink()
     if reason:
         sink.emit({"type": "backend_fallback", "backend": "torch", "reason": reason})
+    if cfg.block_chains == 0:
+        sink.emit(dict(autotune.best_block_chains(act, run_cfg, device=device)))
 
-    if checkpoint_in:
-        state, loaded_cfg = ckpt_mod.load(checkpoint_in, device)
-        _check_resume_compat(loaded_cfg, cfg, checkpoint_in, ("action", "n_sites", "n_chains"))
+    fields = ("action", "n_sites", "n_chains")
+    if split:
+        state = (split.load(checkpoint_in, cfg, fields) if checkpoint_in else
+                 split.shard(langevin.init_chain_state(cfg, act, device=device)))
+    elif checkpoint_in:
+        state = _load_whole(checkpoint_in, device, cfg, fields)
     else:
         state = langevin.init_chain_state(cfg, act, device=device)
 
-    def run_n(state, n):
+    def run_one(s, n, offset):
         if backend == "cuda":
             return chain_kernel.run_frames_kernel(
-                state, act, cfg, n,
-                frames_per_launch=min(cfg.frames_per_launch, n),
-            )
-        return langevin.run_frames(state, act, cfg, n)
+                s, act, run_cfg, n, frames_per_launch=min(cfg.frames_per_launch, n),
+                chain_offset=offset)
+        return langevin.run_frames(s, act, run_cfg, n, offset)
+
+    def run_n(state, n):
+        if not split:
+            return run_one(state, n, 0)
+        out = [run_one(s, n, off) for s, off in zip(state, offsets)]
+        return ([o[0] for o in out],
+                mesh_mod.gather_metrics([o[1] for o in out], mesh, cfg.mesh_chain_axis))
 
     frames_done = (
-        _frames_already_done(state, cfg, checkpoint_in)
+        _frames_already_done(state[0] if split else state, cfg, checkpoint_in)
         if (resume_progress and checkpoint_in)
         else 0
     )
     if burn_frames and frames_done == 0:
         state, _ = run_n(state, burn_frames)
-        state = langevin.reset_means(state)
+        state = [langevin.reset_means(s) for s in state] if split else langevin.reset_means(state)
 
     updates_per_frame = cfg.n_chains * cfg.n_sites * cfg.loops
     fps = max(cfg.fps, 1)
@@ -274,7 +341,8 @@ def run_chain(
         frames_done += n
         obs = {}
         if stream_correlator:
-            corr = langevin.connected_correlator(state).mean(dim=0).double().cpu().numpy()
+            view = split.scalars(state) if split else state
+            corr = langevin.connected_correlator(view).mean(dim=0).double().cpu().numpy()
             obs["log_abs_corr"] = np.log(np.abs(corr) + 1e-300)
         sink.frame(
             frames_done - 1,
@@ -285,10 +353,12 @@ def run_chain(
             observables=obs,
         )
         if checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0:
-            ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
-        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done):
+            ckpt_mod.save_auto(checkpoint_out, state, cfg, mesh=mesh, frames_done=frames_done)
+        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, mesh):
             break
 
+    if split:
+        state = split.whole(state)
     if checkpoint_out:
         ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
     summary = sink.summary()
@@ -319,8 +389,6 @@ def _select_halo_backend(cfg: FieldConfig, backend: str, mesh) -> str:
     if not on_cuda:
         raise ValueError(f"backend={backend!r} runs the CUDA kernels and needs a mesh of CUDA "
                          f"devices, not {sorted({str(d) for d in mesh.devices})}")
-    if cfg.exchange_steps == 0:
-        raise ValueError("exchange_steps=0 (autotune) is not ported yet: give an even W or None")
     if cfg.dtype != "float32":
         raise ValueError(f"the field kernels are float32-only, not {cfg.dtype}; use backend='torch'")
     # raises where no kernel covers this (cfg, mesh): nothing gives way to 'torch' unasked
@@ -368,7 +436,7 @@ def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> s
 
     'auto' takes the CUDA kernels on a CUDA device and 'torch' on the CPU.
     On the CUDA route every case the kernels do not cover raises, naming it
-    (``tile_rows=0`` autotune, a dtype other than float32); ``backend='torch'``
+    (a dtype other than float32); ``backend='torch'``
     is the explicit way to run the plain integrator there.  An odd ``loops``
     on the paths of pair launches (the tiled 2-D kernel and the D >= 3
     kernels) ends each frame in one launch of kernel 6's code at one step.
@@ -390,7 +458,9 @@ def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> s
     :func:`split_fallback_reason`), and as on the unsplit route every case
     the kernels do not cover raises (a D >= 3 split the chunk kernel does not
     admit, a dtype other than float32); ``WHOLE_LATTICE_MAX_BYTES`` plays no
-    part under a mesh.  ``exchange_steps=0`` (autotune) raises."""
+    part under a mesh.  ``tile_rows=0`` takes the strip-tiled route in 2-D,
+    as the JAX package does; ``run_field`` resolves it (D >= 3) and
+    ``exchange_steps=0`` on the card (``kernels.autotune``)."""
     field_mod.check_field_supported(cfg, actions_mod.get_field(cfg.action))
     if _check_mesh_cfg(cfg, mesh):
         return _select_halo_backend(cfg, backend, mesh)
@@ -407,8 +477,6 @@ def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> s
         return "torch"
     if device.type != "cuda":
         raise ValueError(f"backend='cuda' runs the CUDA kernels and needs a CUDA device, not {device}")
-    if cfg.tile_rows == 0:
-        raise ValueError("tile_rows=0 (autotune) is not ported yet: give a strip height or None")
     if cfg.dtype != "float32":
         raise ValueError(f"the field kernels are float32-only, not {cfg.dtype}; use backend='torch'")
     if cfg.ndim >= 3:
@@ -420,6 +488,25 @@ def select_field_backend(cfg: FieldConfig, backend: str, device, mesh=None) -> s
         return "cuda"
     _check_threefry(cfg, "the strip-tiled field kernel")
     return "cuda_tiled"
+
+
+def _resolve_tile_rows(act, cfg: FieldConfig, route: str, device, sink) -> Optional[int]:
+    """``tile_rows=0`` of an unsplit run, resolved and recorded: timed on the
+    card for the D >= 3 kernels; in 2-D the strip-tiled kernel's default
+    height (the JAX package's tiled path takes its default too); on the
+    plain path the tile rule's default, unused."""
+    if route == "cuda_nd":
+        record = autotune.best_tile_rows(act, cfg, device=device)
+    elif route == "cuda_tiled":
+        record = {"type": "autotune", "tile_rows": field_kernel_tiled.resolve_tile_rows(cfg),
+                  "reason": "2-D: the strip-tiled kernel's default height, as the JAX "
+                            "package's tiled path takes its default"}
+    else:
+        record = {"type": "autotune",
+                  "tile_rows": field_kernel_nd.default_tile_rows(cfg) if cfg.ndim >= 3 else None,
+                  "reason": "the plain PyTorch integrator runs: no tile to choose"}
+    sink.emit(dict(record))
+    return record["tile_rows"]
 
 
 def run_field(
@@ -443,34 +530,51 @@ def run_field(
 
     backend: 'auto', 'cuda' or 'torch' (under a mesh also 'cuda_step',
     'cuda_pair' and 'cuda_rdma'), resolved by :func:`select_field_backend`.
+    ``tile_rows=0`` (D >= 3) and, under a mesh, ``exchange_steps=0`` are
+    timed on the card (``kernels.autotune``) and recorded; on the plain path
+    they resolve to the kernels' defaults, recorded with why.  A sharded
+    checkpoint resumes under a mesh, block by block; without one it raises.
     stop and resume_progress as in :func:`run_chain`."""
     sink = sink or metrics_mod.MetricsSink()
     act = actions_mod.get_field(cfg.action)
     split = None
+    tile_rows = cfg.tile_rows
     if mesh is None:
         if device is None:
             raise ValueError("run_field needs device= (or mesh= with cfg.mesh_axes)")
         device = resolve_device(device)
         route = select_field_backend(cfg, backend, device)
         reason = field_fallback_reason(cfg, backend, device)
+        if cfg.tile_rows == 0:
+            tile_rows = _resolve_tile_rows(act, cfg, route, device, sink)
     else:
+        split = _SplitState(
+            field_mod.FieldState, cfg, mesh, _mesh_device(mesh, device),
+            ("mag_mean", "mag2_mean", "mag4_mean", "absmag_mean", "phi2_mean"))
         route = select_field_backend(cfg, backend, device, mesh)
         reason = split_fallback_reason(cfg, backend, mesh)
-        device = _mesh_device(mesh, device)
-        runner = halo_mod.make_halo_runner(act, cfg, mesh, backend=route)
-        split = _SplitState(
-            mesh_mod.field_state_spec(cfg), mesh, device,
-            ("mag_mean", "mag2_mean", "mag4_mean", "absmag_mean", "phi2_mean"))
+        device = split.device
+        runner_cfg = cfg
+        if cfg.exchange_steps == 0:
+            record = (autotune.best_exchange_steps(act, cfg, mesh) if route != "torch" else
+                      {"type": "autotune",
+                       "exchange_steps": field_kernel_nd.default_exchange_steps(cfg),
+                       "reason": "the plain PyTorch halo runner runs: the per-dimension default"})
+            sink.emit(dict(record))
+            runner_cfg = dataclasses.replace(cfg, exchange_steps=record["exchange_steps"])
+            route = select_field_backend(runner_cfg, backend, device, mesh)
+        runner = halo_mod.make_halo_runner(act, runner_cfg, mesh, backend=route)
     if reason:
         sink.emit({"type": "backend_fallback", "backend": route, "reason": reason})
 
-    if checkpoint_in:
-        state, loaded_cfg = ckpt_mod.load(checkpoint_in, device)
-        _check_resume_compat(loaded_cfg, cfg, checkpoint_in, ("action", "shape", "n_chains"))
+    fields = ("action", "shape", "n_chains")
+    if split:
+        state = (split.load(checkpoint_in, cfg, fields) if checkpoint_in else
+                 split.shard(field_mod.init_field_state(cfg, device=device)))
+    elif checkpoint_in:
+        state = _load_whole(checkpoint_in, device, cfg, fields)
     else:
         state = field_mod.init_field_state(cfg, device=device)
-    if split:
-        state = split.shard(state)
 
     def run_n(state, n):
         if split:
@@ -480,11 +584,9 @@ def run_field(
                 state, act, cfg, n, frames_per_launch=min(cfg.frames_per_launch, n)
             )
         if route == "cuda_tiled":
-            return field_kernel_tiled.run_field_frames_tiled(
-                state, act, cfg, n, tile_rows=cfg.tile_rows
-            )
+            return field_kernel_tiled.run_field_frames_tiled(state, act, cfg, n, tile_rows=tile_rows)
         if route == "cuda_nd":
-            return field_kernel_nd.run_field_frames_nd(state, act, cfg, n, tile_rows=cfg.tile_rows)
+            return field_kernel_nd.run_field_frames_nd(state, act, cfg, n, tile_rows=tile_rows)
         return field_mod.run_field_frames(state, act, cfg, n)
 
     whole = split.whole if split else (lambda s: s)
@@ -523,8 +625,8 @@ def run_field(
             observables=obs,
         )
         if checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0:
-            ckpt_mod.save(checkpoint_out, whole(state), cfg, frames_done=frames_done)
-        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, whole):
+            ckpt_mod.save_auto(checkpoint_out, state, cfg, mesh=mesh, frames_done=frames_done)
+        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, mesh):
             break
 
     state = whole(state)
@@ -697,8 +799,10 @@ def run_gauge(
         device = resolve_device(device)
         route, reason = select_gauge_backend(cfg, backend, device)
     else:
+        split = _SplitState(gauge_mod.GaugeState, cfg, mesh, _mesh_device(mesh, device),
+                            ("plaq_mean",))
         route, reason = select_gauge_backend(cfg, backend, device, mesh)
-        device = _mesh_device(mesh, device)
+        device = split.device
     if reason:
         sink.emit({"type": "backend_fallback", "backend": "torch", "reason": reason})
     act = gauge_mod.resolve_gauge_action(cfg)
@@ -706,15 +810,15 @@ def run_gauge(
         make = (gauge_halo_mod.make_gauge_chunk_runner if route == "cuda"
                 else gauge_halo_mod.make_gauge_halo_runner)
         runner = make(act, cfg, mesh)
-        split = _SplitState(mesh_mod.gauge_state_spec(act, cfg), mesh, device, ("plaq_mean",))
 
-    if checkpoint_in:
-        state, loaded_cfg = ckpt_mod.load(checkpoint_in, device)
-        _check_resume_compat(loaded_cfg, cfg, checkpoint_in, ("group", "shape", "n_chains"))
+    fields = ("group", "shape", "n_chains")
+    if split:
+        state = (split.load(checkpoint_in, cfg, fields) if checkpoint_in else
+                 split.shard(gauge_mod.init_gauge_state(cfg, act, device=device)))
+    elif checkpoint_in:
+        state = _load_whole(checkpoint_in, device, cfg, fields)
     else:
         state = gauge_mod.init_gauge_state(cfg, act, device=device)
-    if split:
-        state = split.shard(state)
 
     def run_n(state, n):
         if split:
@@ -767,8 +871,8 @@ def run_gauge(
             observables=obs,
         )
         if checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0:
-            ckpt_mod.save(checkpoint_out, whole(state), cfg, frames_done=frames_done)
-        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, whole):
+            ckpt_mod.save_auto(checkpoint_out, state, cfg, mesh=mesh, frames_done=frames_done)
+        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, mesh):
             break
 
     state = whole(state)

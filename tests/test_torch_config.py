@@ -157,6 +157,9 @@ def test_port_imports_without_jax_or_triton():
         "import stochquant_tpu_torch.actions.gauge_complex\n"
         "import stochquant_tpu_torch.integrators.complex_langevin\n"
         "import stochquant_tpu_torch.integrators.complex_field\n"
+        "import stochquant_tpu_torch.parallel.distributed, stochquant_tpu_torch.kernels.autotune\n"
+        "import stochquant_tpu_torch.io.reference_fmt, stochquant_tpu_torch.viz\n"
+        "import stochquant_tpu_torch.observables.analysis, stochquant_tpu_torch.timing\n"
         # the Philox stream, the plain-path schemes and the spectrum run without them too
         "import dataclasses\n"
         "from stochquant_tpu_torch import rng, runtime, metrics\n"
@@ -211,6 +214,9 @@ def test_split_lattice_modules_import_where_jax_is_blocked():
         "import stochquant_tpu_torch.actions.gauge_complex\n"
         "import stochquant_tpu_torch.integrators.complex_langevin\n"
         "import stochquant_tpu_torch.integrators.complex_field\n"
+        "import stochquant_tpu_torch.parallel.distributed, stochquant_tpu_torch.kernels.autotune\n"
+        "import stochquant_tpu_torch.io.reference_fmt, stochquant_tpu_torch.viz\n"
+        "import stochquant_tpu_torch.observables.analysis, stochquant_tpu_torch.timing\n"
         "from stochquant_tpu_torch import runtime, metrics, parallel\n"
         "from stochquant_tpu_torch.config import FieldConfig\n"
         "cfg = FieldConfig(shape=(8, 8), n_chains=2, loops=2, frames=1, mesh_axes=('x', None))\n"

@@ -189,7 +189,7 @@ def test_default_tiles(shape, chains, tile_rows, want):
     (dict(rng_impl="hardware"), {}, "counter-based"),
     (dict(shape=(8, 8)), {}, "D >= 3"),
     (dict(), dict(tile_rows=3), "divide"),
-    (dict(tile_rows=0), {}, "autotune"),
+    (dict(), dict(tile_rows=-2), "divide"),
     (dict(dtype="float64"), {}, "float32"),
     (dict(shape=(4, 4, 2, 2, 2, 2)), {}, "lattice dims"),
     (dict(exchange_steps=4, shape=(4, 8, 4)), {}, "full global extent"),

@@ -256,7 +256,7 @@ def test_run_field_on_cuda_rdma_checkpoints_and_resumes_bitwise(cuda_route_on_cp
     ((16, 16), dict(loops=8), [("x", 4)], "one hop"),                # H = 8 > 4 rows
     ((16, 16), dict(loops=5), [("x", 2)], "even cfg.loops"),
     ((16, 16), dict(exchange_steps=3), [("x", 2)], "even cfg.loops and exchange_steps"),
-    ((16, 16), dict(exchange_steps=0), [("x", 2)], "autotune"),
+    ((16, 16), dict(exchange_steps=-2), [("x", 2)], "even number of steps"),
     ((16, 16), dict(rng_impl="hardware"), [("x", 2)], "counter-based"),
     ((16, 16), dict(dtype="float64"), [("x", 2)], "float32"),
     ((8, 8, 4), dict(loops=8, exchange_steps=8), [("x", 2)], "full global extent"),

@@ -113,17 +113,18 @@ def test_unported_paths_raise():
         runtime.run_chain(cfg, device="cpu", backend="cuda")
     with pytest.raises(ValueError, match="backend"):
         runtime.run_chain(cfg, device="cpu", backend="pallas")
-    for change, feature in ((dict(block_chains=0), "autotune"),
-                            (dict(mesh_chain_axis="chains"), "mesh_chain_axis"),
+    for change, feature in ((dict(mesh_chain_axis="chains"), "mesh_chain_axis"),
                             (dict(scheme=Scheme.LM, loops=11), "even"),
                             # harmosc's double-well sibling keeps a zero mode: EXACT needs it frozen
                             (dict(scheme=Scheme.EXACT, action="double_well"), "EXACT")):
         with pytest.raises(ValueError, match=feature):
             runtime.run_chain(dataclasses.replace(cfg, **change), device="cpu")
-    # what raised before this port had them: LM, EXACT, the power spectrum and
-    # rng_impl='hardware' run (tests of their values: test_torch_schemes.py)
+    # what raised before this port had them: LM, EXACT, the power spectrum,
+    # rng_impl='hardware' and block_chains=0 run (tests of their values:
+    # test_torch_schemes.py, test_torch_autotune.py)
     for change in (dict(scheme=Scheme.LM), dict(scheme=Scheme.EXACT),
-                   dict(accumulate_spectrum=True), dict(rng_impl="hardware")):
+                   dict(accumulate_spectrum=True), dict(rng_impl="hardware"),
+                   dict(block_chains=0)):
         res = runtime.run_chain(dataclasses.replace(cfg, frames=1, **change), device="cpu",
                                 sink=metrics.MetricsSink())
         assert torch.isfinite(res.state.f).all() and int(res.state.step) == 2 + cfg.loops
@@ -243,6 +244,10 @@ BASE = FieldConfig(shape=(256, 256), loops=100)
     (dict(tile_rows=64, loops=7), "auto", CUDA, "cuda_tiled"),
     (dict(tile_rows=64, loops=7), "cuda", CUDA, "cuda_tiled"),
     (dict(shape=(2048, 2048), loops=5), "cuda", CUDA, "cuda_tiled"),
+    # tile_rows=0: timed by run_field in D >= 3; in 2-D the strip-tiled kernel at its
+    # default height, as the JAX package's tiled path
+    (dict(shape=(16, 16, 16), tile_rows=0), "auto", CUDA, "cuda_nd"),
+    (dict(tile_rows=0), "auto", CUDA, "cuda_tiled"),
 ])
 def test_field_routing(change, backend, device, want):
     cfg = dataclasses.replace(BASE, **change)
@@ -251,12 +256,10 @@ def test_field_routing(change, backend, device, want):
 
 @pytest.mark.parametrize("change,backend,device,match", [
     (dict(shape=(4, 4, 2, 2, 2, 2)), "auto", CUDA, "lattice dims"),
-    (dict(shape=(16, 16, 16), tile_rows=0), "auto", CUDA, "autotune"),
     (dict(shape=(16, 16, 16), dtype="float64"), "auto", CUDA, "float32"),
     (dict(mesh_axes=("x", None)), "auto", CUDA, "mesh_axes"),
     (dict(mesh_axes=("x", None)), "torch", torch.device("cpu"), "mesh_axes"),
     (dict(mesh_chain_axis="chains"), "auto", CUDA, "mesh_chain_axis"),
-    (dict(tile_rows=0), "auto", CUDA, "autotune"),
     # rng_impl='hardware' is kernels 3 and 4's: the tiled and D >= 3 kernels refuse it
     # on 'auto' as on 'cuda', and nothing gives way to the plain integrator unasked
     (dict(rng_impl="hardware", tile_rows=64), "auto", CUDA, "hardware"),
@@ -556,6 +559,10 @@ CHAIN = dict(mesh_axes=(None, None), mesh_chain_axis="chain")
      "cuda"),
     (dict(X2, prefer_rdma=True), _cuda_mesh(("x", 2)), "cuda", "cuda"),
     (dict(X2, prefer_rdma=True), _cpu_mesh(("x", 2)), "auto", "torch"),
+    # exchange_steps=0: run_field times W on the card (kernels.autotune); the router
+    # takes it as the per-dimension default, as the JAX halo runner does
+    (dict(X2, exchange_steps=0), _cuda_mesh(("x", 2)), "auto", "cuda"),
+    (dict(X2, exchange_steps=0), _cuda_mesh(("x", 2)), "cuda_pair", "cuda_pair"),
 ])
 def test_field_routing_under_a_mesh(change, mesh, backend, want):
     cfg = dataclasses.replace(BASE, **change)
@@ -580,8 +587,6 @@ def test_auto_on_a_cuda_mesh_resolves_to_a_kernel_at_any_block_size(change, want
     (dict(X2, mesh_axes=("x", "y")), _cuda_mesh(("x", 2), ("y", 2)), "cuda_rdma", "dim-0-only"),
     (dict(X2, loops=7), _cuda_mesh(("x", 2)), "cuda_rdma", "even cfg.loops"),
     (X2, _cpu_mesh(("x", 2)), "cuda_rdma", "mesh of CUDA devices"),
-    (dict(X2, exchange_steps=0), _cuda_mesh(("x", 2)), "auto", "autotune"),
-    (dict(X2, exchange_steps=0), _cuda_mesh(("x", 2)), "cuda_pair", "autotune"),
     (dict(X2, dtype="float64"), _cuda_mesh(("x", 2)), "auto", "float32"),
     (X2, _cpu_mesh(("x", 2)), "cuda", "mesh of CUDA devices"),
     (X2, _cpu_mesh(("x", 2)), "cuda_step", "mesh of CUDA devices"),
