@@ -262,8 +262,26 @@ non-zero:
     state and ``import_reference`` of the file: f, the means, ω, the count
     and the clamped Δτ bit for bit.
 
-Every timing phase ([5], [9], [12], [15], [19], [22], [23], [26], [27], [28]) ends with the
-range of the card's SM clock, power draw and temperature sampled while it ran.
+29. physics at full width on the card (``stochquant_tpu_torch.physics_gates``):
+    the JAX package's statistical gates through the entry points (``auto``
+    on the card) at the widths of the cells, against exact answers: (a) a
+    harmonic BACKGROUND chain at the headline's width (kernels 1 and 1h),
+    per-site ⟨x²⟩, ⟨x⁴⟩ against the exact EM covariance; (b) the kink
+    coordinate's step law on the headline (kernel 1); (c) the headline's edge
+    profile against 64 runs of the reference oracle; (d) a harmonic chain at
+    config 2's width (kernels 2 and 2h) against the exact EM covariance and
+    its row; (e) config 2 at three Δτ extrapolated to 0 against the transfer
+    matrix (⟨x²⟩, ⟨x⁴⟩, gap); (f) the free field at 256² × 16 (kernels 3, 4,
+    3h, 4h): ⟨φ²⟩ against the EM propagator sum, Binder U against 0; (g)
+    ⟨φ²⟩ on the tiled 1024² × 16 route (kernel 5) and at 32⁴ on kernels 6
+    and 7; (h) the 2-D plaquette of u1, su2 and su3 (kernel 10) against its
+    exact value at the cells' Δτ and extrapolated to Δτ → 0 from Δτ, Δτ/2
+    and Δτ/4.  One line per statistic (value, exact answer, error, limit,
+    z, launches); every statistic within its test's limit and every named
+    kernel launched, or the phase fails.
+
+Every timing phase ([5], [9], [12], [15], [19], [22], [23], [26], [27], [28]) and [29] end
+with the range of the card's SM clock, power draw and temperature sampled while it ran.
 
 ``python3 chip_smoke.py --log PATH`` also writes every printed line to PATH.
 
@@ -318,6 +336,10 @@ KERNELS = {
     "field_frame_hw": ("field_kernel.cu", "stochquant_tpu/kernels/field_kernel.py:157"),
     "field_frames_multi_hw": ("field_kernel.cu", "stochquant_tpu/kernels/field_kernel.py:319"),
 }
+# the kernels [29] must launch: 1, 1h, 2, 2h, 3, 3h, 4, 4h, 5, 6, 7 and 10
+PHYSICS_KERNELS = ("chain_frame", "chain_frame_hw", "chain_frames_multi", "chain_frames_multi_hw",
+                   "field_frame", "field_frame_hw", "field_frames_multi", "field_frames_multi_hw",
+                   "field_pair", "field_pair_nd", "field_chunk_nd", "gauge_frame")
 FIELD_RTOL, FIELD_ATOL = 3e-5, 3e-6  # site-reduced sums: tests/test_field_kernel.py:35
 BENCH_FIELD = dict(shape=(256, 256), n_chains=16, loops=100, seed=13, grow_after=10**9)
 TILED_FIELD = dict(shape=(1024, 1024), n_chains=16, loops=100, seed=13, grow_after=10**9)
@@ -3834,6 +3856,26 @@ def main() -> int:
         for k, v in mesh_launches.items():
             launches[k] = launches.get(k, 0) + v
         log(f"  phase [28] took {time.perf_counter() - t_mesh:.1f} s; its launches {mesh_launches}")
+
+    from stochquant_tpu_torch import physics_gates
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 29. the physics gates at full width
+        t_phys = time.perf_counter()
+        log(f"[29] physics at full width on the card: the JAX package's statistical gates through "
+            f"kernels 1-7 and 10 against exact answers [{card}]:")
+        with CardSampler("[29]"):
+            checks, phys_launches = physics_gates.run_gates(device, Path(tmp), log=log)
+        log(f"  phase [29] took {time.perf_counter() - t_phys:.1f} s: {len(checks)} checks; its "
+            f"launches {phys_launches}")
+        failed = [c.line() for c in checks if not c.passed]
+        if failed:
+            raise SystemExit("[29] physics gates failed:\n" + "\n".join(failed))
+        idle = [k for k in PHYSICS_KERNELS if not phys_launches.get(k)]
+        if idle:
+            raise SystemExit(f"[29]: kernels {idle} did not launch")
+        for k, v in phys_launches.items():
+            launches[k] = launches.get(k, 0) + v
 
     # max_abs_err: the comparisons at the main paths' shapes (chain: headline
     # K=1, main-path state K=2, config 2 K=16; field: 256^2 x 16 K=1 and K=10,

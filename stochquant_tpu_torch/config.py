@@ -300,8 +300,10 @@ PRESETS = {
         bc=BoundaryCondition.PERIODIC,
     ),
     # BASELINE.json config 2 at its stated scale: λφ⁴ chain, N=1024, 256
-    # batched chains; ⟨x²⟩ + correlator gated against the fp64 transfer-matrix
-    # oracle (observables/exact.py, tests/test_physics_regression.py)
+    # batched chains; ⟨x²⟩, ⟨x⁴⟩ and the gap gated against the fp64
+    # transfer-matrix oracle (this package's observables/exact.py): on the
+    # plain path by tests/test_torch_physics.py, through kernel 2 at this
+    # width by physics_gates.gate_e (chip_smoke.py [29](e))
     "quartic_large": ChainConfig(
         action="anharmonic",
         n_sites=1024,

@@ -204,17 +204,24 @@ class GaugeParams(ctypes.Structure):
     ]
 
 
-@functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """The compiled kernel library (built on first call in this process),
-    with every entry point's argument and result types declared."""
-    path = build_dir() / "libsq_kernels.so"
+def build_once(path: Path, compile_fn) -> Path:
+    """``path``, built by ``compile_fn(path)`` unless it exists.  The process
+    that builds holds the lock file of ``path``'s directory, so processes that
+    start together build once and the others load its output."""
     if not path.exists():
         path.parent.mkdir(parents=True, exist_ok=True)
         with open(path.parent / "build.lock", "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
             if not path.exists():
-                _compile(path)
+                compile_fn(path)
+    return path
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The compiled kernel library (built on first call in this process),
+    with every entry point's argument and result types declared."""
+    path = build_once(build_dir() / "libsq_kernels.so", _compile)
     lib = ctypes.CDLL(str(path))
     ptr = ctypes.c_void_p
     chain = ctypes.POINTER(ChainParams)

@@ -160,6 +160,11 @@ def test_port_imports_without_jax_or_triton():
         "import stochquant_tpu_torch.parallel.distributed, stochquant_tpu_torch.kernels.autotune\n"
         "import stochquant_tpu_torch.io.reference_fmt, stochquant_tpu_torch.viz\n"
         "import stochquant_tpu_torch.observables.analysis, stochquant_tpu_torch.timing\n"
+        "import stochquant_tpu_torch.observables.exact, stochquant_tpu_torch.oracle\n"
+        "import stochquant_tpu_torch.physics_gates\n"
+        "from stochquant_tpu_torch.observables import em_stationary_cov, harmonic_drift_matrix\n"
+        "em_stationary_cov(harmonic_drift_matrix(8, 0.25), 0.25, 0.01)\n"
+        "assert stochquant_tpu_torch.oracle.run_reference(8, 0.1, 1e-3, 1, 4, seed=1).runs >= 0\n"
         # the Philox stream, the plain-path schemes and the spectrum run without them too
         "import dataclasses\n"
         "from stochquant_tpu_torch import rng, runtime, metrics\n"
@@ -217,6 +222,8 @@ def test_split_lattice_modules_import_where_jax_is_blocked():
         "import stochquant_tpu_torch.parallel.distributed, stochquant_tpu_torch.kernels.autotune\n"
         "import stochquant_tpu_torch.io.reference_fmt, stochquant_tpu_torch.viz\n"
         "import stochquant_tpu_torch.observables.analysis, stochquant_tpu_torch.timing\n"
+        "import stochquant_tpu_torch.observables.exact, stochquant_tpu_torch.oracle\n"
+        "import stochquant_tpu_torch.physics_gates\n"
         "from stochquant_tpu_torch import runtime, metrics, parallel\n"
         "from stochquant_tpu_torch.config import FieldConfig\n"
         "cfg = FieldConfig(shape=(8, 8), n_chains=2, loops=2, frames=1, mesh_axes=('x', None))\n"
