@@ -280,7 +280,25 @@ non-zero:
     z, launches); every statistic within its test's limit and every named
     kernel launched, or the phase fails.
 
-Every timing phase ([5], [9], [12], [15], [19], [22], [23], [26], [27], [28]) and [29] end
+30. lattices split across processes on the card (``phase_across_processes``):
+    gloo workers on cuda:0, each on its shards of ``distributed.global_mesh``
+    through ``runtime.run_field`` / ``run_gauge``, with gloo's all-gathers
+    made to raise (a collective of CUDA tensors crosses only through CUDA IPC
+    and the stream counters of ``parallel/ipc.py``): (a) field 256² × 16
+    loops 50 W = 8 at x = 2 over two processes through ``cuda_rdma`` (kernel
+    8 reading its neighbour's slab in the other process's memory), ``cuda``
+    (kernel 7) and ``cuda_step`` (kernel 9); (b) 32⁴ × 8 loops 20 W = 2 at x
+    = 4 over four processes, ``cuda_rdma`` and ``cuda``; (c) gauge u1 256² ×
+    32 loops 100 and su3 64² × 8 loops 50 at x = 2 on the chunk runner
+    (kernel 12), u1 one frame of the per-step runner; (d) (a)'s ``cuda_rdma``
+    run saved after 2 frames (``save_sharded``) and resumed by two new
+    processes for the 3rd.  Every shard, decision and record bitwise the
+    one-process run on the repeated-device mesh (run first, in this
+    process), each process's launches exactly the one-process run's over the
+    number of processes; ms a frame beside the one-process run's and the
+    transport's set-up seconds a process.
+
+Every timing phase ([5], [9], [12], [15], [19], [22], [23], [26], [27], [28], [30]) and [29] end
 with the range of the card's SM clock, power draw and temperature sampled while it ran.
 
 ``python3 chip_smoke.py --log PATH`` also writes every printed line to PATH.
@@ -292,8 +310,9 @@ lives for kernels 3, 4, 10, 11 and 12, the device time per launch of kernels
 TPU kernel it replaces, main-path launches, max|Δ|, ms and plain ms at the
 timed shape, the bound: the least ms the card could take for that launch,
 the resource that binds it, and the ms of one PyTorch call computing the
-same function, null where there is none), then the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.
+same function, null where there is none; kernel 8 also its launches in
+[30]'s processes), [30]'s ms a frame and set-up seconds, then the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3610,6 +3629,260 @@ def phase_chain_mesh(torch, mods, tmp: Path, card: str):
     return dict(totals), out
 
 
+# ---------------------------------------------------------------------------
+# [30] lattices split across processes on the card
+# ---------------------------------------------------------------------------
+
+#: one process of [30]: its shards of a global mesh on cuda:0 through
+#: runtime.run_field / run_gauge, job by job (launch counters at 0 before each
+#: run), with gloo's all-gathers made to raise: no collective of CUDA tensors
+#: goes through gloo or the host.  No JAX anywhere.
+LATTICE_WORKER = r"""
+import json, sys, time
+import torch
+from stochquant_tpu_torch import metrics, runtime
+from stochquant_tpu_torch.config import FieldConfig
+from stochquant_tpu_torch.integrators.gauge import GaugeConfig
+from stochquant_tpu_torch.kernels import field_halo_kernel as fh, field_kernel as fk
+from stochquant_tpu_torch.kernels import field_kernel_nd as nd, gauge_kernel as gk
+from stochquant_tpu_torch.parallel import distributed, ipc
+
+rank, world, store, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
+jobs = json.loads(open(sys.argv[5]).read())
+distributed.initialize(f"file://{store}", world_size=world, rank=rank, timeout_s=120)
+
+def refuse(*args, **kw):
+    raise AssertionError("a collective of CUDA tensors reached gloo")
+
+distributed.all_gather = torch.distributed.all_gather = refuse
+counters = {"field_frame": fk.field_frame, "field_chunk_nd": nd.field_chunk_nd,
+            "field_chunk_rdma_nd": nd.field_chunk_rdma_nd, "field_halo_step": fh.field_halo_step,
+            "gauge_chunk": gk.gauge_chunk}
+report = {"rank": rank, "jobs": {}}
+# the transport's set-up alone: counters, handles, the board, kernel 8's two slabs a shard
+mesh = distributed.global_mesh([tuple(a) for a in jobs[0]["mesh"]], devices="cuda:0")
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+transport = ipc.Transport(mesh)
+transport.publish([torch.zeros(4, device="cuda:0")] * mesh.size).done()
+ipc.Ring(transport, jobs[0]["slab"])
+torch.cuda.synchronize()
+report["ipc_setup_s"] = time.perf_counter() - t0
+transport.close()
+for job in jobs:
+    mesh = distributed.global_mesh([tuple(a) for a in job["mesh"]], devices="cuda:0")
+    is_field = job["kind"] == "field"
+    cfg = (FieldConfig if is_field else GaugeConfig).from_json(job["cfg"])
+    recs = []
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    distributed.barrier()
+    t0 = time.perf_counter()
+    res = (runtime.run_field if is_field else runtime.run_gauge)(
+        cfg, mesh=mesh, backend=job["backend"], sink=metrics.MetricsSink(callback=recs.append),
+        checkpoint_out=job.get("out"), checkpoint_in=job.get("in"),
+        resume_progress=bool(job.get("in")))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    torch.save({"shards": [{n: x.cpu() for n, x in zip(s._fields, s)} for s in res.state],
+                "records": recs}, f"{tmp}/{job['name']}.rank{rank}.pt")
+    report["jobs"][job["name"]] = {
+        "seconds": seconds, "launches": {k: c.launches for k, c in counters.items() if c.launches}}
+distributed.barrier()
+torch.distributed.destroy_process_group()
+assert "jax" not in sys.modules and "stochquant_tpu" not in sys.modules
+print("WORKER " + json.dumps(report), flush=True)
+"""
+
+
+def spawn_lattice_workers(tmp: Path, tag: str, world: int, jobs: list, limit: float) -> list:
+    """``world`` processes of [30] on the card running ``jobs``; each must
+    exit 0 within ``limit`` seconds (a hang is killed and fails the phase).
+    Returns their reports in rank order."""
+    import os
+
+    script = tmp / "lattice_worker.py"
+    script.write_text(LATTICE_WORKER)
+    (tmp / f"{tag}.json").write_text(json.dumps(jobs))
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""),
+               CUDA_MODULE_LOADING="EAGER")
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), str(world),
+                               str(tmp / f"store_{tag}"), str(tmp), str(tmp / f"{tag}.json")],
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=limit)[0])
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"[30]({tag}): a worker did not finish within {limit:g} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        line = next((ln for ln in out.splitlines() if ln.startswith("WORKER ")), None)
+        if p.returncode != 0 or line is None:
+            raise SystemExit(f"[30]({tag}) rank {r} failed ({p.returncode}):\n{out[-4000:]}")
+        reports.append(json.loads(line[len("WORKER "):]))
+    return reports
+
+
+def frame_ms(recs: list):
+    """Milliseconds a frame between a run's first and last frame records (the
+    first frame holds the run's set-up); None for a run of one frame."""
+    wall = [r["wall_time"] for r in recs if r["type"] == "frame"]
+    return (wall[-1] - wall[0]) / (len(wall) - 1) * 1e3 if len(wall) > 1 else None
+
+
+def phase_across_processes(torch, mods, tmp: Path, card: str):
+    """[30]: (a) field 256^2 x 16 loops 50 W = 8 at x = 2 over two processes
+    on cuda:0 through cuda_rdma (kernel 8 reading its neighbour's slab in the
+    other process's memory), cuda (kernel 7) and cuda_step (kernel 9); (b)
+    32^4 x 8 loops 20 W = 2 at x = 4 over four processes, cuda_rdma and cuda;
+    (c) gauge u1 256^2 x 32 loops 100 and su3 64^2 x 8 loops 50 at x = 2 on
+    the chunk runner (kernel 12), u1 one frame of the per-step runner; (d)
+    (a)'s cuda_rdma run saved after 2 frames (save_sharded) and resumed by two
+    new processes for the 3rd.  Every process's shards, decisions and records
+    bitwise the one-process run on the repeated-device mesh (run first, in
+    this process), launches per kernel and process exactly the one-process
+    run's over the number of processes.  Returns (launches summed over the
+    processes, timings)."""
+    import dataclasses
+
+    runtime, metrics, cfgmod = mods["runtime"], mods["metrics"], mods["cfgmod"]
+    gauge, parallel, mesh_mod, counters = (mods[k] for k in ("gauge", "parallel", "mesh_mod",
+                                                             "counters"))
+
+    field = cfgmod.FieldConfig(**SPLIT_FIELD, frames=3, mesh_axes=("x", None))
+    nd4 = cfgmod.FieldConfig(**{**BENCH_ND, "n_chains": 8, "exchange_steps": 2, "frames": 2},
+                             mesh_axes=("x", None, None, None))
+    u1 = gauge.GaugeConfig(**BENCH_GAUGE["u1"], frames=2, mesh_axes=("x", None))
+    su3 = gauge.GaugeConfig(**BENCH_GAUGE["su3"], frames=1, mesh_axes=("x", None))
+    ck = str(tmp / "across_rdma")
+    x2, x4 = [("x", 2)], [("x", 4)]
+
+    def job(name, kind, mesh, backend, cfg, **kw):
+        slab = [cfg.n_chains, cfg.shape[0] // mesh[0][1], *cfg.shape[1:]]
+        return {"name": name, "kind": kind, "mesh": mesh, "backend": backend,
+                "cfg": cfg.to_json(), "slab": slab, **kw}
+
+    two = [job("a cuda_rdma", "field", x2, "cuda_rdma", field),
+           job("a cuda", "field", x2, "cuda", field),
+           job("a cuda_step", "field", x2, "cuda_step", field),
+           job("d first 2 frames", "field", x2, "cuda_rdma", dataclasses.replace(field, frames=2),
+               out=ck),
+           job("c u1 chunk", "gauge", x2, "cuda", u1),
+           job("c su3 chunk", "gauge", x2, "cuda", su3),
+           job("c u1 per-step", "gauge", x2, "auto", dataclasses.replace(u1, frames=1))]
+    four = [job("b cuda_rdma", "field", x4, "cuda_rdma", nd4),
+            job("b cuda", "field", x4, "cuda", nd4)]
+    resume = [job("d resumed 3rd frame", "field", x2, "cuda_rdma", field, **{"in": ck})]
+
+    # the one-process runs on the repeated-device mesh, first (the card to itself)
+    ref = {}
+    for j in two + four:
+        if j["name"].startswith("d "):
+            continue
+        mesh = parallel.make_mesh(j["mesh"], devices="cuda:0")
+        cls = cfgmod.FieldConfig if j["kind"] == "field" else gauge.GaugeConfig
+        cfg = cls.from_json(j["cfg"])
+        recs = []
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        res = (runtime.run_field if j["kind"] == "field" else runtime.run_gauge)(
+            cfg, mesh=mesh, backend=j["backend"], sink=metrics.MetricsSink(callback=recs.append))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        shards = mesh_mod.shard_state(res.state, mesh_mod.state_spec(type(res.state), cfg), mesh)
+        ref[j["name"]] = {"shards": shards, "records": recs, "seconds": seconds,
+                          "launches": {k: c.launches for k, c in counters.items() if c.launches}}
+        check_records(recs, f"[30] one process, {j['name']}",
+                      ("mag", "phi2") if j["kind"] == "field" else ("plaquette", "drift_max"))
+
+    t0 = time.perf_counter()
+    reports = {"two": spawn_lattice_workers(tmp, "two", 2, two, 420)}
+    reports["four"] = spawn_lattice_workers(tmp, "four", 4, four, 300)
+    reports["resume"] = spawn_lattice_workers(tmp, "resume", 2, resume, 180)
+    log(f"  [30] the workers took {time.perf_counter() - t0:.1f} s; IPC set-up s a process: "
+        + ", ".join(f"{tag} {[round(r['ipc_setup_s'], 3) for r in rs]}"
+                    for tag, rs in reports.items()) + f" [{card}]")
+
+    def joined(name, world):
+        parts = [torch.load(tmp / f"{name}.rank{r}.pt", weights_only=False) for r in range(world)]
+        return [s for p in parts for s in p["shards"]], [p["records"] for p in parts]
+
+    def same_shards(label, got, want):
+        if len(got) != len(want):
+            raise SystemExit(f"[30] {label}: {len(got)} shards, the one-process run {len(want)}")
+        for g, w in zip(got, want):
+            for name in w._fields:
+                if not torch.equal(g[name], getattr(w, name).cpu()):
+                    raise SystemExit(f"[30] {label}: {name} is not bitwise the one-process run's")
+
+    launches, timings = collections.Counter(), {}
+    for tag, jobs in (("two", two), ("four", four)):
+        world = len(reports[tag])
+        for j in jobs:
+            name = j["name"]
+            got, recs = joined(name, world)
+            per = [r["jobs"][name]["launches"] for r in reports[tag]]
+            if name.startswith("d "):
+                want_launches = {k: v * 2 // 3 for k, v in ref["a cuda_rdma"]["launches"].items()}
+            else:
+                want_launches = ref[name]["launches"]
+                same_shards(name, got, ref[name]["shards"])
+                for r in recs:
+                    same_records(f"[30] {name}", r, ref[name]["records"])
+            for rank, p in enumerate(per):
+                want = {k: v // world for k, v in want_launches.items()}
+                if p != want:
+                    raise SystemExit(f"[30] {name} rank {rank}: launches {p}, expected {want}")
+                launches.update(p)
+            if name.startswith("d "):
+                continue
+            ms = [frame_ms(r) for r in recs]
+            one = frame_ms(ref[name]["records"])
+            timings[name] = {"ms_per_frame": ms, "one_process_ms_per_frame": one,
+                             "processes": world}
+            if one is not None:
+                rate = f"ms a frame {[round(m, 1) for m in ms]} against {one:.1f} in one process"
+            else:
+                secs = [round(r["jobs"][name]["seconds"], 2) for r in reports[tag]]
+                rate = (f"one frame: {secs} s a process against {ref[name]['seconds']:.2f} s in "
+                        "one process")
+            log(f"  [30]({name[0]}) {name[2:]} over {world} processes: shards, decisions and "
+                f"records bitwise the one-process run; launches a process {per[0] or 'none'}; "
+                f"{rate} [{card}]")
+    # (d): the resumed processes against the uninterrupted runs of (a)
+    got, recs = joined("d resumed 3rd frame", 2)
+    same_shards("(d) resumed vs one process", got, ref["a cuda_rdma"]["shards"])
+    uninterrupted, _ = joined("a cuda_rdma", 2)
+    for g, w in zip(got, uninterrupted):
+        if any(not torch.equal(g[k], w[k]) for k in w):
+            raise SystemExit("[30](d): the resumed run is not bitwise the uninterrupted one")
+    third = [r for r in ref["a cuda_rdma"]["records"] if r["type"] == "frame"][2:]
+    for r in recs:
+        same_records("[30](d) resumed", [x for x in r if x["type"] == "frame"], third)
+    per = [r["jobs"]["d resumed 3rd frame"]["launches"] for r in reports["resume"]]
+    want = {k: v // 3 // 2 for k, v in ref["a cuda_rdma"]["launches"].items()}
+    if any(p != want for p in per):
+        raise SystemExit(f"[30](d) resumed: launches {per}, expected {want} a process")
+    for p in per:
+        launches.update(p)
+    log(f"  [30](d) cuda_rdma saved after 2 frames (save_sharded, one file a process), resumed by "
+        f"two new processes for the 3rd: shards and record bitwise the uninterrupted runs; "
+        f"launches a process {per[0]}")
+    if not launches["field_chunk_rdma_nd"]:
+        raise SystemExit("[30]: kernel 8 did not launch across processes")
+    timings["ipc_setup_s"] = {tag: [r["ipc_setup_s"] for r in rs] for tag, rs in reports.items()}
+    return dict(launches), timings
+
+
 def preset_width(cfg) -> str:
     shape = getattr(cfg, "shape", None) or (getattr(cfg, "n_sites", None),)
     shape = tuple(s for s in shape if s is not None)
@@ -3877,6 +4150,18 @@ def main() -> int:
         for k, v in phys_launches.items():
             launches[k] = launches.get(k, 0) + v
 
+    with tempfile.TemporaryDirectory() as tmp:
+        # 30. lattices split across processes on the card
+        t_across = time.perf_counter()
+        log(f"[30] lattices split across processes on cuda:0 (gloo for the handles, CUDA IPC and "
+            f"stream counters for the data), bitwise the one-process runs [{card}]:")
+        with CardSampler("[30]"):
+            across_launches, across_t = phase_across_processes(torch, mods, Path(tmp), card)
+        for k, v in across_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"  phase [30] took {time.perf_counter() - t_across:.1f} s; its launches "
+            f"{across_launches}")
+
     # max_abs_err: the comparisons at the main paths' shapes (chain: headline
     # K=1, main-path state K=2, config 2 K=16; field: 256^2 x 16 K=1 and K=10,
     # main-path states K=2 and one tiled pair, 1024^2 x 16 tiled; gauge: the
@@ -3942,6 +4227,8 @@ def main() -> int:
     chunk_k["placement"] = t["gauge_chunk_geometry"].placement
     rdma_k = next(k for k in kernels if k["name"] == "field_chunk_rdma_nd")
     rdma_k["device_us"] = t["rdma_field_x=2_cuda_rdma"].get("kernel_us")
+    # [30]: launches in processes that read their neighbours' slabs through CUDA IPC
+    rdma_k["launches_across_processes"] = across_launches.get("field_chunk_rdma_nd", 0)
     log(f"  field_halo_step: bound {halo_k['bound_ms'] * 1e3 / halo_k['device_us']:.2%} of the "
         f"kernel's device time of {halo_k['device_us']:.2f} µs (profiler) [{card}]")
     for k in kernels:
@@ -3956,7 +4243,8 @@ def main() -> int:
                 log(f"  {kname + ' ' + group:19s} {ms:10.3f} ms/launch, bound {b:.4f} ms by {by}: "
                     f"{b / ms:.2%} of the bound's rate [{card}]")
     log(json.dumps({"kernels": kernels, "mlups": {
-        k: v["mlups"] for k, v in t.items() if isinstance(v, dict)}}))
+        k: v["mlups"] for k, v in t.items() if isinstance(v, dict)},
+        "across_processes": across_t}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

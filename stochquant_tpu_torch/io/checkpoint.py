@@ -127,7 +127,13 @@ def _write(path, payload: dict, meta: dict) -> None:
 
 def save(path, state, cfg, *, frames_done=None) -> None:
     """Write the full state + config (and the completed-frame count); a
-    sharded checkpoint of an earlier save at ``path`` is removed."""
+    sharded checkpoint of an earlier save at ``path`` is removed.  A list of
+    per-shard states raises: across processes no process holds the whole
+    state (the JAX package's ``save`` cannot gather such an array either)."""
+    if isinstance(state, (list, tuple)) and not hasattr(state, "_fields"):
+        raise ValueError("save writes a whole state, not a list of per-shard states: the shards "
+                         "of a mesh across processes are written by save_sharded (one file a "
+                         "process, io.checkpoint.save_sharded / load_sharded)")
     payload = {f"state_{name}": a for name, a in state_to_numpy(state).items()}
     meta = {"kind": _STATE_KIND[type(state)], "config": cfg.to_json(), "version": 1}
     if frames_done is not None:

@@ -1,9 +1,10 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
-The sources under ``kernels/csrc/`` are compiled at first use into one
-shared library with a plain C interface: one ``nvcc -c`` per source (three
-for ``chain_kernel.cu``, each instantiating its share of the kernels), all
-started together, then one link:
+The sources under ``kernels/csrc/`` (the kernels, and ``ipc.cu``: the
+cross-process transport of ``parallel/ipc.py``) are compiled at first use
+into one shared library with a plain C interface: one ``nvcc -c`` per source
+(three for ``chain_kernel.cu``, each instantiating its share of the kernels),
+all started together, then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC --fmad=false --resource-usage [-D...] -c <source>.cu
@@ -35,7 +36,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("chain_kernel.cu", "field_kernel.cu", "field_kernel_tiled.cu",
-            "field_kernel_nd.cu", "field_halo_kernel.cu", "gauge_kernel.cu")
+            "field_kernel_nd.cu", "field_halo_kernel.cu", "gauge_kernel.cu", "ipc.cu")
 _HEADERS = ("sq_rng.cuh", "field_common.cuh", "cluster.cuh")
 # sources compiled more than once, with these defines (one object each)
 _PARTS = {"chain_kernel.cu": ((), ("-DSQ_CHAIN_PART=1",), ("-DSQ_CHAIN_PART=2",))}
@@ -247,6 +248,17 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.sq_error_string.argtypes = [ctypes.c_int]
     lib.sq_error_string.restype = ctypes.c_char_p
+    # the cross-process transport of csrc/ipc.cu (parallel/ipc.py)
+    for fn, args in (
+        (lib.sq_ipc_check, [ctypes.c_int, ptr, ptr, ctypes.POINTER(ctypes.c_int)]),
+        (lib.sq_ipc_alloc, [ctypes.c_size_t, ctypes.POINTER(ctypes.c_void_p), ptr]),
+        (lib.sq_ipc_free, [ptr]), (lib.sq_ipc_open, [ptr, ctypes.POINTER(ctypes.c_void_p)]),
+        (lib.sq_ipc_close, [ptr]), (lib.sq_ipc_signal, [ptr, ptr, ctypes.c_uint]),
+        (lib.sq_ipc_wait, [ptr, ptr, ctypes.c_uint]),
+        (lib.sq_ipc_copy, [ptr, ptr, ctypes.c_size_t, ptr]),
+    ):
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
     return lib
 
 

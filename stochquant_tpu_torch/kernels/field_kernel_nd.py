@@ -23,9 +23,10 @@ Port of ``stochquant_tpu/kernels/field_kernel_nd.py``:
 * kernel 8, :func:`field_chunk_rdma_nd` (``_sharded_chunk_call(rdma=True)``
   / ``make_rdma_chunk_step``): kernel 7's W steps on a dim-0 split, given
   the shard's unextended slab and its two dim-0 ring neighbours' slabs, from
-  which it reads its H halo rows itself (:func:`rdma_chunk_geometry`).  On
-  one card only: the three slabs must lie on one device.  Plain version:
-  :func:`field_chunk_rdma_nd_ref`.
+  which it reads its H halo rows itself (:func:`rdma_chunk_geometry`).  A
+  neighbour's slab is a tensor on this shard's device, or another process's
+  memory mapped into this one (``parallel.ipc.Remote``), read through plain
+  pointers alike.  Plain version: :func:`field_chunk_rdma_nd_ref`.
 
 The kernels are CUDA C++ for ``sm_90a`` (``csrc/field_kernel_nd.cu``): one
 persistent cooperative launch whose blocks stride over work items, a grid
@@ -75,6 +76,7 @@ from stochquant_tpu_torch.kernels.field_kernel import kernel_params
 from stochquant_tpu_torch.kernels.field_kernel_tiled import (
     micro_steps, obs_init, obs_step, obs_sums,
 )
+from stochquant_tpu_torch.parallel.ipc import Remote
 
 __all__ = [
     "field_pair_nd",
@@ -338,24 +340,32 @@ def _block_stats(geo: Geometry, steps) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
-def _launch(entry: str, geo: Geometry, srcs, dtau, action, cfg, n_steps, step, chain_offset):
+def _launch(entry: str, geo: Geometry, srcs, dtau, action, cfg, n_steps, step, chain_offset,
+            out=None):
     """Allocate the outputs and the domain buffers of one launch of ``entry``
     and launch it on ``srcs``: one (C, *geo.array) array, or kernel 8's three
-    (C, *geo.loc) slabs (own, left, right).  Returns (owned block after
-    ``n_steps`` micro-steps, slice sums (C, n_steps, L0_loc), stats (C,
-    n_blocks, 5·n_steps))."""
+    (C, *geo.loc) slabs (own, left, right; a neighbour's may be a ``Remote``,
+    checked by the caller).  ``out`` receives the owned block (else a new
+    tensor).  Returns (owned block after ``n_steps`` micro-steps, slice sums
+    (C, n_steps, L0_loc), stats (C, n_blocks, 5·n_steps))."""
     C, dev = srcs[0].shape[0], srcs[0].device
     if dev.type != "cuda":
         raise ValueError(f"the D-dim field kernels run on 'cuda' or 'cpu' tensors, not {dev}")
     names = ("phi",) if len(srcs) == 1 else ("phi", "left", "right")
     shape = (C,) + (geo.array if len(srcs) == 1 else geo.loc)
-    _build.check_leaves(SimpleNamespace(dtau=dtau, **dict(zip(names, srcs))),
-                        {**{n: (shape, torch.float32) for n in names},
-                         "dtau": ((C,), torch.float32)}, dev)
+    leaves = {n: x for n, x in zip(names, srcs) if not isinstance(x, Remote)}
+    if out is not None:
+        leaves["out"] = out
+    _build.check_leaves(SimpleNamespace(dtau=dtau, **leaves),
+                        {**{n: (shape, torch.float32) for n in names if n in leaves},
+                         "dtau": ((C,), torch.float32),
+                         **({"out": ((C,) + geo.loc, torch.float32)} if out is not None else {})},
+                        dev)
     params = _build.FieldNdParams.from_buffer_copy(_launch_params(geo, C, action, cfg, n_steps))
     params.f.step0, params.f.chain0 = rng.u32(int(step)), rng.u32(chain_offset)
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
-    out, slp = empty(C, *geo.loc), empty(C, n_steps, geo.loc[0], params.n_inner)
+    out = empty(C, *geo.loc) if out is None else out
+    slp = empty(C, n_steps, geo.loc[0], params.n_inner)
     stats = empty(C, geo.n_blocks, 5 * n_steps)
     scratch = empty(3, C * params.avol)  # two ping-pong buffers of the domain, the kept noise
     _build.launch(entry, params, (*srcs, dtau, out, slp, stats, *scratch.unbind(0)), dev)
@@ -588,12 +598,19 @@ def _rdma_geometry(phi, left, right, cfg, W, offsets, tile_rows) -> Geometry:
         raise ValueError(f"phi {tuple(phi.shape)} must be a (C, L0_loc, *{tuple(cfg.shape[1:])}) "
                          f"slab of the dim-0 split lattice {cfg.shape}")
     for name, x in (("left", left), ("right", right)):
-        if x.device != phi.device:
+        if isinstance(x, Remote):
+            # another process's memory mapped into this one (parallel.ipc), on
+            # this card or read through peer access: plain pointers alike
+            if x.device != phi.device or x.dtype != phi.dtype:
+                raise ValueError(f"the {name} neighbour's mapped slab ({x.dtype}, mapped on "
+                                 f"{x.device}) does not match this shard's {phi.dtype} on "
+                                 f"{phi.device}")
+        elif x.device != phi.device:
             raise ValueError(
                 f"the {name} neighbour's slab is on {x.device}, this shard's on {phi.device}: "
-                "shards of a dim-0 ring on several devices are not ported (kernel 8 reads its "
-                "neighbours' slabs through plain pointers on one card; several cards would need "
-                "peer access, and no machine with two GPUs has proved it)")
+                "the shards of a dim-0 ring in one process on several devices are not ported; "
+                "give each card a process of its own (a neighbour's slab is then read in the "
+                "other process's memory, parallel.ipc)")
         if x.shape != phi.shape:
             raise ValueError(f"the {name} neighbour's slab {tuple(x.shape)} differs from this "
                              f"shard's {tuple(phi.shape)}")
@@ -615,21 +632,27 @@ def field_chunk_rdma_nd_ref(phi: torch.Tensor, left: torch.Tensor, right: torch.
                               step_base, offsets, chain_offset, tile_rows)
 
 
-def field_chunk_rdma_nd(phi: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
-                        dtau: torch.Tensor, action: FieldAction, cfg: FieldConfig, W: int,
-                        step_base: int, offsets=None, chain_offset: int = 0, tile_rows=None):
+def field_chunk_rdma_nd(phi: torch.Tensor, left, right, dtau: torch.Tensor,
+                        action: FieldAction, cfg: FieldConfig, W: int, step_base: int,
+                        offsets=None, chain_offset: int = 0, tile_rows=None, *, out=None):
     """Kernel 8: W micro-steps in one launch on the dim-0 slab ``phi`` (C,
     L0_loc, *rest) of a lattice split in dim 0 only, reading its H halo rows
-    a side from the neighbours' slabs ``left`` and ``right`` (each the same
-    shape, on the same device; on a ring of one all three are ``phi``).
-    ``offsets``, ``step_base`` and ``chain_offset`` as for
-    :func:`field_chunk_nd`.  Returns what :func:`field_chunk_nd_ref` returns."""
+    a side from the neighbours' slabs ``left`` and ``right``: each the same
+    shape, a tensor on ``phi``'s device (on a ring of one all three are
+    ``phi``) or another process's slab mapped into this one
+    (``parallel.ipc.Remote``).  ``out`` (CUDA only) receives φ after the W
+    steps, e.g. the runner's exported slab.  ``offsets``, ``step_base`` and
+    ``chain_offset`` as for :func:`field_chunk_nd`.  Returns what
+    :func:`field_chunk_nd_ref` returns."""
     geo = _rdma_geometry(phi, left, right, cfg, W, offsets, tile_rows)
     if phi.device.type == "cpu":
+        if out is not None or isinstance(left, Remote) or isinstance(right, Remote):
+            raise ValueError("kernel 8's plain version takes CPU tensors and returns a new φ: "
+                             "no mapped slab, no out=")
         return field_chunk_rdma_nd_ref(phi, left, right, dtau, action, cfg, W, step_base,
                                        offsets, chain_offset, tile_rows)
     out = _launch("sq_field_chunk_rdma_nd", geo, (phi, left, right), dtau, action, cfg, W,
-                  step_base, chain_offset)
+                  step_base, chain_offset, out=out)
     field_chunk_rdma_nd.launches += 1
     return out
 

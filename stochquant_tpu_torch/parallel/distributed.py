@@ -1,24 +1,31 @@
 """Several processes (port of ``stochquant_tpu.parallel.distributed``).
 
 The JAX package spans hosts with ``jax.distributed``: every process adds its
-devices to one global mesh and runs its part of a global state.  Here the
-processes form a ``torch.distributed`` group on the gloo backend, each holds
-the shards of its own positions of a global chain mesh, and what crosses
-processes is small: per-record scalars (:func:`all_sum`) and the files of a
-sharded checkpoint (``io.checkpoint.save_sharded`` / ``load_sharded``).  The
-chain state never moves between processes.  gloo, because NCCL refuses two
-ranks on one GPU and the tests run on the CPU.
+devices to one global mesh and runs its part of a global state, and XLA
+carries the halos between them.  Here the processes form a
+``torch.distributed`` group on the gloo backend and each holds the shards of
+its own positions of a global mesh (:func:`global_mesh`).  Every process
+runs the same program on its shards: ``runtime.run_chain`` over its part of
+the chains (``chain_kernel.run_frames_kernel(..., chain_offset=)``, no
+cross-process ``run_chain``, as in the JAX package), and
+``runtime.run_field`` / ``run_gauge`` on a lattice split across processes,
+whose collectives (``parallel.mesh``) cross processes: CPU tensors through
+gloo (:func:`all_gather`), CUDA tensors through device memory that the
+processes map into each other (``parallel.ipc``: CUDA IPC, ordered on the
+streams by counters), never through gloo or the host.  gloo carries only
+CPU tensors, the IPC handles (:func:`all_gather_objects`), barriers, the
+per-record scalars of a chain run (:func:`all_sum`); a sharded checkpoint
+is one file a process (``io.checkpoint.save_sharded`` / ``load_sharded``).
+gloo, because NCCL refuses two ranks on one GPU and the tests run on the
+CPU.
 
-Usage (one process per rank):
+Usage (one process per rank; on a node with several cards one process a
+card, on one card several processes share it):
 
     from stochquant_tpu_torch.parallel import distributed
-    distributed.initialize()                   # torch's env:// variables
-    per, off = distributed.process_local_chains(cfg.n_chains)
-    mesh = distributed.global_mesh([("chain", 2)], devices="cuda:0")
-    ...   # chain_kernel.run_frames_kernel(..., chain_offset=off) per shard
-
-As in the JAX package there is no cross-process ``run_chain``: each process
-runs the frame loop on its part of the chains.
+    distributed.initialize()                   # torch's env://, or a file store
+    mesh = distributed.global_mesh([("x", 4)], devices=f"cuda:{local_rank}")
+    runtime.run_field(cfg, mesh=mesh)          # cfg.mesh_axes = ("x", None)
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ import torch.distributed as dist
 
 from stochquant_tpu_torch.parallel.mesh import DeviceMesh, make_mesh
 
-__all__ = ["initialize", "global_mesh", "process_local_chains", "all_sum", "rank_and_size"]
+__all__ = ["initialize", "global_mesh", "process_local_chains", "all_sum", "rank_and_size",
+           "barrier", "all_gather", "all_gather_objects"]
 
 
 def initialize(init_method: Optional[str] = None, world_size: Optional[int] = None,
@@ -87,3 +95,44 @@ def all_sum(values: Sequence[float]) -> list:
     if rank_and_size()[1] > 1:
         dist.all_reduce(t)
     return t.tolist()
+
+
+def barrier() -> None:
+    """Every process of the group reaches this point; a no-op outside a group."""
+    if rank_and_size()[1] > 1:
+        dist.barrier()
+
+
+def all_gather(x: torch.Tensor) -> list:
+    """Every process's ``x`` (a CPU tensor of the same shape and dtype in each),
+    in rank order: one gloo all-gather.  Bool and complex tensors travel as
+    bytes and as real pairs.  A CUDA tensor raises: it never goes through gloo
+    (``parallel.ipc`` moves those)."""
+    if x.device.type != "cpu":
+        raise ValueError(f"all_gather moves CPU tensors through gloo, not a tensor on {x.device}: "
+                         "CUDA tensors cross processes through parallel.ipc")
+    nproc = rank_and_size()[1]
+    if nproc == 1:
+        return [x]
+    t = x.contiguous()
+    if t.dtype == torch.bool:
+        t = t.view(torch.uint8)
+    elif t.is_complex():
+        t = torch.view_as_real(t)
+    out = [torch.empty_like(t) for _ in range(nproc)]
+    dist.all_gather(out, t)
+    if x.dtype == torch.bool:
+        return [o.view(torch.bool) for o in out]
+    if x.is_complex():
+        return [torch.view_as_complex(o) for o in out]
+    return out
+
+
+def all_gather_objects(obj) -> list:
+    """Every process's picklable ``obj`` in rank order (gloo)."""
+    nproc = rank_and_size()[1]
+    if nproc == 1:
+        return [obj]
+    out = [None] * nproc
+    dist.all_gather_object(out, obj)
+    return out

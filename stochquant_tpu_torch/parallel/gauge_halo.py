@@ -31,6 +31,11 @@ event rejects the frame (rollback and Δτ shrink) where the unsplit path
 rescales that step, which would need a collective per micro-step.
 
 Gauge cooling is refused under both (its smearing stencil needs wider halos).
+
+Both run on a mesh across processes (``distributed.global_mesh``): the
+runner attaches the mesh's transport (``parallel.ipc.attach``), its
+collectives cross processes (CPU tensors through gloo, CUDA tensors through
+device memory the processes share), and ``run.close()`` releases it.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from stochquant_tpu_torch.actions.base import true_divide
 from stochquant_tpu_torch.integrators import gauge as gauge_mod
 from stochquant_tpu_torch.integrators.gauge import GaugeConfig, GaugeFrameSums
 from stochquant_tpu_torch.kernels import gauge_kernel
+from stochquant_tpu_torch.parallel import ipc
 from stochquant_tpu_torch.parallel import mesh as mesh_mod
 from stochquant_tpu_torch.parallel.mesh import DeviceMesh, shard_gauge_state
 
@@ -67,6 +73,7 @@ def make_gauge_halo_runner(action, cfg: GaugeConfig, mesh: DeviceMesh):
     ndim, shape = cfg.ndim, tuple(cfg.shape)
     lat_spec = tuple(cfg.mesh_axes)
     sizes, local_shape, c_local, ch_offs, lat_offs = mesh_mod.split_geometry(cfg, mesh)
+    mesh = ipc.attach(mesh)
     sharded_dims = tuple(n > 1 for n in sizes)
     lat_mesh_axes = tuple(ax for ax, n in zip(lat_spec, sizes) if n > 1)
     volume = float(math.prod(shape))
@@ -201,6 +208,7 @@ def make_gauge_chunk_runner(action, cfg: GaugeConfig, mesh: DeviceMesh, *, chunk
     n_full, rem = divmod(cfg.loops, W)
     steps = {w: gauge_kernel.make_gauge_chunk_step(action, cfg, c_local, loc0, w, chunk=chunk)
              for w in ((W, rem) if rem else (W,))}
+    mesh = ipc.attach(mesh)
     inv_vol = float(np.float32(1.0 / (cfg.shape[0] * L1)))
     lat_mesh_axes = (ax,) if ax else ()
     each = range(mesh.size)

@@ -34,12 +34,17 @@ Backends of :func:`make_halo_runner`:
                steps on a dim-0-only split, each shard's launch given its own
                slab and its two dim-0 ring neighbours' and reading its H halo
                rows from them itself: no shift, no concat per chunk.  One hop
-               (H no deeper than a slab), a ring of one allowed, and every
-               shard of a dim-0 ring on one device (several cards are not
-               ported: :func:`rdma_refusal`).
+               (H no deeper than a slab), a ring of one allowed.  The shards of
+               a ring in one process lie on one device; across processes (one
+               process per card, or several on one card) a neighbour's slab is
+               read in the other process's memory (``parallel.ipc``: two
+               exported slabs a shard, chunk k after the neighbours' epoch k).
 
-On CPU tensors the kernel wrappers run their plain versions, so every backend
-runs on a mesh of CPU devices; on CUDA tensors they launch or raise.
+Every backend runs on a mesh across processes (``distributed.global_mesh``):
+the runner attaches the mesh's transport (``parallel.ipc.attach``) and its
+collectives cross processes; ``run.close()`` releases it.  On CPU tensors the
+kernel wrappers run their plain versions, so every backend runs on a mesh of
+CPU devices; on CUDA tensors they launch or raise.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from stochquant_tpu_torch.integrators import field as field_mod
 from stochquant_tpu_torch.kernels import field_halo_kernel, field_kernel
 from stochquant_tpu_torch.kernels import field_kernel_nd as fknd
 from stochquant_tpu_torch.kernels.field_kernel_tiled import obs_init, obs_step, obs_sums
+from stochquant_tpu_torch.parallel import ipc
 from stochquant_tpu_torch.parallel import mesh as mesh_mod
 from stochquant_tpu_torch.parallel.mesh import DeviceMesh
 
@@ -130,7 +136,8 @@ def rdma_refusal(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh):
     ``None`` where it does: ``cfg.mesh_axes[0]`` names the dim-0 ring (a ring
     of one is allowed), no dim ≥ 1 is split, the chunk guard's common rules
     hold (float32, even loops and W, counter-based noise), the halo is one
-    hop deep, and every shard of a dim-0 ring lies on one device."""
+    hop deep, and the shards of a dim-0 ring that one process holds lie on
+    one device (across processes: one process per card)."""
     lat = tuple(cfg.mesh_axes or (None,) * cfg.ndim)
     if not lat[0]:
         return "cfg.mesh_axes[0] must name the dim-0 ring axis (a ring of one is allowed)"
@@ -145,10 +152,11 @@ def rdma_refusal(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh):
         return f"kernel 8 takes dim-0-only splits, not mesh_axes {lat}"
     if mesh.axis_size(lat[0]) > 1:
         for ring in mesh.groups((lat[0],)):
-            if len({mesh.devices[i] for i in ring}) > 1:
-                return ("the shards of a dim-0 ring lie on several devices: kernel 8 reads its "
-                        "neighbours' slabs on one card; several cards are not ported (no machine "
-                        "with two GPUs has proved peer access)")
+            if len({mesh.devices[mesh.local(g)] for g in ring if mesh.local(g) is not None}) > 1:
+                return ("the shards of a dim-0 ring in one process lie on several devices: kernel "
+                        "8 reads its neighbours' slabs on its own card, or across processes in "
+                        "another process's memory; give each card a process of its own "
+                        "(parallel.distributed.global_mesh)")
     try:
         field_kernel._action_constants(action)
         fknd.rdma_chunk_geometry(cfg, c_local, local_shape, W_probe)
@@ -237,6 +245,7 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
         raise ValueError("cfg.mesh_axes required for the halo runner")
     field_mod.check_field_supported(cfg, action)
     backend = resolve_backend(action, cfg, mesh, backend)
+    mesh = ipc.attach(mesh)
     ndim, shape = cfg.ndim, tuple(cfg.shape)
     ca, lat_spec = cfg.mesh_chain_axis, tuple(cfg.mesh_axes)
     n_shards = mesh.size
@@ -258,7 +267,9 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
     ax0 = lat_spec[0] if sizes[0] > 1 else None
     devs = mesh.devices
     # the shard that holds global slice 0 of each shard's dim-0 ring
-    row0_of = [mesh.neighbor(i, ax0, -mesh.coord(i, ax0)) if ax0 else i for i in range(n_shards)]
+    axis0 = mesh.axis_names.index(ax0) if ax0 else None
+    row0_of = ((lambda g: mesh.shift(g, ax0, -mesh.global_coords(g)[axis0])) if ax0
+               else (lambda g: g))
     each = range(n_shards)
 
     def exchange_halos(phis):
@@ -341,7 +352,7 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
         return s % 2 == 0
 
     W_main = W_tail = n_chunks = 0
-    chunk_split = None
+    chunk_split = ring = None
     kstep = None
     if backend == "cuda_step":
         kstep = field_halo_kernel.make_local_step(action, cfg, local_shape, c_local,
@@ -364,8 +375,15 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
             chunk_fn = chunk or fknd.field_chunk_nd
         else:
             # every shard reads the slabs of its dim-0 ring neighbours (its own on a ring of one)
-            left_of = [mesh.neighbor(i, ax0, -1) if ax0 else i for i in each]
-            right_of = [mesh.neighbor(i, ax0, +1) if ax0 else i for i in each]
+            left_of = (lambda g: mesh.shift(g, ax0, -1)) if ax0 else (lambda g: g)
+            right_of = (lambda g: mesh.shift(g, ax0, +1)) if ax0 else (lambda g: g)
+            mine = [mesh.global_index(i) for i in each]
+            ring_procs = sorted({mesh.owner(f(g)) for g in mine for f in (left_of, right_of)}
+                                - {mesh.process_index})
+            # across processes on the card: two exported slabs a shard, kernel 8
+            # reading its neighbours' in the other processes' memory
+            ring = (ipc.Ring(mesh.transport, (c_local,) + local_shape)
+                    if mesh.transport is not None and ring_procs else None)
     elif backend == "cuda_frame":
         local_cfg = dataclasses.replace(cfg, n_chains=c_local, mesh_axes=None,
                                         mesh_chain_axis=None)
@@ -373,11 +391,12 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
     # ---------------- the shared micro-step tail ---------------------------
 
     def slice_stats(s_slice_loc):
-        """Complete the dim-0 slice sums across the other mesh axes, turn them
-        into means, and find the mean of global slice 0 for every shard."""
+        """Complete the dim-0 slice sums (the last dim) across the other mesh
+        axes, turn them into means, and find the mean of global slice 0 for
+        every shard."""
         s_slice = mesh_mod.psum(s_slice_loc, mesh, other_axes)
         s_slice = [true_divide(s, n_per_slice) for s in s_slice]
-        s0 = [s_slice[row0_of[i]][:, :1].to(devs[i]) for i in each]
+        s0 = mesh_mod.pfrom([s[..., :1] for s in s_slice], mesh, row0_of)
         return s_slice, s0
 
     def finish_micro_step(phis, newphis, vals, max_det, bad, npmax, mag, phi2, act, s_slice_loc):
@@ -492,13 +511,40 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
         return [torch.cat([u, x, dn], dim=axis).contiguous()
                 for u, x, dn in zip(up, xs, down)]
 
+    def ring_chunk(phis, dtaus, Wx, step):
+        """Kernel 8 across processes on the card: chunk k waits until each
+        neighbour's process has finished chunk k − 1 (its epoch ≥ k), reads
+        its own slab and the neighbours' slabs k mod 2, writes its slab
+        (k + 1) mod 2 and sets this process's epoch to k + 1.  A frame's
+        first chunk is preceded by one such step that copies the state's φ
+        into the slabs."""
+        k = ring.k
+        if any(p is not ring.own[k % 2][i] for i, p in enumerate(phis)):
+            ring.wait(ring_procs, k)
+            for i in each:
+                ring.own[(k + 1) % 2][i].copy_(phis[i])
+            k += 1
+            ring.set(k)
+        ring.wait(ring_procs, k)
+        q = k % 2
+        outs = [fknd.field_chunk_rdma_nd(ring.own[q][i], ring.slab(left_of(g), q),
+                                         ring.slab(right_of(g), q), dtaus[i], action, cfg, Wx,
+                                         step, lat_offs[i], ch_offs[i], out=ring.own[1 - q][i])
+                for i, g in zip(each, mine)]
+        ring.k = k + 1
+        ring.set(ring.k)
+        return outs
+
     def chunk_step(phis, vals, dtaus, Wx, step):
-        if backend == "cuda_rdma":
+        if backend == "cuda_rdma" and ring is not None:
+            outs = ring_chunk(phis, dtaus, Wx, step)
+        elif backend == "cuda_rdma":
             # every launch is issued before any shard's phi is replaced, and
             # each writes a fresh tensor: neighbours read the old slabs
-            outs = [fknd.field_chunk_rdma_nd(phis[i], phis[left_of[i]], phis[right_of[i]],
-                                             dtaus[i], action, cfg, Wx, step, lat_offs[i],
-                                             ch_offs[i]) for i in each]
+            lefts = mesh_mod.pfrom(phis, mesh, left_of)
+            rights = mesh_mod.pfrom(phis, mesh, right_of)
+            outs = [fknd.field_chunk_rdma_nd(phis[i], lefts[i], rights[i], dtaus[i], action, cfg,
+                                             Wx, step, lat_offs[i], ch_offs[i]) for i in each]
         else:
             halos = fknd.chunk_halos(cfg, Wx, chunk_split)
             exts = phis
@@ -507,11 +553,12 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
                     exts = extend(exts, d, halos[d])
             outs = [chunk_fn(exts[i], dtaus[i], action, cfg, Wx, chunk_split, step, lat_offs[i],
                              ch_offs[i], None) for i in each]
+        # the chunk's W steps of statistics completed across shards at once
+        st = mesh_mod.pcat([o[2] for o in outs], mesh, lat_mesh_axes, dim=1)
+        s_slice, s0 = slice_stats([o[1] for o in outs])
         for w in range(Wx):
-            st = mesh_mod.pcat([o[2][:, :, 5 * w:5 * w + 5] for o in outs], mesh,
-                               lat_mesh_axes, dim=1)
-            s_slice, s0 = slice_stats([o[1][:, w] for o in outs])
-            vals = [obs_step(vals[i], s_slice[i], st[i], volume, s0=s0[i]) for i in each]
+            vals = [obs_step(vals[i], s_slice[i][:, w], st[i][:, :, 5 * w:5 * w + 5], volume,
+                             s0=s0[i][:, w]) for i in each]
         return [o[0] for o in outs], vals
 
     # ---------------- the frame ---------------------------------------------
@@ -539,6 +586,8 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
                 if Wx:
                     phis, vals = chunk_step(phis, vals, dtaus, Wx, step)
                     step += Wx
+            if ring is not None:  # the state keeps φ of its own, not the slab
+                phis = [p.clone() for p in phis]
         elif backend == "cuda_step":
             for k in range(cfg.loops):
                 phis, vals = micro_step_kernel(phis, vals, step0 + (k & ~1), k & 1, dtaus)

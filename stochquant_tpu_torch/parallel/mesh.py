@@ -26,13 +26,27 @@ The collectives are plain functions over the list of shards:
   the replicas of a per-chain scalar can never part.  ``pmax`` propagates NaN
   (``torch.maximum``).
 
-``torch.distributed`` is not used here: gloo has no CUDA send/recv and NCCL
-refuses two ranks on one GPU, so neither could run a cut lattice on a
-one-GPU machine.  A mesh that spans processes (``parallel.distributed.
-global_mesh``) names the *global* axis sizes and holds only this process's
-positions (a contiguous run of the global positions in C order, so the
-first axis spans the processes): its shards place, save and load by global
-coordinates, and nothing in this module moves data between processes.
+A mesh that spans processes (``parallel.distributed.global_mesh``) names
+the *global* axis sizes and holds only this process's positions, a
+contiguous run of the global positions in C order (so the first axis spans
+the processes).  A shard has two indices: its place ``i`` in this process's
+list, and its **global** mesh position (:meth:`DeviceMesh.global_index`);
+coordinates, neighbours and groups are global, and a collective reads the
+shards of other processes where its groups or rings reach them:
+
+* CPU tensors through gloo (one all-gather, ``distributed.all_gather``):
+  what the tests run;
+* CUDA tensors through the runner's transport (``parallel.ipc``: this
+  process's shards copied into device memory that the others map, ordered
+  on the streams by counters).  A CUDA tensor never goes through gloo or the
+  host; without a transport such a collective raises.
+
+Every process then reduces the gathered partials in ascending global index,
+once, as one process does, so the replicas cannot part and the run is the
+one-process run on the same mesh shape bit for bit.  ``gather_state``
+stays in one process (across processes a state is saved, not gathered:
+``io.checkpoint.save_sharded``); the metrics and the per-chain scalars of a
+record (:func:`gather_metrics`, :func:`gather_scalars`) reach every process.
 
 Because the noise is keyed by global (chain, site, step) coordinates, any
 placement produces the same field trajectory.
@@ -40,6 +54,7 @@ placement produces the same field trajectory.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -59,6 +74,7 @@ __all__ = [
     "pmax",
     "pany",
     "pcat",
+    "pfrom",
     "field_state_spec",
     "gauge_state_spec",
     "chain_state_spec",
@@ -73,6 +89,7 @@ __all__ = [
     "gather_chain_state",
     "shard_state_from_numpy",
     "gather_metrics",
+    "gather_scalars",
     "split_geometry",
     "chain_split",
     "frame_loop",
@@ -85,18 +102,26 @@ class DeviceMesh:
 
     Across processes (``process_count`` > 1) ``shape`` is the global mesh and
     ``devices`` are this process's positions, the global ones
-    ``process_index · size …`` in C order; coordinates are global."""
+    ``process_index · size …`` in C order; coordinates are global.
+    ``transport`` is the runner's cross-process transport of CUDA tensors
+    (``parallel.ipc.attach``), ``None`` elsewhere."""
 
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     devices: Tuple[torch.device, ...]
     process_index: int = 0
     process_count: int = 1
+    transport: object = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def size(self) -> int:
         """Positions this process holds (every position in one process)."""
         return len(self.devices)
+
+    @property
+    def n_positions(self) -> int:
+        """Positions of the global mesh."""
+        return self.size * self.process_count
 
     def axis_size(self, name: Optional[str]) -> int:
         """Shards along axis ``name``; 1 for ``None`` and for a name the mesh
@@ -105,9 +130,25 @@ class DeviceMesh:
             return 1
         return self.shape[self.axis_names.index(name)]
 
+    def global_index(self, i: int) -> int:
+        """The global mesh position of this process's shard ``i``."""
+        return i + self.process_index * self.size
+
+    def owner(self, g: int) -> int:
+        """The process that holds global position ``g``."""
+        return g // self.size
+
+    def local(self, g: int) -> Optional[int]:
+        """This process's list index of global position ``g``, or ``None``."""
+        i = g - self.process_index * self.size
+        return i if 0 <= i < self.size else None
+
+    def global_coords(self, g: int) -> Tuple[int, ...]:
+        return tuple(int(c) for c in _unravel(g, self.shape))
+
     def coords(self, i: int) -> Tuple[int, ...]:
         """Global coordinates of this process's position ``i``."""
-        return tuple(int(c) for c in _unravel(i + self.process_index * self.size, self.shape))
+        return self.global_coords(self.global_index(i))
 
     def coord(self, i: int, name: Optional[str]) -> int:
         """Shard ``i``'s coordinate along axis ``name``; 0 where
@@ -117,31 +158,39 @@ class DeviceMesh:
         return self.coords(i)[self.axis_names.index(name)]
 
     def index(self, coords: Sequence[int]) -> int:
+        """The global position of ``coords`` (periodic)."""
         i = 0
         for c, n in zip(coords, self.shape):
             i = i * n + c % n
         return i
 
-    def neighbor(self, i: int, name: str, delta: int) -> int:
-        """The shard ``delta`` steps along the ring of axis ``name``."""
-        c = list(self.coords(i))
+    def shift(self, g: int, name: str, delta: int) -> int:
+        """The global position ``delta`` steps from ``g`` along the ring of
+        axis ``name``."""
+        c = list(self.global_coords(g))
         c[self.axis_names.index(name)] += delta
         return self.index(c)
 
+    def neighbor(self, i: int, name: str, delta: int) -> int:
+        """The global position ``delta`` steps along the ring of axis ``name``
+        from this process's shard ``i``."""
+        return self.shift(self.global_index(i), name, delta)
+
     def groups(self, names: Sequence[str]) -> tuple:
-        """The sets of shards that differ only in their coordinates along
-        ``names``, each in ascending mesh index."""
-        return _groups(self, tuple(names))
+        """The sets of global positions that differ only in their coordinates
+        along ``names``, each in ascending order (in one process the list
+        indices)."""
+        return _groups(self.axis_names, self.shape, tuple(names))
 
 
 @functools.lru_cache(maxsize=None)
-def _groups(mesh: "DeviceMesh", names: tuple) -> tuple:
-    reduce_axes = {mesh.axis_names.index(n) for n in names}
+def _groups(axis_names: tuple, shape: tuple, names: tuple) -> tuple:
+    reduce_axes = {axis_names.index(n) for n in names}
     keyed: dict = {}
-    for i in range(mesh.size):
-        key = tuple(v for a, v in enumerate(mesh.coords(i)) if a not in reduce_axes)
-        keyed.setdefault(key, []).append(i)
-    return tuple(tuple(g) for g in keyed.values())
+    for g in range(math.prod(shape)):
+        key = tuple(v for a, v in enumerate(_unravel(g, shape)) if a not in reduce_axes)
+        keyed.setdefault(key, []).append(g)
+    return tuple(tuple(grp) for grp in keyed.values())
 
 
 def _unravel(i: int, shape) -> list:
@@ -199,23 +248,75 @@ def make_mesh(axes: Sequence[Tuple[str, int]], devices=None) -> DeviceMesh:
 # ---------------------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def _exchanged(xs: list, mesh: DeviceMesh, crosses: bool):
+    """Yields ``get(g)``: the tensor of global position ``g`` for this call of
+    a collective, whose groups reach other processes where ``crosses``.
+    This process's shards are its own tensors; another process's come through
+    gloo (CPU tensors) or the mesh's transport (CUDA tensors), as fresh
+    tensors on this process's device."""
+    if mesh.process_count == 1 or not crosses:
+        yield lambda g: xs[mesh.local(g)]
+        return
+    if xs[0].device.type == "cpu":
+        from stochquant_tpu_torch.parallel import distributed
+
+        rows = [t for part in distributed.all_gather(torch.stack(list(xs)))
+                for t in part.unbind(0)]
+        yield lambda g: xs[mesh.local(g)] if mesh.local(g) is not None else rows[g]
+        return
+    if mesh.transport is None:
+        raise ValueError(
+            f"a collective over CUDA tensors reaches the shards of {mesh.process_count} processes "
+            "but the mesh has no transport: CUDA tensors cross processes only through device "
+            "memory the processes share (parallel.ipc.attach, which the runners call), never "
+            "through gloo or the host")
+    call = mesh.transport.publish(xs)
+    try:
+        yield lambda g: (xs[mesh.local(g)] if mesh.local(g) is not None
+                         else call.fetch(mesh.owner(g), g % mesh.size))
+    finally:
+        call.done()
+
+
+def _owners_differ(mesh: DeviceMesh, groups) -> bool:
+    return mesh.process_count > 1 and any(
+        len({mesh.owner(g) for g in grp}) > 1 for grp in groups)
+
+
+def pfrom(xs: list, mesh: DeviceMesh, src) -> list:
+    """``out[i]`` = the tensor of global position ``src(g)`` for this
+    process's shard ``i`` at global position ``g``, on shard ``i``'s device.
+    ``src`` maps every global position (those of other processes too) to
+    the one it reads."""
+    crosses = mesh.process_count > 1 and any(
+        mesh.owner(src(g)) != mesh.owner(g) for g in range(mesh.n_positions))
+    with _exchanged(xs, mesh, crosses) as get:
+        return [get(src(mesh.global_index(i))).to(mesh.devices[i]) for i in range(mesh.size)]
+
+
 def ppermute(xs: list, mesh: DeviceMesh, axis: str, delta: int) -> list:
     """``out[i]`` = the tensor of the shard ``delta`` steps along ``axis``
     from shard ``i`` (periodic), on shard ``i``'s device."""
-    return [xs[mesh.neighbor(i, axis, delta)].to(mesh.devices[i]) for i in range(mesh.size)]
+    return pfrom(xs, mesh, lambda g: mesh.shift(g, axis, delta))
 
 
 def _preduce(xs: list, mesh: DeviceMesh, axes: Sequence[str], op) -> list:
     axes = [a for a in axes if a]
     if not axes:
         return list(xs)
+    groups = mesh.groups(axes)
     out = [None] * mesh.size
-    for group in mesh.groups(axes):
-        acc = xs[group[0]]
-        for j in group[1:]:
-            acc = op(acc, xs[j].to(acc.device))
-        for i in group:
-            out[i] = acc.to(mesh.devices[i])
+    with _exchanged(xs, mesh, _owners_differ(mesh, groups)) as get:
+        for group in groups:
+            mine = [mesh.local(g) for g in group if mesh.local(g) is not None]
+            if not mine:
+                continue
+            acc = get(group[0])
+            for g in group[1:]:
+                acc = op(acc, get(g).to(acc.device))
+            for i in mine:
+                out[i] = acc.to(mesh.devices[i])
     return out
 
 
@@ -241,12 +342,17 @@ def pcat(xs: list, mesh: DeviceMesh, axes: Sequence[str], dim: int) -> list:
     axes = [a for a in axes if a]
     if not axes:
         return list(xs)
+    groups = mesh.groups(axes)
     out = [None] * mesh.size
-    for group in mesh.groups(axes):
-        lead = mesh.devices[group[0]]
-        joined = torch.cat([xs[j].to(lead) for j in group], dim=dim)
-        for i in group:
-            out[i] = joined.to(mesh.devices[i])
+    with _exchanged(xs, mesh, _owners_differ(mesh, groups)) as get:
+        for group in groups:
+            mine = [mesh.local(g) for g in group if mesh.local(g) is not None]
+            if not mine:
+                continue
+            lead = mesh.devices[mine[0]]
+            joined = torch.cat([get(g).to(lead) for g in group], dim=dim)
+            for i in mine:
+                out[i] = joined.to(mesh.devices[i])
     return out
 
 
@@ -305,8 +411,9 @@ def state_spec(cls, cfg):
                      "split over a mesh")
 
 
-def _block(spec, mesh: DeviceMesh, i: int, shape) -> tuple:
-    """The index of shard ``i``'s block of a whole tensor of ``shape``."""
+def _block_at(spec, mesh: DeviceMesh, g: int, shape) -> tuple:
+    """The index of global position ``g``'s block of a whole tensor of ``shape``."""
+    coords = mesh.global_coords(g)
     index = []
     for d, name in enumerate(spec):
         n = mesh.axis_size(name)
@@ -314,9 +421,14 @@ def _block(spec, mesh: DeviceMesh, i: int, shape) -> tuple:
             raise ValueError(f"dim {d} of extent {shape[d]} is not divisible by mesh axis "
                              f"{name!r} of size {n}")
         loc = shape[d] // n
-        c = mesh.coord(i, name)
+        c = coords[mesh.axis_names.index(name)] if name in mesh.axis_names else 0
         index.append(slice(c * loc, (c + 1) * loc))
     return tuple(index)
+
+
+def _block(spec, mesh: DeviceMesh, i: int, shape) -> tuple:
+    """The index of this process's shard ``i``'s block of a whole tensor."""
+    return _block_at(spec, mesh, mesh.global_index(i), shape)
 
 
 def shard_state(state, spec, mesh: DeviceMesh) -> list:
@@ -342,19 +454,15 @@ def _one_process(mesh: DeviceMesh, what: str) -> None:
                          "(io.checkpoint.save_sharded / load_sharded)")
 
 
-def gather_state(shards: list, spec, mesh: DeviceMesh, device=None, only=None):
+def gather_state(shards: list, spec, mesh: DeviceMesh, device=None):
     """The inverse of :func:`shard_state`: the whole state on ``device``
-    (default: the mesh's first device).  ``only`` names the leaves to gather;
-    the others come back as ``None`` (a run loop reads the per-chain scalars
-    every frame and the lattice only at a checkpoint)."""
+    (default: the mesh's first device), in one process (a run loop reads the
+    per-chain scalars of every record through :func:`gather_scalars`)."""
     _one_process(mesh, "gather_state")
     device = mesh.devices[0] if device is None else torch.device(device)
     leaves = []
-    for k, (name, sp) in enumerate(zip(spec._fields, spec)):
+    for k, sp in enumerate(spec):
         first = shards[0][k]
-        if only is not None and name not in only:
-            leaves.append(None)
-            continue
         if sp is None:
             leaves.append(first)
             continue
@@ -406,20 +514,52 @@ def shard_state_from_numpy(arrays: dict, mesh: DeviceMesh, cfg, action=None) -> 
     return shard_chain_state(state, mesh, cfg.mesh_chain_axis)
 
 
+def _gather_whole(parts: list, spec, mesh: DeviceMesh, device) -> torch.Tensor:
+    """The whole tensor of the per-shard blocks ``parts`` (laid out by
+    ``spec``), in every process: each block read once, from this process's
+    first shard that holds it, else from the first global position that does
+    (the others hold bitwise replicas); nothing moves between processes that
+    each hold every block."""
+    shape = [n * mesh.axis_size(ax) for n, ax in zip(parts[0].shape, spec)]
+    whole = torch.empty(shape, dtype=parts[0].dtype, device=device)
+    holders = {}
+    for g in range(mesh.n_positions):
+        holders.setdefault(_block_at(spec, mesh, g, shape), []).append(g)
+    crosses = any(len({mesh.owner(g) for g in gs}) < mesh.process_count
+                  for gs in holders.values())
+    with _exchanged(parts, mesh, crosses) as get:
+        for block, gs in holders.items():
+            mine = [g for g in gs if mesh.local(g) is not None]
+            whole[block] = get(mine[0] if mine else gs[0]).to(device)
+    return whole
+
+
 def gather_metrics(per_shard: list, mesh: DeviceMesh, chain_axis: Optional[str]) -> dict:
-    """Per-shard metrics of (frames, C_local) leaves → (frames, C) on the
-    mesh's first device (the shards along the lattice axes hold replicas)."""
-    _one_process(mesh, "gather_metrics")
-    out = {}
-    for key in per_shard[0]:
-        stacked = [m[key] for m in per_shard]
-        whole_c = stacked[0].shape[1] * mesh.axis_size(chain_axis)
-        whole = torch.empty((stacked[0].shape[0], whole_c), dtype=stacked[0].dtype,
-                            device=mesh.devices[0])
-        for i in range(mesh.size):
-            whole[_block((None, chain_axis), mesh, i, whole.shape)] = stacked[i].to(whole.device)
-        out[key] = whole
-    return out
+    """Per-shard metrics of (frames, C_local) leaves → (frames, C) in global
+    chain order on the mesh's first device, in every process (the shards
+    along the lattice axes hold replicas)."""
+    return {key: _gather_whole([m[key] for m in per_shard], (None, chain_axis), mesh,
+                               mesh.devices[0]) for key in per_shard[0]}
+
+
+def gather_scalars(shards: list, spec, mesh: DeviceMesh, names, device=None):
+    """The per-chain leaves ``names`` of a split state whole on ``device``
+    (default: the mesh's first device), in every process; the other leaves
+    come back as ``None``.  A leaf split over a lattice axis raises: the
+    lattice is gathered in one process only (:func:`gather_state`)."""
+    device = mesh.devices[0] if device is None else torch.device(device)
+    leaves = []
+    for k, (name, sp) in enumerate(zip(spec._fields, spec)):
+        if name not in names:
+            leaves.append(None)
+        elif sp is None:
+            leaves.append(shards[0][k])
+        else:
+            if any(ax is not None and ax != sp[0] for ax in sp[1:]):
+                raise ValueError(f"gather_scalars gathers per-chain leaves, not {name!r} "
+                                 f"split over {sp}")
+            leaves.append(_gather_whole([s[k] for s in shards], sp, mesh, device))
+    return type(shards[0])(*leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -464,7 +604,10 @@ def chain_split(n_chains: int, mesh: DeviceMesh, chain_axis: Optional[str]):
 def frame_loop(frame, mesh: DeviceMesh, chain_axis: Optional[str]):
     """``run(shards, n_frames) -> (shards, metrics)`` around a runner's
     ``frame(shards) -> (shards, per-shard metrics)``; the metrics come back as
-    (n_frames, C) tensors on the mesh's first device."""
+    (n_frames, C) tensors on the mesh's first device, in every process.
+    Across processes on the card the run ends when this process's stream
+    has done its frames (``ipc.Transport.settle``: a peer that stops raises
+    past the transport's time limit); ``run.close()`` closes the transport."""
     def run(states, n_frames: int):
         if len(states) != mesh.size:
             raise ValueError(f"expected {mesh.size} per-shard states, got {len(states)}")
@@ -473,6 +616,11 @@ def frame_loop(frame, mesh: DeviceMesh, chain_axis: Optional[str]):
             states, m = frame(states)
             per_frame.append(m)
         per_shard = [stack_metrics([m[i] for m in per_frame]) for i in range(mesh.size)]
-        return states, gather_metrics(per_shard, mesh, chain_axis)
+        metrics = gather_metrics(per_shard, mesh, chain_axis)
+        if mesh.transport is not None:
+            mesh.transport.settle()
+        return states, metrics
 
+    run.mesh = mesh  # with its transport: what the caller's own collectives go through
+    run.close = lambda: mesh.transport.close() if mesh.transport is not None else None
     return run

@@ -16,6 +16,13 @@ resume bitwise (in this package or the JAX one).
 of ``parallel.halo`` / ``parallel.gauge_halo`` run the frames.  The state is
 then a list of per-shard states inside the loop; checkpoints are of the
 whole-state kind (gathered first), and the result carries the whole state.
+On a mesh across processes (``parallel.distributed.global_mesh``) every
+process runs the same loop on its own shards, as the JAX package's SPMD
+program does: a fresh start builds the whole state from the seed in every
+process and keeps its shards, checkpoints are sharded (``io.checkpoint.
+save_sharded``, one file a process), every process writes the same records
+(the per-chain scalars and metrics reach each of them), and the result
+carries this process's per-shard states.
 """
 
 from __future__ import annotations
@@ -200,16 +207,18 @@ def _check_mesh_cfg(cfg, mesh) -> bool:
 
 class _SplitState:
     """A run loop's view of a state that is a list of per-shard states, of
-    class ``cls`` split over ``mesh`` as ``cfg`` says; a mesh across
-    processes raises."""
+    class ``cls`` split over ``mesh`` as ``cfg`` says.  A mesh across
+    processes gathers its per-chain scalars in every process and never its
+    lattice; chain runs refuse it."""
 
     def __init__(self, cls, cfg, mesh, device, scalars):
-        if mesh.process_count > 1:
+        if mesh.process_count > 1 and cls is langevin.ChainState:
             raise ValueError(
-                "the runners run in one process (as the JAX package's run_chain): across "
-                "processes each runs chain_kernel.run_frames_kernel(..., chain_offset=) on its "
-                "part of the chains (parallel.distributed.process_local_chains) and saves with "
-                "io.checkpoint.save_sharded")
+                "a chain run's shards run in one process (as the JAX package's run_chain): "
+                "across processes each runs chain_kernel.run_frames_kernel(..., chain_offset=) "
+                "on its part of the chains (parallel.distributed.process_local_chains) and saves "
+                "with io.checkpoint.save_sharded")
+        self.across = mesh.process_count > 1
         self.spec = mesh_mod.state_spec(cls, cfg)
         self.mesh, self.device, self._scalars = mesh, device, scalars
 
@@ -230,9 +239,23 @@ class _SplitState:
         return mesh_mod.gather_state(shards, self.spec, self.mesh, self.device)
 
     def scalars(self, shards):
-        """The per-chain leaves a frame record reads; the lattice is ``None``."""
-        return mesh_mod.gather_state(shards, self.spec, self.mesh, self.device,
-                                     only=self._scalars)
+        """The per-chain leaves a frame record reads, in every process; the
+        lattice is ``None``."""
+        return mesh_mod.gather_scalars(shards, self.spec, self.mesh, self._scalars, self.device)
+
+    def finish(self, shards, cfg, checkpoint_out, frames_done):
+        """The result's state, checkpointed to ``checkpoint_out``: the whole
+        state in one process; across processes this process's shards, each
+        process writing its sharded file."""
+        if self.across:
+            if checkpoint_out:
+                ckpt_mod.save_sharded(checkpoint_out, shards, cfg, self.mesh,
+                                      frames_done=frames_done)
+            return shards
+        state = self.whole(shards)
+        if checkpoint_out:
+            ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
+        return state
 
 
 def _check_chain_mesh(cfg: ChainConfig, mesh) -> bool:
@@ -358,8 +381,8 @@ def run_chain(
             break
 
     if split:
-        state = split.whole(state)
-    if checkpoint_out:
+        state = split.finish(state, cfg, checkpoint_out, frames_done)
+    elif checkpoint_out:
         ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
     summary = sink.summary()
     sink.emit(summary)
@@ -534,6 +557,10 @@ def run_field(
     timed on the card (``kernels.autotune``) and recorded; on the plain path
     they resolve to the kernels' defaults, recorded with why.  A sharded
     checkpoint resumes under a mesh, block by block; without one it raises.
+    On a mesh across processes (``parallel.distributed.global_mesh``) every
+    process calls this with the same arguments: each runs its shards, writes
+    the same records and its own sharded checkpoint, and gets its per-shard
+    states back (``exchange_steps=0`` on the kernels raises there).
     stop and resume_progress as in :func:`run_chain`."""
     sink = sink or metrics_mod.MetricsSink()
     act = actions_mod.get_field(cfg.action)
@@ -555,6 +582,9 @@ def run_field(
         reason = split_fallback_reason(cfg, backend, mesh)
         device = split.device
         runner_cfg = cfg
+        if cfg.exchange_steps == 0 and route != "torch" and mesh.process_count > 1:
+            raise ValueError("exchange_steps=0 times each W in each process, and processes could "
+                             "pick apart: across processes set cfg.exchange_steps")
         if cfg.exchange_steps == 0:
             record = (autotune.best_exchange_steps(act, cfg, mesh) if route != "torch" else
                       {"type": "autotune",
@@ -564,6 +594,7 @@ def run_field(
             runner_cfg = dataclasses.replace(cfg, exchange_steps=record["exchange_steps"])
             route = select_field_backend(runner_cfg, backend, device, mesh)
         runner = halo_mod.make_halo_runner(act, runner_cfg, mesh, backend=route)
+        split.mesh = runner.mesh  # the records' gathers go through the runner's transport
     if reason:
         sink.emit({"type": "backend_fallback", "backend": route, "reason": reason})
 
@@ -589,7 +620,6 @@ def run_field(
             return field_kernel_nd.run_field_frames_nd(state, act, cfg, n, tile_rows=tile_rows)
         return field_mod.run_field_frames(state, act, cfg, n)
 
-    whole = split.whole if split else (lambda s: s)
     frames_done = (
         _frames_already_done(state[0] if split else state, cfg, checkpoint_in)
         if (resume_progress and checkpoint_in)
@@ -629,8 +659,10 @@ def run_field(
         if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, mesh):
             break
 
-    state = whole(state)
-    if checkpoint_out:
+    if split:
+        runner.close()
+        state = split.finish(state, cfg, checkpoint_out, frames_done)
+    elif checkpoint_out:
         ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
     summary = sink.summary()
     sink.emit(summary)
@@ -790,6 +822,7 @@ def run_gauge(
     :func:`select_gauge_backend`.  One metrics record per frame, as in the
     JAX package's runner, so ``frames_per_launch`` batches only the burn-in
     (kernel 11 there, kernel 10 + the PyTorch epilogue per recorded frame).
+    Across processes as :func:`run_field` (``measure_loops`` raises there).
     stop and resume_progress as in :func:`run_chain`."""
     sink = sink or metrics_mod.MetricsSink()
     split = None
@@ -801,6 +834,9 @@ def run_gauge(
     else:
         split = _SplitState(gauge_mod.GaugeState, cfg, mesh, _mesh_device(mesh, device),
                             ("plaq_mean",))
+        if split.across and cfg.measure_loops:
+            raise ValueError("measure_loops reads the whole lattice every record, which a mesh "
+                             "across processes never gathers: run it in one process")
         route, reason = select_gauge_backend(cfg, backend, device, mesh)
         device = split.device
     if reason:
@@ -810,6 +846,7 @@ def run_gauge(
         make = (gauge_halo_mod.make_gauge_chunk_runner if route == "cuda"
                 else gauge_halo_mod.make_gauge_halo_runner)
         runner = make(act, cfg, mesh)
+        split.mesh = runner.mesh  # the records' gathers go through the runner's transport
 
     fields = ("group", "shape", "n_chains")
     if split:
@@ -828,7 +865,6 @@ def run_gauge(
                 state, act, cfg, n, frames_per_launch=min(cfg.frames_per_launch, n))
         return gauge_mod.run_gauge_frames(state, act, cfg, n)
 
-    whole = split.whole if split else (lambda s: s)
     frames_done = (
         _frames_already_done(state[0] if split else state, cfg, checkpoint_in)
         if (resume_progress and checkpoint_in)
@@ -846,7 +882,7 @@ def run_gauge(
         state, m = run_n(state, 1)
         frames_done += 1
         # the Polyakov loop reads the whole lattice; the plaquette only a scalar
-        view = state if not split else (whole(state) if cfg.measure_loops
+        view = state if not split else (split.whole(state) if cfg.measure_loops
                                         else split.scalars(state))
         plaq = complex(view.plaq_mean.mean())
         obs = {
@@ -875,8 +911,10 @@ def run_gauge(
         if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, mesh):
             break
 
-    state = whole(state)
-    if checkpoint_out:
+    if split:
+        runner.close()
+        state = split.finish(state, cfg, checkpoint_out, frames_done)
+    elif checkpoint_out:
         ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
     if cfg.measure_loops:
         rmax = max(1, min(4, min(cfg.shape) // 2))

@@ -158,6 +158,7 @@ def test_port_imports_without_jax_or_triton():
         "import stochquant_tpu_torch.integrators.complex_langevin\n"
         "import stochquant_tpu_torch.integrators.complex_field\n"
         "import stochquant_tpu_torch.parallel.distributed, stochquant_tpu_torch.kernels.autotune\n"
+        "import stochquant_tpu_torch.parallel.ipc\n"
         "import stochquant_tpu_torch.io.reference_fmt, stochquant_tpu_torch.viz\n"
         "import stochquant_tpu_torch.observables.analysis, stochquant_tpu_torch.timing\n"
         "import stochquant_tpu_torch.observables.exact, stochquant_tpu_torch.oracle\n"
@@ -220,6 +221,7 @@ def test_split_lattice_modules_import_where_jax_is_blocked():
         "import stochquant_tpu_torch.integrators.complex_langevin\n"
         "import stochquant_tpu_torch.integrators.complex_field\n"
         "import stochquant_tpu_torch.parallel.distributed, stochquant_tpu_torch.kernels.autotune\n"
+        "import stochquant_tpu_torch.parallel.ipc\n"
         "import stochquant_tpu_torch.io.reference_fmt, stochquant_tpu_torch.viz\n"
         "import stochquant_tpu_torch.observables.analysis, stochquant_tpu_torch.timing\n"
         "import stochquant_tpu_torch.observables.exact, stochquant_tpu_torch.oracle\n"

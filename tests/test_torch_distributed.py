@@ -164,28 +164,15 @@ def test_one_process_and_the_split_of_the_chains(monkeypatch):
         mesh_mod.gather_chain_state([None] * 4, mesh)
 
 
-@pytest.mark.parametrize("runner", ["chain", "field", "gauge"])
+@pytest.mark.parametrize("runner", ["chain"])
 def test_runners_refuse_a_mesh_across_processes(monkeypatch, runner):
-    """A runner holds every shard of its mesh in one process: a mesh across
-    processes (here rank 1 of 2) is refused by name before any shard runs."""
+    """A chain run holds every shard of its mesh in one process: a mesh across
+    processes (here rank 1 of 2) is refused by name before any shard runs.
+    (Field and gauge runs cross processes: tests/test_torch_process_*.py.)"""
     from stochquant_tpu_torch import metrics, runtime
-    from stochquant_tpu_torch.config import FieldConfig
-    from stochquant_tpu_torch.integrators.gauge import GaugeConfig
 
     monkeypatch.setattr(distributed, "rank_and_size", lambda: (1, 2))
-    if runner == "chain":
-        mesh = distributed.global_mesh([("chain", 4)], devices="cpu")
-        run = lambda: runtime.run_chain(SPLIT, mesh=mesh, sink=metrics.MetricsSink())
-    elif runner == "field":
-        mesh = distributed.global_mesh([("x", 2)], devices="cpu")
-        cfg = FieldConfig(action="phi4", shape=(8, 8), n_chains=2, loops=2, frames=1,
-                          mesh_axes=("x", None))
-        run = lambda: runtime.run_field(cfg, mesh=mesh, sink=metrics.MetricsSink())
-    else:
-        mesh = distributed.global_mesh([("x", 2)], devices="cpu")
-        cfg = GaugeConfig(group="u1", beta=1.0, shape=(8, 8), n_chains=2, loops=2, frames=1,
-                          mesh_axes=("x", None))
-        run = lambda: runtime.run_gauge(cfg, mesh=mesh, sink=metrics.MetricsSink())
+    mesh = distributed.global_mesh([("chain", 4)], devices="cpu")
     assert mesh.process_count == 2
     with pytest.raises(ValueError, match="run in one process"):
-        run()
+        runtime.run_chain(SPLIT, mesh=mesh, sink=metrics.MetricsSink())

@@ -324,7 +324,7 @@ def test_shard_then_gather_is_the_identity_for_a_field_state(mesh_axes, mesh_sha
     back = gather_field_state(shards, mesh, cfg)
     for name, x, y in zip(whole._fields, whole, back):
         assert torch.equal(x, y), name
-    some = mesh_mod.gather_state(shards, mesh_mod.field_state_spec(cfg), mesh, only=("dtau",))
+    some = mesh_mod.gather_scalars(shards, mesh_mod.field_state_spec(cfg), mesh, ("dtau",))
     assert some.phi is None and torch.equal(some.dtau, whole.dtau)
 
 
