@@ -31,7 +31,8 @@ non-zero:
    the detector and the controller settles at 0.95·2e-4.  Then kernel 2 at
    the run's K=2 from its checkpoint, held against its plain version as in 3;
 5. chain timings: MLUPS (chains·sites·loops·frames / s) of the kernel path
-   and of the plain version at the headline and config-2 shapes; the timed
+   and of the plain version at the headline (a frame cut to 250 loops) and
+   config-2 shapes; the timed
    kernel launches (kernel 1 at the headline, kernel 2 at config 2 with
    K=16) are held against their plain versions as in 3;
 6. field kernels vs plain: kernels 3 (``field_frame``), 4
@@ -163,7 +164,8 @@ non-zero:
     9 and 12 on a shard of the final states against their plain versions;
 19. lattice-split timings at those shapes: (link-)MLUPS of every backend
     through the runners (median of 3 reps after a warm-up), the device's idle
-    share and the kernels' own time per launch under ``torch.profiler``, and
+    share and the kernels' own time per launch under ``torch.profiler`` (su3's
+    per-step runner at 10 loops a frame), and
     kernels 9 (with its halo rows, as the runner calls it) and 12 (its
     cluster size printed) alone (CUDA events, each beside the card's SM
     clock) beside their plain versions' wall ms, held against each other.
@@ -183,8 +185,8 @@ non-zero:
 22. the schemes no kernel implements, on the card through the entry points
     (``auto`` records a ``backend_fallback`` and launches no kernel): ``cli
     run --preset quartic_large`` (256 × 1024, the power spectrum: finite,
-    Parseval), ``--preset harmosc --scheme lm`` and ``--scheme exact``,
-    ``--preset phi4_2d --scheme exact`` (ETD1) and ``runtime.run_field`` on a
+    Parseval), ``--preset harmosc --scheme lm`` and ``--scheme exact`` (these
+    three at ``--loops 250``), ``--preset phi4_2d --scheme exact`` (ETD1) and ``runtime.run_field`` on a
     free field under ``Scheme.EXACT`` (⟨φ²⟩ against the lattice's exact
     value); resumes bitwise; then each at a small size on the card against
     the CPU run of the same code (float leaves within 2e-5, chains under
@@ -226,7 +228,7 @@ non-zero:
     run`` on every complex preset (``complex_gaussian``, ``complex_quartic``,
     ``complex_chain``, ``complex_field_2d``) and complexified gauge preset
     (``cu1_2d_complex``, ``csu3_2d_complex``, with gauge cooling) at its JAX
-    width: burn 1 + 2 frames, ``--resume`` for 1, an uninterrupted burn 1 +
+    width (csu3 at ``--loops 20``): burn 1 + 2 frames, ``--resume`` for 1, an uninterrupted burn 1 +
     3, the resume bitwise, the records finite with the JAX runner's keys,
     every kernel counter at 0, ``auto`` on the gauge presets recording its
     ``backend_fallback``; each family at a small size on the card against
@@ -298,8 +300,30 @@ non-zero:
     number of processes; ms a frame beside the one-process run's and the
     transport's set-up seconds a process.
 
-Every timing phase ([5], [9], [12], [15], [19], [22], [23], [26], [27], [28], [30]) and [29] end
-with the range of the card's SM clock, power draw and temperature sampled while it ran.
+31. loop observables and the W autotune across processes, and the example
+    workflows (``phase_loops_autotune_examples``): (a) gauge u1 256² × 32
+    loops 100 and su3 64² × 8 loops 50 at x = 2 on the chunk runner (kernel
+    12) with ``measure_loops`` over two processes and in one process on the
+    same mesh shape: every frame record (plaquette, the shard-local Polyakov
+    loop) and the final ``wilson_loops`` record bitwise across the two, the
+    links bitwise the unsplit kernel-10 run's and the records within rtol
+    3e-5 / atol 3e-6 of it; the ms a frame with and without the loops, the
+    two loop calls alone and, on the same links, the gather of the whole
+    lattice with the unsplit Polyakov loop and the unsplit table (the
+    one-process path before the loops were shard-local); (b) field 256² × 16 loops 50 at x = 2 with
+    ``exchange_steps=0`` over two processes on ``cuda`` (kernel 7) and
+    ``auto`` + ``prefer_rdma`` (kernel 8 over IPC): one ``autotune`` record,
+    the same in both processes (the second run from the cache), and shards,
+    decisions and records bitwise the one-process run at the picked W; (c)
+    ``python -m stochquant_tpu_torch.examples.<name>`` for the five example
+    workflows at the JAX scripts' sizes, each in its own process (started
+    together), with their printed results and launches: kernel 1
+    (``energy_gap``), 3 (``binder_crossing``, ``phi4_phase_scan``), 6 and 7
+    (``sharded_4d_scaling``), none (``scheme_bias_ladder``).
+
+Every timing phase ([5], [9], [12], [15], [19], [22], [23], [26], [27], [28], [30], [31]) and
+[29] end with the range of the card's SM clock, power draw and temperature sampled while it
+ran; every phase from [3] on with its wall time.
 
 ``python3 chip_smoke.py --log PATH`` also writes every printed line to PATH.
 
@@ -311,8 +335,9 @@ TPU kernel it replaces, main-path launches, max|Δ|, ms and plain ms at the
 timed shape, the bound: the least ms the card could take for that launch,
 the resource that binds it, and the ms of one PyTorch call computing the
 same function, null where there is none; kernel 8 also its launches in
-[30]'s processes), [30]'s ms a frame and set-up seconds, then the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.
+[30]'s processes), [30]'s ms a frame and set-up seconds, [31]'s loop costs,
+autotune record and example results, then the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -484,13 +509,27 @@ def kernel_bounds() -> dict:
 
 
 LOG_FILE = None  # with --log PATH: every printed line goes there too
+PHASE = {"label": None, "t0": 0.0}  # the phase from [3] on whose header was logged last
 
 
 def log(msg: str) -> None:
+    """Print ``msg`` (and copy it to the log file).  A phase header from [3]
+    on first closes the phase before it with its wall time."""
+    head = msg.split(" ", 1)[0]
+    if head[:1] == "[" and head[1:-1].isdigit() and int(head[1:-1]) >= 3:
+        end_phase()
+        PHASE.update(label=head, t0=time.perf_counter())
     print(msg, flush=True)
     if LOG_FILE is not None:
         LOG_FILE.write(msg + "\n")
         LOG_FILE.flush()
+
+
+def end_phase() -> None:
+    """Log the wall time of the open phase, if any, and close it."""
+    label, PHASE["label"] = PHASE["label"], None
+    if label is not None:
+        log(f"  {label} wall time {time.perf_counter() - PHASE['t0']:.1f} s")
 
 
 def resource_summary(nvcc_log: str, names) -> list:
@@ -869,12 +908,20 @@ def timed(torch, fn) -> float:
     return time.perf_counter() - t0
 
 
+#: micro-steps of the plain frames timed for a rate alone ([5] at the headline's
+#: width; [22]'s plain-scheme CLI runs): the rate of a host-paced loop at a
+#: quarter of the presets' 1000, to keep the script inside its time budget
+PLAIN_FRAME_LOOPS = 250
+
+
 def phase_timings(torch, device, ck, langevin, actions, cfgmod, card: str) -> dict:
     """MLUPS of the kernel path (median of 3 reps after a warm-up that lets
     the Δτ controller settle), then each kernel alone and its plain version
     on the same warmed states: kernel 1 at the headline, kernel 2 (K=16) at
     config 2.  A cold start is not timed: its first frame trips the detector
     and the frozen chains leave the kernel early."""
+    import dataclasses
+
     ChainConfig, bc, form = cfgmod.ChainConfig, cfgmod.BoundaryCondition, cfgmod.Formulation
     out, warm = {}, {}
 
@@ -932,13 +979,15 @@ def phase_timings(torch, device, ck, langevin, actions, cfgmod, card: str) -> di
             f"3), plain version {out[kname + '_plain_ms']:.1f} ms (once), at C={cfg.n_chains} "
             f"N={cfg.n_sites} loops={cfg.loops} K={K} [{card}]")
 
-    # the plain path's MLUPS: one full frame (frame sums + epilogue) at the headline
+    # the plain path's MLUPS: one frame (frame sums + epilogue) at the headline's
+    # width, cut to PLAIN_FRAME_LOOPS micro-steps (a rate of a host-paced loop)
     for name in ("headline_threefry", "headline_threefry13"):
         cfg, act, state = warm[name]
-        t = timed(torch, lambda: langevin.run_frames(state, act, cfg, 1))
-        out[name + "_plain_mlups"] = mlups(cfg, 1, t)
-        log(f"  {name + ' plain':26s} {out[name + '_plain_mlups']:.2f} MLUPS (1 frame, "
-            f"{t:.3f}s) [{card}]")
+        cut = dataclasses.replace(cfg, loops=PLAIN_FRAME_LOOPS)
+        t = timed(torch, lambda: langevin.run_frames(state, act, cut, 1))
+        out[name + "_plain_mlups"] = mlups(cut, 1, t)
+        log(f"  {name + ' plain':26s} {out[name + '_plain_mlups']:.2f} MLUPS (1 frame of "
+            f"{cut.loops} loops, {t:.3f}s) [{card}]")
     out["config2_plain_mlups"] = mlups(config2, 16, out["chain_frames_multi_plain_ms"] / 1e3)
     log(f"  {'config2 plain':26s} {out['config2_plain_mlups']:.2f} MLUPS (16 frames, "
         f"chain_frames_multi_ref) [{card}]")
@@ -2253,11 +2302,14 @@ RUNNER_KERNELS = ("void field_halo_step_kernel", "void gauge_chunk_kernel",
                   "void field_nd_kernel")  # kernels 7 and 8 share field_nd_kernel
 
 
+PROFILED_FRAMES = 2  # time_runner: frames under torch.profiler (its events cost host time)
+
+
 def time_runner(torch, out: dict, card: str, key, label, runner, shards, frames, ups, profile):
     """(Link-)MLUPS of a split runner into ``out[key]``: a warm-up frame, the
-    median of 3 reps of ``frames``, then (``profile``) the same frames under
-    torch.profiler for the device's idle share and the runner's own kernel's
-    device time per launch.  Returns the shards after the warm-up."""
+    median of 3 reps of ``frames``, then (``profile``) up to PROFILED_FRAMES
+    more under torch.profiler for the device's idle share and the runner's own
+    kernel's device time per launch.  Returns the shards after the warm-up."""
     shards, _ = runner(shards, 1)  # warm-up
     reps = []
     for _ in range(3):
@@ -2270,10 +2322,11 @@ def time_runner(torch, out: dict, card: str, key, label, runner, shards, frames,
            f"{t / frames * 1e3:.3f} ms per frame; reps {[round(r, 4) for r in reps]}; stable "
            f"{stable:.4f})")
     if profile:
-        wall, busy, rows = device_profile(torch, lambda: runner(shards, frames))
+        pf = min(frames, PROFILED_FRAMES)
+        wall, busy, rows = device_profile(torch, lambda: runner(shards, pf))
         out[key]["idle"] = 1.0 - busy / wall
-        msg += (f"; {frames} more under torch.profiler: device busy {busy / frames * 1e3:.3f} "
-                f"of {wall / frames * 1e3:.3f} ms wall per frame, idle {out[key]['idle']:.1%}")
+        msg += (f"; {pf} more under torch.profiler: device busy {busy / pf * 1e3:.3f} "
+                f"of {wall / pf * 1e3:.3f} ms wall per frame, idle {out[key]['idle']:.1%}")
     log(msg + f" [{card}]")
     if profile:
         for kname, sec, calls in rows[:4]:
@@ -2284,6 +2337,9 @@ def time_runner(torch, out: dict, card: str, key, label, runner, shards, frames,
                 log(f"      {kname[5:33]}: {sec / calls * 1e6:.2f} µs of device time per "
                     f"launch over {calls} launches (profiler)")
     return shards
+
+
+SU3_STEP_LOOPS = 10  # [19]: the loops a frame of su3's timed per-step runner
 
 
 def phase_split_timings(torch, mods, card: str) -> dict:
@@ -2359,17 +2415,21 @@ def phase_split_timings(torch, mods, card: str) -> dict:
         cfg = gauge.GaugeConfig(**BENCH_GAUGE[group], mesh_axes=("x", None))
         act = gauge.resolve_gauge_action(cfg)
         s0 = gauge.init_gauge_state(cfg, act, device=dev)
-        ups = link_updates(cfg, 1)
-        where = f"gauge {group} {cfg.shape} x {cfg.n_chains} loops {cfg.loops}"
         for mname, kind, frames in (("x=2", "chunk", 3), ("x=1", "chunk", 3), ("x=2", "halo", 1)):
             if group == "su3" and mname == "x=1":
                 continue
+            # su3's per-step runner (~6 s a frame of 50 loops, host-paced): its rate
+            # from frames of SU3_STEP_LOOPS, to keep the script inside its time budget
+            run_cfg = (dataclasses.replace(cfg, loops=SU3_STEP_LOOPS)
+                       if (group, kind) == ("su3", "halo") else cfg)
+            where = f"gauge {group} {cfg.shape} x {cfg.n_chains} loops {run_cfg.loops}"
             mesh = meshes[mname]
             make = (gauge_halo.make_gauge_chunk_runner if kind == "chunk"
                     else gauge_halo.make_gauge_halo_runner)
             got = run_timed(f"split_gauge_{group}_{mname}_{kind}", f"{where}, {mname}, {kind} runner",
-                            make(act, cfg, mesh), parallel.shard_gauge_state(s0, act, mesh, cfg),
-                            frames, ups, profile=kind == "chunk")
+                            make(act, run_cfg, mesh),
+                            parallel.shard_gauge_state(s0, act, mesh, run_cfg), frames,
+                            link_updates(run_cfg, 1), profile=kind == "chunk")
             if (mname, kind) == ("x=2", "chunk"):
                 shards = got
         loc0 = cfg.shape[0] // 2
@@ -2655,7 +2715,8 @@ def card_vs_cpu(torch, label: str, run, tol: float, card: str, sums=()) -> None:
 def phase_plain_schemes(torch, mods, tmp: Path, card: str) -> dict:
     """The schemes no kernel implements (in either package), at full width on
     the card through the entry points: `cli run` on quartic_large (the power
-    spectrum), harmosc with --scheme lm and --scheme exact, phi4_2d with
+    spectrum), harmosc with --scheme lm and --scheme exact (these three at
+    PLAIN_FRAME_LOOPS micro-steps a frame), phi4_2d with
     --scheme exact (ETD1), and `runtime.run_field` on a free field under
     Scheme.EXACT.  `auto` must record why it runs the plain integrator and
     launch no kernel; a resume equals the uninterrupted run; then each at a
@@ -2708,7 +2769,8 @@ def phase_plain_schemes(torch, mods, tmp: Path, card: str) -> dict:
         return straight, cfg
 
     # quartic_large: the power-spectrum channel
-    state, cfg = cli_runs("ql", ["--preset", "quartic_large"], ())
+    cut = ["--loops", str(PLAIN_FRAME_LOOPS)]  # full width, a quarter of the frame's depth
+    state, cfg = cli_runs("ql", ["--preset", "quartic_large", *cut], ())
     spec = state.spec_mean.double()
     if not (torch.isfinite(spec).all() and float(spec.min()) >= 0 and float(spec.max()) > 0):
         raise SystemExit("quartic_large: the power spectrum is not finite and non-negative")
@@ -2730,7 +2792,7 @@ def phase_plain_schemes(torch, mods, tmp: Path, card: str) -> dict:
     for scheme, tol, more in (("lm", PLAIN_TOL, ["--dtau", "2e-3"]),
                               ("exact", PLAIN_TOL_EXACT, [])):
         state, cfg = cli_runs("h" + scheme, ["--preset", "harmosc", "--chains", "256",
-                                             "--scheme", scheme, *more], ())
+                                             "--scheme", scheme, *more, *cut], ())
         for name in ("f", "x_mean", "x2_mean", "x4_mean"):
             if not torch.isfinite(getattr(state, name)).all():
                 raise SystemExit(f"harmosc --scheme {scheme}: non-finite {name}")
@@ -3123,6 +3185,9 @@ def phase_rdma_timings(torch, mods, card: str) -> dict:
 
 CL_PRESETS = ("complex_gaussian", "complex_quartic", "complex_chain", "complex_field_2d",
               "cu1_2d_complex", "csu3_2d_complex")
+#: csu3 (~4,800 aten ops a micro-step) through the CLI at its width and a fifth of its
+#: preset's 100 loops a frame, to keep the script inside its time budget
+CL_CLI_DEPTH = {"csu3_2d_complex": ["--loops", "20"]}
 CL_KEYS = ("re_z2", "im_z2", "drift_max")  # stochquant_tpu/runtime.py:283-287
 CL_GAUGE_KEYS = ("plaquette", "plaquette_exact_2d", "drift_max", "plaquette_im",
                  "plaquette_exact_2d_im", "unitarity_norm")  # stochquant_tpu/runtime.py:418-436
@@ -3158,7 +3223,8 @@ def phase_complex_langevin(torch, mods, tmp: Path, card: str) -> dict:
     # 1. each preset at its width through the CLI
     for preset in CL_PRESETS:
         is_gauge = preset in cli.GAUGE_PRESETS
-        common = ["run", "--preset", preset, "--device", "cuda"]
+        depth = CL_CLI_DEPTH.get(preset, [])
+        common = ["run", "--preset", preset, "--device", "cuda", *depth]
         paths = {p: (str(tmp / f"cl_{preset}_{p}.npz"), str(tmp / f"cl_{preset}_{p}.jsonl"))
                  for p in "abc"}
 
@@ -3170,8 +3236,8 @@ def phase_complex_langevin(torch, mods, tmp: Path, card: str) -> dict:
             cli.main(common + ["--burn", "1", "--frames", "3", "--out", paths["c"][0],
                                "--metrics", paths["c"][1]])
 
-        counted(torch, counters, {}, f"cli run --preset {preset} (burn 1 + 2, resume 1, "
-                f"burn 1 + 3 frames)", three_runs)
+        counted(torch, counters, {}, f"cli run --preset {' '.join([preset, *depth])} (burn 1 "
+                f"+ 2, resume 1, burn 1 + 3 frames)", three_runs)
         for part in "abc":
             recs = records(paths[part][1])
             if is_gauge:
@@ -3696,10 +3762,11 @@ print("WORKER " + json.dumps(report), flush=True)
 """
 
 
-def spawn_lattice_workers(tmp: Path, tag: str, world: int, jobs: list, limit: float) -> list:
-    """``world`` processes of [30] on the card running ``jobs``; each must
-    exit 0 within ``limit`` seconds (a hang is killed and fails the phase).
-    Returns their reports in rank order."""
+def spawn_lattice_workers(tmp: Path, tag: str, world: int, jobs: list, limit: float,
+                          phase: str = "[30]") -> list:
+    """``world`` processes of [30] (or ``phase``) on the card running ``jobs``;
+    each must exit 0 within ``limit`` seconds (a hang is killed and fails the
+    phase).  Returns their reports in rank order."""
     import os
 
     script = tmp / "lattice_worker.py"
@@ -3716,7 +3783,7 @@ def spawn_lattice_workers(tmp: Path, tag: str, world: int, jobs: list, limit: fl
         for p in procs:
             outs.append(p.communicate(timeout=limit)[0])
     except subprocess.TimeoutExpired:
-        raise SystemExit(f"[30]({tag}): a worker did not finish within {limit:g} s")
+        raise SystemExit(f"{phase}({tag}): a worker did not finish within {limit:g} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -3726,7 +3793,7 @@ def spawn_lattice_workers(tmp: Path, tag: str, world: int, jobs: list, limit: fl
     for r, (p, out) in enumerate(zip(procs, outs)):
         line = next((ln for ln in out.splitlines() if ln.startswith("WORKER ")), None)
         if p.returncode != 0 or line is None:
-            raise SystemExit(f"[30]({tag}) rank {r} failed ({p.returncode}):\n{out[-4000:]}")
+            raise SystemExit(f"{phase}({tag}) rank {r} failed ({p.returncode}):\n{out[-4000:]}")
         reports.append(json.loads(line[len("WORKER "):]))
     return reports
 
@@ -3888,6 +3955,265 @@ def preset_width(cfg) -> str:
     shape = tuple(s for s in shape if s is not None)
     return f"{cfg.n_chains} chains" + (f" x {'x'.join(map(str, shape))}" if shape else "")
 
+
+
+# ---------------------------------------------------------------------------
+# [31] loop observables and the W autotune across processes, the examples
+# ---------------------------------------------------------------------------
+
+LOOPS_RTOL, LOOPS_ATOL = 3e-5, 3e-6  # shard-local loops vs the unsplit run: site means
+#: one example workflow, run as ``python -m`` runs it (``--device`` at its
+#: default, cuda), with the launch counters at 0 before it and read after
+EXAMPLE_RUNNER = r"""
+import json, runpy, sys, time
+import torch
+from stochquant_tpu_torch.kernels import chain_kernel as ck, field_kernel as fk
+from stochquant_tpu_torch.kernels import field_kernel_nd as nd
+
+counters = {"chain_frame": ck.chain_frame, "chain_frames_multi": ck.chain_frames_multi,
+            "field_frame": fk.field_frame, "field_frames_multi": fk.field_frames_multi,
+            "field_pair_nd": nd.field_pair_nd, "field_chunk_nd": nd.field_chunk_nd}
+for c in counters.values():
+    c.launches = 0
+name = "stochquant_tpu_torch.examples." + sys.argv[1]
+sys.argv = [name]
+t0 = time.perf_counter()
+runpy.run_module(name, run_name="__main__", alter_sys=True)
+torch.cuda.synchronize()
+assert "jax" not in sys.modules and "stochquant_tpu" not in sys.modules
+print("EXAMPLE " + json.dumps({"seconds": time.perf_counter() - t0, "launches": {
+    k: c.launches for k, c in counters.items() if c.launches}}), flush=True)
+"""
+#: the kernels each example must launch on the card (none: the plain schemes)
+EXAMPLE_KERNELS = {"energy_gap": ("chain_frame",), "binder_crossing": ("field_frame",),
+                   "phi4_phase_scan": ("field_frame",), "scheme_bias_ladder": (),
+                   "sharded_4d_scaling": ("field_pair_nd", "field_chunk_nd")}
+
+
+def run_examples(tmp: Path, limit: float) -> dict:
+    """The five example modules at their default sizes, each in a process of
+    its own (started together; a failure shows its traceback).  Returns, per
+    example, its printed lines, seconds and launches."""
+    import os
+
+    script = tmp / "example_runner.py"
+    script.write_text(EXAMPLE_RUNNER)
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = {name: subprocess.Popen([sys.executable, str(script), name], env=env,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name in EXAMPLE_KERNELS}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=limit)[0]
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"[31](c): an example did not finish within {limit:g} s")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = {}
+    for name, p in procs.items():
+        lines = outs[name].splitlines()
+        report = next((ln for ln in lines if ln.startswith("EXAMPLE ")), None)
+        if p.returncode != 0 or report is None:
+            raise SystemExit(f"[31](c) {name} failed ({p.returncode}):\n{outs[name][-4000:]}")
+        results[name] = dict(json.loads(report[len("EXAMPLE "):]),
+                             lines=[ln for ln in lines if ln and not ln.startswith("EXAMPLE ")])
+    return results
+
+
+def phase_loops_autotune_examples(torch, mods, tmp: Path, card: str):
+    """[31]: (a) gauge u1 256^2 x 32 loops 100 and su3 64^2 x 8 loops 50 at x
+    = 2 on the chunk runner (kernel 12) with ``measure_loops``, over two
+    processes and in one process on the same mesh shape: every record (the
+    plaquette, the shard-local Polyakov loop a frame, the final Wilson
+    table) bitwise across the two, and both within the site-mean bar of the
+    unsplit run's (kernel 10); the loops' ms a record beside the same run
+    without them; (b) field 256^2 x 16 loops 50 at x = 2 with
+    ``exchange_steps=0`` over two processes on ``cuda`` (kernel 7) and
+    ``auto`` + ``prefer_rdma`` (kernel 8 over IPC): one ``autotune`` record
+    in every process, and the joined run bitwise the one-process run at the
+    W it picked; (c) the five example modules at their default sizes, each in
+    its own process, through kernels 1, 3, 6 and 7 (none for the plain
+    schemes).  Returns (launches of the main paths, timings)."""
+    import dataclasses
+
+    runtime, metrics, cfgmod = mods["runtime"], mods["metrics"], mods["cfgmod"]
+    gauge, parallel, mesh_mod, counters = (mods[k] for k in ("gauge", "parallel", "mesh_mod",
+                                                             "counters"))
+    from stochquant_tpu_torch.observables import gauge_loops
+
+    x2 = [("x", 2)]
+    u1 = gauge.GaugeConfig(**BENCH_GAUGE["u1"], frames=3, mesh_axes=("x", None),
+                           measure_loops=True)
+    su3 = gauge.GaugeConfig(**BENCH_GAUGE["su3"], frames=3, mesh_axes=("x", None),
+                            measure_loops=True)
+    field = cfgmod.FieldConfig(**SPLIT_FIELD, frames=3, mesh_axes=("x", None), exchange_steps=0)
+    rdma = dataclasses.replace(field, prefer_rdma=True)
+
+    def job(name, kind, backend, cfg):
+        return {"name": name, "kind": kind, "mesh": x2, "backend": backend, "cfg": cfg.to_json(),
+                "slab": [cfg.n_chains, cfg.shape[0] // 2, *cfg.shape[1:]]}
+
+    jobs = [job("a u1 loops", "gauge", "cuda", u1), job("a su3 loops", "gauge", "cuda", su3),
+            job("b cuda W=0", "field", "cuda", field), job("b rdma W=0", "field", "auto", rdma)]
+    t0 = time.perf_counter()
+    reports = spawn_lattice_workers(tmp, "loops_w", 2, jobs, 420, phase="[31]")
+    log(f"  [31] the workers took {time.perf_counter() - t0:.1f} s")
+
+    def joined(name):
+        parts = [torch.load(tmp / f"{name}.rank{r}.pt", weights_only=False) for r in range(2)]
+        return [s for p in parts for s in p["shards"]], [p["records"] for p in parts]
+
+    def run(cfg, backend, **kw):
+        recs = []
+        for c in counters.values():
+            c.launches = 0
+        res = (runtime.run_field if isinstance(cfg, cfgmod.FieldConfig) else runtime.run_gauge)(
+            cfg, backend=backend, sink=metrics.MetricsSink(callback=recs.append), **kw)
+        torch.cuda.synchronize()
+        return res, recs, {k: c.launches for k, c in counters.items() if c.launches}
+
+    def same_shards(label, got, state, cfg, mesh):
+        want = mesh_mod.shard_state(state, mesh_mod.state_spec(type(state), cfg), mesh)
+        for g, w in zip(got, want):
+            for name in w._fields:
+                if not torch.equal(g[name], getattr(w, name).cpu()):
+                    raise SystemExit(f"[31] {label}: {name} is not bitwise the one-process run's")
+
+    def check_launches(label, per, want, at_least=False):
+        for rank, p in enumerate(per):
+            exp = {k: v // 2 for k, v in want.items()}
+            ok = (all(p.get(k, 0) >= v for k, v in exp.items()) if at_least else p == exp)
+            if not ok:
+                raise SystemExit(f"[31] {label} rank {rank}: launches {p}, expected "
+                                 f"{'at least ' if at_least else ''}{exp}")
+
+    launches, timings = collections.Counter(), {}
+    mesh = parallel.make_mesh(x2, devices="cuda:0")
+    # (a) the loop observables, shard-local, across processes and in one
+    for name, cfg in (("a u1 loops", u1), ("a su3 loops", su3)):
+        group = cfg.group
+        res, recs, one_launches = run(cfg, "cuda", mesh=mesh)
+        check_records(recs, f"[31] {name}, one process", ("plaquette", "polyakov_re",
+                                                          "polyakov_im"))
+        got, worker_recs = joined(name)
+        same_shards(name, got, res.state, cfg, mesh)
+        for r in worker_recs:
+            same_records(f"[31] {name} across processes", r, recs)
+        per = [r["jobs"][name]["launches"] for r in reports]
+        check_launches(name, per, one_launches)
+        launches.update(one_launches)
+        for p in per:
+            launches.update(p)
+        whole, unsplit, unsplit_launches = run(
+            dataclasses.replace(cfg, mesh_axes=None), "auto", device="cuda:0")
+        if not unsplit_launches.get("gauge_frame"):
+            raise SystemExit(f"[31] {name}: the unsplit run did not launch kernel 10")
+        launches.update(unsplit_launches)
+        if not torch.equal(whole.state.links, res.state.links):
+            raise SystemExit(f"[31] {name}: the split links are not bitwise the unsplit run's")
+        frames = [r for r in recs if r["type"] == "frame"]
+        ref_frames = [r for r in unsplit if r["type"] == "frame"]
+        (w_split,) = [r["w"] for r in recs if r["type"] == "wilson_loops"]
+        (w_whole,) = [r["w"] for r in unsplit if r["type"] == "wilson_loops"]
+        pairs = [(f"frame {i} {k}", a[k], b[k]) for i, (a, b) in enumerate(zip(frames, ref_frames))
+                 for k in ("plaquette", "polyakov_re", "polyakov_im")]
+        pairs += [(f"W({i + 1},{j + 1})", a, b) for i, (ra, rb) in enumerate(zip(w_split, w_whole))
+                  for j, (a, b) in enumerate(zip(ra, rb))]
+        worst = max(abs(a - b) - LOOPS_RTOL * abs(b) for _, a, b in pairs)
+        bad = [p for p in pairs if abs(p[1] - p[2]) > LOOPS_ATOL + LOOPS_RTOL * abs(p[2])]
+        if bad or len(frames) != cfg.frames or len(ref_frames) != cfg.frames:
+            raise SystemExit(f"[31] {name}: shard-local loops beyond rtol {LOOPS_RTOL:g}, atol "
+                             f"{LOOPS_ATOL:g} of the unsplit run's: {bad[:4]}")
+        # the loops' cost: the same one-process run without them, and the two calls alone
+        _, plain_recs, _ = run(dataclasses.replace(cfg, measure_loops=False), "cuda", mesh=mesh)
+        spec = mesh_mod.state_spec(type(res.state), cfg)
+        shards = mesh_mod.shard_state(res.state, spec, mesh)
+        links = [s.links for s in shards]
+        act = gauge.resolve_gauge_action(cfg)
+        rmax = max(1, min(4, min(cfg.shape) // 2))
+        poly_ms = cuda_ms(torch, lambda: gauge_loops.split_polyakov_loop(act, links, cfg, mesh),
+                          reps=5)
+        table_ms = cuda_ms(torch, lambda: gauge_loops.split_wilson_loop_table(
+            act, links, cfg, mesh, 0, 1, rmax, rmax), reps=2)
+        # beside them, on the same links, what a one-process mesh run did before
+        # the loops were shard-local: the whole lattice gathered every record and
+        # the unsplit Polyakov loop; the unsplit table on the whole links
+        gathered_ms = cuda_ms(torch, lambda: gauge_loops.polyakov_loop(
+            act, mesh_mod.gather_state(shards, spec, mesh).links, 0), reps=5)
+        whole_table_ms = cuda_ms(torch, lambda: gauge_loops.wilson_loop_table(
+            act, res.state.links, 0, 1, rmax, rmax), reps=2)
+        with_ms, without_ms = frame_ms(recs), frame_ms(plain_recs)
+        timings[f"loops_{group}"] = {"ms_per_frame": with_ms, "ms_per_frame_no_loops": without_ms,
+                                     "polyakov_ms": poly_ms, "wilson_table_ms": table_ms,
+                                     "gathered_polyakov_ms": gathered_ms,
+                                     "whole_wilson_table_ms": whole_table_ms,
+                                     "worst_excess_over_rtol": worst}
+        log(f"  [31](a) {group} {'x'.join(map(str, cfg.shape))} x {cfg.n_chains} loops "
+            f"{cfg.loops}, x = 2, chunk runner: frame and Wilson records bitwise across two "
+            f"processes; within rtol {LOOPS_RTOL:g} / atol {LOOPS_ATOL:g} of the unsplit kernel-10 "
+            f"run (largest |Δ| - rtol·|ref| {worst:.3g}; Polyakov "
+            f"{frames[-1]['polyakov_re']:.6g} {frames[-1]['polyakov_im']:+.6g}i vs "
+            f"{ref_frames[-1]['polyakov_re']:.6g} {ref_frames[-1]['polyakov_im']:+.6g}i; "
+            f"W(1,1) {w_split[0][0]:.7g} vs "
+            f"{w_whole[0][0]:.7g}); launches a process {per[0]}; ms a frame {with_ms:.2f} with "
+            f"the loops, {without_ms:.2f} without; shard-local, the Polyakov loop alone "
+            f"{poly_ms:.3f} ms a record and the Wilson table {table_ms:.3f} ms, against "
+            f"{gathered_ms:.3f} ms for the gather and the unsplit loop and {whole_table_ms:.3f} ms "
+            f"for the unsplit table (CUDA events) [{card}]")
+    # (b) exchange_steps=0 across processes: process 0's pick everywhere
+    picked = []
+    for name, cfg, backend, kernel in (("b cuda W=0", field, "cuda", "field_chunk_nd"),
+                                       ("b rdma W=0", rdma, "auto", "field_chunk_rdma_nd")):
+        got, worker_recs = joined(name)
+        tuned = [[{k: v for k, v in r.items() if k not in TIMING_KEYS}
+                  for r in recs if r["type"] == "autotune"] for recs in worker_recs]
+        if len(tuned[0]) != 1 or tuned[0] != tuned[1]:
+            raise SystemExit(f"[31] {name}: the processes' autotune records differ: {tuned}")
+        record = tuned[0][0]
+        picked.append(record)
+        W = record["exchange_steps"]
+        res, recs, one_launches = run(dataclasses.replace(cfg, exchange_steps=W), backend,
+                                      mesh=mesh)
+        same_shards(name, got, res.state, cfg, mesh)
+        for r in worker_recs:
+            same_records(f"[31] {name} across processes",
+                         [x for x in r if x["type"] != "autotune"], recs)
+        per = [r["jobs"][name]["launches"] for r in reports]
+        # the first job's launches hold its candidates' too; the second reads the cache
+        check_launches(name, per, one_launches, at_least=name.startswith("b cuda"))
+        if not all(p.get(kernel) for p in per):
+            raise SystemExit(f"[31] {name}: {kernel} did not launch in every process")
+        launches.update(one_launches)
+        for p in per:
+            launches.update(p)
+        ms = {k: round(v, 3) for k, v in record.get("candidates_ms", {}).items()}
+        log(f"  [31](b) {name[2:]}: both processes emitted one autotune record, W = {W} "
+            f"(process 0's ms of {record.get('frames')} frames: {ms}); shards, decisions and "
+            f"records bitwise the one-process run at W = {W}; launches a process {per} [{card}]")
+    if picked[0] != picked[1]:
+        raise SystemExit("[31](b): the second run did not take the cached autotune record")
+    timings["autotune_across_processes"] = picked[0]
+    # (c) the example workflows at their default sizes
+    t0 = time.perf_counter()
+    examples = run_examples(tmp, 600)
+    log(f"  [31](c) the five examples took {time.perf_counter() - t0:.1f} s together")
+    for name, out in examples.items():
+        idle = [k for k in EXAMPLE_KERNELS[name] if not out["launches"].get(k)]
+        if idle or (not EXAMPLE_KERNELS[name] and out["launches"]):
+            raise SystemExit(f"[31](c) {name}: launches {out['launches']}, expected "
+                             f"{EXAMPLE_KERNELS[name] or 'none'}")
+        launches.update(out["launches"])
+        log(f"  [31](c) python -m stochquant_tpu_torch.examples.{name}: exit 0, "
+            f"{out['seconds']:.1f} s, launches {out['launches'] or 'none (plain path)'} [{card}]")
+        for line in out["lines"]:
+            log(f"    {line}")
+    timings["examples"] = {k: {"seconds": v["seconds"], "launches": v["launches"],
+                               "lines": v["lines"]} for k, v in examples.items()}
+    return dict(launches), timings
 
 
 def main() -> int:
@@ -4081,7 +4407,6 @@ def main() -> int:
                                       card))
 
     # 24. kernel 8 and the one-step tail vs plain on the card
-    t_rdma = time.perf_counter()
     log(f"[24] kernel 8 (field_chunk_rdma_nd) vs its plain version (φ bitwise; maxima within "
         f"{GATE:g}; sums within rtol {FIELD_RTOL:g}, atol {FIELD_ATOL:g}) and vs kernel 7 on the "
         f"extended block (bitwise); the one-step tail of kernel 6's code and odd-loops frames vs "
@@ -4102,16 +4427,13 @@ def main() -> int:
     log(f"[26] cuda_rdma (kernel 8) beside cuda / cuda_pair (kernel 7) [{card}]:")
     with CardSampler("[26]"):
         t.update(phase_rdma_timings(torch, mods, card))
-    log(f"  phases [24]-[26] took {time.perf_counter() - t_rdma:.1f} s")
 
     with tempfile.TemporaryDirectory() as tmp:
         # 27. complex Langevin: complex actions and complexified gauge groups
-        t_cl = time.perf_counter()
         log(f"[27] complex Langevin on the card (no kernel in either package): cli run on "
             f"{', '.join(CL_PRESETS)}; card vs CPU; known answers; rates [{card}]:")
         with CardSampler("[27]"):
             t.update(phase_complex_langevin(torch, mods, Path(tmp), card))
-        log(f"  phase [27] took {time.perf_counter() - t_cl:.1f} s")
 
     from stochquant_tpu_torch.kernels import autotune
     from stochquant_tpu_torch.parallel import mesh as mesh_mod
@@ -4120,7 +4442,6 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         # 28. chains over a mesh and across processes, sharded checkpoints, autotune,
         # the reference format
-        t_mesh = time.perf_counter()
         log(f"[28] run_chain(mesh=) on the headline (2 shards on cuda:0), two processes (gloo), "
             f"sharded checkpoints, tile_rows=0 / exchange_steps=0, the reference format [{card}]:")
         with CardSampler("[28]"):
@@ -4128,19 +4449,17 @@ def main() -> int:
         t.update(mesh_t)
         for k, v in mesh_launches.items():
             launches[k] = launches.get(k, 0) + v
-        log(f"  phase [28] took {time.perf_counter() - t_mesh:.1f} s; its launches {mesh_launches}")
+        log(f"  [28] its launches {mesh_launches}")
 
     from stochquant_tpu_torch import physics_gates
 
     with tempfile.TemporaryDirectory() as tmp:
         # 29. the physics gates at full width
-        t_phys = time.perf_counter()
         log(f"[29] physics at full width on the card: the JAX package's statistical gates through "
             f"kernels 1-7 and 10 against exact answers [{card}]:")
         with CardSampler("[29]"):
             checks, phys_launches = physics_gates.run_gates(device, Path(tmp), log=log)
-        log(f"  phase [29] took {time.perf_counter() - t_phys:.1f} s: {len(checks)} checks; its "
-            f"launches {phys_launches}")
+        log(f"  [29] {len(checks)} checks; its launches {phys_launches}")
         failed = [c.line() for c in checks if not c.passed]
         if failed:
             raise SystemExit("[29] physics gates failed:\n" + "\n".join(failed))
@@ -4152,15 +4471,24 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         # 30. lattices split across processes on the card
-        t_across = time.perf_counter()
         log(f"[30] lattices split across processes on cuda:0 (gloo for the handles, CUDA IPC and "
             f"stream counters for the data), bitwise the one-process runs [{card}]:")
         with CardSampler("[30]"):
             across_launches, across_t = phase_across_processes(torch, mods, Path(tmp), card)
         for k, v in across_launches.items():
             launches[k] = launches.get(k, 0) + v
-        log(f"  phase [30] took {time.perf_counter() - t_across:.1f} s; its launches "
-            f"{across_launches}")
+        log(f"  [30] its launches {across_launches}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 31. loop observables and the W autotune across processes; the example workflows
+        log(f"[31] measure_loops and exchange_steps=0 across processes on cuda:0, bitwise the "
+            f"one-process runs; the five example workflows at their sizes [{card}]:")
+        with CardSampler("[31]"):
+            p31_launches, p31_t = phase_loops_autotune_examples(torch, mods, Path(tmp), card)
+        for k, v in p31_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"  [31] its launches {p31_launches}")
+    end_phase()
 
     # max_abs_err: the comparisons at the main paths' shapes (chain: headline
     # K=1, main-path state K=2, config 2 K=16; field: 256^2 x 16 K=1 and K=10,
@@ -4244,7 +4572,7 @@ def main() -> int:
                     f"{b / ms:.2%} of the bound's rate [{card}]")
     log(json.dumps({"kernels": kernels, "mlups": {
         k: v["mlups"] for k, v in t.items() if isinstance(v, dict)},
-        "across_processes": across_t}))
+        "across_processes": across_t, "loops_autotune_examples": p31_t}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

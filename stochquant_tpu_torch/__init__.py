@@ -7,6 +7,7 @@ with the JAX package as the reference it is tested against.  Importing the packa
 builds nothing; the kernels are compiled at their first launch.
 """
 
+from stochquant_tpu_torch import rng  # noqa: F401
 from stochquant_tpu_torch.config import (  # noqa: F401
     PRESETS,
     BoundaryCondition,

@@ -58,6 +58,7 @@ __all__ = [
     "init_field_state",
     "field_frame_sums",
     "field_frame_epilogue",
+    "make_field_frame_fn",
     "run_field_frames",
     "susceptibility",
     "binder_cumulant",
@@ -379,14 +380,28 @@ def field_frame_epilogue(state: FieldState, sums: FieldFrameSums, cfg: FieldConf
     return new_state, {"stable": accept, "dtau": dtau, "max_phi": lrg_vl}
 
 
+def make_field_frame_fn(action: FieldAction, cfg: FieldConfig):
+    """Build ``frame(state) -> (state', metrics)``: one frame of ``cfg.loops``
+    micro-steps with accept/reject and adaptive Δτ, on the plain path (the
+    counterpart of the JAX package's ``make_field_frame_fn``).  A config no
+    path runs raises here, before any frame."""
+    check_field_supported(cfg, action)
+
+    def frame(state: FieldState):
+        return field_frame_epilogue(state, field_frame_sums(state, action, cfg), cfg)
+
+    return frame
+
+
 def run_field_frames(state: FieldState, action: FieldAction, cfg: FieldConfig,
                      n_frames: int):
     """``n_frames`` frames in plain PyTorch on the state's device, for any
     lattice dimension.  Returns (final_state, metrics) with metrics stacked
     over frames (n_frames, C)."""
+    frame = make_field_frame_fn(action, cfg)
     per_frame = []
     for _ in range(n_frames):
-        state, m = field_frame_epilogue(state, field_frame_sums(state, action, cfg), cfg)
+        state, m = frame(state)
         per_frame.append(m)
     return state, stack_metrics(per_frame)
 

@@ -54,6 +54,7 @@ __all__ = [
     "exact_propagator_ops",
     "frame_sums",
     "frame_epilogue",
+    "make_frame_fn",
     "run_frames",
     "connected_correlator",
     "translation_averaged_correlator",
@@ -500,6 +501,24 @@ def stack_metrics(per_frame) -> dict:
     return {key: torch.stack([m[key] for m in per_frame]) for key in per_frame[0]}
 
 
+def make_frame_fn(action: QMAction, cfg: ChainConfig, exact_ops=None, chain_offset: int = 0):
+    """Build ``frame(state) -> (state', metrics)``: one macro-step of
+    ``cfg.loops`` micro-steps with accept/reject and adaptive Δτ, on the
+    plain path (the counterpart of the JAX package's ``make_frame_fn``).
+
+    ``exact_ops``: :func:`exact_propagator_ops` for ``Scheme.EXACT``, built
+    once by the caller (:func:`run_frames` does); omitted, ``frame`` derives
+    them from each state it is given.  The rows of a state are the global
+    chains ``chain_offset …``."""
+    check_supported(cfg, action)
+
+    def frame(state: ChainState):
+        return frame_epilogue(
+            state, frame_sums(state, action, cfg, chain_offset, exact_ops=exact_ops), cfg)
+
+    return frame
+
+
 def run_frames(state: ChainState, action: QMAction, cfg: ChainConfig, n_frames: int,
                chain_offset: int = 0):
     """``n_frames`` macro-steps in plain PyTorch on the state's device; the
@@ -507,13 +526,12 @@ def run_frames(state: ChainState, action: QMAction, cfg: ChainConfig, n_frames: 
 
     Returns (final_state, metrics) with metrics stacked over frames (n_frames, C).
     """
-    check_supported(cfg, action)
     exact_ops = (exact_propagator_ops(action, cfg, state.omega, state.dtau)
                  if cfg.scheme == Scheme.EXACT else None)  # eigh once per call
+    frame = make_frame_fn(action, cfg, exact_ops, chain_offset)
     per_frame = []
     for _ in range(n_frames):
-        sums = frame_sums(state, action, cfg, chain_offset, exact_ops=exact_ops)
-        state, m = frame_epilogue(state, sums, cfg)
+        state, m = frame(state)
         per_frame.append(m)
     return state, stack_metrics(per_frame)
 

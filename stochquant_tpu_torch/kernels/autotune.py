@@ -22,7 +22,12 @@ over all of them; the card synchronised around each call), and the fastest
 by its least time wins.  A candidate is skipped only by its geometry, checked
 before any launch; a build or launch that fails on the card raises.  On CPU
 tensors no kernel runs: 0 resolves to the kernel path's default untimed, and
-the record says so.
+the record says so.  On a mesh across processes the candidate runs are
+collective: every process runs every candidate in the same order on its
+shards, and every process takes the record of global process 0 (its times
+and its pick, handed round by ``parallel.distributed.all_gather_objects``
+before any runner of the run is built), so all build the same runner and
+cache the same record under the same key.
 """
 
 from __future__ import annotations
@@ -207,7 +212,8 @@ def best_exchange_steps(action, cfg, mesh, *, candidates=None) -> dict:
     ``mesh``: ``_TUNE_FRAMES`` frames of the runner at every admitted W, in
     turns (a wider W can lose end to end: at 32^4 x 1 on an H100, W = 4 ran
     below the pair path, PERF.md §6).  Returns the ``autotune`` record, the
-    pick under ``"exchange_steps"``."""
+    pick under ``"exchange_steps"``; across processes global process 0's, in
+    every process (every process calls this at the same point)."""
     from stochquant_tpu_torch.parallel import halo
     from stochquant_tpu_torch.parallel import mesh as mesh_mod
 
@@ -221,13 +227,21 @@ def best_exchange_steps(action, cfg, mesh, *, candidates=None) -> dict:
         return _CACHE[key]
     default = fknd.default_exchange_steps(cfg)
     if not _kernels_run(device):
-        return _settle(key, {"type": "autotune", "exchange_steps": default, "reason":
-                             "no kernel runs on CPU tensors: the per-dimension default, untimed"})
-    admitted, skipped = exchange_steps_candidates(action, cfg, mesh, candidates)
-    shards = mesh_mod.shard_field_state(field_mod.init_field_state(cfg, device=device), mesh, cfg)
-    runs = {}
-    for W in admitted:
-        runner = halo.make_halo_runner(action, dataclasses.replace(cfg, exchange_steps=W), mesh,
-                                       backend="cuda_pair")
-        runs[W] = lambda runner=runner: runner(shards, _TUNE_FRAMES)
-    return _pick("exchange_steps", key, _timed_in_turns(runs, device), skipped, default, "W")
+        record = {"type": "autotune", "exchange_steps": default, "reason":
+                  "no kernel runs on CPU tensors: the per-dimension default, untimed"}
+    else:
+        admitted, skipped = exchange_steps_candidates(action, cfg, mesh, candidates)
+        shards = mesh_mod.shard_field_state(field_mod.init_field_state(cfg, device=device),
+                                            mesh, cfg)
+        runners = {W: halo.make_halo_runner(action, dataclasses.replace(cfg, exchange_steps=W),
+                                            mesh, backend="cuda_pair") for W in admitted}
+        runs = {W: (lambda r=r: r(shards, _TUNE_FRAMES)) for W, r in runners.items()}
+        record = _pick("exchange_steps", key, _timed_in_turns(runs, device), skipped, default,
+                       "W")
+        for r in runners.values():
+            r.close()
+    if mesh.process_count > 1:  # process 0's record in every process
+        from stochquant_tpu_torch.parallel import distributed
+
+        record = distributed.all_gather_objects(record)[0]
+    return _settle(key, record)

@@ -16,9 +16,24 @@ split-complex products of ``actions.gauge`` and ``actions.gauge_complex``.
 * ``wilson_flow`` — the gradient flow dU/dt = Z(U)·U by Lüscher's 3-stage
   Runge–Kutta (Commun. Math. Phys. 293 (2010) 899), on the action's own
   ``drift`` / ``apply_update``.
+
+On links split over a device mesh (``parallel.mesh``: this process's
+per-shard link tensors, in one process or across processes) the Polyakov
+loop and the Wilson table are computed shard-local, with no gathered
+lattice: :func:`split_polyakov_loop` multiplies the shards' own segments of
+the winding line in ascending global order (su2 and su3 do not commute),
+:func:`split_wilson_loop_table` extends each shard by ``rmax`` rows of halo
+on the split dims of the loop's plane and sums over its own sites.  The
+shards a process holds on one device go through the products as one tensor
+joined along the chains.  Both reduce across shards through the mesh's collectives, in ascending global
+index once, so a process's result is the one-process mesh run's bit for bit;
+against the unsplit functions they differ by the order of the products and
+sums (rounding).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -27,7 +42,8 @@ from stochquant_tpu_torch.actions import gauge as ga
 from stochquant_tpu_torch.actions import gauge_complex as gc
 from stochquant_tpu_torch.actions.base import true_divide
 
-__all__ = ["wilson_loop", "wilson_loop_table", "polyakov_loop", "creutz_ratio", "wilson_flow"]
+__all__ = ["wilson_loop", "wilson_loop_table", "polyakov_loop", "creutz_ratio", "wilson_flow",
+           "split_polyakov_loop", "split_wilson_loop_table"]
 
 
 class _Algebra:
@@ -49,6 +65,13 @@ class _Algebra:
     def trace_over_n(self, a):
         """(1/N)·(ReTr, ImTr) as a pair of real (C, *L) tensors."""
         raise NotImplementedError
+
+    def pack(self, a) -> torch.Tensor:
+        """A per-direction field as one tensor, lattice axes at 1 …"""
+        return a
+
+    def unpack(self, t: torch.Tensor):
+        return t
 
 
 class _U1(_Algebra):
@@ -85,6 +108,12 @@ class _SU2(_Algebra):
 
     def trace_over_n(self, a):
         return a[0], torch.zeros_like(a[0])
+
+    def pack(self, a):
+        return torch.stack(a, dim=-1)
+
+    def unpack(self, t):
+        return t.unbind(-1)
 
 
 class _SU3(_Algebra):
@@ -154,17 +183,20 @@ def _line(alg: _Algebra, u_mu, mu: int, length: int):
     return prod
 
 
-def wilson_loop(action, links, mu: int, nu: int, R: int, T: int):
-    """⟨(1/N)ReTr W_{R×T}(μ,ν)⟩ per chain over all lattice positions, (C,)."""
-    alg = _algebra(action)
-    u_mu, u_nu = alg.select(links, mu), alg.select(links, nu)
+def _wilson_product(alg: _Algebra, u_mu, u_nu, mu: int, nu: int, R: int, T: int):
+    """The R×T loop's ordered product W_{R×T}(μ,ν)(x) at every x of the fields."""
     bottom = _line(alg, u_mu, mu, R)
     right = alg.shift(_line(alg, u_nu, nu, T), mu, R)
     top = alg.inv(alg.shift(bottom, nu, T))
     left = alg.inv(_line(alg, u_nu, nu, T))
-    w = alg.mul(alg.mul(bottom, right), alg.mul(top, left))
-    re, _ = alg.trace_over_n(w)
-    return ga._chain_mean(re)
+    return alg.mul(alg.mul(bottom, right), alg.mul(top, left))
+
+
+def wilson_loop(action, links, mu: int, nu: int, R: int, T: int):
+    """⟨(1/N)ReTr W_{R×T}(μ,ν)⟩ per chain over all lattice positions, (C,)."""
+    alg = _algebra(action)
+    w = _wilson_product(alg, alg.select(links, mu), alg.select(links, nu), mu, nu, R, T)
+    return ga._chain_mean(alg.trace_over_n(w)[0])
 
 
 def wilson_loop_table(action, links, mu: int, nu: int, rmax: int, tmax: int):
@@ -185,6 +217,126 @@ def polyakov_loop(action, links, axis: int):
     line = _line(alg, u, axis, ref.shape[1 + axis])
     re, im = alg.trace_over_n(line)
     return torch.stack([ga._chain_mean(re), ga._chain_mean(im)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# links split over a device mesh
+# ---------------------------------------------------------------------------
+
+
+def _split_axes(cfg, mesh) -> list:
+    """Per lattice dim, the mesh axis that cuts it, or None where it is whole."""
+    return [ax if mesh.axis_size(ax) > 1 else None for ax in cfg.mesh_axes]
+
+
+def _joined(tensors: list, dim: int = 0) -> list:
+    """The shards' tensors in runs of consecutive shards on one device with
+    one shape, each run joined along the chains (tensor dim ``dim``):
+    ``[(joined, chains of each shard), ...]`` in shard order.  The loops'
+    products are elementwise, so a joined run gives every shard its own bits,
+    and the host issues one product's ops for the shards a device holds, not
+    one a shard; traces and sums stay per shard."""
+    runs = []
+    for t in tensors:
+        if runs and runs[-1][0].device == t.device and runs[-1][0].shape == t.shape:
+            runs[-1].append(t)
+        else:
+            runs.append([t])
+    return [(r[0] if len(r) == 1 else torch.cat(r, dim=dim), [t.shape[dim] for t in r])
+            for r in runs]
+
+
+def _chain_means(sums: list, cfg, mesh, lat_axes, volume: int) -> torch.Tensor:
+    """Per shard, per-chain sums over its own sites (C_local, ...) → the
+    per-chain means over ``volume`` sites in global chain order (C, ...), the
+    same tensor in every process."""
+    from stochquant_tpu_torch.parallel import mesh as mesh_mod
+
+    sums = mesh_mod.psum(sums, mesh, lat_axes)
+    means = [true_divide(x, float(volume)) for x in sums]
+    if mesh.axis_size(cfg.mesh_chain_axis) > 1:
+        means = mesh_mod.pcat(means, mesh, [cfg.mesh_chain_axis], dim=0)
+    return means[0]
+
+
+def split_polyakov_loop(action, links: list, cfg, mesh):
+    """:func:`polyakov_loop` along lattice dim 0 of links split over ``mesh``
+    as ``cfg.mesh_axes`` / ``cfg.mesh_chain_axis`` say: ``links`` are this
+    process's per-shard link tensors.  Each shard forms the ordered product
+    of its own dim-0 links from its first row; the shards along dim 0 join
+    their products (``pcat``, ascending global order) and multiply them in
+    that order; the trace is summed over the shard's transverse sites and
+    over the shards across them (``psum``).  Returns (C, 2) in global chain
+    order, the same in every process."""
+    from stochquant_tpu_torch.parallel import mesh as mesh_mod
+
+    alg = _algebra(action)
+    split = _split_axes(cfg, mesh)
+    segments = []
+    for u, counts in _joined([alg.pack(alg.select(x, 0)) for x in links]):
+        line = alg.pack(_line(alg, alg.unpack(u), 0, u.shape[1])).narrow(1, 0, 1)
+        segments += [seg.unsqueeze(0) for seg in line.split(counts)]
+    if split[0]:
+        segments = mesh_mod.pcat(segments, mesh, [split[0]], dim=0)
+    sums = []
+    for seg in segments:
+        parts = [alg.unpack(p) for p in seg.unbind(0)]
+        line = parts[0]
+        for p in parts[1:]:
+            line = alg.mul(line, p)
+        re, im = alg.trace_over_n(line)
+        c = re.shape[0]
+        sums.append(torch.stack([re.reshape(c, -1).sum(dim=1), im.reshape(c, -1).sum(dim=1)],
+                                dim=-1))
+    return _chain_means(sums, cfg, mesh, [a for a in split[1:] if a], math.prod(cfg.shape[1:]))
+
+
+def _extend_high(fields: list, mesh, axis: str, dim: int, depth: int) -> list:
+    """Each shard's tensor with the next ``depth`` rows along tensor dim
+    ``dim`` appended: the following shards' first rows along mesh ``axis``
+    (several hops where a shard is thinner than ``depth``)."""
+    from stochquant_tpu_torch.parallel import mesh as mesh_mod
+
+    L = fields[0].shape[dim]
+    halos = [mesh_mod.ppermute([f.narrow(dim, 0, min(L, depth - k * L)) for f in fields],
+                               mesh, axis, k + 1)
+             for k in range(-(-depth // L))]
+    return [torch.cat([f] + [h[i] for h in halos], dim=dim) for i, f in enumerate(fields)]
+
+
+def split_wilson_loop_table(action, links: list, cfg, mesh, mu: int, nu: int, rmax: int,
+                            tmax: int):
+    """:func:`wilson_loop_table` of links split over ``mesh`` (as
+    :func:`split_polyakov_loop`): each shard's μ and ν fields extended by
+    ``rmax`` rows along μ and ``tmax`` along ν where those dims are split
+    (μ first, then ν of the extended block, which carries the corners), the
+    loops evaluated there and summed over the shard's own sites, then over
+    the shards (``psum``).  Returns (C, rmax, tmax), the same in every process."""
+    alg = _algebra(action)
+    split = _split_axes(cfg, mesh)
+    fields = [torch.stack([alg.pack(alg.select(x, mu)), alg.pack(alg.select(x, nu))])
+              for x in links]
+    local = fields[0].shape[2:2 + cfg.ndim]
+    for d, depth in ((mu, rmax), (nu, tmax)):
+        if split[d]:
+            fields = _extend_high(fields, mesh, split[d], 2 + d, depth)
+    cells = []  # per shard, per (R, T): the per-chain sum over its own sites
+    for f, counts in _joined(fields, dim=1):
+        u_mu, u_nu = alg.unpack(f[0]), alg.unpack(f[1])
+        run = [{} for _ in counts]
+        for r in range(1, rmax + 1):
+            for t in range(1, tmax + 1):
+                w = _wilson_product(alg, u_mu, u_nu, mu, nu, r, t)
+                for k, part in enumerate(alg.unpack(p) for p in alg.pack(w).split(counts)):
+                    re = alg.trace_over_n(part)[0]
+                    for d in (mu, nu):
+                        if split[d]:
+                            re = re.narrow(1 + d, 0, local[d])
+                    run[k][r, t] = re.reshape(re.shape[0], -1).sum(dim=1)
+        cells += run
+    sums = [torch.stack([torch.stack([c[r, t] for t in range(1, tmax + 1)], dim=-1)
+                         for r in range(1, rmax + 1)], dim=-2) for c in cells]
+    return _chain_means(sums, cfg, mesh, [a for a in split if a], math.prod(cfg.shape))
 
 
 def creutz_ratio(w_table, r: int, t: int):

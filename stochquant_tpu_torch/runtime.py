@@ -560,7 +560,8 @@ def run_field(
     On a mesh across processes (``parallel.distributed.global_mesh``) every
     process calls this with the same arguments: each runs its shards, writes
     the same records and its own sharded checkpoint, and gets its per-shard
-    states back (``exchange_steps=0`` on the kernels raises there).
+    states back (``exchange_steps=0`` takes process 0's timed pick in every
+    process: ``kernels.autotune.best_exchange_steps``).
     stop and resume_progress as in :func:`run_chain`."""
     sink = sink or metrics_mod.MetricsSink()
     act = actions_mod.get_field(cfg.action)
@@ -579,12 +580,8 @@ def run_field(
             field_mod.FieldState, cfg, mesh, _mesh_device(mesh, device),
             ("mag_mean", "mag2_mean", "mag4_mean", "absmag_mean", "phi2_mean"))
         route = select_field_backend(cfg, backend, device, mesh)
-        reason = split_fallback_reason(cfg, backend, mesh)
         device = split.device
         runner_cfg = cfg
-        if cfg.exchange_steps == 0 and route != "torch" and mesh.process_count > 1:
-            raise ValueError("exchange_steps=0 times each W in each process, and processes could "
-                             "pick apart: across processes set cfg.exchange_steps")
         if cfg.exchange_steps == 0:
             record = (autotune.best_exchange_steps(act, cfg, mesh) if route != "torch" else
                       {"type": "autotune",
@@ -593,6 +590,7 @@ def run_field(
             sink.emit(dict(record))
             runner_cfg = dataclasses.replace(cfg, exchange_steps=record["exchange_steps"])
             route = select_field_backend(runner_cfg, backend, device, mesh)
+        reason = split_fallback_reason(runner_cfg, backend, mesh)  # at the W that runs
         runner = halo_mod.make_halo_runner(act, runner_cfg, mesh, backend=route)
         split.mesh = runner.mesh  # the records' gathers go through the runner's transport
     if reason:
@@ -822,7 +820,12 @@ def run_gauge(
     :func:`select_gauge_backend`.  One metrics record per frame, as in the
     JAX package's runner, so ``frames_per_launch`` batches only the burn-in
     (kernel 11 there, kernel 10 + the PyTorch epilogue per recorded frame).
-    Across processes as :func:`run_field` (``measure_loops`` raises there).
+    Across processes as :func:`run_field`.  ``measure_loops`` adds the
+    Polyakov loop along dim 0 to every record and a final ``wilson_loops``
+    record; on a mesh both are computed shard-local
+    (``observables.gauge_loops.split_polyakov_loop`` /
+    ``split_wilson_loop_table``), never on a gathered lattice, and are the
+    same in one process and across processes.
     stop and resume_progress as in :func:`run_chain`."""
     sink = sink or metrics_mod.MetricsSink()
     split = None
@@ -834,9 +837,6 @@ def run_gauge(
     else:
         split = _SplitState(gauge_mod.GaugeState, cfg, mesh, _mesh_device(mesh, device),
                             ("plaq_mean",))
-        if split.across and cfg.measure_loops:
-            raise ValueError("measure_loops reads the whole lattice every record, which a mesh "
-                             "across processes never gathers: run it in one process")
         route, reason = select_gauge_backend(cfg, backend, device, mesh)
         device = split.device
     if reason:
@@ -881,9 +881,7 @@ def run_gauge(
     while frames_done < cfg.frames:
         state, m = run_n(state, 1)
         frames_done += 1
-        # the Polyakov loop reads the whole lattice; the plaquette only a scalar
-        view = state if not split else (split.whole(state) if cfg.measure_loops
-                                        else split.scalars(state))
+        view = split.scalars(state) if split else state
         plaq = complex(view.plaq_mean.mean())
         obs = {
             "plaquette": plaq.real,
@@ -896,7 +894,8 @@ def run_gauge(
                 obs["plaquette_exact_2d_im"] = float(np.imag(exact2d))
             obs["unitarity_norm"] = float(m["unitarity_norm"].max())
         if cfg.measure_loops:
-            p = gauge_loops.polyakov_loop(act, view.links, 0).mean(dim=0)
+            p = (gauge_loops.split_polyakov_loop(act, [s.links for s in state], cfg, split.mesh)
+                 if split else gauge_loops.polyakov_loop(act, state.links, 0)).mean(dim=0)
             obs["polyakov_re"], obs["polyakov_im"] = float(p[0]), float(p[1])
         sink.frame(
             frames_done - 1,
@@ -911,14 +910,17 @@ def run_gauge(
         if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, mesh):
             break
 
+    if cfg.measure_loops:  # on a mesh before the runner's transport closes
+        rmax = max(1, min(4, min(cfg.shape) // 2))
+        table = (gauge_loops.split_wilson_loop_table(act, [s.links for s in state], cfg,
+                                                     split.mesh, 0, 1, rmax, rmax) if split
+                 else gauge_loops.wilson_loop_table(act, state.links, 0, 1, rmax, rmax))
     if split:
         runner.close()
         state = split.finish(state, cfg, checkpoint_out, frames_done)
     elif checkpoint_out:
         ckpt_mod.save(checkpoint_out, state, cfg, frames_done=frames_done)
     if cfg.measure_loops:
-        rmax = max(1, min(4, min(cfg.shape) // 2))
-        table = gauge_loops.wilson_loop_table(act, state.links, 0, 1, rmax, rmax)
         sink.emit({"type": "wilson_loops", "mu": 0, "nu": 1,
                    "w": table.mean(dim=0).double().cpu().numpy().tolist()})
     summary = sink.summary()

@@ -163,6 +163,15 @@ def test_port_imports_without_jax_or_triton():
         "import stochquant_tpu_torch.observables.analysis, stochquant_tpu_torch.timing\n"
         "import stochquant_tpu_torch.observables.exact, stochquant_tpu_torch.oracle\n"
         "import stochquant_tpu_torch.physics_gates\n"
+        # the JAX package's import surface and its example workflows
+        "from stochquant_tpu_torch.integrators import make_frame_fn, make_field_frame_fn\n"
+        "from stochquant_tpu_torch.io import save, load, export_reference, reference_fmt\n"
+        "from stochquant_tpu_torch.actions import get_gauge, get_complex, NAME_TO_POT_ID\n"
+        "import stochquant_tpu_torch.examples.energy_gap\n"
+        "import stochquant_tpu_torch.examples.binder_crossing\n"
+        "import stochquant_tpu_torch.examples.phi4_phase_scan\n"
+        "import stochquant_tpu_torch.examples.scheme_bias_ladder\n"
+        "import stochquant_tpu_torch.examples.sharded_4d_scaling\n"
         "from stochquant_tpu_torch.observables import em_stationary_cov, harmonic_drift_matrix\n"
         "em_stationary_cov(harmonic_drift_matrix(8, 0.25), 0.25, 0.01)\n"
         "assert stochquant_tpu_torch.oracle.run_reference(8, 0.1, 1e-3, 1, 4, seed=1).runs >= 0\n"

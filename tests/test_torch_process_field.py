@@ -66,9 +66,14 @@ def _jobs(cases):
              "frames": c.frames} for n, (k, m, b, c) in cases.items()]
 
 
+# exchange_steps=0 with rank-dependent candidate times (the worker's last job)
+SKEW = {"name": "autotune_skew", "kind": "autotune_skew", "mesh": X2,
+        "cfg": _cfg(loops=8, exchange_steps=0).to_json()}
+
+
 @pytest.fixture(scope="module")
 def two(tmp_path_factory):
-    return worker.spawn(_jobs(CASES_2), 2, tmp_path_factory.mktemp("field2"))
+    return worker.spawn(_jobs(CASES_2) + [SKEW], 2, tmp_path_factory.mktemp("field2"))
 
 
 @pytest.fixture(scope="module")
@@ -201,3 +206,40 @@ def test_kernel_8_takes_a_mapped_slab_only_on_the_card():
     # the plain version with tensors is the one-process path
     out = nd.field_chunk_rdma_nd(phi, phi, phi, dtau, act, cfg, 4, 1, (0, 0))
     assert out[0].shape == phi.shape
+
+
+
+def test_processes_take_process_0s_autotune_pick(two):
+    """``exchange_steps=0`` across processes: each process runs every W (the
+    runs are collective) and its times are made to disagree (process 0's
+    favour the least W, process 1's the largest); both take process 0's
+    record, times included, and so build one runner."""
+    ranks = two[SKEW["name"]]
+    assert [r["own"] for r in ranks] == [2, 8]  # what each process's own times would pick
+    assert ranks[0]["record"] == ranks[1]["record"]
+    assert ranks[1]["record"]["exchange_steps"] == 2
+    assert sorted(map(int, ranks[1]["record"]["candidates_ms"])) == [2, 4, 8]
+
+
+@pytest.mark.cuda
+def test_processes_on_the_card_autotune_w_together(tmp_path):
+    """``run_field(exchange_steps=0)`` over two processes on cuda:0 (kernel
+    7): both emit process 0's ``autotune`` record, and the joined run is the
+    one-process run at the W it picked, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the IPC transport maps device memory")
+    cfg = _cfg((64, 128), n_chains=3, loops=16, exchange_steps=0)
+    job = {"name": "card_autotune", "kind": "field", "mesh": X2, "backend": "cuda",
+           "cfg": cfg.to_json(), "device": "cuda:0"}
+    ranks = worker.spawn([job], 2, tmp_path, timeout=600)["card_autotune"]
+    tuned = [[r for r in rank["records"] if r.get("type") == "autotune"] for rank in ranks]
+    assert len(tuned[0]) == 1 and worker.same_records(tuned[0], tuned[1])
+    W = tuned[0][0]["exchange_steps"]
+    fixed = dict(job, cfg=_cfg((64, 128), n_chains=3, loops=16, exchange_steps=W).to_json())
+    want = _one_process(fixed)
+    for g, w in zip(worker.joined_shards(ranks), want["shards"]):
+        for name in w:
+            assert torch.equal(g[name], w[name]), name
+    for rank in ranks:
+        assert worker.same_records([r for r in rank["records"] if r.get("type") != "autotune"],
+                                   want["records"])

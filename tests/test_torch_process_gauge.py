@@ -2,11 +2,13 @@
 (``tests/torch_process_worker.py``, no JAX in them) each run the chunk
 runner (kernel 12's plain version on CPU tensors), the per-step halo runner
 or ``runtime.run_gauge`` on their shards of ``distributed.global_mesh``, for
-u1 and su2, one and two shards a process and a chain axis across them.
+u1 and su2, one and two shards a process and a chain axis across them, and
+the shard-local loop observables (``measure_loops``: the Polyakov loop every
+record, the Wilson table at the end) on both runners' links.
 
 Tolerances: none.  Joined in rank order, the processes' links, running
-means, Δτ and decisions, their metrics and records are the one-process run's
-on the same mesh shape bit for bit."""
+means, Δτ and decisions, their metrics, records and loops are the
+one-process run's on the same mesh shape bit for bit."""
 
 import pytest
 import torch
@@ -38,6 +40,15 @@ CASES = {
         loops=3, shape=(8, 8), mesh_axes=("x", "y"))),                      # two split dims
     "su2_step_x2": ("gauge_halo", X2, "step", _cfg("su2", loops=3, shape=(8, 8))),
     "run_gauge_x2": ("gauge", X2, None, _cfg(loops=4, frames=3)),           # auto: per-step
+    # the loop observables, shard-local: run_gauge (per-step runner) and both runners' links
+    "loops_u1_x2": ("gauge", X2, None, _cfg(loops=4, measure_loops=True)),
+    "loops_u1_xy": ("gauge", [("x", 2), ("y", 2)], None, _cfg(
+        loops=3, shape=(8, 8), mesh_axes=("x", "y"), measure_loops=True)),
+    "loops_su2_x2": ("gauge", X2, None, _cfg("su2", loops=3, shape=(8, 8), measure_loops=True)),
+    "loops_u1_chunk_x2": ("gauge_halo", X2, "chunk", _cfg(measure_loops=True)),
+    "loops_su2_chunk_x2": ("gauge_halo", X2, "chunk", _cfg("su2", loops=4, measure_loops=True)),
+    "loops_su2_step_x2": ("gauge_halo", X2, "step", _cfg(
+        "su2", loops=3, shape=(8, 8), measure_loops=True)),
 }
 
 
@@ -66,4 +77,31 @@ def test_two_processes_run_the_one_process_gauge_run(two, name):
             for key, m in want["metrics"].items():
                 assert torch.equal(r["metrics"][key], m), key
         else:
+            assert worker.same_records(r["records"], want["records"])
+        for key, loop in want.get("loops", {}).items():
+            assert torch.equal(r["loops"][key], loop), key
+    if CASES[name][3].measure_loops:
+        assert "loops" in want or any(rec.get("type") == "wilson_loops"
+                                      for rec in want["records"])
+
+
+@pytest.mark.cuda
+def test_processes_on_the_card_measure_loops_bitwise(tmp_path):
+    """``run_gauge(measure_loops=True)`` on the chunk runner (kernel 12) over
+    two processes on cuda:0: shards and records (the Polyakov loop a frame,
+    the Wilson table) bitwise the one-process run on the repeated device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the IPC transport maps device memory")
+    cases = {"card_u1_loops": _cfg(shape=(32, 64), loops=4, measure_loops=True),
+             "card_su2_loops": _cfg("su2", shape=(32, 64), loops=4, measure_loops=True)}
+    jobs = [{"name": n, "kind": "gauge", "mesh": X2, "backend": "cuda", "cfg": c.to_json(),
+             "frames": c.frames, "device": "cuda:0"} for n, c in cases.items()]
+    out = worker.spawn(jobs, 2, tmp_path, timeout=600)
+    for job in jobs:
+        want = worker.run(job, make_mesh(job["mesh"], devices="cuda:0"))
+        assert any(r.get("type") == "wilson_loops" for r in want["records"])
+        for g, w in zip(worker.joined_shards(out[job["name"]]), want["shards"]):
+            for leaf in w:
+                assert torch.equal(g[leaf], w[leaf]), leaf
+        for r in out[job["name"]]:
             assert worker.same_records(r["records"], want["records"])

@@ -13,7 +13,11 @@ and writes ``OUTDIR/<job name>.rank<RANK>.pt``:
 * ``kind`` "halo" / "gauge_halo": the field halo runner on ``backend`` (the
   kernels' plain versions on CPU tensors), or the gauge ``runner`` ("chunk"
   or "step"), built directly from the seed's state; writes the per-shard
-  states and the metrics;
+  states and the metrics, and with the config's ``measure_loops`` the
+  shard-local Polyakov loop and Wilson table of the final links;
+* ``kind`` "autotune_skew": ``kernels.autotune.best_exchange_steps`` with
+  each process's candidate times made to disagree; writes the record this
+  process got and the pick its own times would have made;
 
 A job's ``device`` (default "cpu"; "cuda:0" on the card) holds every shard.
 * ``kind`` "collectives": every collective of ``parallel.mesh`` on the
@@ -45,6 +49,7 @@ from stochquant_tpu_torch.integrators.gauge import GaugeConfig  # noqa: E402
 from stochquant_tpu_torch.io import checkpoint  # noqa: E402
 from stochquant_tpu_torch.kernels import field_halo_kernel, field_kernel  # noqa: E402
 from stochquant_tpu_torch.kernels import field_kernel_nd, gauge_kernel  # noqa: E402
+from stochquant_tpu_torch.observables import gauge_loops  # noqa: E402
 from stochquant_tpu_torch.parallel import distributed, gauge_halo, halo  # noqa: E402
 from stochquant_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 
@@ -201,10 +206,46 @@ def runner(job, mesh) -> dict:
     for fn in KERNELS.values():
         fn.launches = 0
     out, m = run_(shards, job["frames"])
+    result = {"shards": [{k: v.cpu() for k, v in s.items()} for s in _leaves(out)],
+              "metrics": {k: v.cpu() for k, v in m.items()},
+              "launches": {k: fn.launches for k, fn in KERNELS.items() if fn.launches}}
+    if getattr(cfg, "measure_loops", False):  # through the runner's mesh and transport
+        links = [s.links for s in out]
+        result["loops"] = {
+            "polyakov": gauge_loops.split_polyakov_loop(act, links, cfg, run_.mesh).cpu(),
+            "wilson": gauge_loops.split_wilson_loop_table(act, links, cfg, run_.mesh, 0, 1, 4,
+                                                          4).cpu()}
     run_.close()
-    return {"shards": [{k: v.cpu() for k, v in s.items()} for s in _leaves(out)],
-            "metrics": {k: v.cpu() for k, v in m.items()},
-            "launches": {k: fn.launches for k, fn in KERNELS.items() if fn.launches}}
+    return result
+
+
+def autotune_skew(job, mesh) -> dict:
+    """``best_exchange_steps`` on the chunk path's plain version, with every
+    candidate run (collective) and its time made rank-dependent: process 0's
+    favour the least W, the others the largest."""
+    from stochquant_tpu_torch.kernels import autotune
+
+    own = {}
+
+    def skewed(runs, device):
+        for run in runs.values():
+            run()
+        times = {W: 1e-3 * (W if mesh.process_index == 0 else 1.0 / W) for W in runs}
+        own["pick"] = min(times, key=times.get)
+        return times
+
+    saved = autotune._kernels_run, autotune._device_kind, autotune._timed_in_turns
+    autotune._kernels_run = lambda device: True
+    autotune._device_kind = lambda device: "rehearsal"
+    autotune._timed_in_turns = skewed
+    try:
+        cfg = FieldConfig.from_json(job["cfg"])
+        record = autotune.best_exchange_steps(actions.get_field(cfg.action), cfg, mesh,
+                                              candidates=(2, 4, 8))
+    finally:
+        autotune._kernels_run, autotune._device_kind, autotune._timed_in_turns = saved
+        autotune.clear_cache()
+    return {"record": record, "own": own["pick"]}
 
 
 def main() -> None:
@@ -222,6 +263,8 @@ def main() -> None:
             result = cuda_timeout(mesh, outdir / "go")
         elif job["kind"] == "refusals":
             result = refusals(job, mesh)
+        elif job["kind"] == "autotune_skew":
+            result = autotune_skew(job, mesh)
         elif job["kind"] in ("halo", "gauge_halo"):
             result = runner(job, mesh)
         else:
