@@ -1,0 +1,7 @@
+"""Kernel 2 (``kernels/chain_kernel.chain_frames_multi``): the least time the
+card could take a launch (``work.least_seconds``) over the kernel's device
+time a launch, in per cent."""
+
+
+def read(ctx):
+    return ctx.roofline_pct("chain_frames_multi")
