@@ -34,7 +34,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from stochquant_tpu_torch import rng
+from stochquant_tpu_torch import rng, tracing
 from stochquant_tpu_torch.actions.base import QMAction
 from stochquant_tpu_torch.actions.quantum_mechanics import (
     AnharmonicOscillator,
@@ -210,27 +210,28 @@ def chain_frame(state: ChainState, action: QMAction, cfg: ChainConfig,
                 chain_offset: int = 0) -> FrameSums:
     """Kernel 1: one frame of ``cfg.loops`` micro-steps for the chains of
     ``state`` (global ids ``chain_offset …``); returns the frame sums."""
-    check_kernel_config(cfg)
-    if not _route(state):
-        return chain_frame_ref(state, action, cfg, chain_offset)
-    params = _params(state, action, cfg, chain_offset, 1)
-    C, N = state.f.shape
-    dev = state.f.device
-    out = FrameSums(
-        f=torch.empty((C, N), dtype=torch.float32, device=dev),
-        omega=torch.empty((C,), dtype=torch.float32, device=dev),
-        xs=torch.empty((C, N), dtype=torch.float32, device=dev),
-        xxs=torch.empty((C, N), dtype=torch.float32, device=dev),
-        x2s=torch.empty((C, N), dtype=torch.float32, device=dev),
-        x4s=torch.empty((C, N), dtype=torch.float32, device=dev),
-        lrg_vl=torch.empty((C,), dtype=torch.float32, device=dev),
-        unstable=torch.empty((C,), dtype=torch.int32, device=dev),
-    )
-    _build.launch("sq_chain_frame", params,
-                  (state.f, state.omega, state.lrg_vl, state.dtau, *out[:8]), dev)
-    chain_frame.launches += 1
-    chain_frame.launches_hw += _philox(cfg)
-    return out._replace(unstable=out.unstable != 0)
+    with tracing.span(tracing.LAUNCH):
+        check_kernel_config(cfg)
+        if not _route(state):
+            return chain_frame_ref(state, action, cfg, chain_offset)
+        params = _params(state, action, cfg, chain_offset, 1)
+        C, N = state.f.shape
+        dev = state.f.device
+        out = FrameSums(
+            f=torch.empty((C, N), dtype=torch.float32, device=dev),
+            omega=torch.empty((C,), dtype=torch.float32, device=dev),
+            xs=torch.empty((C, N), dtype=torch.float32, device=dev),
+            xxs=torch.empty((C, N), dtype=torch.float32, device=dev),
+            x2s=torch.empty((C, N), dtype=torch.float32, device=dev),
+            x4s=torch.empty((C, N), dtype=torch.float32, device=dev),
+            lrg_vl=torch.empty((C,), dtype=torch.float32, device=dev),
+            unstable=torch.empty((C,), dtype=torch.int32, device=dev),
+        )
+        _build.launch("sq_chain_frame", params,
+                      (state.f, state.omega, state.lrg_vl, state.dtau, *out[:8]), dev)
+        chain_frame.launches += 1
+        chain_frame.launches_hw += _philox(cfg)
+        return out._replace(unstable=out.unstable != 0)
 
 
 chain_frame.launches = 0
@@ -261,40 +262,41 @@ def chain_frames_multi(state: ChainState, action: QMAction, cfg: ChainConfig,
     merge, the (lo, hi) count carry and adaptive Δτ in-kernel.  Per-frame
     results equal K launches of kernel 1 plus the PyTorch epilogue.
     Returns (state, metrics) with metrics of shape (K, C)."""
-    check_kernel_config(cfg)
-    if K < 1:
-        raise ValueError(f"frames per launch must be >= 1, got {K}")
-    if not _route(state):
-        return chain_frames_multi_ref(state, action, cfg, K, chain_offset)
-    params = _params(state, action, cfg, chain_offset, K)
-    C, N = state.f.shape
-    dev = state.f.device
-    empty = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)
-    new = ChainState(
-        f=empty((C, N)), omega=empty((C,)), x_mean=empty((C, N)),
-        xx0_mean=empty((C, N)), x2_mean=empty((C, N)), x4_mean=empty((C, N)),
-        runs=empty((C, 2), torch.int64), dtau=empty((C,)),
-        stab_cnt=empty((C,), torch.int32), lrg_vl=empty((C,)),
-        spec_mean=state.spec_mean,
-        step=langevin.host_step(int(state.step) + cfg.loops * K),
-    )
-    hist_stable = empty((K, C), torch.int32)
-    hist_dtau = empty((K, C))
-    hist_lrg = empty((K, C))
-    _build.launch(
-        "sq_chain_frames", params,
-        (
-            state.f, state.omega, state.lrg_vl, state.dtau, state.x_mean,
-            state.xx0_mean, state.x2_mean, state.x4_mean, state.runs, state.stab_cnt,
-            new.f, new.omega, new.lrg_vl, new.dtau, new.x_mean, new.xx0_mean,
-            new.x2_mean, new.x4_mean, new.runs, new.stab_cnt,
-            hist_stable, hist_dtau, hist_lrg,
-        ),
-        dev,
-    )
-    chain_frames_multi.launches += 1
-    chain_frames_multi.launches_hw += _philox(cfg)
-    return new, {"stable": hist_stable != 0, "dtau": hist_dtau, "max_x": hist_lrg}
+    with tracing.span(tracing.LAUNCH):
+        check_kernel_config(cfg)
+        if K < 1:
+            raise ValueError(f"frames per launch must be >= 1, got {K}")
+        if not _route(state):
+            return chain_frames_multi_ref(state, action, cfg, K, chain_offset)
+        params = _params(state, action, cfg, chain_offset, K)
+        C, N = state.f.shape
+        dev = state.f.device
+        empty = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)
+        new = ChainState(
+            f=empty((C, N)), omega=empty((C,)), x_mean=empty((C, N)),
+            xx0_mean=empty((C, N)), x2_mean=empty((C, N)), x4_mean=empty((C, N)),
+            runs=empty((C, 2), torch.int64), dtau=empty((C,)),
+            stab_cnt=empty((C,), torch.int32), lrg_vl=empty((C,)),
+            spec_mean=state.spec_mean,
+            step=langevin.host_step(int(state.step) + cfg.loops * K),
+        )
+        hist_stable = empty((K, C), torch.int32)
+        hist_dtau = empty((K, C))
+        hist_lrg = empty((K, C))
+        _build.launch(
+            "sq_chain_frames", params,
+            (
+                state.f, state.omega, state.lrg_vl, state.dtau, state.x_mean,
+                state.xx0_mean, state.x2_mean, state.x4_mean, state.runs, state.stab_cnt,
+                new.f, new.omega, new.lrg_vl, new.dtau, new.x_mean, new.xx0_mean,
+                new.x2_mean, new.x4_mean, new.runs, new.stab_cnt,
+                hist_stable, hist_dtau, hist_lrg,
+            ),
+            dev,
+        )
+        chain_frames_multi.launches += 1
+        chain_frames_multi.launches_hw += _philox(cfg)
+        return new, {"stable": hist_stable != 0, "dtau": hist_dtau, "max_x": hist_lrg}
 
 
 chain_frames_multi.launches = 0

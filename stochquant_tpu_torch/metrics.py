@@ -17,18 +17,21 @@ import numpy as np
 
 
 class MetricsSink:
-    """JSON-lines metrics writer with wall-clock throughput accounting."""
+    """JSON-lines metrics writer with throughput accounting on the monotonic
+    clock (``time.perf_counter``); ``wall_time`` is seconds since the sink
+    was made."""
 
     def __init__(self, stream: Optional[IO] = None, callback: Optional[Callable] = None):
         self.stream = stream
         self.callback = callback
-        self._t0 = time.time()
+        self._t0 = time.perf_counter()
         self._last_t = self._t0
         self._updates = 0
+        self._first = None  # (time, updates) at the first frame record
 
     def emit(self, record: dict) -> None:
         record = dict(record)
-        record.setdefault("wall_time", round(time.time() - self._t0, 3))
+        record.setdefault("wall_time", round(time.perf_counter() - self._t0, 3))
         if self.stream is not None:
             self.stream.write(json.dumps(record, default=_np_default) + "\n")
             self.stream.flush()
@@ -44,10 +47,12 @@ class MetricsSink:
         stable_frac: float,
         observables: Optional[dict] = None,
     ) -> None:
-        now = time.time()
+        now = time.perf_counter()
         dt_wall = max(now - self._last_t, 1e-9)
         self._last_t = now
         self._updates += site_updates
+        if self._first is None:
+            self._first = (now, self._updates)
         rec = {
             "type": "frame",
             "frame": frame_idx,
@@ -61,12 +66,20 @@ class MetricsSink:
         self.emit(rec)
 
     def summary(self) -> dict:
-        elapsed = time.time() - self._t0
+        """Totals since the sink was made; ``avg_mlups`` is the rate after
+        the first frame record (the updates recorded since, over the time
+        since), which leaves out set-up and the burn-in: None before a
+        second record."""
+        now = time.perf_counter()
+        avg = None
+        if self._first is not None and self._updates > self._first[1]:
+            t, u = self._first
+            avg = round((self._updates - u) / (now - t) / 1e6, 1)
         return {
             "type": "summary",
             "total_site_updates": self._updates,
-            "elapsed_s": round(elapsed, 3),
-            "avg_mlups": round(self._updates / elapsed / 1e6, 1) if elapsed else 0.0,
+            "elapsed_s": round(now - self._t0, 3),
+            "avg_mlups": avg,
         }
 
 

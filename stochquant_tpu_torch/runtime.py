@@ -37,6 +37,7 @@ import torch
 
 from stochquant_tpu_torch import actions as actions_mod
 from stochquant_tpu_torch import metrics as metrics_mod
+from stochquant_tpu_torch import tracing
 from stochquant_tpu_torch.actions import complex_actions
 from stochquant_tpu_torch.config import ChainConfig, FieldConfig, Scheme
 from stochquant_tpu_torch.integrators import complex_field as cfield
@@ -362,19 +363,20 @@ def run_chain(
         n = min(fps, cfg.frames - frames_done)
         state, m = run_n(state, n)
         frames_done += n
-        obs = {}
-        if stream_correlator:
-            view = split.scalars(state) if split else state
-            corr = langevin.connected_correlator(view).mean(dim=0).double().cpu().numpy()
-            obs["log_abs_corr"] = np.log(np.abs(corr) + 1e-300)
-        sink.frame(
-            frames_done - 1,
-            cfg.frames,
-            updates_per_frame * n,
-            m["dtau"][-1].cpu().numpy(),
-            float(m["stable"][-n:].float().mean()),
-            observables=obs,
-        )
+        with tracing.span(tracing.RECORD):
+            obs = {}
+            if stream_correlator:
+                view = split.scalars(state) if split else state
+                corr = langevin.connected_correlator(view).mean(dim=0).double().cpu().numpy()
+                obs["log_abs_corr"] = np.log(np.abs(corr) + 1e-300)
+            sink.frame(
+                frames_done - 1,
+                cfg.frames,
+                updates_per_frame * n,
+                m["dtau"][-1].cpu().numpy(),
+                float(m["stable"][-n:].float().mean()),
+                observables=obs,
+            )
         if checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0:
             ckpt_mod.save_auto(checkpoint_out, state, cfg, mesh=mesh, frames_done=frames_done)
         if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, mesh):
