@@ -172,10 +172,15 @@ def _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, mesh=No
     ``io.checkpoint.save_auto`` writes it) and record the preemption."""
     if stop is None or not stop():
         return False
+    _preempt(sink, state, cfg, checkpoint_out, frames_done, mesh)
+    return True
+
+
+def _preempt(sink, state, cfg, checkpoint_out, frames_done, mesh=None) -> None:
+    """Checkpoint ``state`` where a stop ends a run, and record the preemption."""
     if checkpoint_out:
         ckpt_mod.save_auto(checkpoint_out, state, cfg, mesh=mesh, frames_done=frames_done)
     sink.emit({"type": "preempted", "frames_done": frames_done, "checkpoint": checkpoint_out})
-    return True
 
 
 def _mesh_device(mesh, device) -> torch.device:
@@ -259,6 +264,71 @@ class _SplitState:
         return state
 
 
+class _ChainRecords:
+    """The frame records of a chain run, read on the host one frame group
+    late.  ``push`` enqueues a group's record on the device right after the
+    group: the correlator's mean over chains in float64, the last frame's Δτ
+    row and the stable share of the group's frames, each copied into a host
+    slot, then an event.  There are two slots, taken by the group's parity
+    and allocated at the first record; on a CUDA device they are page-locked
+    and the copies ``non_blocking``.  ``deliver`` waits on the event of the
+    oldest group not yet read and hands its record to the sink.  On the CPU,
+    and with ``sync`` (a mesh run: its correlator is gathered onto the run's
+    device, which may be another card than its Δτ's), the slots are plain
+    tensors, each copy is done at once and no event is kept."""
+
+    def __init__(self, sink, n_frames: int, updates_per_frame: int, correlator: bool,
+                 sync: bool):
+        self.sink, self.n_frames, self.updates_per_frame = sink, n_frames, updates_per_frame
+        self.correlator, self.sync = correlator, sync
+        self.slots = None
+        self.pushed = self.read = 0
+
+    def push(self, view, m, n: int, frames_done: int) -> None:
+        """Enqueue the record of a group of ``n`` frames that ends at frame
+        ``frames_done``: ``m`` its metrics, ``view`` the state its correlator
+        is read from."""
+        values = {"dtau": m["dtau"][-1], "stable": m["stable"][-n:].float().mean()}
+        if self.correlator:
+            values["corr"] = langevin.connected_correlator(view).mean(dim=0).double()
+        dev = values["dtau"].device
+        if self.slots is None:
+            pin = dev.type == "cuda" and not self.sync
+            self.slots = [
+                {"host": {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=pin)
+                          for k, v in values.items()},
+                 "event": torch.cuda.Event() if pin else None}
+                for _ in range(2)
+            ]
+        slot = self.slots[self.pushed % 2]
+        for k, v in values.items():
+            slot["host"][k].copy_(v, non_blocking=slot["event"] is not None)
+        if slot["event"] is not None:
+            slot["event"].record(torch.cuda.current_stream(dev))
+        slot["group"] = (n, frames_done)
+        self.pushed += 1
+
+    def deliver(self) -> None:
+        """Wait for the oldest record not yet read and stream it."""
+        with tracing.span(tracing.RECORD):
+            slot = self.slots[self.read % 2]
+            self.read += 1
+            if slot["event"] is not None:
+                slot["event"].synchronize()
+            host, (n, frames_done) = slot["host"], slot["group"]
+            obs = {}
+            if self.correlator:
+                obs["log_abs_corr"] = np.log(np.abs(host["corr"].numpy()) + 1e-300)
+            self.sink.frame(
+                frames_done - 1,
+                self.n_frames,
+                self.updates_per_frame * n,
+                host["dtau"].numpy(),
+                float(host["stable"]),
+                observables=obs,
+            )
+
+
 def _check_chain_mesh(cfg: ChainConfig, mesh) -> bool:
     """True for a chain run over a mesh (``mesh`` and ``cfg.mesh_chain_axis``,
     the one mesh field of ``ChainConfig``); a chain axis without a mesh or a
@@ -300,10 +370,32 @@ def run_chain(
     checkpoint the whole state (``io.checkpoint.save_auto``), and a sharded
     checkpoint resumes block by block.  ``block_chains=0`` records the
     launch's layout (``kernels.autotune.best_block_chains``).  stop: optional
-    callable polled between frame groups (e.g. a PreemptionGuard); when true
-    the loop checkpoints and returns early.
+    callable polled once a frame group (e.g. a PreemptionGuard), after the
+    group is enqueued and before the next one is; when true the loop streams
+    the group's record, checkpoints and returns early.  A stop that reads no
+    record ends the run after the groups a loop that reads each record at
+    once would run; one that depends on the records (a window closed by a
+    record's time) sees, polled for group k, only record k - 1, so it runs
+    and streams one group more, drained.
     resume_progress: with checkpoint_in, count the checkpoint's completed
     frames toward cfg.frames instead of running cfg.frames more.
+
+    Records are read one group late: group k's record (correlator, Δτ row,
+    stable share) is enqueued on the device right after the group, and read
+    on the host only once group k+1 is enqueued too, so the device runs k+1
+    while the host reads, streams and launches.  Nothing of a group depends
+    on a record's host values, so the records and states are those of a
+    loop that reads each record at once.  A group is not followed before a
+    checkpoint, at a stop or at the last frame: its record is read with
+    nothing enqueued behind it (drained), so a checkpoint, a stop and the
+    result hold the state the last record describes.  Under a mesh every
+    record is drained and copied to the host at once (the correlator's
+    gather is synchronous, and may land on another card than the Δτ row).
+    Two plain counters, 0 at import and set to 0 by their reader
+    (``tools/span_check.py records``), as the kernel wrappers' ``launches``
+    are: ``run_chain.records_ahead`` (records read with the next group
+    already enqueued) and ``run_chain.records_drained`` (records read with
+    nothing enqueued behind them).
     """
     split = None
     if _check_chain_mesh(cfg, mesh):
@@ -357,29 +449,35 @@ def run_chain(
         state, _ = run_n(state, burn_frames)
         state = [langevin.reset_means(s) for s in state] if split else langevin.reset_means(state)
 
-    updates_per_frame = cfg.n_chains * cfg.n_sites * cfg.loops
     fps = max(cfg.fps, 1)
-    while frames_done < cfg.frames:
+    records = _ChainRecords(sink, cfg.frames, cfg.n_chains * cfg.n_sites * cfg.loops,
+                            stream_correlator, sync=bool(split))
+
+    def enqueue():
+        # rebinds the run's own state, so the group's input is freed before its record's work
+        nonlocal state, frames_done
         n = min(fps, cfg.frames - frames_done)
         state, m = run_n(state, n)
         frames_done += n
-        with tracing.span(tracing.RECORD):
-            obs = {}
-            if stream_correlator:
-                view = split.scalars(state) if split else state
-                corr = langevin.connected_correlator(view).mean(dim=0).double().cpu().numpy()
-                obs["log_abs_corr"] = np.log(np.abs(corr) + 1e-300)
-            sink.frame(
-                frames_done - 1,
-                cfg.frames,
-                updates_per_frame * n,
-                m["dtau"][-1].cpu().numpy(),
-                float(m["stable"][-n:].float().mean()),
-                observables=obs,
-            )
-        if checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0:
+        view = (split.scalars(state) if split else state) if stream_correlator else None
+        records.push(view, m, n, frames_done)
+
+    ahead = False  # a group is enqueued behind the one whose record is read next
+    while ahead or frames_done < cfg.frames:
+        if not ahead:
+            enqueue()
+        stopping = stop is not None and stop()
+        due = bool(checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0)
+        ahead = not (split or stopping or due) and frames_done < cfg.frames
+        if ahead:
+            enqueue()
+        records.deliver()
+        run_chain.records_ahead += ahead
+        run_chain.records_drained += not ahead
+        if due:
             ckpt_mod.save_auto(checkpoint_out, state, cfg, mesh=mesh, frames_done=frames_done)
-        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, mesh):
+        if stopping:
+            _preempt(sink, state, cfg, checkpoint_out, frames_done, mesh)
             break
 
     if split:
@@ -389,6 +487,10 @@ def run_chain(
     summary = sink.summary()
     sink.emit(summary)
     return RunResult(state=state, cfg=cfg, summary=summary)
+
+
+run_chain.records_ahead = 0
+run_chain.records_drained = 0
 
 
 #: The JAX package's routing rule (``stochquant_tpu.runtime._FIELD_VMEM_FIELD_BYTES``):

@@ -24,8 +24,11 @@ The spans (``PERF.md`` names the metrics that read them):
 * ``sq.launch`` — a chain kernel's wrapper, ``kernels.chain_kernel.chain_frame``
   and ``chain_frames_multi``: the config check, the inputs' check, the launch
   parameters, the output allocations and the launch up to its enqueue.
-* ``sq.record`` — a streamed record of ``runtime.run_chain``: the correlator,
-  its readback and the per-frame metrics', and the sink with its callback.
+* ``sq.record`` — a streamed record of ``runtime.run_chain``, read one frame
+  group late: the wait on the group's event (its correlator, Δτ row and
+  stable share copied to the host), the host-side numpy and the sink with
+  its callback.  The record's device work and copies are enqueued outside
+  the span, right after the group.
 """
 
 from __future__ import annotations

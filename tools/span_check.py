@@ -5,6 +5,7 @@ what a span costs.
 
     python3 tools/span_check.py clock [--cells A,B] [--seconds 6] [--seed N]
     python3 tools/span_check.py cost [--n 200000]
+    python3 tools/span_check.py records [--cells A,B] [--seconds 36] [--seed N]
 
 ``clock`` serves each benchmark cell (``sqbench/kinds/chain.py``'s ``Cell``, through
 ``runtime.run_chain``) under ``torch.profiler`` for ``--seconds`` after the
@@ -28,6 +29,13 @@ first record, between the harness's window markers, and reports for each:
 
 ``cost`` times ``tracing.span`` with no profiler (the shared no-op) and
 under a CPU profiler (two markers), in ns a span.
+
+``records`` serves each cell untraced, under the harness's window and stop
+(``sqbench/run.py``'s ``Window``), and reports how ``runtime.run_chain``
+read its records: ``records_ahead`` and ``records_drained`` (null where the
+checkout has no such counters), the records streamed and those in the
+window; on the card also the caching allocator's peaks
+(``torch.cuda.memory_stats``), over the cell's set-up and window.
 
 Each mode prints JSON lines on stdout, the card's name and power limit
 first; ``--device cpu`` rehearses ``clock`` on the plain path (no kernel).
@@ -142,17 +150,24 @@ def check_clock(events, t0: int, t1: int, matches) -> dict:
             "device_user_annotations": sorted(annotations)}
 
 
+def _cell(cell_name: str, seed: int, device: str):
+    """(the benchmark's cell, its configuration)."""
+    from sqbench import run as bench
+
+    entry, _, _ = bench.workload(cell_name)
+    config = bench.load("configs", f"{entry['config']}.json")
+    kind = importlib.import_module(f"sqbench.kinds.{config['kind']}")
+    return kind.Cell(config, bench.load("traffic", f"{entry['traffic']}.json"),
+                     bench.load("cells", f"{cell_name}.json"), seed, device), config
+
+
 def clock(cell_name: str, seed: int, seconds: float, device: str) -> dict:
     import torch
 
     from sqbench import devtrace, work
     from sqbench import run as bench
 
-    entry, _, _ = bench.workload(cell_name)
-    config = bench.load("configs", f"{entry['config']}.json")
-    kind = importlib.import_module(f"sqbench.kinds.{config['kind']}")
-    cell = kind.Cell(config, bench.load("traffic", f"{entry['traffic']}.json"),
-                     bench.load("cells", f"{cell_name}.json"), seed, device)
+    cell, config = _cell(cell_name, seed, device)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cell.device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -197,6 +212,41 @@ def clock(cell_name: str, seed: int, seconds: float, device: str) -> dict:
     return out
 
 
+def records(cell_name: str, seed: int, seconds: float, device: str) -> dict:
+    import torch
+
+    from sqbench import run as bench
+    from stochquant_tpu_torch import runtime
+
+    cell, _ = _cell(cell_name, seed, device)
+    counters = ("records_ahead", "records_drained")
+    for name in counters:
+        if hasattr(runtime.run_chain, name):
+            setattr(runtime.run_chain, name, 0)
+    win = bench.Window(seconds, time.perf_counter())
+    streamed = [0]
+
+    def on_record(_rec):
+        now = time.perf_counter()
+        streamed[0] += 1
+        if win.t_open is None:
+            win.t_open = now
+        else:
+            win.intervals.append(now - win.t_last)
+        win.t_last = now
+
+    cell.serve(on_record, win.closed)
+    out = {"mode": "records", "cell": cell_name, "seed": seed, "streamed": streamed[0],
+           "window_records": win.records}
+    out.update({name: getattr(runtime.run_chain, name, None) for name in counters})
+    if cell.device.type == "cuda":
+        stats = torch.cuda.memory_stats(cell.device)
+        out["memory"] = {k: stats[k] for k in (
+            "allocated_bytes.all.peak", "reserved_bytes.all.peak", "segment.all.peak",
+            "segment.large_pool.peak", "segment.small_pool.peak", "allocation.all.peak")}
+    return out
+
+
 def cost(n: int) -> dict:
     import torch
 
@@ -232,13 +282,19 @@ def main(argv=None) -> int:
     c.add_argument("--device", default="cuda")
     k = sub.add_parser("cost")
     k.add_argument("--n", type=int, default=200_000)
+    r = sub.add_parser("records")
+    r.add_argument("--cells", default=",".join(CELLS))
+    r.add_argument("--seconds", type=float, default=36.0)
+    r.add_argument("--seed", type=int, default=3_141_592_653)
+    r.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     print(json.dumps({"card": card_line()}), flush=True)
     if args.mode == "cost":
         print(json.dumps(cost(args.n)), flush=True)
         return 0
+    serve = clock if args.mode == "clock" else records
     for name in args.cells.split(","):
-        print(json.dumps(clock(name, args.seed, args.seconds, args.device)), flush=True)
+        print(json.dumps(serve(name, args.seed, args.seconds, args.device)), flush=True)
     return 0
 
 
