@@ -19,7 +19,8 @@ raises — it never falls back.  Each wrapper counts its kernel launches in a
 plain integer attribute, ``field_frame.launches`` and
 ``field_frames_multi.launches``; launches of the Philox variant
 (``rng_impl='hardware'``) are counted on their own as well, in
-``field_frame.launches_hw`` and ``field_frames_multi.launches_hw``.
+``field_frame.launches_hw`` and ``field_frames_multi.launches_hw``.  Each
+wrapper runs whole inside a ``tracing.LAUNCH`` span (``tracing.py``).
 
 Each launch runs a chain on a thread-block cluster of B blocks, each holding
 a strip of rows in shared memory, or at B = 1 on one block with the field in
@@ -38,7 +39,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stochquant_tpu_torch import rng
+from stochquant_tpu_torch import rng, tracing
 from stochquant_tpu_torch.actions.phi4 import FieldAction, FreeField, ScalarPhi4
 from stochquant_tpu_torch.config import FieldConfig, Scheme, Sweep
 from stochquant_tpu_torch.integrators import field as field_mod
@@ -204,24 +205,25 @@ def field_frame(state: FieldState, action: FieldAction, cfg: FieldConfig,
                 chain_offset: int = 0) -> FieldFrameSums:
     """Kernel 3: one frame of ``cfg.loops`` micro-steps for the chains of
     ``state`` (global ids ``chain_offset …``); returns the frame sums."""
-    if not route(state, cfg):
-        return field_frame_ref(state, action, cfg, chain_offset)
-    C, L0, L1 = state.phi.shape
-    params = kernel_params((C, L0, L1), action, cfg, step0=int(state.step),
-                           chain_offset=chain_offset, philox=philox(cfg))
-    dev = state.phi.device
-    g = _geometry(params, cfg, False, dev)
-    empty = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
-    phi, sums, cs = empty((C, L0, L1)), empty((6, C)), empty((C, L0))
-    lrg, unst = empty((C,)), empty((C,), torch.int32)
-    work, zk, slices = _scratch(empty, g, cfg, (C, L0, L1), 1)
-    _build.launch("sq_field_frame", params,
-                  (state.phi, state.lrg_vl, state.dtau, phi, sums, cs, lrg, unst, work, zk,
-                   slices), dev)
-    field_frame.launches += 1
-    field_frame.launches_hw += philox(cfg)
-    field_frame.geometry = g
-    return FieldFrameSums(phi, *sums.unbind(0), cs, lrg, unst != 0)
+    with tracing.span(tracing.LAUNCH):
+        if not route(state, cfg):
+            return field_frame_ref(state, action, cfg, chain_offset)
+        C, L0, L1 = state.phi.shape
+        params = kernel_params((C, L0, L1), action, cfg, step0=int(state.step),
+                               chain_offset=chain_offset, philox=philox(cfg))
+        dev = state.phi.device
+        g = _geometry(params, cfg, False, dev)
+        empty = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
+        phi, sums, cs = empty((C, L0, L1)), empty((6, C)), empty((C, L0))
+        lrg, unst = empty((C,)), empty((C,), torch.int32)
+        work, zk, slices = _scratch(empty, g, cfg, (C, L0, L1), 1)
+        _build.launch("sq_field_frame", params,
+                      (state.phi, state.lrg_vl, state.dtau, phi, sums, cs, lrg, unst, work, zk,
+                       slices), dev)
+        field_frame.launches += 1
+        field_frame.launches_hw += philox(cfg)
+        field_frame.geometry = g
+        return FieldFrameSums(phi, *sums.unbind(0), cs, lrg, unst != 0)
 
 
 field_frame.launches = 0
@@ -266,35 +268,36 @@ def field_frames_multi(state: FieldState, action: FieldAction, cfg: FieldConfig,
     merge, the (lo, hi) count carry and adaptive Δτ in-kernel.  Per-frame
     results equal K launches of kernel 3 plus the PyTorch epilogue.
     Returns (state, metrics) with metrics of shape (K, C)."""
-    if K < 1:
-        raise ValueError(f"frames per launch must be >= 1, got {K}")
-    if not route(state, cfg):
-        return field_frames_multi_ref(state, action, cfg, K, chain_offset)
-    C, L0, L1 = state.phi.shape
-    params = kernel_params((C, L0, L1), action, cfg, step0=int(state.step),
-                           chain_offset=chain_offset, n_frames=K, philox=philox(cfg))
-    dev = state.phi.device
-    empty = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
-    means_in = torch.stack([getattr(state, name) for name in _MEANS])
-    phi, lrg, dtau, means = empty((C, L0, L1)), empty((C,)), empty((C,)), empty((6, C))
-    cm, runs, stab = empty((C, L0)), empty((C, 2), torch.int64), empty((C,), torch.int32)
-    hist_stable, hist_dtau, hist_lrg = empty((K, C), torch.int32), empty((K, C)), empty((K, C))
-    g = _geometry(params, cfg, True, dev)
-    work, zk, slices = _scratch(empty, g, cfg, (C, L0, L1), 2)
-    cs = empty((C, L0))
-    _build.launch(
-        "sq_field_frames", params,
-        (state.phi, state.lrg_vl, state.dtau, means_in, state.corr_mean, state.runs,
-         state.stab_cnt, phi, lrg, dtau, means, cm, runs, stab, hist_stable, hist_dtau,
-         hist_lrg, work, zk, slices, cs),
-        dev,
-    )
-    field_frames_multi.launches += 1
-    field_frames_multi.launches_hw += philox(cfg)
-    field_frames_multi.geometry = g
-    new = FieldState(phi, *means.unbind(0), cm, runs, dtau, stab, lrg,
-                     host_step(int(state.step) + cfg.loops * K))
-    return new, {"stable": hist_stable != 0, "dtau": hist_dtau, "max_phi": hist_lrg}
+    with tracing.span(tracing.LAUNCH):
+        if K < 1:
+            raise ValueError(f"frames per launch must be >= 1, got {K}")
+        if not route(state, cfg):
+            return field_frames_multi_ref(state, action, cfg, K, chain_offset)
+        C, L0, L1 = state.phi.shape
+        params = kernel_params((C, L0, L1), action, cfg, step0=int(state.step),
+                               chain_offset=chain_offset, n_frames=K, philox=philox(cfg))
+        dev = state.phi.device
+        empty = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
+        means_in = torch.stack([getattr(state, name) for name in _MEANS])
+        phi, lrg, dtau, means = empty((C, L0, L1)), empty((C,)), empty((C,)), empty((6, C))
+        cm, runs, stab = empty((C, L0)), empty((C, 2), torch.int64), empty((C,), torch.int32)
+        hist_stable, hist_dtau, hist_lrg = empty((K, C), torch.int32), empty((K, C)), empty((K, C))
+        g = _geometry(params, cfg, True, dev)
+        work, zk, slices = _scratch(empty, g, cfg, (C, L0, L1), 2)
+        cs = empty((C, L0))
+        _build.launch(
+            "sq_field_frames", params,
+            (state.phi, state.lrg_vl, state.dtau, means_in, state.corr_mean, state.runs,
+             state.stab_cnt, phi, lrg, dtau, means, cm, runs, stab, hist_stable, hist_dtau,
+             hist_lrg, work, zk, slices, cs),
+            dev,
+        )
+        field_frames_multi.launches += 1
+        field_frames_multi.launches_hw += philox(cfg)
+        field_frames_multi.geometry = g
+        new = FieldState(phi, *means.unbind(0), cm, runs, dtau, stab, lrg,
+                         host_step(int(state.step) + cfg.loops * K))
+        return new, {"stable": hist_stable != 0, "dtau": hist_dtau, "max_phi": hist_lrg}
 
 
 field_frames_multi.launches = 0

@@ -666,7 +666,15 @@ def run_field(
     the same records and its own sharded checkpoint, and gets its per-shard
     states back (``exchange_steps=0`` takes process 0's timed pick in every
     process: ``kernels.autotune.best_exchange_steps``).
-    stop and resume_progress as in :func:`run_chain`."""
+    stop and resume_progress as in :func:`run_chain`.
+
+    Each record is read at once, after its frame group: the observables'
+    means, the last frame's Δτ row and the stable share, seven blocking
+    copies to the host, inside a ``tracing.RECORD`` span with the host-side
+    numpy and the sink.  Two plain counters, 0 at import and set to 0 by
+    their reader (``tools/span_check.py records``), as the kernel wrappers'
+    ``launches`` are: ``run_field.records`` (records streamed) and
+    ``run_field.readbacks`` (the records' device-to-host reads)."""
     sink = sink or metrics_mod.MetricsSink()
     act = actions_mod.get_field(cfg.action)
     split = None
@@ -739,23 +747,25 @@ def run_field(
         n = min(fps, cfg.frames - frames_done)
         state, m = run_n(state, n)
         frames_done += n
-        host = lambda t: t.detach().cpu().numpy()  # noqa: E731
-        view = split.scalars(state) if split else state
-        obs = {
-            "mag": float(host(view.mag_mean).mean()),
-            "abs_mag": float(host(view.absmag_mean).mean()),
-            "phi2": float(host(view.phi2_mean).mean()),
-            "susceptibility": float(host(field_mod.susceptibility(view, volume)).mean()),
-            "binder": float(host(field_mod.binder_cumulant(view)).mean()),
-        }
-        sink.frame(
-            frames_done - 1,
-            cfg.frames,
-            updates_per_frame * n,
-            host(m["dtau"][-1]),
-            float(m["stable"][-n:].float().mean()),
-            observables=obs,
-        )
+        with tracing.span(tracing.RECORD):
+            view = split.scalars(state) if split else state
+            obs = {
+                "mag": float(_readback(view.mag_mean).mean()),
+                "abs_mag": float(_readback(view.absmag_mean).mean()),
+                "phi2": float(_readback(view.phi2_mean).mean()),
+                "susceptibility": float(
+                    _readback(field_mod.susceptibility(view, volume)).mean()),
+                "binder": float(_readback(field_mod.binder_cumulant(view)).mean()),
+            }
+            sink.frame(
+                frames_done - 1,
+                cfg.frames,
+                updates_per_frame * n,
+                _readback(m["dtau"][-1]),
+                float(_readback(m["stable"][-n:].float().mean())),
+                observables=obs,
+            )
+        run_field.records += 1
         if checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0:
             ckpt_mod.save_auto(checkpoint_out, state, cfg, mesh=mesh, frames_done=frames_done)
         if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, mesh):
@@ -769,6 +779,17 @@ def run_field(
     summary = sink.summary()
     sink.emit(summary)
     return RunResult(state=state, cfg=cfg, summary=summary)
+
+
+run_field.records = 0
+run_field.readbacks = 0
+
+
+def _readback(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as numpy: a blocking device-to-host copy on a card,
+    counted in ``run_field.readbacks``."""
+    run_field.readbacks += 1
+    return t.detach().cpu().numpy()
 
 
 def run_complex(

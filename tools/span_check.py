@@ -7,12 +7,15 @@ what a span costs.
     python3 tools/span_check.py cost [--n 200000]
     python3 tools/span_check.py records [--cells A,B] [--seconds 36] [--seed N]
 
-``clock`` serves each benchmark cell (``sqbench/kinds/chain.py``'s ``Cell``, through
-``runtime.run_chain``) under ``torch.profiler`` for ``--seconds`` after the
-first record, between the harness's window markers, and reports for each:
+``clock`` serves each benchmark cell (the ``Cell`` of its kind: a chain cell
+through ``runtime.run_chain``, ``sqbench/kinds/chain.py``; a field cell through
+``runtime.run_field``, ``sqbench/kinds/field.py``) under ``torch.profiler``
+for ``--seconds`` after the first record, between the harness's window
+markers, and reports for each:
 
-* every chain-kernel launch in the window (kernels 1 and 2, by the roofline
-  files' names): whether the launch call that the profiler records on the
+* every kernel launch of the cell's kind in the window (chains: kernels 1 and
+  2; fields: kernels 3 and 4; by the roofline files' names): whether the
+  launch call that the profiler records on the
   host for it (joined by correlation id) lies between the enter and exit
   markers of one ``sq.launch`` span, and whether the kernel starts on the
   device after that span's enter marker, on the profiler's raw clocks;
@@ -21,19 +24,26 @@ first record, between the harness's window markers, and reports for each:
   the call's median length;
 * the device events that carry a span's name or are user annotations (none
   should);
-* ``launch_idle_ms``, ``record_idle_ms`` and ``loop_idle_ms`` as the
-  benchmark's readers give them (the device's clock put on the host's at
-  each launch, ``offset_us`` by decile), the same split without that
-  (``split_unaligned``), and the window's idle ms a record (1 − busy /
-  window, times the window, over the records) that they add up to.
+* the idle split as the benchmark's readers give it (chains:
+  ``launch_idle_ms``, ``record_idle_ms``, ``loop_idle_ms``, the device's
+  clock put on the host's at each launch by ``layer_metrics/_spans.py``;
+  fields: ``field_launch_idle_ms``, ``field_record_idle_ms`` and the loop's
+  share, aligned by ``layer_metrics/_field_spans.py`` only where the launch
+  call lies inside the idle interval; ``offset_us`` by decile), the same
+  split without that (``split_unaligned``), and the window's idle ms a
+  record (1 − busy / window, times the window, over the records) that they
+  add up to.
 
 ``cost`` times ``tracing.span`` with no profiler (the shared no-op) and
 under a CPU profiler (two markers), in ns a span.
 
 ``records`` serves each cell untraced, under the harness's window and stop
-(``sqbench/run.py``'s ``Window``), and reports how ``runtime.run_chain``
-read its records: ``records_ahead`` and ``records_drained`` (null where the
-checkout has no such counters), the records streamed and those in the
+(``sqbench/run.py``'s ``Window``), and reports how the host loop read its
+records: for a chain cell ``run_chain.records_ahead`` and
+``records_drained``, for a field cell ``run_field.records`` and
+``run_field.readbacks`` with the launches of kernels 3 and 4
+(``field_frame.launches``, ``field_frames_multi.launches``); null where the
+checkout has no such counter; the records streamed and those in the
 window; on the card also the caching allocator's peaks
 (``torch.cuda.memory_stats``), over the cell's set-up and window.
 
@@ -55,8 +65,20 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 CELLS = ("anh1024.c256.fpl1", "dw200.c65536.threefry", "anh1024.c256.fpl16",
-         "dw200.c65536.threefry13")
-READERS = ("launch_idle_ms", "record_idle_ms", "loop_idle_ms")
+         "dw200.c65536.threefry13", "phi4_256.c16.fpl10", "phi4_256.c16.fpl1")
+#: by a cell's kind: the module that aligns the clocks and splits the idle
+#: time, and the benchmark's readers of that split
+SPLIT = {"chain": ("_spans", ("launch_idle_ms", "record_idle_ms", "loop_idle_ms")),
+         "field": ("_field_spans", ("field_launch_idle_ms", "field_record_idle_ms"))}
+#: by a cell's kind: the counters ``records`` reads, (module, function, attribute)
+COUNTERS = {
+    "chain": (("stochquant_tpu_torch.runtime", "run_chain", "records_ahead"),
+              ("stochquant_tpu_torch.runtime", "run_chain", "records_drained")),
+    "field": (("stochquant_tpu_torch.runtime", "run_field", "records"),
+              ("stochquant_tpu_torch.runtime", "run_field", "readbacks"),
+              ("stochquant_tpu_torch.kernels.field_kernel", "field_frame", "launches"),
+              ("stochquant_tpu_torch.kernels.field_kernel", "field_frames_multi", "launches")),
+}
 
 
 def card_line() -> str:
@@ -168,6 +190,8 @@ def clock(cell_name: str, seed: int, seconds: float, device: str) -> dict:
     from sqbench import run as bench
 
     cell, config = _cell(cell_name, seed, device)
+    align, readers = SPLIT[config["kind"]]
+    align = importlib.import_module(f"sqbench.layer_metrics.{align}")
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cell.device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -192,15 +216,18 @@ def clock(cell_name: str, seed: int, seconds: float, device: str) -> dict:
     cell.serve(on_record, lambda: win["closed"])
     tr = devtrace.Trace(torch, prof)
     ctx = bench.Context(tr, cell, config, win["records"] * cell.fps)
-    split = {r: importlib.import_module(f"sqbench.layer_metrics.{r}").read(ctx) for r in READERS}
+    split = {r: importlib.import_module(f"sqbench.layer_metrics.{r}").read(ctx) for r in readers}
     from sqbench.layer_metrics import _spans
 
-    matches = [work.kernel(k)["match"] for k in _spans.KERNELS]
+    if config["kind"] == "field":
+        split["loop"] = align.idle_ms_per_record(ctx, _spans.LOOP)
+    matches = [work.kernel(k)["match"] for k in align.KERNELS]
     starts = {s for s, _, n in tr.device if any(m in n for m in matches)}
-    points = _spans.offsets(tr.gaps, starts, _spans.launch_calls(tr.host))
+    points = align.offsets(tr.gaps, starts, align.launch_calls(tr.host))
     raw = _spans.idle_by_span(_spans.markers(tr.host), tr.gaps)
     idle_ms = (tr.window_s - tr.busy_s) * 1e3 / win["records"]
     out = {"cell": cell_name, "seed": seed, "records": win["records"], "window_s": tr.window_s,
+           "alignment_points": len(points),
            "busy_s": tr.busy_s, "device_idle_pct": 100.0 * (1.0 - tr.busy_s / tr.window_s),
            "idle_ms_a_record": idle_ms, "split": split,
            "split_unaligned": {n: 1e-6 * v / win["records"] for n, v in raw.items()},
@@ -216,13 +243,14 @@ def records(cell_name: str, seed: int, seconds: float, device: str) -> dict:
     import torch
 
     from sqbench import run as bench
-    from stochquant_tpu_torch import runtime
 
-    cell, _ = _cell(cell_name, seed, device)
-    counters = ("records_ahead", "records_drained")
-    for name in counters:
-        if hasattr(runtime.run_chain, name):
-            setattr(runtime.run_chain, name, 0)
+    cell, config = _cell(cell_name, seed, device)
+    counters = {}
+    for module, fn, attr in COUNTERS[config["kind"]]:
+        owner = getattr(importlib.import_module(module), fn)
+        if hasattr(owner, attr):
+            setattr(owner, attr, 0)
+        counters[f"{fn}.{attr}"] = (owner, attr)
     win = bench.Window(seconds, time.perf_counter())
     streamed = [0]
 
@@ -238,7 +266,7 @@ def records(cell_name: str, seed: int, seconds: float, device: str) -> dict:
     cell.serve(on_record, win.closed)
     out = {"mode": "records", "cell": cell_name, "seed": seed, "streamed": streamed[0],
            "window_records": win.records}
-    out.update({name: getattr(runtime.run_chain, name, None) for name in counters})
+    out.update({name: getattr(owner, attr, None) for name, (owner, attr) in counters.items()})
     if cell.device.type == "cuda":
         stats = torch.cuda.memory_stats(cell.device)
         out["memory"] = {k: stats[k] for k in (
