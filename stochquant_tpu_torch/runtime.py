@@ -329,6 +329,81 @@ class _ChainRecords:
             )
 
 
+class _FieldRecords:
+    """The frame records of a field run, read on the host one frame group
+    late, as :class:`_ChainRecords` reads a chain run's.  ``push`` enqueues a
+    group's record on the device right after the group: the five per-chain
+    observables, the last frame's Δτ row and the stable share of the group's
+    frames, each copied into a host slot (seven copies, counted in
+    ``run_field.readbacks``), then an event.  There are two slots, taken by
+    the group's parity and allocated at the first record; on a CUDA device
+    they are page-locked and the copies ``non_blocking``.  ``deliver`` waits
+    on the event of the oldest group not yet read, takes the observables'
+    means over chains on the host and hands the record to the sink.  On the
+    CPU, and with ``sync`` (a mesh run: its observables are gathered onto
+    the run's device), the slots are plain tensors, each copy is done at
+    once and no event is kept."""
+
+    #: the record's observables, each a mean over chains taken on the host
+    OBSERVABLES = ("mag", "abs_mag", "phi2", "susceptibility", "binder")
+
+    def __init__(self, sink, n_frames: int, updates_per_frame: int, volume: int, sync: bool):
+        self.sink, self.n_frames, self.updates_per_frame = sink, n_frames, updates_per_frame
+        self.volume, self.sync = volume, sync
+        self.slots = None
+        self.pushed = self.read = 0
+
+    def push(self, view, m, n: int, frames_done: int) -> None:
+        """Enqueue the record of a group of ``n`` frames that ends at frame
+        ``frames_done``: ``m`` its metrics, ``view`` the state its
+        observables are read from."""
+        values = {
+            "mag": view.mag_mean,
+            "abs_mag": view.absmag_mean,
+            "phi2": view.phi2_mean,
+            "susceptibility": field_mod.susceptibility(view, self.volume),
+            "binder": field_mod.binder_cumulant(view),
+            "dtau": m["dtau"][-1],
+            "stable": m["stable"][-n:].float().mean(),
+        }
+        dev = values["dtau"].device
+        if self.slots is None:
+            pin = dev.type == "cuda" and not self.sync
+            self.slots = [
+                {"host": {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=pin)
+                          for k, v in values.items()},
+                 "event": torch.cuda.Event() if pin else None}
+                for _ in range(2)
+            ]
+        slot = self.slots[self.pushed % 2]
+        for k, v in values.items():
+            slot["host"][k].copy_(v, non_blocking=slot["event"] is not None)
+        run_field.readbacks += len(values)
+        if slot["event"] is not None:
+            slot["event"].record(torch.cuda.current_stream(dev))
+        slot["group"] = (n, frames_done)
+        self.pushed += 1
+
+    def deliver(self) -> None:
+        """Wait for the oldest record not yet read and stream it."""
+        with tracing.span(tracing.RECORD):
+            slot = self.slots[self.read % 2]
+            self.read += 1
+            if slot["event"] is not None:
+                slot["event"].synchronize()
+            host, (n, frames_done) = slot["host"], slot["group"]
+            obs = {k: float(host[k].numpy().mean()) for k in self.OBSERVABLES}
+            self.sink.frame(
+                frames_done - 1,
+                self.n_frames,
+                self.updates_per_frame * n,
+                host["dtau"].numpy(),
+                float(host["stable"].numpy()),
+                observables=obs,
+            )
+        run_field.records += 1
+
+
 def _check_chain_mesh(cfg: ChainConfig, mesh) -> bool:
     """True for a chain run over a mesh (``mesh`` and ``cfg.mesh_chain_axis``,
     the one mesh field of ``ChainConfig``); a chain axis without a mesh or a
@@ -666,15 +741,31 @@ def run_field(
     the same records and its own sharded checkpoint, and gets its per-shard
     states back (``exchange_steps=0`` takes process 0's timed pick in every
     process: ``kernels.autotune.best_exchange_steps``).
-    stop and resume_progress as in :func:`run_chain`.
+    stop and resume_progress as in :func:`run_chain`: stop is polled once a
+    frame group, after the group is enqueued and before the next one is; a
+    stop that depends on the records sees, polled for group k, only record
+    k - 1, so it runs and streams one group more, drained.
 
-    Each record is read at once, after its frame group: the observables'
-    means, the last frame's Δτ row and the stable share, seven blocking
-    copies to the host, inside a ``tracing.RECORD`` span with the host-side
-    numpy and the sink.  Two plain counters, 0 at import and set to 0 by
-    their reader (``tools/span_check.py records``), as the kernel wrappers'
-    ``launches`` are: ``run_field.records`` (records streamed) and
-    ``run_field.readbacks`` (the records' device-to-host reads)."""
+    Records are read one group late, as :func:`run_chain` reads them: group
+    k's record (the five observables per chain, the last frame's Δτ row, the
+    stable share) is enqueued on the device right after the group and
+    copied into a host slot (:class:`_FieldRecords`), and read on the host
+    only once group k+1 is enqueued too, so the device runs k+1 while the
+    host waits on k's event, takes its means, streams it and calls the
+    wrapper for k+2.  The records and states are those of a loop that reads
+    each record at once.  A group is not followed before a checkpoint, at a
+    stop or at the last frame: its record is read with nothing enqueued
+    behind it (drained), so a checkpoint, a stop and the result hold the
+    state the last record describes.  Under a mesh every record is drained
+    and copied to the host at once (the halo runner's gather is
+    synchronous).  The ``tracing.RECORD`` span covers the wait, the
+    host-side numpy and the sink.  Four plain counters, 0 at import and set
+    to 0 by their reader (``tools/span_check.py records``), as the kernel
+    wrappers' ``launches`` are: ``run_field.records`` (records streamed),
+    ``run_field.readbacks`` (the records' device-to-host copies, seven a
+    record), ``run_field.records_ahead`` (records read with the next group
+    already enqueued) and ``run_field.records_drained`` (records read with
+    nothing enqueued behind them)."""
     sink = sink or metrics_mod.MetricsSink()
     act = actions_mod.get_field(cfg.action)
     split = None
@@ -741,34 +832,34 @@ def run_field(
                  else field_mod.reset_field_means(state))
 
     volume = math.prod(cfg.shape)
-    updates_per_frame = cfg.n_chains * volume * cfg.loops
     fps = max(cfg.fps, 1)
-    while frames_done < cfg.frames:
+    records = _FieldRecords(sink, cfg.frames, cfg.n_chains * volume * cfg.loops, volume,
+                            sync=bool(split))
+
+    def enqueue():
+        # rebinds the run's own state, so the group's input is freed before its record's work
+        nonlocal state, frames_done
         n = min(fps, cfg.frames - frames_done)
         state, m = run_n(state, n)
         frames_done += n
-        with tracing.span(tracing.RECORD):
-            view = split.scalars(state) if split else state
-            obs = {
-                "mag": float(_readback(view.mag_mean).mean()),
-                "abs_mag": float(_readback(view.absmag_mean).mean()),
-                "phi2": float(_readback(view.phi2_mean).mean()),
-                "susceptibility": float(
-                    _readback(field_mod.susceptibility(view, volume)).mean()),
-                "binder": float(_readback(field_mod.binder_cumulant(view)).mean()),
-            }
-            sink.frame(
-                frames_done - 1,
-                cfg.frames,
-                updates_per_frame * n,
-                _readback(m["dtau"][-1]),
-                float(_readback(m["stable"][-n:].float().mean())),
-                observables=obs,
-            )
-        run_field.records += 1
-        if checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0:
+        records.push(split.scalars(state) if split else state, m, n, frames_done)
+
+    ahead = False  # a group is enqueued behind the one whose record is read next
+    while ahead or frames_done < cfg.frames:
+        if not ahead:
+            enqueue()
+        stopping = stop is not None and stop()
+        due = bool(checkpoint_out and checkpoint_every and frames_done % checkpoint_every == 0)
+        ahead = not (split or stopping or due) and frames_done < cfg.frames
+        if ahead:
+            enqueue()
+        records.deliver()
+        run_field.records_ahead += ahead
+        run_field.records_drained += not ahead
+        if due:
             ckpt_mod.save_auto(checkpoint_out, state, cfg, mesh=mesh, frames_done=frames_done)
-        if _stop_requested(stop, sink, state, cfg, checkpoint_out, frames_done, mesh):
+        if stopping:
+            _preempt(sink, state, cfg, checkpoint_out, frames_done, mesh)
             break
 
     if split:
@@ -783,13 +874,8 @@ def run_field(
 
 run_field.records = 0
 run_field.readbacks = 0
-
-
-def _readback(t: torch.Tensor) -> np.ndarray:
-    """``t`` on the host as numpy: a blocking device-to-host copy on a card,
-    counted in ``run_field.readbacks``."""
-    run_field.readbacks += 1
-    return t.detach().cpu().numpy()
+run_field.records_ahead = 0
+run_field.records_drained = 0
 
 
 def run_complex(

@@ -40,9 +40,11 @@ under a CPU profiler (two markers), in ns a span.
 ``records`` serves each cell untraced, under the harness's window and stop
 (``sqbench/run.py``'s ``Window``), and reports how the host loop read its
 records: for a chain cell ``run_chain.records_ahead`` and
-``records_drained``, for a field cell ``run_field.records`` and
-``run_field.readbacks`` with the launches of kernels 3 and 4
-(``field_frame.launches``, ``field_frames_multi.launches``); null where the
+``records_drained``, for a field cell ``run_field.records``,
+``run_field.readbacks`` (seven a record), ``run_field.records_ahead`` (records
+read with the next group already enqueued) and ``run_field.records_drained``
+(records read with nothing enqueued behind them), with the launches of kernels
+3 and 4 (``field_frame.launches``, ``field_frames_multi.launches``); null where the
 checkout has no such counter; the records streamed and those in the
 window; on the card also the caching allocator's peaks
 (``torch.cuda.memory_stats``), over the cell's set-up and window.
@@ -76,6 +78,8 @@ COUNTERS = {
               ("stochquant_tpu_torch.runtime", "run_chain", "records_drained")),
     "field": (("stochquant_tpu_torch.runtime", "run_field", "records"),
               ("stochquant_tpu_torch.runtime", "run_field", "readbacks"),
+              ("stochquant_tpu_torch.runtime", "run_field", "records_ahead"),
+              ("stochquant_tpu_torch.runtime", "run_field", "records_drained"),
               ("stochquant_tpu_torch.kernels.field_kernel", "field_frame", "launches"),
               ("stochquant_tpu_torch.kernels.field_kernel", "field_frames_multi", "launches")),
 }
