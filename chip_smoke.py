@@ -35,8 +35,9 @@ non-zero:
    config-2 shapes; the timed
    kernel launches (kernel 1 at the headline, kernel 2 at config 2 with
    K=16) are held against their plain versions as in 3;
-6. field kernels vs plain: kernels 3 (``field_frame``), 4
-   (``field_frames_multi``) and 5 (``field_pair``) against their plain
+6. field kernels vs plain: kernels 3 (in its epilogue mode,
+   ``field_frame_step``), 4 (``field_frames_multi``) and 5 (``field_pair``)
+   against their plain
    versions on small cases that reach every branch — SYNC and CHECKERBOARD,
    threefry and threefry13, odd ``loops``, rejected frames, Δτ growth capped
    by ``dtau_max`` and shrinking, ``free_field``, strips of unequal rows
@@ -52,12 +53,13 @@ non-zero:
    since the kernels sum in another order than ``torch.mean``;
 7. field main path: ``cli run --preset phi4_2d --chains 16 --frames-per-launch
    2`` (one burn-in frame, 3 frames, ``--resume`` for one more, and an
-   uninterrupted 4-frame run: bitwise equal; kernels 3 and 4 launched;
-   finite observables, stable_frac ≥ 0.99), then the same with
+   uninterrupted 4-frame run: bitwise equal; kernels 3 and 4 launched, every
+   kernel-3 launch in its epilogue mode, ``field_frame_step``; finite
+   observables, stable_frac ≥ 0.99), then the same with
    ``--tile-rows 64`` and with ``--tile-rows 0`` (kernel 5 at the strip
    rule's height, 32 rows at 256², named by the run's ``autotune`` record);
-   kernels 4 and 5 from the runs' checkpoints held against their plain
-   versions as in 6, and kernel 5 timed at both heights in turns (CUDA
+   ``field_frame_step`` and kernels 4 and 5 from the runs' checkpoints held
+   against their plain versions as in 6, and kernel 5 timed at both heights in turns (CUDA
    events, mean of 50) and by its device time (torch.profiler);
 8. tiled at a size that needs it: ``runtime.run_field`` on a 1024² lattice ×
    16 chains, which ``auto`` routes to kernel 5 (4 MiB per chain, above the
@@ -67,8 +69,9 @@ non-zero:
 9. field timings: MLUPS of the kernel path and the plain path at
    ``bench.py``'s field shape (256² × 16, loops 100, seed 13,
    frames_per_launch 1 and 10) and at the tiled 1024² × 16 shape; CUDA-event
-   ms per launch of each field kernel and wall ms of its plain version at
-   those shapes, held against each other as in 6;
+   ms per launch of each field kernel (kernel 3 in both modes: sums out,
+   ``field_frame``, and with its epilogue, ``field_frame_step``) and wall ms
+   of its plain version at those shapes, held against each other as in 6;
 10. gauge kernels vs plain: kernels 10 (``gauge_frame``) and 11
     (``gauge_frames_multi``) against their plain versions for U(1), SU(2)
     and SU(3) on 8×16 and 16×128 (``bench.py``'s gate shapes): a hot start
@@ -365,6 +368,8 @@ KERNELS = {
     "chain_frames_multi": ("chain_kernel.cu", "stochquant_tpu/kernels/chain_kernel.py:624"),
     "field_frame": ("field_kernel.cu", "stochquant_tpu/kernels/field_kernel.py:205"),
     "field_frames_multi": ("field_kernel.cu", "stochquant_tpu/kernels/field_kernel.py:498"),
+    # kernel 3 in its epilogue mode: the frame and the XLA epilogue around it in one launch
+    "field_frame_step": ("field_kernel.cu", "stochquant_tpu/kernels/field_kernel.py:600"),
     "field_pair": ("field_kernel_tiled.cu", "stochquant_tpu/kernels/field_kernel_tiled.py:189"),
     "field_pair_nd": ("field_kernel_nd.cu", "stochquant_tpu/kernels/field_kernel_nd.py:327"),
     "field_chunk_nd": ("field_kernel_nd.cu", "stochquant_tpu/kernels/field_kernel_nd.py:977"),
@@ -460,6 +465,8 @@ def kernel_bounds() -> dict:
     sites = f["n_chains"] * prod(f["shape"])
     out["field_frame"] = bound(sites * 4 * 2, sites * f["loops"] * field_ops(2))
     out["field_frames_multi"] = bound(sites * 4 * 2, sites * f["loops"] * 10 * field_ops(2))
+    # kernel 3's epilogue mode: the frame's bound (the epilogue's per-chain work is below it)
+    out["field_frame_step"] = out["field_frame"]
     # the Philox variants at the same shapes: the same bytes, their own noise count
     sites = h["n_chains"] * h["n_sites"]
     out["chain_frame_hw"] = bound(
@@ -1101,7 +1108,7 @@ def phase_field_gate(torch, fk, ft, field, actions, cfgmod, device) -> None:
         s0 = field_gate_state(torch, field, name, cfg, stab, device)
         plain = field.run_field_frames(s0, act, cfg, n)
         sizes = field_sizes(fk, cfg)
-        at_every_cluster_size(f"{name} field_frame x{n} + epilogue", sizes,
+        at_every_cluster_size(f"{name} field_frame_step x{n}", sizes,
                               lambda: fk.run_field_frames_kernel(s0, act, cfg, n), plain)
         at_every_cluster_size(f"{name} field_frames_multi K={n}", sizes,
                               lambda: fk.field_frames_multi(s0, act, cfg, n),
@@ -1158,8 +1165,9 @@ def field_cli_runs(torch, cli, checkpoint, counters, tmp: Path, tag: str, extra:
               "--frames-per-launch", "2", *extra]
     for fn in counters.values():
         fn.launches = 0
-        if hasattr(fn, "launches_hw"):
-            fn.launches_hw = 0
+        for attr in ("launches_hw", "launches_fused"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
     t0 = time.time()
     cli.main(common + ["--burn", "1", "--frames", "3", "--fps", "3",
                        "--out", str(tmp / f"{tag}a.npz"), "--metrics", str(tmp / f"{tag}a.jsonl")])
@@ -1169,6 +1177,9 @@ def field_cli_runs(torch, cli, checkpoint, counters, tmp: Path, tag: str, extra:
                        "--out", str(tmp / f"{tag}c.npz"), "--metrics", str(tmp / f"{tag}c.jsonl")])
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    # kernel 3's launches in its epilogue mode (field_frame_step), counted among field_frame's
+    launches.update({name + "_step": fn.launches_fused for name, fn in counters.items()
+                     if hasattr(fn, "launches_fused")})
     hw = {name + "_hw": fn.launches_hw for name, fn in counters.items()
           if hasattr(fn, "launches_hw")}
     if "hardware" in extra:
@@ -1196,17 +1207,23 @@ def field_cli_runs(torch, cli, checkpoint, counters, tmp: Path, tag: str, extra:
     return launches
 
 
-def phase_field_main_path(torch, fk, ft, cli, checkpoint, actions, tmp: Path, card: str):
+def phase_field_main_path(torch, fk, ft, field, cli, checkpoint, actions, tmp: Path,
+                          card: str):
     """The port's CLI on preset phi4_2d through kernels 3 and 4, then with
     --tile-rows 64 and with --tile-rows 0 (the strip rule's default height)
-    through kernel 5; then kernels 4 and 5 from the runs' checkpoints against
-    their plain versions, and kernel 5 timed at both heights.  Returns (launch
-    counts, max|Δ| per kernel, kernel 5's ms per height)."""
+    through kernel 5 (every kernel-3 launch of the first in its epilogue mode,
+    ``field_frame_step``); then kernel 3's epilogue mode and kernels 4 and 5
+    from the runs' checkpoints against their plain versions, and kernel 5
+    timed at both heights.  Returns (launch counts, max|Δ| per kernel, kernel
+    5's ms per height)."""
     counters = {"field_frame": fk.field_frame, "field_frames_multi": fk.field_frames_multi,
                 "field_pair": ft.field_pair}
     whole = field_cli_runs(torch, cli, checkpoint, counters, tmp, "w", [])
     if min(whole["field_frame"], whole["field_frames_multi"]) < 1 or whole["field_pair"]:
         raise SystemExit(f"the whole-lattice main path did not run kernels 3 and 4 alone: {whole}")
+    if whole["field_frame_step"] != whole["field_frame"]:
+        raise SystemExit(f"the whole-lattice main path ran kernel 3 without its epilogue mode: "
+                         f"{whole}")
     tiled = field_cli_runs(torch, cli, checkpoint, counters, tmp, "t", ["--tile-rows", "64"])
     if tiled["field_pair"] < 1 or tiled["field_frame"] or tiled["field_frames_multi"]:
         raise SystemExit(f"the --tile-rows main path did not run kernel 5 alone: {tiled}")
@@ -1229,6 +1246,10 @@ def phase_field_main_path(torch, fk, ft, cli, checkpoint, actions, tmp: Path, ca
     err["field_frames_multi"] = gate(
         f"main path C={cfg.n_chains} {cfg.shape} loops={cfg.loops} field_frames_multi K=2",
         fk.field_frames_multi(state, act, cfg, 2), fk.field_frames_multi_ref(state, act, cfg, 2))
+    err["field_frame_step"] = gate(
+        f"main path C={cfg.n_chains} {cfg.shape} loops={cfg.loops} field_frame_step",
+        fk.field_frame_step(state, act, cfg),
+        field.field_frame_epilogue(state, fk.field_frame_ref(state, act, cfg), cfg))
     state, cfg = checkpoint.load(tmp / "ta.npz", "cuda")
     step = int(state.step)
     err["field_pair"] = gate(
@@ -1257,6 +1278,7 @@ def phase_field_main_path(torch, fk, ft, cli, checkpoint, actions, tmp: Path, ca
             f"mean of 50, least of 2 turns: {[round(x, 4) for x in v]}); {device_us:.2f} µs of "
             f"device time a launch (torch.profiler, 20 launches) [{card}]")
     launches = {"field_frame": whole["field_frame"],
+                "field_frame_step": whole["field_frame_step"],
                 "field_frames_multi": whole["field_frames_multi"],
                 "field_pair": tiled["field_pair"] + default["field_pair"]}
     return launches, err, pair_ms
@@ -1350,6 +1372,13 @@ def phase_field_timings(torch, device, fk, ft, field, actions, cfgmod, large, ca
     out["field_frame_plain_ms"] = timed(torch, lambda: holder.update(
         r=fk.field_frame_ref(state, act, cfg))) * 1e3
     out["field_frame_err"] = gate("256^2 x 16 loops=100 field_frame", got, holder["r"])
+    got = fk.field_frame_step(state, act, cfg)
+    out["field_frame_step_ms"] = cuda_ms(torch, lambda: fk.field_frame_step(state, act, cfg))
+    out["field_frame_step_geometry"] = fk.field_frame.geometry
+    out["field_frame_step_plain_ms"] = timed(torch, lambda: holder.update(
+        r=field.field_frame_epilogue(state, fk.field_frame_ref(state, act, cfg), cfg))) * 1e3
+    out["field_frame_step_err"] = gate("256^2 x 16 loops=100 field_frame_step", got,
+                                       holder["r"])
     got = fk.field_frames_multi(state, act, cfg, 10)
     out["field_frames_multi_ms"] = cuda_ms(torch, lambda: fk.field_frames_multi(state, act, cfg, 10))
     out["field_frames_multi_geometry"] = fk.field_frames_multi.geometry
@@ -1357,7 +1386,7 @@ def phase_field_timings(torch, device, fk, ft, field, actions, cfgmod, large, ca
         r=fk.field_frames_multi_ref(state, act, cfg, 10))) * 1e3
     out["field_frames_multi_err"] = gate("256^2 x 16 loops=100 field_frames_multi K=10",
                                                got, holder["r"])
-    for k in ("field_frame", "field_frames_multi"):
+    for k in ("field_frame", "field_frame_step", "field_frames_multi"):
         g = out[k + "_geometry"]
         log(f"  {k:19s} kernel {out[k + '_ms']:.3f} ms/launch (CUDA events, mean of 3; B = {g.B}, "
             f"{g.placement}), plain version {out[k + '_plain_ms']:.1f} ms (once) at 256^2 x 16, "
@@ -4292,7 +4321,7 @@ def main() -> int:
         log("[7] field main path: cli run --preset phi4_2d --chains 16 --frames-per-launch 2, "
             "then with --tile-rows 64 and --tile-rows 0 (the strip rule's height):")
         field_launches, field_err, pair_256_ms = phase_field_main_path(
-            torch, fk, ft, cli, checkpoint, actions, Path(tmp), card)
+            torch, fk, ft, field, cli, checkpoint, actions, Path(tmp), card)
         launches.update(field_launches)
 
         # 8. tiled at a size that needs it
@@ -4498,6 +4527,7 @@ def main() -> int:
     err = {"chain_frame": t["chain_frame_err"],
            "chain_frames_multi": max(main_k2_err, t["chain_frames_multi_err"]),
            "field_frame": t["field_frame_err"],
+           "field_frame_step": max(field_err["field_frame_step"], t["field_frame_step_err"]),
            "field_frames_multi": max(field_err["field_frames_multi"],
                                      t["field_frames_multi_err"]),
            "field_pair": max(field_err["field_pair"], t["field_pair_err"]),
@@ -4529,7 +4559,8 @@ def main() -> int:
     ]
     # kernels 3, 4, 10 and 11: the cluster geometry of the timed launch (10: u1;
     # 11: u1 at 256 chains)
-    for kname, key in (("field_frame", "field_frame"), ("field_frames_multi", "field_frames_multi"),
+    for kname, key in (("field_frame", "field_frame"), ("field_frame_step", "field_frame_step"),
+                       ("field_frames_multi", "field_frames_multi"),
                        ("field_frame_hw", "field_frame_hw"),
                        ("field_frames_multi_hw", "field_frames_multi_hw"),
                        ("gauge_frame", "gauge_u1"), ("gauge_frames_multi", "gauge_u1_multi")):

@@ -205,6 +205,20 @@ class GaugeParams(ctypes.Structure):
     ]
 
 
+#: every kernel entry point of the library: (name, its launch struct, the
+#: device pointers it takes between the struct and the stream)
+LAUNCHES = (
+    ("sq_chain_frame", ChainParams, 12), ("sq_chain_frames", ChainParams, 23),
+    ("sq_field_frame", FieldParams, 11), ("sq_field_frames", FieldParams, 21),
+    ("sq_field_frame_step", FieldParams, 24), ("sq_field_pair", FieldParams, 7),
+    ("sq_field_pair_nd", FieldNdParams, 8), ("sq_field_step_nd", FieldNdParams, 8),
+    ("sq_field_chunk_nd", FieldNdParams, 8), ("sq_field_chunk_rdma_nd", FieldNdParams, 10),
+    ("sq_field_halo_step", FieldHaloParams, 9),
+    ("sq_gauge_frame", GaugeParams, 9), ("sq_gauge_frames", GaugeParams, 18),
+    ("sq_gauge_chunk", GaugeParams, 9),
+)
+
+
 def build_once(path: Path, compile_fn) -> Path:
     """``path``, built by ``compile_fn(path)`` unless it exists.  The process
     that builds holds the lock file of ``path``'s directory, so processes that
@@ -225,26 +239,14 @@ def library() -> ctypes.CDLL:
     path = build_once(build_dir() / "libsq_kernels.so", _compile)
     lib = ctypes.CDLL(str(path))
     ptr = ctypes.c_void_p
-    chain = ctypes.POINTER(ChainParams)
-    field = ctypes.POINTER(FieldParams)
-    gauge = ctypes.POINTER(GaugeParams)
-    field_nd = ctypes.POINTER(FieldNdParams)
-    field_halo = ctypes.POINTER(FieldHaloParams)
-    for fn, params, n_ptr in (
-        (lib.sq_chain_frame, chain, 12), (lib.sq_chain_frames, chain, 23),
-        (lib.sq_field_frame, field, 11), (lib.sq_field_frames, field, 21),
-        (lib.sq_field_pair, field, 7),
-        (lib.sq_field_pair_nd, field_nd, 8), (lib.sq_field_step_nd, field_nd, 8),
-        (lib.sq_field_chunk_nd, field_nd, 8), (lib.sq_field_chunk_rdma_nd, field_nd, 10),
-        (lib.sq_field_halo_step, field_halo, 9),
-        (lib.sq_gauge_frame, gauge, 9), (lib.sq_gauge_frames, gauge, 18),
-        (lib.sq_gauge_chunk, gauge, 9),
-    ):
-        fn.argtypes = [params] + [ptr] * n_ptr + [ptr]  # tensors, then the stream
+    for name, params, n_ptr in LAUNCHES:
+        fn = getattr(lib, name)
+        # the struct, the tensors, then the stream
+        fn.argtypes = [ctypes.POINTER(params)] + [ptr] * n_ptr + [ptr]
         fn.restype = ctypes.c_int
-    for fn, params in ((lib.sq_field_resident, field), (lib.sq_gauge_resident, gauge),
-                       (lib.sq_gauge_chunk_resident, gauge)):
-        fn.argtypes = [params, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    for fn, params in ((lib.sq_field_resident, FieldParams), (lib.sq_gauge_resident, GaugeParams),
+                       (lib.sq_gauge_chunk_resident, GaugeParams)):
+        fn.argtypes = [ctypes.POINTER(params), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     lib.sq_error_string.argtypes = [ctypes.c_int]
     lib.sq_error_string.restype = ctypes.c_char_p

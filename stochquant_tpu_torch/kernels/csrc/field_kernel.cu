@@ -4,6 +4,8 @@
 //   kernel 3  sq_field_frame  <- _build_kernel / _frame_call
 //             (one frame of `loops` micro-steps per chain; returns the frame
 //             sums, the accept/reject epilogue runs outside in PyTorch)
+//             sq_field_frame_step: the same frame with kernel 4's epilogue
+//             after it in the same launch (the EPI mode of kernel 3's bodies)
 //   kernel 4  sq_field_frames <- _build_multiframe_kernel / _multiframe_call
 //             (K frames per launch with the accept/reject, running-mean merge,
 //             (lo, hi) sample-count carry and adaptive-dtau epilogue in-kernel)
@@ -235,16 +237,106 @@ __device__ __forceinline__ void zero_owned_rows(const FieldParams& p, float* row
         for (int r = threadIdx.x >> 5; r < p.L0; r += blockDim.x >> 5) row[r] = 0.0f;
 }
 
-// ---- kernel 3: one frame, frame sums out ----------------------------------
+// What the epilogue carries from frame to frame for a chain (block-uniform).
+struct Carry {
+    float means[6];   // running means of M, M^2, M^4, |M|, phi^2, s
+    float dtau;
+    uint32_t lo, hi;  // the accepted sample count's words
+    int32_t stab;     // stable frames in a row
+};
 
-template <class GEN>
+// `means[k]` is the chain's running mean k (the six of FieldState, in order).
+__device__ __forceinline__ Carry carry_in(int ch, const float* const* means,
+                                          const float* __restrict__ dtau_in,
+                                          const int64_t* __restrict__ runs_in,
+                                          const int32_t* __restrict__ stab_in) {
+    Carry c;
+    for (int k = 0; k < 6; ++k) c.means[k] = means[k][ch];
+    c.dtau = dtau_in[ch];
+    c.lo = (uint32_t)runs_in[2 * ch];
+    c.hi = (uint32_t)runs_in[2 * ch + 1];
+    c.stab = stab_in[ch];
+    return c;
+}
+
+__device__ __forceinline__ void carry_out(const Carry& c, int ch, int C,
+                                          float* __restrict__ means_out,
+                                          float* __restrict__ dtau_out,
+                                          int64_t* __restrict__ runs_out,
+                                          int32_t* __restrict__ stab_out) {
+    for (int k = 0; k < 6; ++k) means_out[(size_t)k * C + ch] = c.means[k];
+    dtau_out[ch] = c.dtau;
+    runs_out[2 * ch] = (int64_t)c.lo;
+    runs_out[2 * ch + 1] = (int64_t)c.hi;
+    stab_out[ch] = c.stab;
+}
+
+// The frame epilogue of kernel 4, and of kernel 3's EPI mode: accept/reject,
+// the running-mean merge, the (lo, hi) count carry and adaptive dtau
+// (integrators/field.py field_frame_epilogue and accum.merge_frame_sum,
+// expression for expression) on the frame just run, `fr`; a rejected frame
+// puts fr.lrg back to `lrg_snap`.  Lane 0 of each warp merges its rows of the
+// block's n_rows rows of the frame's correlator sums `cs` into `cm_out` from
+// `cm_in` (the same rows in place for kernel 4; kernel 3's rejected frame
+// copies cm_in).  Returns whether the frame was accepted: the caller keeps the
+// accepted field or the frame's input.
+__device__ __forceinline__ bool frame_epilogue(const FieldParams& p, Frame& fr, float lrg_snap,
+                                               Carry& c, const float* cs, const float* cm_in,
+                                               float* cm_out, int n_rows) {
+    const bool accept = !fr.unstable;
+    const uint32_t lo_n = c.lo + (uint32_t)p.loops;
+    const uint32_t hi_n = c.hi + (lo_n < c.lo ? 1u : 0u);
+    const float n_new = __uint2float_rn(hi_n) * 4294967296.0f + __uint2float_rn(lo_n);
+    const float w = p.loops_f / n_new;
+    if (accept) {
+        for (int k = 0; k < 6; ++k)
+            c.means[k] = c.means[k] + (fr.sums[k] * p.inv_loops - c.means[k]) * w;
+        if ((threadIdx.x & 31) == 0)
+            for (int r = threadIdx.x >> 5; r < n_rows; r += blockDim.x >> 5)
+                cm_out[r] = cm_in[r] + (cs[r] * p.inv_loops - cm_in[r]) * w;
+        c.lo = lo_n;
+        c.hi = hi_n;
+    } else {
+        fr.lrg = lrg_snap;
+        if (cm_in != cm_out && (threadIdx.x & 31) == 0)
+            for (int r = threadIdx.x >> 5; r < n_rows; r += blockDim.x >> 5) cm_out[r] = cm_in[r];
+    }
+    const bool grow = accept && c.stab >= p.grow_after;
+    float dt = grow ? c.dtau / p.shrink : (accept ? c.dtau : c.dtau * p.shrink);
+    if (p.has_dtau_max) dt = fminf(dt, p.dtau_max);
+    c.dtau = dt;
+    c.stab = accept ? (grow ? 0 : c.stab + 1) : 0;
+    return accept;
+}
+
+// Kernel 3's EPI mode: the chain state the epilogue reads and writes, the
+// leaves of FieldState that kernel 3 alone does not take (the six means each
+// their own (C,) tensor in; (6, C) out).
+struct FrameStep {
+    const float* means_in[6];
+    const float* cm_in;
+    const int64_t* runs_in;
+    const int32_t* stab_in;
+    float* means_out;
+    float* cm_out;
+    int64_t* runs_out;
+    float* dtau_out;
+    int32_t* stab_out;
+    bool* stable_out;
+};
+
+// ---- kernel 3: one frame, frame sums out (EPI: the epilogue too) -----------
+
+// EPI: the frame's epilogue follows it (FrameStep e); sums_out and unst_out
+// are not written, and a rejected frame leaves phi_in in phi_out.
+template <class GEN, bool EPI>
 __global__ void __launch_bounds__(FK_THREADS)
 field_frame_kernel(FieldParams p, const float* __restrict__ phi_in,
                    const float* __restrict__ lrg_in, const float* __restrict__ dtau_in,
                    float* __restrict__ phi_out, float* __restrict__ sums_out,
                    float* __restrict__ cs_out, float* __restrict__ lrg_out,
                    int32_t* __restrict__ unst_out, float* __restrict__ work,
-                   float* __restrict__ zk, float* __restrict__ slice) {
+                   float* __restrict__ zk, float* __restrict__ slice, FrameStep e) {
     __shared__ float red[6 * (FK_THREADS / 32)];
     const int ch = blockIdx.x, C = p.n_chains;
     const size_t vol = (size_t)p.L0 * (size_t)p.L1;
@@ -259,7 +351,18 @@ field_frame_kernel(FieldParams p, const float* __restrict__ phi_in,
     const uint32_t k1 = (uint32_t)STREAM_FIELD ^ ((p.chain0 + (uint32_t)ch) << 8);
     run_frame<GEN>(p, P0, work + ch * vol, zk + ch * vol, (size_t)C * vol, cs,
                    slice + (size_t)ch * p.L0, red, fr, p.step0, k1);
-    if (threadIdx.x == 0) {
+    if constexpr (EPI) {
+        Carry c = carry_in(ch, e.means_in, dtau_in, e.runs_in, e.stab_in);
+        const size_t row0 = (size_t)ch * p.L0;
+        const bool accept = frame_epilogue(p, fr, lrg_in[ch], c, cs, e.cm_in + row0,
+                                           e.cm_out + row0, p.L0);
+        if (!accept) copy_own(p, phi_in + ch * vol, P0);
+        if (threadIdx.x == 0) {
+            carry_out(c, ch, C, e.means_out, e.dtau_out, e.runs_out, e.stab_out);
+            lrg_out[ch] = fr.lrg;
+            e.stable_out[ch] = accept;
+        }
+    } else if (threadIdx.x == 0) {
         for (int k = 0; k < 6; ++k) sums_out[(size_t)k * C + ch] = fr.sums[k];
         lrg_out[ch] = fr.lrg;
         unst_out[ch] = fr.unstable;
@@ -293,13 +396,11 @@ field_frames_kernel(FieldParams p, const float* __restrict__ phi_in,
     if ((threadIdx.x & 31) == 0)
         for (int r = threadIdx.x >> 5; r < p.L0; r += blockDim.x >> 5)
             cm[r] = cm_in[(size_t)ch * p.L0 + r];
-    float means[6];
-    for (int k = 0; k < 6; ++k) means[k] = means_in[(size_t)k * C + ch];
+    const float* means[6];
+    for (int k = 0; k < 6; ++k) means[k] = means_in + (size_t)k * C;
+    Carry c = carry_in(ch, means, dtau_in, runs_in, stab_in);
     Frame fr;
     fr.lrg = lrg_in[ch];
-    float dtau = dtau_in[ch];
-    uint32_t lo = (uint32_t)runs_in[2 * ch], hi = (uint32_t)runs_in[2 * ch + 1];
-    int32_t stab = stab_in[ch];
     const uint32_t loops_u = (uint32_t)p.loops;
     const uint32_t k1 = (uint32_t)STREAM_FIELD ^ ((p.chain0 + (uint32_t)ch) << 8);
 
@@ -308,48 +409,21 @@ field_frames_kernel(FieldParams p, const float* __restrict__ phi_in,
         zero_owned_rows(p, cs);
         __syncthreads();
         const float lrg_snap = fr.lrg;
-        fr.dtau = dtau;
+        fr.dtau = c.dtau;
         run_frame<GEN>(p, W0, W1, zk + ch * vol, (size_t)C * vol, cs,
                        slice + (size_t)ch * p.L0, red, fr, p.step0 + (uint32_t)j * loops_u, k1);
-
-        // epilogue: integrators/field.py frame epilogue and accum.merge_frame_sum,
-        // expression for expression
-        const bool accept = !fr.unstable;
-        const uint32_t lo_n = lo + loops_u;
-        const uint32_t hi_n = hi + (lo_n < lo ? 1u : 0u);
-        const float n_new = __uint2float_rn(hi_n) * 4294967296.0f + __uint2float_rn(lo_n);
-        const float w = p.loops_f / n_new;
-        if (accept) {
-            for (int k = 0; k < 6; ++k)
-                means[k] = means[k] + (fr.sums[k] * p.inv_loops - means[k]) * w;
-            if ((threadIdx.x & 31) == 0)
-                for (int r = threadIdx.x >> 5; r < p.L0; r += blockDim.x >> 5)
-                    cm[r] = cm[r] + (cs[r] * p.inv_loops - cm[r]) * w;
-            copy_own(p, W0, acc_phi);
-            lo = lo_n;
-            hi = hi_n;
-        } else {
-            fr.lrg = lrg_snap;
-        }
-        const bool grow = accept && stab >= p.grow_after;
-        float dt = grow ? dtau / p.shrink : (accept ? dtau : dtau * p.shrink);
-        if (p.has_dtau_max) dt = fminf(dt, p.dtau_max);
-        dtau = dt;
-        stab = accept ? (grow ? 0 : stab + 1) : 0;
+        const bool accept = frame_epilogue(p, fr, lrg_snap, c, cs, cm, cm, p.L0);
+        if (accept) copy_own(p, W0, acc_phi);
         if (threadIdx.x == 0) {
             hist_stable[(size_t)j * C + ch] = accept ? 1 : 0;
-            hist_dtau[(size_t)j * C + ch] = dtau;
+            hist_dtau[(size_t)j * C + ch] = c.dtau;
             hist_lrg[(size_t)j * C + ch] = fr.lrg;
         }
     }
 
     if (threadIdx.x == 0) {
-        for (int k = 0; k < 6; ++k) means_out[(size_t)k * C + ch] = means[k];
+        carry_out(c, ch, C, means_out, dtau_out, runs_out, stab_out);
         lrg_out[ch] = fr.lrg;
-        dtau_out[ch] = dtau;
-        runs_out[2 * ch] = (int64_t)lo;
-        runs_out[2 * ch + 1] = (int64_t)hi;
-        stab_out[ch] = stab;
     }
 }
 
@@ -597,15 +671,27 @@ __device__ __forceinline__ void cl_zero_rows(const ClField& w, float* row) {
         for (int k = threadIdx.x >> 5; k < w.s.n; k += blockDim.x >> 5) row[k] = 0.0f;
 }
 
+// The strip's own rows of a chain's (L0, L1) field into another.
+__device__ __forceinline__ void cl_copy_own(const FieldParams& p, const ClField& w,
+                                            const float* __restrict__ src,
+                                            float* __restrict__ dst) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+    for (int k = warp; k < w.s.n; k += nw) {
+        const size_t row = (size_t)(w.s.r0 + k) * p.L1;
+        for (int c = lane; c < p.L1; c += 32) dst[row + c] = src[row + c];
+    }
+}
+
 // Kernel 3 at B > 1: the arguments of field_frame_kernel but the work buffer
-// and the slice scratch (shared memory holds both).
-template <class GEN>
+// and the slice scratch (shared memory holds both); EPI as there, the accepted
+// strip stored from shared memory, a rejected one copied from phi_in.
+template <class GEN, bool EPI>
 __global__ void __launch_bounds__(FK_THREADS)
 field_frame_cl_kernel(FieldParams p, const float* __restrict__ phi_in,
                       const float* __restrict__ lrg_in, const float* __restrict__ dtau_in,
                       float* __restrict__ phi_out, float* __restrict__ sums_out,
                       float* __restrict__ cs_out, float* __restrict__ lrg_out,
-                      int32_t* __restrict__ unst_out, float* __restrict__ zk) {
+                      int32_t* __restrict__ unst_out, float* __restrict__ zk, FrameStep e) {
     cg::cluster_group cl = cg::this_cluster();
     const int ch = blockIdx.x / p.cl_B, C = p.n_chains;
     const size_t vol = (size_t)p.L0 * (size_t)p.L1;
@@ -619,11 +705,26 @@ field_frame_cl_kernel(FieldParams p, const float* __restrict__ phi_in,
     fr.dtau = dtau_in[ch];
     const uint32_t k1 = (uint32_t)STREAM_FIELD ^ ((p.chain0 + (uint32_t)ch) << 8);
     const float* cur = cl_run_frame<GEN>(p, w, cl, fr, cs, p.step0, k1);
-    cl_store(p, w, cur, phi_out + ch * vol);
-    if (w.s.rank == 0 && threadIdx.x == 0) {
-        for (int k = 0; k < 6; ++k) sums_out[(size_t)k * C + ch] = fr.sums[k];
-        lrg_out[ch] = fr.lrg;
-        unst_out[ch] = fr.unstable;
+    const bool lead = w.s.rank == 0 && threadIdx.x == 0;
+    if constexpr (EPI) {
+        Carry c = carry_in(ch, e.means_in, dtau_in, e.runs_in, e.stab_in);
+        const size_t row0 = (size_t)ch * p.L0 + w.s.r0;
+        const bool accept = frame_epilogue(p, fr, lrg_in[ch], c, cs, e.cm_in + row0,
+                                           e.cm_out + row0, w.s.n);
+        if (accept) cl_store(p, w, cur, phi_out + ch * vol);
+        else cl_copy_own(p, w, phi_in + ch * vol, phi_out + ch * vol);
+        if (lead) {
+            carry_out(c, ch, C, e.means_out, e.dtau_out, e.runs_out, e.stab_out);
+            lrg_out[ch] = fr.lrg;
+            e.stable_out[ch] = accept;
+        }
+    } else {
+        cl_store(p, w, cur, phi_out + ch * vol);
+        if (lead) {
+            for (int k = 0; k < 6; ++k) sums_out[(size_t)k * C + ch] = fr.sums[k];
+            lrg_out[ch] = fr.lrg;
+            unst_out[ch] = fr.unstable;
+        }
     }
     cl.sync();  // no block leaves while a peer may still read its slots
 }
@@ -659,13 +760,11 @@ field_frames_cl_kernel(FieldParams p, const float* __restrict__ phi_in,
             if (lane == 0) cm[k] = cm_in[(size_t)ch * p.L0 + w.s.r0 + k];
         }
     }
-    float means[6];
-    for (int k = 0; k < 6; ++k) means[k] = means_in[(size_t)k * C + ch];
+    const float* means[6];
+    for (int k = 0; k < 6; ++k) means[k] = means_in + (size_t)k * C;
+    Carry c = carry_in(ch, means, dtau_in, runs_in, stab_in);
     Frame fr;
     fr.lrg = lrg_in[ch];
-    float dtau = dtau_in[ch];
-    uint32_t lo = (uint32_t)runs_in[2 * ch], hi = (uint32_t)runs_in[2 * ch + 1];
-    int32_t stab = stab_in[ch];
     const uint32_t loops_u = (uint32_t)p.loops;
     const uint32_t k1 = (uint32_t)STREAM_FIELD ^ ((p.chain0 + (uint32_t)ch) << 8);
 
@@ -676,47 +775,21 @@ field_frames_cl_kernel(FieldParams p, const float* __restrict__ phi_in,
         cl_zero_rows(w, cs);
         __syncthreads();
         const float lrg_snap = fr.lrg;
-        fr.dtau = dtau;
+        fr.dtau = c.dtau;
         const float* cur = cl_run_frame<GEN>(p, w, cl, fr, cs, p.step0 + (uint32_t)j * loops_u,
                                              k1);
-
-        // epilogue: field_frames_kernel's, expression for expression
-        const bool accept = !fr.unstable;
-        const uint32_t lo_n = lo + loops_u;
-        const uint32_t hi_n = hi + (lo_n < lo ? 1u : 0u);
-        const float n_new = __uint2float_rn(hi_n) * 4294967296.0f + __uint2float_rn(lo_n);
-        const float wgt = p.loops_f / n_new;
-        if (accept) {
-            for (int k = 0; k < 6; ++k)
-                means[k] = means[k] + (fr.sums[k] * p.inv_loops - means[k]) * wgt;
-            if ((threadIdx.x & 31) == 0)
-                for (int k = threadIdx.x >> 5; k < w.s.n; k += blockDim.x >> 5)
-                    cm[k] = cm[k] + (cs[k] * p.inv_loops - cm[k]) * wgt;
-            cl_store(p, w, cur, acc_phi);
-            lo = lo_n;
-            hi = hi_n;
-        } else {
-            fr.lrg = lrg_snap;
-        }
-        const bool grow = accept && stab >= p.grow_after;
-        float dt = grow ? dtau / p.shrink : (accept ? dtau : dtau * p.shrink);
-        if (p.has_dtau_max) dt = fminf(dt, p.dtau_max);
-        dtau = dt;
-        stab = accept ? (grow ? 0 : stab + 1) : 0;
+        const bool accept = frame_epilogue(p, fr, lrg_snap, c, cs, cm, cm, w.s.n);
+        if (accept) cl_store(p, w, cur, acc_phi);
         if (lead) {
             hist_stable[(size_t)j * C + ch] = accept ? 1 : 0;
-            hist_dtau[(size_t)j * C + ch] = dtau;
+            hist_dtau[(size_t)j * C + ch] = c.dtau;
             hist_lrg[(size_t)j * C + ch] = fr.lrg;
         }
     }
 
     if (lead) {
-        for (int k = 0; k < 6; ++k) means_out[(size_t)k * C + ch] = means[k];
+        carry_out(c, ch, C, means_out, dtau_out, runs_out, stab_out);
         lrg_out[ch] = fr.lrg;
-        dtau_out[ch] = dtau;
-        runs_out[2 * ch] = (int64_t)lo;
-        runs_out[2 * ch + 1] = (int64_t)hi;
-        stab_out[ch] = stab;
     }
     cl.sync();  // no block leaves while a peer may still read its slots
 }
@@ -734,43 +807,109 @@ static bool valid_field_launch(const FieldParams& p) {
            (p.action == ACTION_PHI4 || p.action == ACTION_FREE) && cluster;
 }
 
-#define SQ_FIELD_DISPATCH(KERNEL, ...)                                                    \
-    do {                                                                                  \
-        cudaStream_t st = (cudaStream_t)stream;                                           \
-        if (p->philox)                                                                    \
-            KERNEL<PhiloxNoise><<<p->n_chains, FK_THREADS, 0, st>>>(*p, __VA_ARGS__);     \
-        else if (p->rounds == 20)                                                         \
-            KERNEL<Threefry20><<<p->n_chains, FK_THREADS, 0, st>>>(*p, __VA_ARGS__);      \
-        else                                                                              \
-            KERNEL<Threefry13><<<p->n_chains, FK_THREADS, 0, st>>>(*p, __VA_ARGS__);      \
-    } while (0)
+// Calls L::run<GEN>(p, a...) with p's generator: Philox (rng_impl 'hardware'),
+// Threefry-20 or Threefry-13.  L is one of the launchers below.
+template <class L, class... A>
+static int with_generator(const FieldParams& p, A... a) {
+    if (p.philox) return L::template run<PhiloxNoise>(p, a...);
+    if (p.rounds == 20) return L::template run<Threefry20>(p, a...);
+    return L::template run<Threefry13>(p, a...);
+}
 
-// B > 1: n_chains clusters of B blocks; returns the launch's error.
-#define SQ_FIELD_CL_DISPATCH(KERNEL, ...)                                                 \
-    do {                                                                                  \
-        cudaStream_t st = (cudaStream_t)stream;                                           \
-        const size_t smem = field_cl_floats(*p) * sizeof(float);                          \
-        if (p->philox)                                                                    \
-            return (int)launch_cluster(KERNEL<PhiloxNoise>, p->n_chains, FK_THREADS, smem, \
-                                       p->cl_B, st, *p, __VA_ARGS__);                     \
-        if (p->rounds == 20)                                                              \
-            return (int)launch_cluster(KERNEL<Threefry20>, p->n_chains, FK_THREADS, smem,  \
-                                       p->cl_B, st, *p, __VA_ARGS__);                     \
-        return (int)launch_cluster(KERNEL<Threefry13>, p->n_chains, FK_THREADS, smem,      \
-                                   p->cl_B, st, *p, __VA_ARGS__);                         \
-    } while (0)
+// Kernel 3 (EPI: with the epilogue) on the stream in the geometry of p:
+// n_chains clusters of B blocks, or at B = 1 a block a chain; returns the
+// launch's error.
+template <bool EPI>
+struct FrameLaunch {
+    template <class GEN>
+    static int run(const FieldParams& p, cudaStream_t st, const float* phi_in,
+                   const float* lrg_in, const float* dtau_in, float* phi_out, float* sums_out,
+                   float* cs_out, float* lrg_out, int32_t* unst_out, float* work, float* zk,
+                   float* slice, FrameStep e) {
+        if (p.cl_B > 1)
+            return (int)launch_cluster(field_frame_cl_kernel<GEN, EPI>, p.n_chains, FK_THREADS,
+                                       field_cl_floats(p) * sizeof(float), p.cl_B, st, p,
+                                       phi_in, lrg_in, dtau_in, phi_out, sums_out, cs_out,
+                                       lrg_out, unst_out, zk, e);
+        field_frame_kernel<GEN, EPI><<<p.n_chains, FK_THREADS, 0, st>>>(
+            p, phi_in, lrg_in, dtau_in, phi_out, sums_out, cs_out, lrg_out, unst_out, work, zk,
+            slice, e);
+        return (int)cudaGetLastError();
+    }
+};
+
+// Kernel 4, likewise.
+struct FramesLaunch {
+    template <class GEN>
+    static int run(const FieldParams& p, cudaStream_t st, const float* phi_in,
+                   const float* lrg_in, const float* dtau_in, const float* means_in,
+                   const float* cm_in, const int64_t* runs_in, const int32_t* stab_in,
+                   float* phi_out, float* lrg_out, float* dtau_out, float* means_out,
+                   float* cm_out, int64_t* runs_out, int32_t* stab_out, int32_t* hist_stable,
+                   float* hist_dtau, float* hist_lrg, float* work, float* zk, float* slice,
+                   float* cs) {
+        if (p.cl_B > 1)
+            return (int)launch_cluster(field_frames_cl_kernel<GEN>, p.n_chains, FK_THREADS,
+                                       field_cl_floats(p) * sizeof(float), p.cl_B, st, p,
+                                       phi_in, lrg_in, dtau_in, means_in, cm_in, runs_in,
+                                       stab_in, phi_out, lrg_out, dtau_out, means_out, cm_out,
+                                       runs_out, stab_out, hist_stable, hist_dtau, hist_lrg, zk,
+                                       cs);
+        field_frames_kernel<GEN><<<p.n_chains, FK_THREADS, 0, st>>>(
+            p, phi_in, lrg_in, dtau_in, means_in, cm_in, runs_in, stab_in, phi_out, lrg_out,
+            dtau_out, means_out, cm_out, runs_out, stab_out, hist_stable, hist_dtau, hist_lrg,
+            work, zk, slice, cs);
+        return (int)cudaGetLastError();
+    }
+};
+
+// Chains of kernel 3 (multi = 0; its EPI mode has the same block, launch bounds
+// and shared memory) or 4 (multi = 1) the card runs at once in the geometry of p
+// (cl_B, cl_rows, cl_scratch): resident clusters of cl_B blocks, or at cl_B = 1
+// resident blocks.  The geometry rule's occupancy answer.
+struct Resident {
+    template <class GEN>
+    static int run(const FieldParams& p, int multi, int* out) {
+        if (p.cl_B == 1)
+            return (int)(multi ? resident_blocks(field_frames_kernel<GEN>, FK_THREADS, out)
+                               : resident_blocks(field_frame_kernel<GEN, false>, FK_THREADS,
+                                                 out));
+        const size_t smem = field_cl_floats(p) * sizeof(float);
+        return (int)(multi ? resident_clusters(field_frames_cl_kernel<GEN>, FK_THREADS, smem,
+                                               p.cl_B, out)
+                           : resident_clusters(field_frame_cl_kernel<GEN, false>, FK_THREADS,
+                                               smem, p.cl_B, out));
+    }
+};
 
 extern "C" int sq_field_frame(const FieldParams* p, const float* phi_in, const float* lrg_in,
                               const float* dtau_in, float* phi_out, float* sums_out,
                               float* cs_out, float* lrg_out, int32_t* unst_out, float* work,
                               float* zk, float* slice, void* stream) {
     if (!valid_field_launch(*p)) return (int)cudaErrorInvalidValue;
-    if (p->cl_B > 1)
-        SQ_FIELD_CL_DISPATCH(field_frame_cl_kernel, phi_in, lrg_in, dtau_in, phi_out, sums_out,
-                             cs_out, lrg_out, unst_out, zk);
-    SQ_FIELD_DISPATCH(field_frame_kernel, phi_in, lrg_in, dtau_in, phi_out, sums_out, cs_out,
-                      lrg_out, unst_out, work, zk, slice);
-    return (int)cudaGetLastError();
+    return with_generator<FrameLaunch<false>>(*p, (cudaStream_t)stream, phi_in, lrg_in, dtau_in,
+                                              phi_out, sums_out, cs_out, lrg_out, unst_out, work,
+                                              zk, slice, FrameStep{});
+}
+
+// Kernel 3 with the epilogue (EPI): the chain state in FieldState's order
+// (phi, the six means, corr_mean, runs, dtau, stab_cnt, lrg_vl; step rides in
+// p->step0), the new state in the same order with the six means as one (6, C)
+// tensor, the frame's accept flag (bool), then kernel 3's scratch and the
+// frame's correlator sums (cs).
+extern "C" int sq_field_frame_step(
+    const FieldParams* p, const float* phi_in, const float* mag_in, const float* mag2_in,
+    const float* mag4_in, const float* absmag_in, const float* phi2_in, const float* act_in,
+    const float* cm_in, const int64_t* runs_in, const float* dtau_in, const int32_t* stab_in,
+    const float* lrg_in, float* phi_out, float* means_out, float* cm_out, int64_t* runs_out,
+    float* dtau_out, int32_t* stab_out, float* lrg_out, bool* stable_out, float* work,
+    float* zk, float* slice, float* cs, void* stream) {
+    if (!valid_field_launch(*p)) return (int)cudaErrorInvalidValue;
+    const FrameStep e{{mag_in, mag2_in, mag4_in, absmag_in, phi2_in, act_in}, cm_in, runs_in,
+                      stab_in, means_out, cm_out, runs_out, dtau_out, stab_out, stable_out};
+    return with_generator<FrameLaunch<true>>(*p, (cudaStream_t)stream, phi_in, lrg_in, dtau_in,
+                                             phi_out, (float*)nullptr, cs, lrg_out,
+                                             (int32_t*)nullptr, work, zk, slice, e);
 }
 
 extern "C" int sq_field_frames(const FieldParams* p, const float* phi_in, const float* lrg_in,
@@ -781,33 +920,14 @@ extern "C" int sq_field_frames(const FieldParams* p, const float* phi_in, const 
                                float* hist_dtau, float* hist_lrg, float* work, float* zk,
                                float* slice, float* cs, void* stream) {
     if (!valid_field_launch(*p) || p->n_frames < 1) return (int)cudaErrorInvalidValue;
-    if (p->cl_B > 1)
-        SQ_FIELD_CL_DISPATCH(field_frames_cl_kernel, phi_in, lrg_in, dtau_in, means_in, cm_in,
-                             runs_in, stab_in, phi_out, lrg_out, dtau_out, means_out, cm_out,
-                             runs_out, stab_out, hist_stable, hist_dtau, hist_lrg, zk, cs);
-    SQ_FIELD_DISPATCH(field_frames_kernel, phi_in, lrg_in, dtau_in, means_in, cm_in, runs_in,
-                      stab_in, phi_out, lrg_out, dtau_out, means_out, cm_out, runs_out,
-                      stab_out, hist_stable, hist_dtau, hist_lrg, work, zk, slice, cs);
-    return (int)cudaGetLastError();
-}
-
-// Chains of kernel 3 (multi = 0) or 4 (multi = 1) the card runs at once in the
-// geometry of p (cl_B, cl_rows, cl_scratch): resident clusters of cl_B blocks,
-// or at cl_B = 1 resident blocks.  The geometry rule's occupancy answer.
-template <class GEN>
-static cudaError_t field_resident(const FieldParams& p, int multi, int* out) {
-    if (p.cl_B == 1)
-        return multi ? resident_blocks(field_frames_kernel<GEN>, FK_THREADS, out)
-                     : resident_blocks(field_frame_kernel<GEN>, FK_THREADS, out);
-    const size_t smem = field_cl_floats(p) * sizeof(float);
-    return multi ? resident_clusters(field_frames_cl_kernel<GEN>, FK_THREADS, smem, p.cl_B, out)
-                 : resident_clusters(field_frame_cl_kernel<GEN>, FK_THREADS, smem, p.cl_B, out);
+    return with_generator<FramesLaunch>(*p, (cudaStream_t)stream, phi_in, lrg_in, dtau_in,
+                                        means_in, cm_in, runs_in, stab_in, phi_out, lrg_out,
+                                        dtau_out, means_out, cm_out, runs_out, stab_out,
+                                        hist_stable, hist_dtau, hist_lrg, work, zk, slice, cs);
 }
 
 extern "C" int sq_field_resident(const FieldParams* p, int multi, int* out) {
     *out = 0;
     if (!valid_field_launch(*p)) return (int)cudaErrorInvalidValue;
-    if (p->philox) return (int)field_resident<PhiloxNoise>(*p, multi, out);
-    if (p->rounds == 20) return (int)field_resident<Threefry20>(*p, multi, out);
-    return (int)field_resident<Threefry13>(*p, multi, out);
+    return with_generator<Resident>(*p, multi, out);
 }

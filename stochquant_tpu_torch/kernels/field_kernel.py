@@ -6,7 +6,9 @@ Port of ``stochquant_tpu/kernels/field_kernel.py``:
 * kernel 3, :func:`field_frame` — one frame of ``cfg.loops`` micro-steps per
   chain returning the frame sums (``_build_kernel``); the accept/reject
   epilogue runs outside in PyTorch (``field.field_frame_epilogue``).
-  Plain version: :func:`field_frame_ref`.
+  Plain version: :func:`field_frame_ref`.  :func:`field_frame_step` launches
+  kernel 3 in its epilogue mode instead: the frame and kernel 4's epilogue in
+  one launch, the results of the two steps to the bit.
 * kernel 4, :func:`field_frames_multi` — K frames per launch with the
   epilogue in-kernel (``_build_multiframe_kernel``).
   Plain version: :func:`field_frames_multi_ref`.
@@ -19,8 +21,10 @@ raises — it never falls back.  Each wrapper counts its kernel launches in a
 plain integer attribute, ``field_frame.launches`` and
 ``field_frames_multi.launches``; launches of the Philox variant
 (``rng_impl='hardware'``) are counted on their own as well, in
-``field_frame.launches_hw`` and ``field_frames_multi.launches_hw``.  Each
-wrapper runs whole inside a ``tracing.LAUNCH`` span (``tracing.py``).
+``field_frame.launches_hw`` and ``field_frames_multi.launches_hw``.
+:func:`field_frame_step`'s launches count as kernel 3's, and also in
+``field_frame.launches_fused``.  Each wrapper runs whole inside a
+``tracing.LAUNCH`` span (``tracing.py``).
 
 Each launch runs a chain on a thread-block cluster of B blocks, each holding
 a strip of rows in shared memory, or at B = 1 on one block with the field in
@@ -52,6 +56,7 @@ __all__ = [
     "cluster_geometry",
     "field_frame",
     "field_frame_ref",
+    "field_frame_step",
     "field_frames_multi",
     "field_frames_multi_ref",
     "run_field_frames_kernel",
@@ -228,7 +233,43 @@ def field_frame(state: FieldState, action: FieldAction, cfg: FieldConfig,
 
 field_frame.launches = 0
 field_frame.launches_hw = 0
+field_frame.launches_fused = 0
 field_frame.geometry = None
+
+
+def field_frame_step(state: FieldState, action: FieldAction, cfg: FieldConfig,
+                     chain_offset: int = 0):
+    """One frame with its epilogue: kernel 3 in its epilogue mode, one launch
+    that runs the frame, then accept/reject, the running-mean merge, the (lo,
+    hi) count carry and adaptive Δτ as kernel 4 does (``field_frame`` plus
+    ``field.field_frame_epilogue``, to the bit).  On CPU tensors it runs
+    exactly that pair.  Returns (state, metrics) with metrics of shape (C,)."""
+    with tracing.span(tracing.LAUNCH):
+        if not route(state, cfg):
+            return field_mod.field_frame_epilogue(
+                state, field_frame_ref(state, action, cfg, chain_offset), cfg)
+        C, L0, L1 = state.phi.shape
+        params = kernel_params((C, L0, L1), action, cfg, step0=int(state.step),
+                               chain_offset=chain_offset, philox=philox(cfg))
+        dev = state.phi.device
+        # kernel 3's rule: the epilogue mode has its block, launch bounds and shared memory
+        g = _geometry(params, cfg, False, dev)
+        empty = lambda shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)  # noqa: E731
+        phi, means, cm = empty((C, L0, L1)), empty((6, C)), empty((C, L0))
+        runs, dtau, stab = empty((C, 2), torch.int64), empty((C,)), empty((C,), torch.int32)
+        lrg, stable = empty((C,)), empty((C,), torch.bool)
+        work, zk, slices = _scratch(empty, g, cfg, (C, L0, L1), 1)
+        cs = empty((C, L0))
+        _build.launch("sq_field_frame_step", params,
+                      (*state[:-1], phi, means, cm, runs, dtau, stab, lrg, stable, work, zk,
+                       slices, cs), dev)
+        field_frame.launches += 1
+        field_frame.launches_hw += philox(cfg)
+        field_frame.launches_fused += 1
+        field_frame.geometry = g
+        new = FieldState(phi, *means.unbind(0), cm, runs, dtau, stab, lrg,
+                         host_step(int(state.step) + cfg.loops))
+        return new, {"stable": stable, "dtau": dtau, "max_phi": lrg}
 
 
 def _scratch(empty, g: _cluster.Geometry, cfg: FieldConfig, shape, n_work: int):
@@ -316,10 +357,11 @@ def run_field_frames_kernel(state: FieldState, action: FieldAction, cfg: FieldCo
     """``n_frames`` frames through kernels 3 and 4 — the counterpart of
     ``stochquant_tpu.kernels.field_kernel.run_field_frames_pallas``.
 
-    ``frames_per_launch`` K > 1 runs groups of K frames through kernel 4
-    (epilogue in-kernel) and the remainder through kernel 3 plus the PyTorch
-    epilogue; per-frame results are the same either way.  Returns (state,
-    metrics) with metrics of shape (n_frames, C)."""
+    ``frames_per_launch`` K > 1 runs groups of K frames through kernel 4;
+    every frame of K = 1 and the remainder of K > 1 go one at a time through
+    :func:`field_frame_step` (kernel 3 with the epilogue in the launch);
+    per-frame results are the same either way.  Returns (state, metrics) with
+    metrics of shape (n_frames, C)."""
     K = max(frames_per_launch, 1)
     parts = []
     done = 0
@@ -328,9 +370,7 @@ def run_field_frames_kernel(state: FieldState, action: FieldAction, cfg: FieldCo
             state, m = field_frames_multi(state, action, cfg, K, chain_offset)
             done += K
         else:
-            state, m = field_mod.field_frame_epilogue(
-                state, field_frame(state, action, cfg, chain_offset), cfg
-            )
+            state, m = field_frame_step(state, action, cfg, chain_offset)
             m = {k: v[None] for k, v in m.items()}
             done += 1
         parts.append(m)

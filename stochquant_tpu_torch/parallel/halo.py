@@ -571,9 +571,7 @@ def make_halo_runner(action: FieldAction, cfg: FieldConfig, mesh: DeviceMesh, *,
                     out.append(fknd.field_frame_nd(st, action, local_cfg,
                                                    chain_offset=ch_offs[i]))
                 else:
-                    out.append(field_mod.field_frame_epilogue(
-                        st, field_kernel.field_frame(st, action, local_cfg, ch_offs[i]),
-                        local_cfg))
+                    out.append(field_kernel.field_frame_step(st, action, local_cfg, ch_offs[i]))
             return [o[0] for o in out], [o[1] for o in out]
 
         step0 = int(states[0].step)

@@ -23,10 +23,10 @@ The spans (``PERF.md`` names the metrics that read them):
 
 * ``sq.launch`` — a kernel wrapper: the chain kernels' (1 and 2),
   ``kernels.chain_kernel.chain_frame`` and ``chain_frames_multi``, and the
-  2-D field kernels' (3 and 4), ``kernels.field_kernel.field_frame`` and
-  ``field_frames_multi``: the config check, the inputs' check, the launch
-  parameters and geometry, the output allocations and the launch up to its
-  enqueue.
+  2-D field kernels' (3 and 4), ``kernels.field_kernel.field_frame``,
+  ``field_frame_step`` and ``field_frames_multi``: the config check, the
+  inputs' check, the launch parameters and geometry, the output allocations
+  and the launch up to its enqueue.
 * ``sq.record`` — a streamed record.  Of ``runtime.run_chain``, read one
   frame group late: the wait on the group's event (its correlator, Δτ row and
   stable share copied to the host), the host-side numpy and the sink with

@@ -4,7 +4,9 @@ kernels (interpret mode, as tests/test_field_kernel.py runs them) — φ, Δτ
 and lrg_vl within 2e-6, the site means within rtol 3e-5 / atol 3e-6, the
 accept/reject decisions, runs, stab_cnt and step exactly.  The CUDA kernels
 themselves are compared with the plain versions on the card (tests marked
-``cuda``, and ``chip_smoke.py``)."""
+``cuda``, and ``chip_smoke.py``); the JAX package is imported only by the
+tests that compare with it, so the ``cuda`` tests run where JAX is not
+installed (``python -m pytest --noconftest -m cuda`` on the card)."""
 
 import ctypes
 import dataclasses
@@ -13,16 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from stochquant_tpu.actions import phi4 as jphi4
-from stochquant_tpu.config import FieldConfig as JFieldConfig
-from stochquant_tpu.integrators import field as jfield
-from stochquant_tpu.kernels import field_kernel as jfk
 from stochquant_tpu_torch import actions
 from stochquant_tpu_torch.actions.phi4 import FieldAction
 from stochquant_tpu_torch.config import FieldConfig, Scheme, Sweep
 from stochquant_tpu_torch.integrators import field
 from stochquant_tpu_torch.io import checkpoint
-from stochquant_tpu_torch.kernels import _build
+from stochquant_tpu_torch.kernels import _build, _cluster
 from stochquant_tpu_torch.kernels import field_kernel as fk
 
 torch.set_num_threads(1)
@@ -41,6 +39,10 @@ def cuda_device():
 
 
 def _jax_start(cfg):
+    from stochquant_tpu.actions import phi4 as jphi4
+    from stochquant_tpu.config import FieldConfig as JFieldConfig
+    from stochquant_tpu.integrators import field as jfield
+
     jcfg = JFieldConfig.from_json(cfg.to_json())
     s0 = jfield.init_field_state(jcfg)
     port = checkpoint.state_from_numpy(
@@ -75,6 +77,8 @@ def _assert_states_equal(a, b, label=""):
     (dataclasses.replace(CFG, dtau=0.5, loops=4, seed=2, rng_impl="threefry13"), 4, 2),
 ])
 def test_plain_kernels_match_pallas_interpret(cfg, n_frames, fpl):
+    from stochquant_tpu.kernels import field_kernel as jfk
+
     jcfg, jact, s0, port = _jax_start(cfg)
     want, wm = jfk.run_field_frames_pallas(s0, jact, jcfg, n_frames, interpret=True,
                                            frames_per_launch=fpl)
@@ -105,6 +109,55 @@ def test_cpu_tensors_run_the_plain_versions_without_launching():
     # chain_offset keys the noise by global chain id
     shifted = fk.field_frame_ref(s0, act, CFG, chain_offset=1)
     assert not torch.equal(shifted.phi, ref.phi)
+
+
+def test_field_frame_step_on_cpu_is_the_plain_pair_and_launches_nothing():
+    cfg = dataclasses.replace(CFG, grow_after=1, dtau_max=0.0031)
+    act = actions.get_field("phi4")
+    step = pair = field.init_field_state(cfg, device="cpu")
+    before = (fk.field_frame.launches, fk.field_frame.launches_fused,
+              fk.field_frames_multi.launches)
+    for f in range(3):
+        step, m = fk.field_frame_step(step, act, cfg, chain_offset=2)
+        pair, pm = field.field_frame_epilogue(
+            pair, fk.field_frame_ref(pair, act, cfg, chain_offset=2), cfg)
+        _assert_states_equal(step, pair, f"frame {f}")
+        for k in pm:
+            assert torch.equal(m[k], pm[k]), k
+    assert (fk.field_frame.launches, fk.field_frame.launches_fused,
+            fk.field_frames_multi.launches) == before
+    assert int(step.step) == 1 + 3 * cfg.loops and float(step.dtau[0]) == np.float32(0.0031)
+
+
+@pytest.mark.parametrize("n_frames,fpl,steps", [(7, 3, 1), (3, 1, 3), (6, 3, 0)])
+def test_one_frame_groups_go_through_field_frame_step(monkeypatch, n_frames, fpl, steps):
+    act = actions.get_field("phi4")
+    s0 = field.init_field_state(CFG, device="cpu")
+    real, calls = fk.field_frame_step, []
+
+    def counted(*args, **kwargs):
+        calls.append(args[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(fk, "field_frame_step", counted)
+    got, m = fk.run_field_frames_kernel(s0, act, CFG, n_frames, frames_per_launch=fpl)
+    assert len(calls) == steps and m["stable"].shape == (n_frames, CFG.n_chains)
+    if steps:  # the last frame is field_frame_step's, from the state before it
+        want, wm = real(calls[-1], act, CFG)
+        _assert_states_equal(got, want, "last frame")
+        for k in wm:
+            assert torch.equal(m[k][-1], wm[k]), k
+
+
+@pytest.mark.parametrize("entry,params,n_ptr", _build.LAUNCHES,
+                         ids=[e[0] for e in _build.LAUNCHES])
+def test_entry_points_take_what_their_bindings_pass(entry, params, n_ptr):
+    head = f'extern "C" int {entry}('
+    src, = (t for t in ((_build._CSRC / f).read_text() for f in _build._SOURCES) if head in t)
+    start = src.index(head) + len(head)
+    args = [" ".join(a.split()) for a in src[start:src.index(")", start)].split(",")]
+    assert args[0].startswith(f"const {params.__name__}* ") and args[-1] == "void* stream"
+    assert len(args) - 2 == n_ptr and all("*" in a for a in args[1:-1]), args
 
 
 def test_kernel_parameters_mirror_the_cuda_struct():
@@ -194,3 +247,103 @@ def test_cuda_kernels_match_plain_versions(cuda_device, name, cfg):
                 torch.testing.assert_close(x, y, rtol=3e-5, atol=3e-6, msg=leaf)
             else:
                 torch.testing.assert_close(x, y, rtol=0, atol=2e-6, msg=leaf)
+
+
+def _assert_bitwise(got: dict, want: dict, label):
+    """Every leaf or metric of ``got`` (name -> tensor) equal to ``want``'s
+    to the bit."""
+    assert got.keys() == want.keys(), label
+    for name, x in got.items():
+        y = want[name]
+        assert x.dtype == y.dtype and x.shape == y.shape, f"{label}:{name}"
+        if x.is_floating_point():
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x.cpu(), y.cpu()), f"{label}:{name}"
+
+
+STEP_CFG = dataclasses.replace(CFG, shape=(64, 128))
+_TRIP = "trip"  # chain 1 starts with a detector threshold its first update exceeds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,change,B,offset,runs0", [
+    ("b4_threefry20", {}, 4, 0, None),
+    ("b1_threefry20", {}, 1, 0, None),
+    ("b4_threefry13_checkerboard", dict(rng_impl="threefry13", sweep=Sweep.CHECKERBOARD), 4,
+     0, None),
+    ("b4_philox", dict(rng_impl="hardware"), 4, 0, None),
+    ("b1_philox", dict(rng_impl="hardware"), 1, 0, None),
+    ("b4_rejections", dict(dtau=0.5, loops=4, seed=2), 4, 0, None),
+    ("b1_rejections", dict(dtau=0.5, loops=4, seed=2), 1, 0, None),
+    ("b4_one_chain_trips", {}, 4, 0, _TRIP),
+    ("b4_growth_to_dtau_max", dict(grow_after=2, dtau_max=0.0031), 4, 0, None),
+    ("b1_growth_to_dtau_max", dict(grow_after=2, dtau_max=0.0031), 1, 0, None),
+    ("b4_free_field", dict(action="free_field", dtau=0.02), 4, 0, None),
+    ("b1_free_field_odd_loops", dict(action="free_field", dtau=0.02, loops=7), 1, 0, None),
+    ("b4_runs_carry", {}, 4, 0, (2**32 - 7, 3)),
+    ("b1_runs_carry", {}, 1, 0, (2**32 - 7, 3)),
+    ("b4_chain_offset", {}, 4, 5, None),
+    ("b1_chain_offset_philox", dict(rng_impl="hardware"), 1, 5, None),
+])
+def test_field_frame_step_is_kernel_3_and_the_epilogue_to_the_bit(cuda_device, name, change, B,
+                                                                   offset, runs0):
+    cfg = dataclasses.replace(STEP_CFG, **change)
+    act = actions.get_field(cfg.action)
+    s0 = field.init_field_state(cfg, device=cuda_device)
+    if runs0 == _TRIP:
+        s0 = s0._replace(lrg_vl=s0.lrg_vl.index_fill(0, torch.tensor([1], device=cuda_device),
+                                                      1e-6))
+    elif runs0:
+        s0 = s0._replace(runs=torch.tensor([runs0] * cfg.n_chains, dtype=torch.int64,
+                                           device=cuda_device))
+    before = (fk.field_frame.launches, fk.field_frame.launches_hw, fk.field_frame.launches_fused)
+    step = pair = s0
+    stables, dtaus = [], []
+    with _cluster.forced(B):
+        for f in range(4):
+            step, m = fk.field_frame_step(step, act, cfg, offset)
+            assert fk.field_frame.geometry.B == B
+            pair, pm = field.field_frame_epilogue(pair, fk.field_frame(pair, act, cfg, offset),
+                                                  cfg)
+            torch.cuda.synchronize()
+            _assert_bitwise(step._asdict(), pair._asdict(), f"{name} frame {f}")
+            _assert_bitwise(m, pm, f"{name} frame {f} metrics")
+            stables.append(pm["stable"].cpu())
+            dtaus.append(pm["dtau"].cpu())
+    hw = cfg.rng_impl == "hardware"
+    assert (fk.field_frame.launches, fk.field_frame.launches_hw,
+            fk.field_frame.launches_fused) == (before[0] + 8, before[1] + 8 * hw, before[2] + 4)
+    stable, dtau = torch.stack(stables), torch.stack(dtaus)
+    if "rejections" in name:
+        assert not stable.any()
+    elif runs0 == _TRIP:
+        assert not stable[:, 1].any() and stable[:, [0, 2]].all()
+    else:
+        assert stable.all()
+    if "growth" in name:
+        assert (dtau == np.float32(cfg.dtau_max)).any() and (dtau[0] == np.float32(cfg.dtau)).all()
+    if runs0 and runs0 != _TRIP:
+        assert (step.runs[:, 1] == runs0[1] + 1).all(), "the count must carry into hi"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("case", ["one_chain_trips", "growth_to_dtau_max"])
+def test_kernel_4_is_its_frames_through_kernel_3_and_the_epilogue_to_the_bit(cuda_device, case, B):
+    cfg = dataclasses.replace(STEP_CFG, grow_after=2, dtau_max=0.0031,
+                              rng_impl="threefry13" if B == 1 else "threefry")
+    act = actions.get_field(cfg.action)
+    s0 = field.init_field_state(cfg, device=cuda_device)
+    if case == "one_chain_trips":
+        s0 = s0._replace(lrg_vl=s0.lrg_vl.index_fill(0, torch.tensor([1], device=cuda_device),
+                                                      1e-6))
+    with _cluster.forced(B):
+        multi, mm = fk.field_frames_multi(s0, act, cfg, 4, chain_offset=1)
+        pair, per_frame = s0, []
+        for _ in range(4):
+            pair, pm = field.field_frame_epilogue(pair, fk.field_frame(pair, act, cfg, 1), cfg)
+            per_frame.append(pm)
+    torch.cuda.synchronize()
+    _assert_bitwise(multi._asdict(), pair._asdict(), case)
+    _assert_bitwise(mm, {k: torch.stack([pm[k] for pm in per_frame]) for k in mm}, case)
+    assert bool(mm["stable"][:, 1].any()) == (case != "one_chain_trips")

@@ -8,7 +8,9 @@ tiles and the empty micro-step.
 
 ``measure`` times, at the shapes chip_smoke.py [9] [12] [19] [23] time them:
 kernel 3 (``field_frame``) and kernel 4 (``field_frames_multi``, K = 10) at
-256^2 x 16, loops 100, with Threefry-20 (rows 3, 4) and Philox (3h, 4h);
+256^2 x 16, loops 100, with Threefry-20 (rows 3, 4) and Philox (3h, 4h), and
+kernel 3 with its epilogue (``field_frame_step``, cases k3e and k3eh, where the
+checkout has it) with kernel 3's own device time in both modes;
 kernel 10 (``gauge_frame_sums``) at u1 256^2 x 32 loops 100, su2 128^2 x 16
 loops 100 and su3 64^2 x 8 loops 50; kernel 11 (``gauge_frames_multi``, K =
 8) at 256 chains, loops 10 (u1 and su2 on 16 x 128, su3 on 8 x 128); kernel
@@ -200,6 +202,9 @@ def cases(m):
         tag = "" if rng == "threefry" else "h"
         out.append((f"k3{tag}", lambda s=s, a=act, c=cfg: fk.field_frame(s, a, c), fk.field_frame,
                     cfg.loops))
+        if hasattr(fk, "field_frame_step"):
+            out.append((f"k3e{tag}", lambda s=s, a=act, c=cfg: fk.field_frame_step(s, a, c),
+                        fk.field_frame, cfg.loops))
         out.append((f"k4{tag}", lambda s=s, a=act, c=cfg: fk.field_frames_multi(s, a, c, 10),
                     fk.field_frames_multi, cfg.loops * 10))
     for group, kw in GAUGE.items():
@@ -236,10 +241,12 @@ def measure(root: Path, only=None) -> None:
         for name, launch, wrapper, steps in cases(m):
             with Clock() as clk:
                 ms = cuda_ms(m["torch"], launch)
-                # kernel 12: its own device time too (the parent's and the change's
-                # kernels are both named gauge_chunk_kernel<...>)
-                us = (device_us(m["torch"], launch, "gauge_chunk_kernel")
-                      if name.startswith("k12") else None)
+                # kernels 12 and 3: their own device time too (the parent's and the
+                # change's kernels are both named gauge_chunk_kernel<...>, and kernel 3
+                # field_frame_kernel<...> or field_frame_cl_kernel<...> in both modes)
+                fragment = ("gauge_chunk_kernel" if name.startswith("k12") else
+                            "field_frame_" if name.startswith("k3") else None)
+                us = device_us(m["torch"], launch, fragment) if fragment else None
             extra = {} if us is None else dict(device_us=us)
             emit(case=name, ms=ms, micro_steps=steps, clock=clk.line,
                  geometry=geometry(wrapper), root=str(root), **extra)
@@ -458,6 +465,9 @@ def turns(parent: Path, only=None) -> None:
     for case, recs in runs.items():
         p = [r["ms"] for r in recs if r["turn"] in (0, 3)]
         c = [r["ms"] for r in recs if r["turn"] in (1, 2)]
+        if not p:  # a case the parent does not have
+            emit(case=case, change_ms=c, clocks=[r["clock"] for r in recs])
+            continue
         dev = {}
         if "device_us" in recs[0]:
             pu = [r["device_us"] for r in recs if r["turn"] in (0, 3)]

@@ -44,8 +44,11 @@ records: for a chain cell ``run_chain.records_ahead`` and
 ``run_field.readbacks`` (seven a record), ``run_field.records_ahead`` (records
 read with the next group already enqueued) and ``run_field.records_drained``
 (records read with nothing enqueued behind them), with the launches of kernels
-3 and 4 (``field_frame.launches``, ``field_frames_multi.launches``); null where the
-checkout has no such counter; the records streamed and those in the
+3 and 4 (``field_frame.launches``, ``field_frames_multi.launches``), those of
+kernel 3 with the epilogue in the launch (``field_frame.launches_fused``) and
+the calls of the PyTorch epilogue (``field_frame_epilogue.calls``, counted
+around ``integrators.field.field_frame_epilogue`` while the cell serves); null
+where the checkout has no such counter; the records streamed and those in the
 window; on the card also the caching allocator's peaks
 (``torch.cuda.memory_stats``), over the cell's set-up and window.
 
@@ -81,6 +84,7 @@ COUNTERS = {
               ("stochquant_tpu_torch.runtime", "run_field", "records_ahead"),
               ("stochquant_tpu_torch.runtime", "run_field", "records_drained"),
               ("stochquant_tpu_torch.kernels.field_kernel", "field_frame", "launches"),
+              ("stochquant_tpu_torch.kernels.field_kernel", "field_frame", "launches_fused"),
               ("stochquant_tpu_torch.kernels.field_kernel", "field_frames_multi", "launches")),
 }
 
@@ -267,10 +271,23 @@ def records(cell_name: str, seed: int, seconds: float, device: str) -> dict:
             win.intervals.append(now - win.t_last)
         win.t_last = now
 
-    cell.serve(on_record, win.closed)
+    field_mod = importlib.import_module("stochquant_tpu_torch.integrators.field")
+    epilogue, epilogue_calls = field_mod.field_frame_epilogue, [0]
+
+    def counted(*args, **kwargs):
+        epilogue_calls[0] += 1
+        return epilogue(*args, **kwargs)
+
+    field_mod.field_frame_epilogue = counted
+    try:
+        cell.serve(on_record, win.closed)
+    finally:
+        field_mod.field_frame_epilogue = epilogue
     out = {"mode": "records", "cell": cell_name, "seed": seed, "streamed": streamed[0],
            "window_records": win.records}
     out.update({name: getattr(owner, attr, None) for name, (owner, attr) in counters.items()})
+    if config["kind"] == "field":
+        out["field_frame_epilogue.calls"] = epilogue_calls[0]
     if cell.device.type == "cuda":
         stats = torch.cuda.memory_stats(cell.device)
         out["memory"] = {k: stats[k] for k in (
